@@ -1,11 +1,17 @@
-from synapseml_tpu_torch.gbdt.boosting import BoostParams, Booster
+from synapseml_tpu_torch.gbdt.boosting import BoostParams, Booster, train
 from synapseml_tpu_torch.gbdt.estimators import (
     LightGBMClassificationModel,
+    LightGBMClassifier,
+    LightGBMDelegate,
+    LightGBMRanker,
     LightGBMRankerModel,
     LightGBMRegressionModel,
+    LightGBMRegressor,
 )
 
 __all__ = [
     "BoostParams", "Booster", "LightGBMClassificationModel",
-    "LightGBMRankerModel", "LightGBMRegressionModel",
+    "LightGBMClassifier", "LightGBMDelegate", "LightGBMRanker",
+    "LightGBMRankerModel", "LightGBMRegressionModel", "LightGBMRegressor",
+    "train",
 ]

@@ -1,10 +1,9 @@
-"""Booster model for the port's GBDT engine (the scoring half).
+"""Boosting loop and Booster model of the port's GBDT engine.
 
-Counterpart of ``synapseml_tpu/gbdt/boosting.py``: ``BoostParams`` (the
-fields, which the Booster and the native format carry) and the
-``Booster``: a stack of flat tree arrays held on the host as numpy and
-scored on a device. The boosting loop (training) belongs to the next
-slice of the port.
+Counterpart of ``synapseml_tpu/gbdt/boosting.py``: ``BoostParams``, the
+``Booster`` (a stack of flat tree arrays held on the host as numpy and
+scored on a device) and ``train``, the single-device boosting loop for
+``boosting_type="gbdt"``.
 
 Scoring an ensemble is one launch of the forest-traversal kernel
 (:func:`synapseml_tpu_torch.gbdt.kernels.forest_traverse`) with the tree
@@ -12,17 +11,30 @@ weights folded into the leaf values first. Models with categorical
 splits (loaded native LightGBM models) and leaf-index predict run as
 plain PyTorch ops on the same device; the reference has no kernel for
 either.
+
+Training keeps the binned rows, labels, scores and gradients on the
+device it is given; each tree is grown by
+:func:`synapseml_tpu_torch.gbdt.grower.build_tree` (kernel K1 per leaf)
+and only its arrays come back to the host. The reference runs the loop
+as ``lax.scan`` chunks on the TPU; here it is a plain Python loop over
+iterations and classes, so early stopping and ``iteration_hook`` act
+after every iteration.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, List, Optional, Tuple
+from functools import partial
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from synapseml_tpu_torch import device as device_policy
+from synapseml_tpu_torch.gbdt import objectives as obj
+from synapseml_tpu_torch.gbdt.binning import BinMapper
+from synapseml_tpu_torch.gbdt.grower import (
+    GrowerParams, Tree, build_tree, leaf_values, predict_tree)
 from synapseml_tpu_torch.gbdt.kernels import forest_traverse
 
 
@@ -73,6 +85,22 @@ class BoostParams:
     hist_backend: str = "auto"
     tree_learner: str = "data_parallel"
     voting_top_k: int = 20
+
+    def grower(self, device_bins: int) -> GrowerParams:
+        """The grower's params, for ``device_bins`` histogram bins (the
+        fitted BinMapper's ``total_bins``). ``hist_backend`` is carried,
+        not read; voting (``voting_top_k``) is not ported, so it stays 0."""
+        return GrowerParams(
+            num_leaves=self.num_leaves,
+            max_bin=device_bins,
+            max_depth=self.max_depth,
+            lambda_l1=self.lambda_l1,
+            lambda_l2=self.lambda_l2,
+            min_data_in_leaf=max(1, self.min_data_in_leaf),
+            min_sum_hessian_in_leaf=self.min_sum_hessian_in_leaf,
+            min_gain_to_split=self.min_gain_to_split,
+            hist_backend=self.hist_backend,
+        )
 
 
 def _importances(b: "Booster", num_features: int):
@@ -370,3 +398,383 @@ def _leaf_index_stack(stack, x: torch.Tensor) -> torch.Tensor:
     if not leaves:
         return torch.zeros((n, 0), dtype=torch.int32, device=x.device)
     return torch.stack(leaves, dim=1).to(torch.int32)
+
+
+# -- training ----------------------------------------------------------------
+
+_MULTICLASS = ("multiclass", "softmax", "multiclassova")
+_RANKING = ("lambdarank", "rank_xendcg")
+
+
+def _not_ported(what: str, item: str = "1, GBDT training: what is left"
+                ) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to synapseml_tpu_torch yet (ROADMAP.md, "
+        f"Queue 1 item {item})")
+
+
+def _check_ported(p: BoostParams, mesh, checkpoint_dir) -> None:
+    """Raise for every training option this port does not have yet;
+    none is ignored silently."""
+    if p.tree_learner not in ("data_parallel", "voting_parallel"):
+        raise ValueError(
+            f"tree_learner {p.tree_learner!r}: the reference's "
+            "parallelism param offers data_parallel or "
+            "voting_parallel (LightGBMParams.scala:16-18)")
+    if p.boosting_type in ("goss", "rf", "dart"):
+        raise _not_ported(f"boosting_type={p.boosting_type!r}")
+    strat = p.pos_bagging_fraction < 1.0 or p.neg_bagging_fraction < 1.0
+    if strat and p.objective not in ("binary", "binary_logloss"):
+        # stratified bagging splits rows by label sign — only meaningful
+        # (and only defined by LightGBM) for binary objectives
+        raise ValueError(
+            "pos_bagging_fraction/neg_bagging_fraction require a binary "
+            f"objective, got {p.objective!r}")
+    if p.bagging_freq > 0 and (p.bagging_fraction < 1.0 or strat):
+        raise _not_ported("bagging (bagging_freq > 0 with a fraction < 1)")
+    if p.feature_fraction < 1.0:
+        raise _not_ported("feature_fraction < 1")
+    if p.objective in _RANKING:
+        raise _not_ported(f"the {p.objective} objective (LightGBMRanker)")
+    if p.categorical_features:
+        raise _not_ported("training with categorical features")
+    if mesh is not None or p.tree_learner == "voting_parallel":
+        raise _not_ported("mesh / voting_parallel training",
+                          "2, GBDT multi-GPU")
+    if checkpoint_dir is not None:
+        raise _not_ported("step checkpointing (checkpoint_dir)")
+
+
+def _objective_fn(p: BoostParams) -> Callable:
+    o = p.objective
+    if o in ("binary", "binary_logloss"):
+        return partial(obj.binary_logloss_obj, sigmoid=p.sigmoid)
+    if o in _MULTICLASS:
+        return obj.softmax_obj
+    if o == "huber":
+        return partial(obj.huber_obj, alpha=p.alpha)
+    if o == "quantile":
+        return partial(obj.quantile_obj, alpha=p.alpha)
+    if o == "tweedie":
+        return partial(obj.tweedie_obj, rho=p.tweedie_variance_power)
+    if o == "poisson":
+        return partial(obj.poisson_obj, max_delta_step=p.poisson_max_delta_step)
+    fn = obj.REGRESSION_OBJECTIVES.get(o)
+    if fn is None:
+        raise ValueError(f"unknown objective {o!r}")
+    return fn
+
+
+def _default_metric(p: BoostParams) -> str:
+    if p.metric:
+        return p.metric
+    if p.objective in ("binary", "binary_logloss"):
+        return "binary_logloss"
+    if p.objective in _MULTICLASS:
+        return "multi_logloss"
+    if p.objective in _RANKING:
+        return "ndcg"
+    if p.objective in ("regression_l1", "l1", "mae"):
+        return "mae"
+    return "rmse"
+
+
+class _ValidTracker:
+    """Validation scoring and early stopping.
+
+    The first validation set is scored, as in the reference. Each new tree
+    scores its rows on the device (K2 with one tree) into a running margin
+    sum; after every iteration the metric of ``init + sum`` is recorded.
+    ``best_iteration`` is only exported when early stopping is on
+    (LightGBM semantics: merely supplying eval data must not truncate
+    predictions).
+    """
+
+    def __init__(self, p: BoostParams, k: int, init: float, valid_sets,
+                 dev: torch.device):
+        self.p, self.k, self.init, self.dev = p, k, init, dev
+        self.metric_name = _default_metric(p)
+        self.metric_fn, self.larger_better = obj.METRICS.get(
+            self.metric_name, (None, False))
+        self.enabled = bool(valid_sets) and self.metric_fn is not None
+        if self.enabled:
+            vx, vy = valid_sets[0]
+            self.vx = torch.from_numpy(np.asarray(vx, np.float32)).to(dev)
+            self.vy = torch.from_numpy(np.asarray(vy, np.float32)).to(dev)
+            self.vsum = torch.zeros((len(vy), k), dtype=torch.float32,
+                                    device=dev)
+        self.best_score = -np.inf if self.larger_better else np.inf
+        self.best_iter = -1
+        self.history: Dict[str, List[float]] = {self.metric_name: []}
+
+    def add_tree(self, tree: Tree, class_idx: int):
+        """Add one tree's leaf values to the validation margins."""
+        if self.enabled:
+            arrays = tuple(torch.from_numpy(a).to(self.dev) for a in (
+                tree.split_feature, tree.threshold, tree.left_child,
+                tree.right_child, tree.leaf_value))
+            self.vsum[:, class_idx] += predict_tree(arrays, self.vx)
+
+    def step(self, it: int) -> bool:
+        """Record the metric after iteration ``it``; True = stop early."""
+        if not self.enabled:
+            return False
+        # the metric in float64, so the card and the CPU stop alike
+        vscore = (self.vsum + self.init).to(torch.float64)
+        if self.k > 1:
+            m = self.metric_fn(vscore, self.vy.to(torch.int32))
+        else:
+            m = self.metric_fn(vscore[:, 0], self.vy.to(torch.float64))
+        m = float(m)
+        self.history[self.metric_name].append(m)
+        tol = self.p.improvement_tolerance
+        improved = (m - self.best_score > tol if self.larger_better
+                    else m - self.best_score < tol)
+        if improved:
+            self.best_score, self.best_iter = m, it
+            return False
+        return (self.p.early_stopping_round > 0
+                and it - self.best_iter >= self.p.early_stopping_round)
+
+    def final_best_iter(self) -> int:
+        return self.best_iter if self.p.early_stopping_round > 0 else -1
+
+
+def _init_score(p: BoostParams, y: np.ndarray, weight: Optional[np.ndarray]):
+    """boost_from_average analogue of LightGBM's ObtainAutomaticInitialScore."""
+    if not p.boost_from_average:
+        return 0.0
+    w = weight if weight is not None else np.ones_like(y, dtype=np.float64)
+    if p.objective in ("binary", "binary_logloss"):
+        pbar = float(np.clip(np.average(y, weights=w), 1e-12, 1 - 1e-12))
+        return float(np.log(pbar / (1 - pbar)) / p.sigmoid)
+    if p.objective in ("poisson", "tweedie"):
+        mean = max(float(np.average(y, weights=w)), 1e-12)
+        return float(np.log(mean))
+    if p.objective == "quantile":
+        return float(np.quantile(y, p.alpha))
+    if p.objective in ("regression_l1", "l1", "mae", "huber", "mape"):
+        return float(np.median(y))
+    if p.objective in _MULTICLASS + _RANKING:
+        return 0.0
+    return float(np.average(y, weights=w))
+
+
+def _prepend_init_trees(init_model: Optional[Booster], stacked: Tree) -> Tree:
+    """Prepend init_model's trees so the result is one whole booster
+    (the batch-model threading / resume half)."""
+    if init_model is None:
+        return stacked
+    m = max(stacked.split_feature.shape[1], init_model.trees_feature.shape[1])
+
+    def cat(old, new, fill):
+        return np.concatenate([
+            np.pad(a, ((0, 0), (0, m - a.shape[1])), constant_values=fill)
+            for a in (old, new)])
+
+    return Tree(
+        split_feature=cat(init_model.trees_feature, stacked.split_feature, -1),
+        threshold=cat(init_model.trees_threshold, stacked.threshold, 0),
+        threshold_bin=cat(np.zeros_like(init_model.trees_feature),
+                          stacked.threshold_bin, 0),
+        left_child=cat(init_model.trees_left, stacked.left_child, 0),
+        right_child=cat(init_model.trees_right, stacked.right_child, 0),
+        leaf_value=cat(init_model.trees_value
+                       * init_model.tree_weights[:, None],
+                       stacked.leaf_value, 0),
+        cover=cat(init_model.trees_cover, stacked.cover, 0),
+        gain=cat(init_model.trees_gain, stacked.gain, 0),
+    )
+
+
+def _attach_init_categoricals(booster: Booster,
+                              init_model: Optional[Booster]) -> Booster:
+    """Carry a categorical init_model's split sets into the combined
+    booster: old nodes keep their set indices, new trees are numeric."""
+    if init_model is None or init_model.trees_cat is None:
+        return booster
+    t_old, m_old = init_model.trees_cat.shape
+    cat = np.full(booster.trees_feature.shape, -1, np.int32)
+    cat[:t_old, :m_old] = init_model.trees_cat
+    booster.trees_cat = cat
+    booster.cat_bitsets = np.array(init_model.cat_bitsets, np.uint32)
+    booster.cat_boundaries = np.array(init_model.cat_boundaries, np.int32)
+    return booster
+
+
+def _assemble_booster(stacked: Tree, p: BoostParams, k: int, init: float,
+                      f: int, feature_names, tracker: _ValidTracker,
+                      init_model: Optional[Booster] = None) -> Booster:
+    booster = Booster(
+        trees_feature=stacked.split_feature,
+        trees_threshold=stacked.threshold,
+        trees_left=stacked.left_child,
+        trees_right=stacked.right_child,
+        trees_value=stacked.leaf_value,
+        trees_cover=stacked.cover,
+        trees_gain=stacked.gain,
+        tree_weights=np.ones(stacked.split_feature.shape[0], np.float32),
+        params=p,
+        init_score=init,
+        num_class=k,
+        best_iteration=tracker.final_best_iter(),
+        num_features=f,
+        feature_names=feature_names,
+        eval_history=tracker.history,
+    )
+    booster.feature_importance_split, booster.feature_importance_gain = (
+        _importances(booster, f))
+    return _attach_init_categoricals(booster, init_model)
+
+
+def _resume_state(p: BoostParams, init_model: Optional[Booster], k: int,
+                  x: np.ndarray, default_init: float, device):
+    """Validate ``init_model`` and return (init score, margins over x's
+    rows). All of init_model's iterations are used, because
+    _prepend_init_trees prepends all its trees."""
+    if init_model is None:
+        return default_init, None
+    if init_model.num_class != k:
+        raise ValueError("init_model num_class mismatch")
+    margins = init_model.predict_raw(
+        x, num_iteration=init_model.num_iterations,
+        device=device).reshape(x.shape[0], k)
+    return float(init_model.init_score), margins
+
+
+def _validate_lr_schedule(p: BoostParams, learning_rates):
+    if learning_rates is None:
+        return None
+    learning_rates = np.asarray(learning_rates, np.float32)
+    if learning_rates.shape != (p.num_iterations,):
+        raise ValueError(
+            f"learning_rates must have shape ({p.num_iterations},), "
+            f"got {learning_rates.shape}")
+    return learning_rates
+
+
+def _renew_leaves(tree: Tree, residual: torch.Tensor, row_slot, slot_value,
+                  slot_node: np.ndarray, alpha: float):
+    """L1-family leaf renewal (LightGBM RenewTreeOutput): a leaf's output
+    becomes the alpha-quantile of the residuals of its rows."""
+    nan = torch.full_like(residual, torch.nan)
+    renewed = torch.stack([
+        torch.nanquantile(torch.where(row_slot == s, residual, nan), alpha)
+        for s in range(slot_value.shape[0])])
+    slot_value = torch.where(torch.isnan(renewed), slot_value, renewed)
+    tree = dataclasses.replace(tree, leaf_value=leaf_values(
+        slot_node, slot_value.cpu().numpy(), tree.leaf_value.shape[0]))
+    return tree, slot_value
+
+
+def train(
+    p: BoostParams,
+    x: np.ndarray,
+    y: np.ndarray,
+    weight: Optional[np.ndarray] = None,
+    valid_sets: Sequence[Tuple[np.ndarray, np.ndarray]] = (),
+    feature_names: Optional[List[str]] = None,
+    mesh=None,
+    init_model: Optional[Booster] = None,
+    checkpoint_dir: Optional[str] = None,
+    learning_rates: Optional[np.ndarray] = None,
+    iteration_hook: Optional[Callable[[int], None]] = None,
+    device: str = device_policy.DEFAULT_DEVICE,
+) -> Booster:
+    """Train a Booster on ``device`` (the card unless the caller asks for
+    the CPU).
+
+    ``init_model`` continues boosting from an existing booster's margins
+    (the reference's batch-model threading, LightGBMBase.scala:49-61).
+    ``learning_rates`` is an optional per-iteration shrinkage schedule
+    (the delegate's dynamic-LR hook, LightGBMDelegate.scala:57-61).
+    ``iteration_hook(iters_done)`` fires after every iteration.
+    ``mesh`` and ``checkpoint_dir`` are not ported and raise.
+    """
+    dev = device_policy.resolve(device)
+    _check_ported(p, mesh, checkpoint_dir)
+    if p.num_iterations < 1:
+        raise ValueError(f"num_iterations must be >= 1, got {p.num_iterations}")
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float32)
+    n, f = x.shape
+    k = p.num_class if p.objective in _MULTICLASS else 1
+
+    mapper = BinMapper(max_bin=p.max_bin, subsample=p.bin_sample_count,
+                       seed=p.seed).fit(x)
+    binned = torch.from_numpy(mapper.transform(x)).to(dev)
+    gp = p.grower(mapper.total_bins)
+    thresholds = mapper.threshold_values().astype(np.float32)
+    obj_fn = _objective_fn(p)
+    init, init_margins = _resume_state(p, init_model, k, x,
+                                       _init_score(p, y, weight), dev)
+    learning_rates = _validate_lr_schedule(p, learning_rates)
+
+    yd = torch.from_numpy(y).to(dev)
+    wd = (torch.from_numpy(np.asarray(weight, np.float32)).to(dev)
+          if weight is not None else None)
+    if init_margins is not None:
+        scores = torch.from_numpy(np.ascontiguousarray(
+            init_margins if k > 1 else init_margins[:, 0], np.float32)).to(dev)
+    else:
+        scores = torch.full((n, k) if k > 1 else (n,), init,
+                            dtype=torch.float32, device=dev)
+    y_onehot = (torch.nn.functional.one_hot(yd.long(), k).to(torch.float32)
+                if k > 1 else None)
+    renew_alpha = None
+    if k == 1 and p.objective in ("regression_l1", "l1", "mae"):
+        renew_alpha = 0.5
+    elif k == 1 and p.objective == "quantile":
+        renew_alpha = p.alpha
+
+    tracker = _ValidTracker(p, k, init, valid_sets, dev)
+    if tracker.enabled and init_model is not None:
+        # valid margins include the resumed model's whole stack
+        vraw = init_model.predict_raw(
+            tracker.vx.cpu().numpy(),
+            num_iteration=init_model.num_iterations, device=dev)
+        tracker.vsum = torch.from_numpy(np.ascontiguousarray(
+            vraw.reshape(-1, k) - init, np.float32)).to(dev)
+
+    row_mask = torch.ones(n, dtype=torch.bool, device=dev)
+    trees: List[Tree] = []
+    for it in range(p.num_iterations):
+        lr = (learning_rates[it] if learning_rates is not None
+              else p.learning_rate)
+        for c in range(k):
+            if k > 1:
+                g, h = obj_fn(scores, y_onehot, wd)
+                g, h = g[:, c].contiguous(), h[:, c].contiguous()
+            else:
+                g, h = obj_fn(scores, yd, wd)
+            tree, row_slot, slot_value, slot_node = build_tree(
+                binned, g, h, row_mask, thresholds, gp)
+            if renew_alpha is not None:
+                tree, slot_value = _renew_leaves(
+                    tree, yd - scores, row_slot, slot_value, slot_node,
+                    renew_alpha)
+            delta = slot_value[row_slot.long()] * float(lr)
+            if k > 1:
+                scores[:, c] += delta
+            else:
+                scores = scores + delta
+            tree = dataclasses.replace(
+                tree, leaf_value=tree.leaf_value * np.float32(lr))
+            trees.append(tree)
+            tracker.add_tree(tree, c)
+        stop = tracker.step(it)
+        if iteration_hook is not None:
+            iteration_hook(it + 1)
+        if stop:
+            break
+
+    stacked = Tree(**{fld.name: np.stack([getattr(t, fld.name)
+                                          for t in trees])
+                      for fld in dataclasses.fields(Tree)})
+    booster = _assemble_booster(
+        _prepend_init_trees(init_model, stacked), p, k, init, f,
+        feature_names, tracker, init_model=init_model)
+    if init_model is not None and booster.best_iteration >= 0:
+        # best_iteration indexes the combined tree stack
+        booster.best_iteration += init_model.num_iterations
+    return booster

@@ -1,25 +1,59 @@
-"""LightGBM-surface models over the port's GBDT engine (the model half).
+"""LightGBM-surface learners and models over the port's GBDT engine.
 
 Counterpart of ``synapseml_tpu/gbdt/estimators.py``: the shared param
-surface, the fitted-model base (native model load/save, importances,
-leaf predict, SHAP) and the classification, regression and ranking
-models (ref: lightgbm/.../LightGBMClassifier.scala, LightGBMRegressor.scala,
+surface, the learners (``LightGBMClassifier``, ``LightGBMRegressor``),
+the fitted-model base (native model load/save, importances, leaf
+predict, SHAP) and the classification, regression and ranking models
+(ref: lightgbm/.../LightGBMClassifier.scala, LightGBMRegressor.scala,
 LightGBMRanker.scala) — same param names, same output columns
-(rawPrediction / probability / prediction). ``transform`` scores on the
-device it is given, the card unless the caller asks for the CPU. The
-learners (fit) come with the training slice.
+(rawPrediction / probability / prediction). ``fit`` and ``transform`` run
+on the device they are given, the card unless the caller asks for the
+CPU. ``LightGBMRanker`` (lambdarank) is not ported yet and raises.
 """
 from __future__ import annotations
 
+import dataclasses
+import logging
 import os
 from typing import List, Optional
 
 import numpy as np
 
-from synapseml_tpu_torch.core.param import Param
-from synapseml_tpu_torch.core.pipeline import Model
+from synapseml_tpu_torch.core.param import ComplexParam, Param
+from synapseml_tpu_torch.core.pipeline import Estimator, Model
 from synapseml_tpu_torch.data.table import Table
-from synapseml_tpu_torch.gbdt.boosting import Booster, objective_transform
+from synapseml_tpu_torch.gbdt.boosting import (
+    Booster, BoostParams, _not_ported, objective_transform, train)
+
+
+class LightGBMDelegate:
+    """User callback hooks around training
+    (ref: lightgbm/.../LightGBMDelegate.scala:12-62).
+
+    Subclass and override; attach via the estimator's ``delegate`` param.
+    ``after_train_iteration`` fires after every boosting iteration, with
+    the number of iterations completed so far. ``get_learning_rate`` is
+    consulted once per iteration BEFORE the run to assemble a shrinkage
+    schedule (it sees batch index, iteration and the previous rate — the
+    same signature contract as the reference's dynamic-LR delegate).
+    """
+
+    def before_train_batch(self, batch_index: int, table: Table,
+                           prev_model) -> None:
+        """(ref: LightGBMDelegate.scala beforeTrainBatch:13)."""
+
+    def after_train_batch(self, batch_index: int, table: Table,
+                          model) -> None:
+        """(ref: LightGBMDelegate.scala afterTrainBatch:18)."""
+
+    def after_train_iteration(self, batch_index: int,
+                              iterations_done: int) -> None:
+        """(ref: LightGBMDelegate.scala afterTrainIteration:49)."""
+
+    def get_learning_rate(self, batch_index: int, iteration: int,
+                          previous_rate: float) -> float:
+        """(ref: LightGBMDelegate.scala getLearningRate:57)."""
+        return previous_rate
 
 
 class _LightGBMParams:
@@ -94,7 +128,9 @@ class _LightGBMParams:
     seed = Param("random seed", default=0)
     verbosity = Param("verbosity", default=-1)
     hist_backend = Param(
-        "histogram formulation: auto (measured probe) / pallas / xla",
+        "the reference's histogram formulation (auto / pallas / xla); "
+        "accepted so stages saved by the JAX package load, not read: the "
+        "port always builds histograms with its one kernel (K1)",
         default="auto",
         type_check=lambda v: v in ("auto", "pallas", "xla"))
 
@@ -107,6 +143,61 @@ class _LightGBMParams:
         if feats.ndim == 1 and feats.dtype == object:
             feats = np.stack([np.asarray(v, np.float64) for v in feats])
         return np.asarray(feats, np.float64)
+
+    def _boost_params(self, objective: str, num_class: int = 1) -> BoostParams:
+        return BoostParams(
+            objective=objective,
+            boosting_type=self.boosting_type,
+            num_iterations=int(self.num_iterations),
+            learning_rate=float(self.learning_rate),
+            num_leaves=int(self.num_leaves),
+            max_depth=max(0, int(self.max_depth)),
+            lambda_l1=float(self.lambda_l1),
+            lambda_l2=float(self.lambda_l2),
+            min_data_in_leaf=int(self.min_data_in_leaf),
+            min_sum_hessian_in_leaf=float(self.min_sum_hessian_in_leaf),
+            min_gain_to_split=float(self.min_gain_to_split),
+            max_bin=int(self.max_bin),
+            bin_sample_count=int(self.bin_sample_count),
+            feature_fraction=float(self.feature_fraction),
+            bagging_fraction=float(self.bagging_fraction),
+            bagging_freq=int(self.bagging_freq),
+            bagging_seed=(None if self.get("bagging_seed") is None
+                          else int(self.bagging_seed)),
+            pos_bagging_fraction=float(self.pos_bagging_fraction),
+            neg_bagging_fraction=float(self.neg_bagging_fraction),
+            top_rate=float(self.top_rate),
+            other_rate=float(self.other_rate),
+            drop_rate=float(self.drop_rate),
+            max_drop=int(self.max_drop),
+            skip_drop=float(self.skip_drop),
+            uniform_drop=bool(self.uniform_drop),
+            xgboost_dart_mode=bool(self.xgboost_dart_mode),
+            boost_from_average=bool(self.boost_from_average),
+            early_stopping_round=int(self.early_stopping_round),
+            improvement_tolerance=float(self.improvement_tolerance),
+            num_class=num_class,
+            metric=self.get("metric"),
+            seed=int(self.seed),
+            categorical_features=tuple(self.categorical_slot_indexes or ()),
+            hist_backend=self.hist_backend,
+            tree_learner=str(self.parallelism),
+            voting_top_k=int(self.top_k),
+        )
+
+    def _make_model(self, model_cls, booster):
+        model = model_cls(booster=booster)
+        declared = model.params()
+        model._paramMap.update(
+            {k: v for k, v in self._paramMap.items() if k in declared})
+        return model
+
+    def _split_validation(self, table: Table):
+        vcol = self.validation_indicator_col
+        if vcol and vcol in table:
+            mask = np.asarray(table[vcol], bool)
+            return table.filter(~mask), table.filter(mask)
+        return table, None
 
 
 class _LightGBMModelBase(Model, _LightGBMParams):
@@ -181,6 +272,170 @@ class _LightGBMModelBase(Model, _LightGBMParams):
             p = os.path.join(path, "booster.json")
         with open(p) as f:
             self.booster = Booster.load_string(f.read())
+
+
+class _LightGBMEstimatorBase(Estimator, _LightGBMParams):
+    """Batch-training driver shared by the learners
+    (ref: LightGBMBase.scala train:46-61 — randomSplit into numBatches,
+    thread the booster via setModelString, before/afterTrainBatch hooks).
+
+    ``num_batches``/``delegate`` live here, NOT on the shared param
+    mixin: they are training-only knobs, and a fitted model must never
+    pickle the user's callback object into its saved artifact.
+    """
+
+    num_batches = Param(
+        "split training into N sequential batches, threading the booster "
+        "from each into the next (ref: LightGBMBase.scala train:46-61)",
+        default=0)
+    delegate = ComplexParam(
+        "optional LightGBMDelegate with batch/iteration/LR hooks")
+
+    def _delegate_train_kwargs(self, batch_index: int) -> dict:
+        """learning-rate schedule + iteration hook from the delegate."""
+        d = self.get("delegate")
+        out: dict = {}
+        if d is None:
+            return out
+        if (type(d).get_learning_rate
+                is not LightGBMDelegate.get_learning_rate):
+            lrs, prev = [], float(self.learning_rate)
+            for it in range(int(self.num_iterations)):
+                prev = float(d.get_learning_rate(batch_index, it, prev))
+                lrs.append(prev)
+            out["learning_rates"] = np.asarray(lrs, np.float32)
+        if (type(d).after_train_iteration
+                is not LightGBMDelegate.after_train_iteration):
+            out["iteration_hook"] = (
+                lambda iters: d.after_train_iteration(batch_index, iters))
+        return out
+
+    def _batch_context(self, table: Table) -> dict:
+        """Whole-dataset state every batch must share (e.g. the label
+        mapping — a batch may not contain every class)."""
+        return {}
+
+    def _fit_single(self, table: Table, init_booster: Optional[Booster],
+                    batch_index: int, ctx: dict, device: str):
+        raise NotImplementedError
+
+    def _fit(self, table: Table, device: str):
+        nb = int(self.num_batches or 0)
+        ctx = self._batch_context(table)
+        if nb <= 1:
+            return self._fit_single(table, None, 0, ctx, device)
+        d = self.get("delegate")
+        parts = table.random_split([1.0 / nb] * nb, seed=int(self.seed))
+        model = None
+        for bi, part in enumerate(parts):
+            if part.num_rows == 0:
+                continue  # tiny-table splits can leave an empty batch
+            if d is not None:
+                d.before_train_batch(bi, part, model)
+            model = self._fit_single(
+                part, model.booster if model is not None else None, bi, ctx,
+                device)
+            if d is not None:
+                d.after_train_batch(bi, part, model)
+        if model is None:
+            raise ValueError("no non-empty training batch")
+        return model
+
+
+class LightGBMClassifier(_LightGBMEstimatorBase):
+    """ref: lightgbm/.../LightGBMClassifier.scala:26-92."""
+
+    objective = Param("binary|multiclass", default="binary")
+    probability_col = Param("probability column", default="probability")
+    raw_prediction_col = Param("raw margin column", default="rawPrediction")
+
+    def _batch_context(self, table: Table) -> dict:
+        # the class mapping must come from ALL batches' labels
+        return {"classes": np.unique(
+            np.asarray(table[self.label_col], np.float64))}
+
+    def _fit_single(self, table: Table, init_booster, batch_index, ctx,
+                    device) -> "LightGBMClassificationModel":
+        train_t, valid_t = self._split_validation(table)
+        x = self._features(train_t)
+        y_raw = np.asarray(train_t[self.label_col], np.float64)
+        # remap arbitrary class labels to dense 0..k-1; predictions map
+        # back through label_values
+        classes = ctx["classes"]
+        y = np.searchsorted(classes, y_raw).astype(np.float64)
+        num_class = len(classes)
+        objective = self.objective
+        if num_class > 2 and objective == "binary":
+            objective = "multiclass"
+        weight = (np.asarray(train_t[self.weight_col], np.float64)
+                  if self.weight_col else None)
+        valid = []
+        if valid_t is not None and valid_t.num_rows:
+            vy_raw = np.asarray(valid_t[self.label_col], np.float64)
+            # rows whose label never appeared in training have no class
+            # index; they are dropped from eval
+            vpos = np.clip(np.searchsorted(classes, vy_raw), 0,
+                           len(classes) - 1)
+            known = classes[vpos] == vy_raw
+            if not known.all():
+                logging.getLogger("synapseml_tpu_torch").warning(
+                    "dropping %d validation rows with labels unseen in "
+                    "training", int((~known).sum()))
+            if known.any():
+                valid = [(self._features(valid_t)[known],
+                          vpos[known].astype(np.float64))]
+        booster = train(
+            self._boost_params(objective,
+                               num_class if objective != "binary" else 1),
+            x, y, weight=weight, valid_sets=valid, init_model=init_booster,
+            device=device, **self._delegate_train_kwargs(batch_index))
+        model = self._make_model(LightGBMClassificationModel, booster)
+        label_values = [float(c) for c in classes]
+        while len(label_values) < 2:  # single-class fit still emits 2 prob cols
+            label_values.append(label_values[-1] if label_values else 0.0)
+        model.set(num_classes=max(num_class, 2), label_values=label_values)
+        return model
+
+
+class LightGBMRegressor(_LightGBMEstimatorBase):
+    """ref: lightgbm/.../LightGBMRegressor.scala:38-154."""
+
+    objective = Param(
+        "regression|regression_l1|huber|fair|poisson|quantile|mape|tweedie",
+        default="regression")
+    alpha = Param("huber/quantile alpha", default=0.9)
+    tweedie_variance_power = Param("tweedie power", default=1.5)
+
+    def _fit_single(self, table: Table, init_booster, batch_index, ctx,
+                    device) -> "LightGBMRegressionModel":
+        train_t, valid_t = self._split_validation(table)
+        x = self._features(train_t)
+        y = np.asarray(train_t[self.label_col], np.float64)
+        weight = (np.asarray(train_t[self.weight_col], np.float64)
+                  if self.weight_col else None)
+        valid = []
+        if valid_t is not None and valid_t.num_rows:
+            valid = [(self._features(valid_t),
+                      np.asarray(valid_t[self.label_col], np.float64))]
+        bp = dataclasses.replace(
+            self._boost_params(self.objective),
+            alpha=float(self.alpha),
+            tweedie_variance_power=float(self.tweedie_variance_power))
+        booster = train(bp, x, y, weight=weight, valid_sets=valid,
+                        init_model=init_booster, device=device,
+                        **self._delegate_train_kwargs(batch_index))
+        return self._make_model(LightGBMRegressionModel, booster)
+
+
+class LightGBMRanker(_LightGBMEstimatorBase):
+    """ref: lightgbm/.../LightGBMRanker.scala:26-177. Not ported yet: its
+    lambdarank objective waits for ROADMAP.md Queue 1 item 1."""
+
+    objective = Param("lambdarank", default="lambdarank")
+    group_col = Param("query/group id column", default="query")
+
+    def _fit(self, table: Table, device: str):
+        raise _not_ported("LightGBMRanker (the lambdarank objective)")
 
 
 class LightGBMClassificationModel(_LightGBMModelBase):

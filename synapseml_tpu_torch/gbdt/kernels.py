@@ -1,6 +1,17 @@
-"""Forest-traversal kernel of the GBDT scoring path (kernel K2).
+"""The GBDT engine's two kernels: the histogram (K1) and the forest
+traversal (K2).
 
-``forest_traverse`` walks every row of ``x`` [N, F] through all T trees
+K1, ``histogram``, builds the [F, B, 3] per-(feature, bin) sums of
+(grad, hess, count) that every split search of training reads. It
+replaces ``synapseml_tpu/gbdt/pallas_kernels.py`` ``histogram_tpu``. On a
+CUDA tensor the wrapper launches the hand-written Hopper kernel in
+``csrc/histogram.cu`` (one thread owns a (feature, bin) and adds its rows
+in row order, so the sums are deterministic and bitwise the sequential
+ones); on a CPU tensor it runs :func:`histogram_reference`, the plain
+PyTorch version (``index_add_`` over flat ids ``feature * B + bin``, which
+on the CPU is bitwise the JAX reference's ``segment_sum``).
+
+K2, ``forest_traverse``, walks every row of ``x`` [N, F] through all T trees
 of a stacked ensemble and adds ``value[leaf]`` of tree ``t`` into output
 column ``t % k``. It is the GBDT ensemble predict (tree weights folded
 into ``value`` by the caller), the isolation forest's path-length sum
@@ -15,8 +26,10 @@ order in registers). What bounds it: the bytes it must move are small
 nodes), so its time is set by the chain of dependent loads of each walk
 step; see the source for what the design does about that. On a CPU
 tensor the wrapper runs :func:`forest_traverse_reference`, the plain
-PyTorch version. There is no fallback: a CUDA tensor takes the kernel or
-the call raises.
+PyTorch version.
+
+There is no fallback: a CUDA tensor takes the kernel or the call raises.
+Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -24,6 +37,88 @@ import ctypes
 from typing import Optional
 
 import torch
+
+_BIN_BYTES = {torch.uint8: 1, torch.uint16: 2}
+
+
+def histogram_reference(binned: torch.Tensor, data: torch.Tensor,
+                        n_bins: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`histogram`: ``index_add_`` of each
+    row's data into flat ids ``feature * n_bins + bin``.
+
+    binned [N, F] uint8/uint16 (every bin < n_bins); data [N, 3] f32.
+    Returns [F, n_bins, 3] f32. On the CPU ``index_add_`` adds in index
+    order, so each (feature, bin) is summed in row order from zero; on a
+    CUDA device it adds with atomics, in no fixed order.
+    """
+    n, f = binned.shape
+    ids = (binned.long() + torch.arange(f, device=binned.device)[None, :]
+           * n_bins).reshape(-1)
+    flat = data[:, None, :].expand(n, f, 3).reshape(n * f, 3)
+    out = torch.zeros((f * n_bins, 3), dtype=torch.float32,
+                      device=binned.device)
+    return out.index_add_(0, ids, flat).reshape(f, n_bins, 3)
+
+
+def _hist_launcher():
+    from synapseml_tpu_torch import _build
+
+    fn = _build.load("histogram").histogram_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def histogram(binned: torch.Tensor, data: torch.Tensor,
+              n_bins: int) -> torch.Tensor:
+    """[F, n_bins, 3] f32: ``out[f, b] = sum of data[r]`` over the rows r
+    with ``binned[r, f] == b``, in row order.
+
+    binned [N, F] uint8 or uint16, contiguous (every bin < n_bins, at most
+    65,536 bins); data [N, 3] f32, contiguous, on the same device: the
+    (grad, hess, count) of each row, zero for masked rows. CPU tensors run
+    :func:`histogram_reference`; CUDA tensors launch ``csrc/histogram.cu``
+    and count it in ``histogram.launches``.
+    """
+    if binned.device.type == "cpu":
+        return histogram_reference(binned, data, n_bins)
+    if binned.device.type != "cuda":
+        raise ValueError(f"histogram: unsupported device {binned.device}")
+    if binned.dim() != 2 or binned.dtype not in _BIN_BYTES:
+        raise TypeError("histogram: binned must be [N, F] uint8 or uint16, "
+                        f"got {binned.dtype} of shape {tuple(binned.shape)}")
+    n, f = binned.shape
+    if data.device != binned.device or data.dtype != torch.float32:
+        raise TypeError(f"histogram: data must be float32 on {binned.device}"
+                        f", got {data.dtype} on {data.device}")
+    if tuple(data.shape) != (n, 3):
+        raise ValueError(f"histogram: data has shape {tuple(data.shape)}, "
+                         f"want ({n}, 3)")
+    if not (binned.is_contiguous() and data.is_contiguous()):
+        raise ValueError("histogram: binned and data must be contiguous")
+    if not 1 <= n_bins <= 65_536:
+        raise ValueError(f"histogram: n_bins must be in [1, 65536], "
+                         f"got {n_bins}")
+    out = torch.empty((f, n_bins, 3), dtype=torch.float32,
+                      device=binned.device)
+    if f == 0:
+        return out
+    with torch.cuda.device(binned.device):
+        stream = torch.cuda.current_stream(binned.device).cuda_stream
+        rc = _hist_launcher()(binned.data_ptr(), _BIN_BYTES[binned.dtype],
+                              data.data_ptr(), out.data_ptr(), n, f,
+                              int(n_bins), stream)
+    if rc != 0:
+        raise RuntimeError(f"histogram: kernel launch failed with CUDA "
+                           f"error {rc}")
+    histogram.launches += 1
+    return out
+
+
+histogram.launches = 0
 
 
 def forest_traverse_reference(x: torch.Tensor, feat: torch.Tensor,

@@ -17,8 +17,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the traversal kernel has no CPU "
-                    "or interpret mode")
+        pytest.skip("needs a CUDA device: the kernels (K1 histogram, K2 "
+                    "traversal) have no CPU or interpret mode")
     return torch.device("cuda", 0)
 
 
@@ -68,3 +68,60 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(card):
         kernels.forest_traverse(x, planes[0].cpu(), *planes[1:])
     empty = kernels.forest_traverse(x[:0], *planes, k=2)
     assert empty.shape == (0, 2) and empty.device.type == "cuda"
+
+
+# -- K1, the histogram -----------------------------------------------------
+
+def _hist_inputs(rng, n, f, n_bins, dtype, mask_frac):
+    binned = rng.integers(0, n_bins, (n, f)).astype(dtype)
+    g = rng.normal(size=n).astype(np.float32)
+    h = rng.random(n).astype(np.float32)
+    w = (rng.random(n) < mask_frac).astype(np.float32)
+    data = np.stack([g * w, h * w, w], 1)
+    return torch.from_numpy(binned), torch.from_numpy(data)
+
+
+@pytest.mark.parametrize("n,f,n_bins,dtype,mask_frac", [
+    (32_561, 14, 256, np.uint8, 1.0),     # the Adult root histogram
+    (32_561, 14, 256, np.uint8, 0.3),     # a leaf
+    (32_561, 14, 256, np.uint8, 0.0),     # all rows masked: exact zeros
+    (10_007, 5, 1024, np.uint16, 1.0),
+    (1, 1, 8, np.uint8, 1.0),
+    (0, 4, 16, np.uint8, 1.0),
+    (4_099, 3, 37, np.uint8, 0.5),        # bins not a multiple of 32
+])
+def test_histogram_bitwise_equals_plain_version(card, n, f, n_bins, dtype,
+                                                mask_frac):
+    """Bitwise against the plain version run on the CPU (index_add_ adds
+    in row order there; on the card it uses atomics)."""
+    binned, data = _hist_inputs(np.random.default_rng(n + f), n, f, n_bins,
+                                dtype, mask_frac)
+    before = kernels.histogram.launches
+    got = kernels.histogram(binned.to(card), data.to(card), n_bins)
+    torch.cuda.synchronize()
+    assert kernels.histogram.launches == before + 1
+    want = kernels.histogram_reference(binned, data, n_bins)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_histogram_five_launches_are_bitwise_identical(card):
+    binned, data = _hist_inputs(np.random.default_rng(0), 32_561, 14, 256,
+                                np.uint8, 1.0)
+    binned, data = binned.to(card), data.to(card)
+    outs = [kernels.histogram(binned, data, 256) for _ in range(5)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+def test_histogram_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    binned = torch.zeros((5, 3), dtype=torch.uint8, device=card)
+    data = torch.zeros((5, 3), device=card)
+    with pytest.raises(TypeError):
+        kernels.histogram(binned.int(), data, 4)
+    with pytest.raises(TypeError):
+        kernels.histogram(binned, data.double(), 4)
+    with pytest.raises(TypeError):
+        kernels.histogram(binned, data.cpu(), 4)
+    with pytest.raises(ValueError):
+        kernels.histogram(binned, data[:4], 4)
+    with pytest.raises(ValueError):
+        kernels.histogram(binned, data, 70_000)
