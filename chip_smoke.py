@@ -11,9 +11,12 @@ before the last line:
    (one nvcc per source, all started together) and prints ptxas' lines;
 3. kernel_vs_plain — each kernel against its plain PyTorch version at the
    shapes the main paths give it: the forest traversal (K2) on the card,
-   bitwise; the histogram (K1) bitwise against its plain version run on
-   the CPU from the same inputs (on the card ``index_add_`` adds with
-   atomics, in no fixed order), and five K1 launches bitwise identical;
+   bitwise, with the isolation forest's trees staged in several tiles;
+   the histogram (K1) bitwise against its plain version run on the CPU
+   from the same inputs (on the card ``index_add_`` adds with atomics, in
+   no fixed order), on a bin index built in the call and on one given,
+   with 90% of the rows in one bin and with one NaN grad; the card's bin
+   index equal to the CPU's; five K1 launches bitwise identical;
 4. main_path — LightGBMClassificationModel.load_native_model on the
    100-tree, 31-leaf Adult fixture and ``transform`` of 65,536 and
    1,048,576 rows on the card, with the kernels' launch counts read around
@@ -23,15 +26,18 @@ before the last line:
    traversal, matched against the plain version on the CPU;
 6. train   — the training path: LightGBMClassifier(100 iterations, 31
    leaves).fit on the 32,561 x 14 Adult rows on the card, with the
-   kernels' launch counts read around the fit and ``transform``; the
-   result held to the JAX-trained fixture (training logloss within 1e-4,
-   margins on the fixture's rows within 1e-3); then a 3-class fit, an L2
-   regressor fit and an early-stopped fit, each on the card and on the CPU
-   with the same port code;
-7. times   — kernel, plain-version and library-call times (CUDA events,
-   median of repeats after a warm-up), the kernels' bounds, the
-   transform's rows/s, the fit's wall seconds and rows*iterations/s, and
-   a breakdown of one fit.
+   kernels' launch counts and the bin index's builds (one a fit) read
+   around the fit and ``transform``; the result held to the JAX-trained
+   fixture (training logloss within 1e-4, margins on the fixture's rows
+   within 1e-3); then a 3-class fit, an L2 regressor fit and an
+   early-stopped fit, each on the card and on the CPU with the same port
+   code;
+7. times   — kernel, plain-version and library-call times (CUDA events
+   around calls queued behind a device-side spin, median of repeats after
+   a warm-up; the inputs stay in L2), K1's host time a call, the
+   kernels' bounds, the bin index's build time, the transform's rows/s,
+   the fit's wall seconds and rows*iterations/s, a breakdown of one fit
+   and the card's kernel time during one fit (torch.profiler).
 
 Then the kernel summary line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``.
@@ -159,14 +165,15 @@ def first_difference(a, b, same: list) -> dict:
 
 def fit_breakdown(fit) -> dict:
     """Host-clock seconds of one fit by part, each part's calls wrapped
-    with a synchronise before and after: K1 launches, the rest of the
-    per-leaf histogram (the [N, 3] data), the split search, the row
-    partition, the host syncs (device-to-host copies of each split's
-    numbers) and everything else; plus the number of host syncs."""
+    with a synchronise before and after: the per-fit bin index, K1
+    launches, the rest of the per-leaf histogram (the [N, 3] data), the
+    split search, the row partition, the host syncs (device-to-host copies
+    of each split's numbers) and everything else; plus the number of host
+    syncs."""
     from synapseml_tpu_torch.gbdt import grower, kernels
 
-    parts = {"k1": 0.0, "histogram_data": 0.0, "split_search": 0.0,
-             "partition": 0.0, "host_syncs": 0.0}
+    parts = {"bin_index": 0.0, "k1": 0.0, "histogram_data": 0.0,
+             "split_search": 0.0, "partition": 0.0, "host_syncs": 0.0}
     count = {"host_syncs": 0}
     originals = {}
 
@@ -183,10 +190,12 @@ def fit_breakdown(fit) -> dict:
             if counted:
                 count[part] += 1
             return out
-        if hasattr(fn, "launches"):   # the wrapped kernel counts here
-            timed.launches = fn.launches
+        for counter in ("launches", "builds"):   # the wrapped one counts here
+            if hasattr(fn, counter):
+                setattr(timed, counter, getattr(fn, counter))
         setattr(module, name, timed)
 
+    wrap(kernels, "bin_index", "bin_index")
     wrap(kernels, "histogram", "k1")
     wrap(grower, "histogram", "histogram_data")
     wrap(grower, "best_split", "split_search")
@@ -207,15 +216,21 @@ def fit_breakdown(fit) -> dict:
             "host_syncs": count["host_syncs"]}
 
 
+SPIN_CYCLES = 50_000_000      # ~28 ms of device spin ahead of a timing
+
+
 def cuda_ms(fn, reps: int = 5, inner: int = 20) -> float:
     """Median over ``reps`` of the mean ms of ``inner`` back-to-back calls,
-    timed with CUDA events after one warm-up call."""
+    timed with CUDA events after one warm-up call. Each run is queued
+    behind a device-side spin, so the calls reach the card back to back
+    and the time is the device's, not the host's launch overhead."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         for _ in range(inner):
             fn()
@@ -223,6 +238,58 @@ def cuda_ms(fn, reps: int = 5, inner: int = 20) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop) / inner)
     return statistics.median(times)
+
+
+def host_ms(fn, calls: int = 100) -> float:
+    """Host wall ms a call of ``fn`` takes to return (argument checks,
+    allocation, launch) while the card is busy, so the host never waits."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return host / calls * 1e3
+
+
+def device_busy(fn) -> dict:
+    """Wall seconds of ``fn()`` under ``torch.profiler`` (CUDA activity
+    only) and the seconds the card spent in kernels meanwhile, with the
+    kernels that took most of it. A failure of ``fn`` propagates; one of
+    the profiler is reported in the result, as it is not part of the
+    checks."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as exc:
+        prof, error = None, f"{type(exc).__name__}: {exc}"
+    start = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    if prof is None:
+        return {"wall_s": wall, "error": error}
+    try:
+        prof.stop()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                s, c = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (s + e.time_range.elapsed_us() * 1e-6, c + 1)
+    except Exception as exc:
+        return {"wall_s": wall, "error": f"{type(exc).__name__}: {exc}"}
+    busy = sum(s for s, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"wall_s": wall, "kernel_s": busy,
+            "busy_share": busy / wall if wall else None,
+            "kernels": sum(c for _, c in by_name.values()),
+            "top": [{"name": n[:90], "s": s, "count": c}
+                    for n, (s, c) in top]}
 
 
 def node_depths(feat, left, right) -> np.ndarray:
@@ -287,17 +354,19 @@ def main() -> int:
     from synapseml_tpu_torch.gbdt.estimators import (
         LightGBMClassificationModel, LightGBMClassifier, LightGBMRegressor)
     from synapseml_tpu_torch.gbdt.kernels import (
-        forest_traverse, forest_traverse_reference, histogram,
+        bin_index, forest_traverse, forest_traverse_reference, histogram,
         histogram_reference)
     from synapseml_tpu_torch.isolationforest import IsolationForest
 
     def reset_counts():
         forest_traverse.launches = 0
         histogram.launches = 0
+        bin_index.builds = 0
 
     def read_counts() -> dict:
         return {"forest_traverse": forest_traverse.launches,
-                "histogram": histogram.launches}
+                "histogram": histogram.launches,
+                "bin_index_builds": bin_index.builds}
 
     torch.cuda.set_device(0)
     kind = torch.cuda.get_device_name(0)
@@ -379,6 +448,10 @@ def main() -> int:
         w = mask.astype(np.float32)
         return np.stack([g0 * w, h0 * w, w], 1)
 
+    skewed_bins = adult_bins.copy()       # 90% of the rows in one bin
+    skewed_bins[rng.random(skewed_bins.shape) < 0.9] = 200
+    nan_data = np.zeros((len(y_adult), 3), np.float32)
+    nan_data[17_000, 0] = np.nan          # all zero but one NaN grad
     k1_cases = [
         ("adult_full_mask", adult_bins,
          hist_data(np.ones(len(y_adult), bool)), n_bins),
@@ -386,6 +459,9 @@ def main() -> int:
          hist_data(rng.random(len(y_adult)) < 0.3), n_bins),
         ("adult_zero_mask", adult_bins,
          hist_data(np.zeros(len(y_adult), bool)), n_bins),
+        ("adult_skewed_90pct", skewed_bins,
+         hist_data(rng.random(len(y_adult)) < 0.7), n_bins),
+        ("adult_one_nan_grad", adult_bins, nan_data, n_bins),
         ("uint16_b1024", rng.integers(0, 1024, (10_007, 5)).astype(np.uint16),
          rng.normal(size=(10_007, 3)).astype(np.float32), 1024),
         ("f1_n1", np.array([[3]], np.uint8),
@@ -396,28 +472,50 @@ def main() -> int:
     for name, b, d, nb in k1_cases:
         want = histogram_reference(torch.from_numpy(b), torch.from_numpy(d),
                                    nb)
-        got = histogram(torch.from_numpy(b).cuda(), torch.from_numpy(d).cuda(),
-                        nb)
-        torch.cuda.synchronize()
-        got = got.cpu()
-        k1_results.append({
-            "case": name, "shape": list(b.shape), "dtype": str(b.dtype),
-            "n_bins": nb, "bitwise": bool(torch.equal(got, want)),
-            "max_abs_err": float((got - want).abs().max())})
-    zero = k1_results[2]
+        bd, dd = torch.from_numpy(b).cuda(), torch.from_numpy(d).cuda()
+        index = bin_index(bd, nb)
+        cpu_index = bin_index(torch.from_numpy(b), nb)
+        index_ok = bool(torch.equal(index.order.cpu(), cpu_index.order)
+                        and torch.equal(index.start.cpu(), cpu_index.start))
+        for route, got in (("index_built_in_call", histogram(bd, dd, nb)),
+                           ("index_given", histogram(bd, dd, nb,
+                                                     index=index))):
+            torch.cuda.synchronize()
+            got = got.cpu()
+            nan_same = bool(torch.equal(torch.isnan(got), torch.isnan(want)))
+            bits_same = bool(torch.equal(
+                got.nan_to_num(7.0).view(torch.int32),
+                want.nan_to_num(7.0).view(torch.int32)))
+            diff = (got - want).abs().nan_to_num(0.0)
+            k1_results.append({
+                "case": name, "route": route, "shape": list(b.shape),
+                "dtype": str(b.dtype), "n_bins": nb,
+                "bitwise": nan_same and bits_same,
+                "nan_entries": int(torch.isnan(want).sum()),
+                "index_equals_cpu_index": index_ok,
+                "max_abs_err": float(diff.max()) if diff.numel() else 0.0})
+    zero = [r for r in k1_results if r["case"] == "adult_zero_mask"]
     adult_bd = torch.from_numpy(adult_bins).cuda()
     adult_dd = torch.from_numpy(k1_cases[0][2]).cuda()
-    repeats = [histogram(adult_bd, adult_dd, n_bins) for _ in range(5)]
+    adult_index = bin_index(adult_bd, n_bins)
+    repeats = [histogram(adult_bd, adult_dd, n_bins, index=adult_index)
+               for _ in range(5)]
     deterministic = all(torch.equal(repeats[0], r) for r in repeats[1:])
     emit({"phase": "kernel_vs_plain", "kernel": "histogram",
-          "tolerance": "bitwise (torch.equal) against the plain version run "
-                       "on the CPU from the same inputs",
+          "tolerance": "bitwise (int32 views equal; NaN where the plain "
+                       "version has NaN) against the plain version run on "
+                       "the CPU from the same inputs",
           "cases": k1_results, "five_launches_bitwise_identical":
           deterministic})
     check(all(r["bitwise"] for r in k1_results),
           "histogram differs from its plain version")
-    check(zero["max_abs_err"] == 0.0 and zero["bitwise"],
+    check(all(r["index_equals_cpu_index"] for r in k1_results),
+          "the bin index built on the card differs from the CPU's")
+    check(all(r["max_abs_err"] == 0.0 for r in zero),
           "an all-zero mask does not give exact zeros")
+    check(all(r["nan_entries"] == 14 for r in k1_results
+              if r["case"] == "adult_one_nan_grad"),
+          "the one NaN grad does not reach every feature's histogram")
     check(deterministic, "five histogram launches are not bitwise equal")
     k1_max_err = max(r["max_abs_err"] for r in k1_results)
 
@@ -510,6 +608,8 @@ def main() -> int:
           f"{train_counts['histogram']} K1 launches for {splits} splits")
     check(train_counts["histogram"] >= 3000,
           f"the fit launched K1 {train_counts['histogram']} times")
+    check(train_counts["bin_index_builds"] == 1,
+          f"the fit built {train_counts['bin_index_builds']} bin indexes")
     check(train_counts["forest_traverse"] >= 1,
           "transform of the fitted model did not launch K2")
     check(raw_fit.shape == (len(io["x"]), 2)
@@ -606,23 +706,48 @@ def main() -> int:
           "transform_rows_per_s": N_LARGE / statistics.median(transform_s),
           "transform_1m_breakdown_s": breakdown, "nvidia_smi": smi})
 
-    # K1 at the main shape (the Adult root histogram) and at 1M rows
-    k1_ms = cuda_ms(lambda: histogram(adult_bd, adult_dd, n_bins))
-    big_bins = torch.from_numpy(rng.integers(
-        0, 256, (N_LARGE, 14)).astype(np.uint8)).cuda()
+    # K1 at the main shape (the Adult root histogram, on the fit's index)
+    # and at 1M rows, spread evenly over the bins and with 90% in one bin
+    k1_ms = cuda_ms(lambda: histogram(adult_bd, adult_dd, n_bins,
+                                      index=adult_index))
+    k1_ms_building_index = cuda_ms(
+        lambda: histogram(adult_bd, adult_dd, n_bins))
+    k1_host_ms = host_ms(lambda: histogram(adult_bd, adult_dd, n_bins,
+                                           index=adult_index))
+    index_ms = cuda_ms(lambda: bin_index(adult_bd, n_bins))
+    skewed_bd = torch.from_numpy(skewed_bins).cuda()
+    skewed_index = bin_index(skewed_bd, n_bins)
+    k1_ms_skewed = cuda_ms(lambda: histogram(skewed_bd, adult_dd, n_bins,
+                                             index=skewed_index))
+    big_np = rng.integers(0, 256, (N_LARGE, 14)).astype(np.uint8)
+    big_bins = torch.from_numpy(big_np).cuda()
+    big_np[rng.random(big_np.shape) < 0.9] = 200
+    big_skewed = torch.from_numpy(big_np).cuda()
     big_data = torch.from_numpy(rng.normal(
         size=(N_LARGE, 3)).astype(np.float32)).cuda()
-    k1_ms_1m = cuda_ms(lambda: histogram(big_bins, big_data, 256),
-                       reps=3, inner=5)
+    big_index = bin_index(big_bins, 256)
+    big_skewed_index = bin_index(big_skewed, 256)
+    k1_ms_1m = cuda_ms(lambda: histogram(big_bins, big_data, 256,
+                                         index=big_index), reps=3, inner=5)
+    k1_ms_1m_skewed = cuda_ms(lambda: histogram(
+        big_skewed, big_data, 256, index=big_skewed_index), reps=3, inner=5)
+    index_ms_1m = cuda_ms(lambda: bin_index(big_bins, 256), reps=3, inner=5)
     k1_plain_ms = cuda_ms(
         lambda: histogram_reference(adult_bd, adult_dd, n_bins))
     n_adult, f_adult = adult_bins.shape
-    ids = (adult_bd.long() + torch.arange(f_adult, device="cuda")[None, :]
-           * n_bins).reshape(-1)
-    flat = adult_dd[:, None, :].expand(-1, f_adult, 3).reshape(-1, 3)
-    flat = flat.contiguous()
-    acc = torch.zeros((f_adult * n_bins, 3), device="cuda")
-    k1_library_ms = cuda_ms(lambda: acc.index_add_(0, ids, flat))
+
+    def library_ms(bins, data, b):
+        """One index_add_ (atomic) over the same flat ids and rows."""
+        f = bins.shape[1]
+        ids = (bins.long() + torch.arange(f, device="cuda")[None, :]
+               * b).reshape(-1)
+        flat = data[:, None, :].expand(-1, f, 3).reshape(-1, 3).contiguous()
+        acc = torch.zeros((f * b, 3), device="cuda")
+        return cuda_ms(lambda: acc.index_add_(0, ids, flat))
+
+    k1_library_ms = library_ms(adult_bd, adult_dd, n_bins)
+    k1_library_ms_1m = library_ms(big_bins, big_data, 256)
+    k1_library_ms_1m_skewed = library_ms(big_skewed, big_data, 256)
 
     def k1_bound(n, f, bin_bytes, b):
         n_bytes = n * f * bin_bytes + n * 3 * 4 + f * b * 3 * 4
@@ -637,21 +762,33 @@ def main() -> int:
     k1_large = k1_bound(N_LARGE, 14, 1, 256)
     fit_s = [fit_first_s]
     for _ in range(2):
+        reset_counts()
         torch.cuda.synchronize()
         start = time.perf_counter()
         adult_fit()
         torch.cuda.synchronize()
         fit_s.append(time.perf_counter() - start)
+        check(bin_index.builds == 1,
+              f"a timed fit built {bin_index.builds} bin indexes")
     fit_median = statistics.median(fit_s)
     emit({"phase": "times_train", "k1_shape": {
               "n": n_adult, "f": f_adult, "b": n_bins, "bins": "uint8"},
-          "k1_ms": k1_ms, "k1_ms_1m_rows": k1_ms_1m,
+          "k1_ms": k1_ms, "k1_ms_building_index": k1_ms_building_index,
+          "k1_host_ms_per_call": k1_host_ms,
+          "k1_ms_skewed_90pct": k1_ms_skewed,
+          "k1_ms_1m_rows": k1_ms_1m, "k1_ms_1m_rows_skewed_90pct":
+          k1_ms_1m_skewed, "bin_index_ms": index_ms,
+          "bin_index_ms_1m_rows": index_ms_1m,
           "k1_plain_ms": k1_plain_ms, "k1_library_ms": k1_library_ms,
+          "k1_library_ms_1m_rows": k1_library_ms_1m,
+          "k1_library_ms_1m_rows_skewed_90pct": k1_library_ms_1m_skewed,
           "k1_bound": k1_main, "k1_bound_1m_rows": k1_large,
           "fit_s": fit_s,
           "fit_rows_iterations_per_s": n_adult * 100 / fit_median,
           "k1_launches_per_fit": train_counts["histogram"],
-          "fit_breakdown": fit_breakdown(adult_fit), "nvidia_smi": smi})
+          "bin_index_builds_per_fit": train_counts["bin_index_builds"],
+          "fit_breakdown": fit_breakdown(adult_fit),
+          "fit_device_busy": device_busy(adult_fit), "nvidia_smi": smi})
 
     emit({"kernels": [{
         "name": "forest_traverse", "route": "cuda",

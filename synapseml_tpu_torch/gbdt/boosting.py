@@ -14,8 +14,9 @@ either.
 
 Training keeps the binned rows, labels, scores and gradients on the
 device it is given; each tree is grown by
-:func:`synapseml_tpu_torch.gbdt.grower.build_tree` (kernel K1 per leaf)
-and only its arrays come back to the host. The reference runs the loop
+:func:`synapseml_tpu_torch.gbdt.grower.build_tree` (kernel K1 per leaf,
+on the one :func:`~synapseml_tpu_torch.gbdt.kernels.bin_index` built per
+fit) and only its arrays come back to the host. The reference runs the loop
 as ``lax.scan`` chunks on the TPU; here it is a plain Python loop over
 iterations and classes, so early stopping and ``iteration_hook`` act
 after every iteration.
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from synapseml_tpu_torch import device as device_policy
-from synapseml_tpu_torch.gbdt import objectives as obj
+from synapseml_tpu_torch.gbdt import kernels, objectives as obj
 from synapseml_tpu_torch.gbdt.binning import BinMapper
 from synapseml_tpu_torch.gbdt.grower import (
     GrowerParams, Tree, build_tree, leaf_values, predict_tree)
@@ -704,6 +705,7 @@ def train(
                        seed=p.seed).fit(x)
     binned = torch.from_numpy(mapper.transform(x)).to(dev)
     gp = p.grower(mapper.total_bins)
+    index = kernels.bin_index(binned, gp.max_bin)  # every K1 launch reads it
     thresholds = mapper.threshold_values().astype(np.float32)
     obj_fn = _objective_fn(p)
     init, init_margins = _resume_state(p, init_model, k, x,
@@ -748,7 +750,7 @@ def train(
             else:
                 g, h = obj_fn(scores, yd, wd)
             tree, row_slot, slot_value, slot_node = build_tree(
-                binned, g, h, row_mask, thresholds, gp)
+                binned, g, h, row_mask, thresholds, gp, index=index)
             if renew_alpha is not None:
                 tree, slot_value = _renew_leaves(
                     tree, yd - scores, row_slot, slot_value, slot_node,

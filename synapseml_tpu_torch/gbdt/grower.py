@@ -24,7 +24,7 @@ cumsum in float64 anyway).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,12 +63,15 @@ class Tree:
 
 
 def histogram(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
-              mask: torch.Tensor, n_bins: int) -> torch.Tensor:
+              mask: torch.Tensor, n_bins: int,
+              index: Optional[kernels.BinIndex] = None) -> torch.Tensor:
     """[F, B, 3] histogram of (grad, hess, count) over the rows in ``mask``:
-    kernel K1 on a CUDA device, its plain version on the CPU."""
+    kernel K1 on a CUDA device (on ``index``, the bins' per-fit
+    :func:`~synapseml_tpu_torch.gbdt.kernels.bin_index`, where the caller
+    has one), its plain version on the CPU."""
     w = mask.to(torch.float32)
     data = torch.stack([grad * w, hess * w, w], dim=-1)
-    return kernels.histogram(binned, data, n_bins)
+    return kernels.histogram(binned, data, n_bins, index=index)
 
 
 def _l1_threshold(g, l1):
@@ -135,14 +138,17 @@ def _partition(row_slot: torch.Tensor, binned: torch.Tensor, leaf: int,
 
 
 def build_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
-               row_mask: torch.Tensor, threshold_values, p: GrowerParams
+               row_mask: torch.Tensor, threshold_values, p: GrowerParams,
+               index: Optional[kernels.BinIndex] = None
                ) -> Tuple[Tree, torch.Tensor, torch.Tensor, np.ndarray]:
     """Grow one tree on the device of ``binned``.
 
     binned [N, F] uint8/uint16; grad, hess [N] f32; row_mask [N] bool;
-    threshold_values [F, B] raw split value per (feature, bin), host.
-    Returns (tree of host numpy arrays, row_slot [N] int32 on the device,
-    slot_value [L] f32 on the device, slot_node [L] host int32).
+    threshold_values [F, B] raw split value per (feature, bin), host;
+    ``index`` the bins' ``kernels.bin_index(binned, p.max_bin)``, which
+    every histogram of the tree reads (the boosting loop builds it once a
+    fit). Returns (tree of host numpy arrays, row_slot [N] int32 on the
+    device, slot_value [L] f32 on the device, slot_node [L] host int32).
     """
     dev = binned.device
     n, f = binned.shape
@@ -154,7 +160,7 @@ def build_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     hist = torch.zeros((n_leaves, f, n_bins, 3), dtype=torch.float32,
                        device=dev)
     totals = torch.zeros((n_leaves, 3), dtype=torch.float32, device=dev)
-    hist[0] = histogram(binned, grad, hess, row_mask, n_bins)
+    hist[0] = histogram(binned, grad, hess, row_mask, n_bins, index)
     totals[0] = _leaf_totals(hist[0])
     g0, f0, b0 = best_split(hist[0], totals[0], p, depth_ok=True)
 
@@ -193,7 +199,7 @@ def build_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         # histogram fresh (K1) and the left one by subtraction
         row_slot = _partition(row_slot, binned, leaf, feat, thr_bin, s)
         hist_r = histogram(binned, grad, hess, (row_slot == s) & row_mask,
-                           n_bins)
+                           n_bins, index)
         tot_r = _leaf_totals(hist_r)
         hist[leaf] -= hist_r
         totals[leaf] -= tot_r

@@ -1,15 +1,18 @@
 """The GBDT engine's two kernels: the histogram (K1) and the forest
-traversal (K2).
+traversal (K2), and the per-fit bin index that K1 reads.
 
 K1, ``histogram``, builds the [F, B, 3] per-(feature, bin) sums of
 (grad, hess, count) that every split search of training reads. It
 replaces ``synapseml_tpu/gbdt/pallas_kernels.py`` ``histogram_tpu``. On a
 CUDA tensor the wrapper launches the hand-written Hopper kernel in
-``csrc/histogram.cu`` (one thread owns a (feature, bin) and adds its rows
-in row order, so the sums are deterministic and bitwise the sequential
-ones); on a CPU tensor it runs :func:`histogram_reference`, the plain
-PyTorch version (``index_add_`` over flat ids ``feature * B + bin``, which
-on the CPU is bitwise the JAX reference's ``segment_sum``).
+``csrc/histogram.cu``: one warp owns a (feature, bin) and adds the rows of
+its bin in row order, reading them from a :class:`BinIndex` (each
+feature's row ids stably sorted by bin, built once per fit by
+:func:`bin_index`, since the bins never change during a fit), so the sums
+are deterministic and bitwise the sequential ones. On a CPU tensor it runs
+:func:`histogram_reference`, the plain PyTorch version (``index_add_`` over
+flat ids ``feature * B + bin``, which on the CPU is bitwise the JAX
+reference's ``segment_sum``).
 
 K2, ``forest_traverse``, walks every row of ``x`` [N, F] through all T trees
 of a stacked ensemble and adds ``value[leaf]`` of tree ``t`` into output
@@ -19,26 +22,28 @@ into ``value`` by the caller), the isolation forest's path-length sum
 
 Replaces ``synapseml_tpu/gbdt/pallas_kernels.py`` ``predict_forest_tpu``.
 On a CUDA tensor the wrapper launches the hand-written Hopper kernel in
-``csrc/forest_traverse.cu`` (one thread per row, tree planes read through
-the read-only cache and resident in L2, each row's sums taken in tree
-order in registers). What bounds it: the bytes it must move are small
-(x once, the output once, ~122 KB of tree planes for 100 trees of 61
-nodes), so its time is set by the chain of dependent loads of each walk
-step; see the source for what the design does about that. On a CPU
-tensor the wrapper runs :func:`forest_traverse_reference`, the plain
-PyTorch version.
+``csrc/forest_traverse.cu`` (one thread per row; the tree planes, packed a
+node to 8 bytes, and the block's x rows staged in shared memory; four
+trees of a column walked at once and added in tree order). What bounds
+it: the bytes it must move are small (x once, the output once, ~122 KB of
+tree planes for 100 trees of 61 nodes), so its time is set by the chain
+of dependent loads of each walk step; see the source for what the design
+does about that. On a CPU tensor the wrapper runs
+:func:`forest_traverse_reference`, the plain PyTorch version.
 
 There is no fallback: a CUDA tensor takes the kernel or the call raises.
-Each wrapper counts its launches in ``<wrapper>.launches``.
+Each wrapper counts its launches in ``<wrapper>.launches``, and
+:func:`bin_index` its builds in ``bin_index.builds``.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional
 
 import torch
 
-_BIN_BYTES = {torch.uint8: 1, torch.uint16: 2}
+_BIN_DTYPES = (torch.uint8, torch.uint16)
 
 
 def histogram_reference(binned: torch.Tensor, data: torch.Tensor,
@@ -60,36 +65,89 @@ def histogram_reference(binned: torch.Tensor, data: torch.Tensor,
     return out.index_add_(0, ids, flat).reshape(f, n_bins, 3)
 
 
+@dataclasses.dataclass(frozen=True)
+class BinIndex:
+    """The rows of a binned matrix sorted by bin, feature by feature: what
+    K1 walks. Built by :func:`bin_index` for one (N, F, n_bins)."""
+    order: torch.Tensor   # [F, N] int32: row ids, stably sorted by bin
+    start: torch.Tensor   # [F, n_bins + 1] int32: where bin b's rows begin
+    n: int
+    f: int
+    n_bins: int
+
+    def check(self, binned: torch.Tensor, n_bins: int) -> None:
+        """Raise unless this index was built for ``binned``'s shape and
+        ``n_bins``."""
+        if (self.n, self.f, self.n_bins) != (*binned.shape, n_bins):
+            raise ValueError(
+                f"bin index built for (N, F, n_bins) = ({self.n}, {self.f}, "
+                f"{self.n_bins}), used for ({', '.join(map(str, binned.shape))}"
+                f", {n_bins})")
+
+
+def _check_bins(name: str, binned: torch.Tensor, n_bins: int) -> None:
+    if binned.dim() != 2 or binned.dtype not in _BIN_DTYPES:
+        raise TypeError(f"{name}: binned must be [N, F] uint8 or uint16, "
+                        f"got {binned.dtype} of shape {tuple(binned.shape)}")
+    if not 1 <= n_bins <= 65_536:
+        raise ValueError(f"{name}: n_bins must be in [1, 65536], "
+                         f"got {n_bins}")
+
+
+def bin_index(binned: torch.Tensor, n_bins: int) -> BinIndex:
+    """The :class:`BinIndex` of ``binned`` [N, F] uint8/uint16, on its
+    device: for each feature the row ids stably sorted by bin (so the rows
+    of one bin keep row order) and where each bin's segment begins; rows
+    with a bin >= n_bins sort past the last segment. Layout work done once
+    per fit, as the binning is; counted in ``bin_index.builds``."""
+    _check_bins("bin_index", binned, n_bins)
+    n, f = binned.shape
+    keys, order = torch.sort(binned.t().to(torch.int32).contiguous(), dim=1,
+                             stable=True)
+    bounds = torch.arange(n_bins + 1, dtype=torch.int32,
+                          device=binned.device).expand(f, -1).contiguous()
+    start = torch.searchsorted(keys, bounds, out_int32=True)
+    bin_index.builds += 1
+    return BinIndex(order.to(torch.int32).contiguous(), start.contiguous(),
+                    n, f, int(n_bins))
+
+
+bin_index.builds = 0
+
+
 def _hist_launcher():
     from synapseml_tpu_torch import _build
 
     fn = _build.load("histogram").histogram_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def histogram(binned: torch.Tensor, data: torch.Tensor,
-              n_bins: int) -> torch.Tensor:
+def histogram(binned: torch.Tensor, data: torch.Tensor, n_bins: int,
+              index: Optional[BinIndex] = None) -> torch.Tensor:
     """[F, n_bins, 3] f32: ``out[f, b] = sum of data[r]`` over the rows r
     with ``binned[r, f] == b``, in row order.
 
     binned [N, F] uint8 or uint16, contiguous (every bin < n_bins, at most
     65,536 bins); data [N, 3] f32, contiguous, on the same device: the
-    (grad, hess, count) of each row, zero for masked rows. CPU tensors run
-    :func:`histogram_reference`; CUDA tensors launch ``csrc/histogram.cu``
-    and count it in ``histogram.launches``.
+    (grad, hess, count) of each row, zero for masked rows. ``index`` is
+    ``bin_index(binned, n_bins)``, built once by the caller that launches
+    K1 many times on the same bins; it must match (N, F, n_bins), else the
+    call raises. CPU tensors run :func:`histogram_reference` (a given index
+    is checked, then not read); CUDA tensors launch ``csrc/histogram.cu``
+    on the index (built here when none is given) and count it in
+    ``histogram.launches``.
     """
     if binned.device.type == "cpu":
+        if index is not None:
+            index.check(binned, n_bins)
         return histogram_reference(binned, data, n_bins)
     if binned.device.type != "cuda":
         raise ValueError(f"histogram: unsupported device {binned.device}")
-    if binned.dim() != 2 or binned.dtype not in _BIN_BYTES:
-        raise TypeError("histogram: binned must be [N, F] uint8 or uint16, "
-                        f"got {binned.dtype} of shape {tuple(binned.shape)}")
+    _check_bins("histogram", binned, n_bins)
     n, f = binned.shape
     if data.device != binned.device or data.dtype != torch.float32:
         raise TypeError(f"histogram: data must be float32 on {binned.device}"
@@ -99,18 +157,23 @@ def histogram(binned: torch.Tensor, data: torch.Tensor,
                          f"want ({n}, 3)")
     if not (binned.is_contiguous() and data.is_contiguous()):
         raise ValueError("histogram: binned and data must be contiguous")
-    if not 1 <= n_bins <= 65_536:
-        raise ValueError(f"histogram: n_bins must be in [1, 65536], "
-                         f"got {n_bins}")
+    if index is None:
+        index = bin_index(binned, n_bins)
+    else:
+        index.check(binned, n_bins)
+        if index.order.device != binned.device:
+            raise ValueError(f"histogram: the bin index is on "
+                             f"{index.order.device}, binned on "
+                             f"{binned.device}")
     out = torch.empty((f, n_bins, 3), dtype=torch.float32,
                       device=binned.device)
     if f == 0:
         return out
     with torch.cuda.device(binned.device):
         stream = torch.cuda.current_stream(binned.device).cuda_stream
-        rc = _hist_launcher()(binned.data_ptr(), _BIN_BYTES[binned.dtype],
-                              data.data_ptr(), out.data_ptr(), n, f,
-                              int(n_bins), stream)
+        rc = _hist_launcher()(index.order.data_ptr(),
+                              index.start.data_ptr(), data.data_ptr(),
+                              out.data_ptr(), n, f, int(n_bins), stream)
     if rc != 0:
         raise RuntimeError(f"histogram: kernel launch failed with CUDA "
                            f"error {rc}")
@@ -182,6 +245,8 @@ def _check(x, planes, k: int) -> None:
                              f"{tuple(a.shape)}, feat {tuple(shape)}")
     if k < 1:
         raise ValueError(f"forest_traverse: k must be >= 1, got {k}")
+    if shape[0] > 0 and shape[1] < 1:
+        raise ValueError("forest_traverse: a tree needs at least one node")
     if x.shape[1] < 1:
         raise ValueError("forest_traverse: x needs at least one feature")
 

@@ -41,6 +41,16 @@ def _forest(rng, t, m, f):
     (1, 61, 14, 1, 1, False, None),
     (40, 127, 6, 1, 3000, True, 9),
     (7, 15, 4, 5, 300, True, 2),
+    # the isolation forest's 511-node trees: more than one shared-memory
+    # tile of trees, staged while the previous tile is walked
+    (100, 511, 14, 1, 4000, True, 10),
+    (100, 511, 14, 3, 4000, False, None),
+    (40, 511, 14, 5, 1000, False, None),
+    (5, 61, 300, 2, 3000, False, None),      # wide rows: 128-row tiles
+    # beyond the tiles' records (1,024 features, 2,048 nodes a tree): the
+    # direct kernel
+    (5, 61, 1100, 2, 500, False, None),
+    (3, 16383, 14, 1, 2000, False, 20),
 ])
 def test_kernel_bitwise_equals_plain_version(card, t, m, f, k, n, strict,
                                              depth):
@@ -68,6 +78,8 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(card):
         kernels.forest_traverse(x, planes[0].cpu(), *planes[1:])
     empty = kernels.forest_traverse(x[:0], *planes, k=2)
     assert empty.shape == (0, 2) and empty.device.type == "cuda"
+    with pytest.raises(ValueError):          # trees of no node
+        kernels.forest_traverse(x, *[p[:, :0].contiguous() for p in planes])
 
 
 # -- K1, the histogram -----------------------------------------------------
@@ -102,6 +114,69 @@ def test_histogram_bitwise_equals_plain_version(card, n, f, n_bins, dtype,
     assert kernels.histogram.launches == before + 1
     want = kernels.histogram_reference(binned, data, n_bins)
     assert torch.equal(got.cpu(), want)
+
+
+def _skewed_and_nan_cases(rng):
+    """(name, binned, data, n_bins): 90% of the rows in one bin, and all
+    data zero but one NaN grad."""
+    n = 32_561
+    skew, data = _hist_inputs(rng, n, 14, 256, np.uint8, 0.7)
+    skew = skew.numpy()
+    skew[rng.random(skew.shape) < 0.9] = 200
+    nan_bins, _ = _hist_inputs(rng, n, 14, 256, np.uint8, 1.0)
+    nan_data = np.zeros((n, 3), np.float32)
+    nan_data[17_000, 0] = np.nan
+    return [("skewed_90pct", torch.from_numpy(skew), data, 256),
+            ("one_nan_grad", nan_bins, torch.from_numpy(nan_data), 256)]
+
+
+@pytest.mark.parametrize("case", ["adult_root", "adult_leaf", "uint16_b1024",
+                                  "skewed_90pct", "one_nan_grad", "n0"])
+def test_histogram_with_a_given_index_bitwise_equals_plain_version(card,
+                                                                   case):
+    """K1 on the per-fit index (``bin_index`` built on the card), with and
+    without the index given, bitwise against the plain version run on the
+    CPU (NaN where the plain version has NaN); the card's index is the
+    CPU's."""
+    rng = np.random.default_rng(len(case))
+    special = {c[0]: c[1:] for c in _skewed_and_nan_cases(rng)}
+    if case in special:
+        binned, data, n_bins = special[case]
+    else:
+        n, f, n_bins, dtype, frac = {
+            "adult_root": (32_561, 14, 256, np.uint8, 1.0),
+            "adult_leaf": (32_561, 14, 256, np.uint8, 0.3),
+            "uint16_b1024": (10_007, 5, 1024, np.uint16, 1.0),
+            "n0": (0, 4, 16, np.uint8, 1.0)}[case]
+        binned, data = _hist_inputs(rng, n, f, n_bins, dtype, frac)
+    want = kernels.histogram_reference(binned, data, n_bins)
+    bd, dd = binned.to(card), data.to(card)
+    index = kernels.bin_index(bd, n_bins)
+    cpu_index = kernels.bin_index(binned, n_bins)
+    assert torch.equal(index.order.cpu(), cpu_index.order)
+    assert torch.equal(index.start.cpu(), cpu_index.start)
+    builds = kernels.bin_index.builds
+    given = kernels.histogram(bd, dd, n_bins, index=index)
+    assert kernels.bin_index.builds == builds
+    built = kernels.histogram(bd, dd, n_bins)
+    assert kernels.bin_index.builds == builds + 1
+    torch.cuda.synchronize()
+    for got in (given.cpu(), built.cpu()):
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(got.nan_to_num(7.0).view(torch.int32),
+                           want.nan_to_num(7.0).view(torch.int32))
+    if case == "one_nan_grad":
+        assert int(torch.isnan(want).sum()) == 14
+
+
+def test_histogram_raises_on_an_index_it_was_not_built_for(card):
+    rng = np.random.default_rng(1)
+    binned, data = _hist_inputs(rng, 1000, 3, 16, np.uint8, 1.0)
+    bd, dd = binned.to(card), data.to(card)
+    for other in (kernels.bin_index(bd, 32), kernels.bin_index(bd[:900], 16),
+                  kernels.bin_index(binned, 16)):      # on the CPU
+        with pytest.raises(ValueError):
+            kernels.histogram(bd, dd, 16, index=other)
 
 
 def test_histogram_five_launches_are_bitwise_identical(card):
