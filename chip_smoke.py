@@ -32,12 +32,28 @@ before the last line:
    within 1e-3); then a 3-class fit, an L2 regressor fit and an
    early-stopped fit, each on the card and on the CPU with the same port
    code;
-7. times   — kernel, plain-version and library-call times (CUDA events
+7. train_sampled_adult — the same Adult fit with bagging_fraction=0.8,
+   bagging_freq=1, feature_fraction=0.8 on the card, the kernels' counts
+   and the per-tree masked indexes read around it, held tree by tree to
+   the JAX-trained sampled fixture at the tolerances of phase 6;
+8. train_modes_card_vs_cpu — goss (binary, L2 regression, 3 classes), rf,
+   dart (uniform, weighted, xgboost_dart_mode, 3 classes) and pos/neg
+   bagging fitted on the card and on the CPU by the same port code:
+   bitwise, GOSS binary and 3-class within the margin tolerance (a GOSS
+   near-tie may flip a split);
+9. times   — kernel, plain-version and library-call times (CUDA events
    around calls queued behind a device-side spin, median of repeats after
    a warm-up; the inputs stay in L2), K1's host time a call, the
    kernels' bounds, the bin index's build time, the transform's rows/s,
    the fit's wall seconds and rows*iterations/s, a breakdown of one fit
-   and the card's kernel time during one fit (torch.profiler).
+   and the card's kernel time during one fit (torch.profiler); then the
+   sampled fit's seconds, rows*iterations/s and kernel time, and the host
+   time a tree's key stream and masks take.
+
+Between phases 3 and 4: prng_card_vs_cpu (the threefry key stream on the
+card equal to the CPU's, bitwise) and masked_index (K1 on a
+feature_fraction index equal to K1 on a fresh index of the moved bins and
+to the plain version, bitwise).
 
 Then the kernel summary line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``.
@@ -58,6 +74,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(HERE, "tests", "fixtures", "lgbm_adult_100x31.txt")
 FIXTURE_IO = os.path.join(HERE, "tests", "fixtures",
                           "lgbm_adult_100x31_io.npz")
+SAMPLED = os.path.join(HERE, "tests", "fixtures",
+                       "lgbm_adult_100x31_bag08_ff08.txt")
+SAMPLED_IO = os.path.join(HERE, "tests", "fixtures",
+                          "lgbm_adult_100x31_bag08_ff08_io.npz")
+SAMPLED_PARAMS = dict(bagging_fraction=0.8, bagging_freq=1,
+                      feature_fraction=0.8, seed=0)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 N_MAIN, N_LARGE = 65_536, 1_048_576
@@ -168,12 +190,14 @@ def fit_breakdown(fit) -> dict:
     with a synchronise before and after: the per-fit bin index, K1
     launches, the rest of the per-leaf histogram (the [N, 3] data), the
     split search, the row partition, the host syncs (device-to-host copies
-    of each split's numbers) and everything else; plus the number of host
-    syncs."""
-    from synapseml_tpu_torch.gbdt import grower, kernels
+    of each split's numbers), a sampled fit's row sampling (bagging or
+    GOSS) and feature sampling (the permutation and the masked index), and
+    everything else; plus the number of host syncs."""
+    from synapseml_tpu_torch.gbdt import boosting, grower, kernels
 
     parts = {"bin_index": 0.0, "k1": 0.0, "histogram_data": 0.0,
-             "split_search": 0.0, "partition": 0.0, "host_syncs": 0.0}
+             "split_search": 0.0, "partition": 0.0, "host_syncs": 0.0,
+             "row_sampling": 0.0, "feature_sampling": 0.0}
     count = {"host_syncs": 0}
     originals = {}
 
@@ -201,6 +225,9 @@ def fit_breakdown(fit) -> dict:
     wrap(grower, "best_split", "split_search")
     wrap(grower, "_partition", "partition")
     wrap(grower, "_to_host", "host_syncs", counted=True)
+    wrap(boosting, "_sample_rows", "row_sampling")
+    wrap(boosting, "_feature_keep", "feature_sampling")
+    wrap(kernels, "mask_features", "feature_sampling")
     try:
         torch.cuda.synchronize()
         start = time.perf_counter()
@@ -348,25 +375,27 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from synapseml_tpu_torch import _build
     from synapseml_tpu_torch.data.table import Table
-    from synapseml_tpu_torch.gbdt import grower
+    from synapseml_tpu_torch.gbdt import boosting, grower, prng
     from synapseml_tpu_torch.gbdt.binning import BinMapper
     from synapseml_tpu_torch.gbdt.boosting import Booster
     from synapseml_tpu_torch.gbdt.estimators import (
         LightGBMClassificationModel, LightGBMClassifier, LightGBMRegressor)
     from synapseml_tpu_torch.gbdt.kernels import (
         bin_index, forest_traverse, forest_traverse_reference, histogram,
-        histogram_reference)
+        histogram_reference, mask_features)
     from synapseml_tpu_torch.isolationforest import IsolationForest
 
     def reset_counts():
         forest_traverse.launches = 0
         histogram.launches = 0
         bin_index.builds = 0
+        mask_features.builds = 0
 
     def read_counts() -> dict:
         return {"forest_traverse": forest_traverse.launches,
                 "histogram": histogram.launches,
-                "bin_index_builds": bin_index.builds}
+                "bin_index_builds": bin_index.builds,
+                "mask_features_builds": mask_features.builds}
 
     torch.cuda.set_device(0)
     kind = torch.cuda.get_device_name(0)
@@ -519,6 +548,69 @@ def main() -> int:
     check(deterministic, "five histogram launches are not bitwise equal")
     k1_max_err = max(r["max_abs_err"] for r in k1_results)
 
+    # the threefry key stream: the card's draws are the CPU's, bitwise (the
+    # CPU's are jax.random's: tests/test_torch_prng.py)
+    prng_results = []
+    for seed in (0, 42):
+        keys = {dev: prng.prng_key(seed, dev) for dev in ("cuda", "cpu")}
+        chain_same = True
+        for _ in range(100):        # a 100-tree fit's rng chain
+            for dev, key in keys.items():
+                keys[dev] = prng.split(key)[0]
+            chain_same &= torch.equal(keys["cuda"].cpu(), keys["cpu"])
+        folded = {dev: prng.fold_in(prng.split(key)[1], 2 ** 31 - 1)
+                  for dev, key in keys.items()}
+        for n in (14, 32_561, N_LARGE):
+            draws = {dev: (prng.uniform(key, n), prng.permutation(key, n))
+                     for dev, key in folded.items()}
+            (gu, gp), (cu, cp) = draws["cuda"], draws["cpu"]
+            prng_results.append({
+                "seed": seed, "n": n, "key_chain_equal": bool(chain_same),
+                "uniform_bitwise": bool(torch.equal(
+                    gu.cpu().view(torch.int32), cu.view(torch.int32))),
+                "permutation_equal": bool(torch.equal(gp.cpu(), cp)),
+                "on_card": gu.is_cuda and gp.is_cuda})
+    emit({"phase": "prng_card_vs_cpu", "tolerance": "bitwise",
+          "cases": prng_results})
+    check(all(r["key_chain_equal"] and r["uniform_bitwise"]
+              and r["permutation_equal"] and r["on_card"]
+              for r in prng_results),
+          "the key stream on the card differs from the CPU's")
+
+    # K1 on feature_fraction's per-tree index (feature 0, whose histogram
+    # gives the leaf totals, moved to the last bin)
+    keep = torch.ones(adult_bins.shape[1], dtype=torch.bool)
+    keep[[0, 5, 9]] = False
+    bag = hist_data(rng.random(len(y_adult)) < 0.8)
+    card_bins = torch.from_numpy(adult_bins).cuda()
+    moved, masked = mask_features(bin_index(card_bins, n_bins), card_bins,
+                                  keep.cuda())
+    cpu_moved, cpu_masked = mask_features(
+        bin_index(torch.from_numpy(adult_bins), n_bins),
+        torch.from_numpy(adult_bins), keep)
+    fresh = bin_index(moved, n_bins)
+    bag_d = torch.from_numpy(bag).cuda()
+    on_masked = histogram(moved, bag_d, n_bins, index=masked).cpu()
+    on_fresh = histogram(moved, bag_d, n_bins, index=fresh).cpu()
+    plain_moved = histogram_reference(cpu_moved, torch.from_numpy(bag),
+                                      n_bins)
+    masked_result = {
+        "shape": list(adult_bins.shape), "moved_features": [0, 5, 9],
+        "index_equals_fresh_index": bool(
+            torch.equal(masked.order, fresh.order)
+            and torch.equal(masked.start, fresh.start)),
+        "index_equals_cpu": bool(
+            torch.equal(masked.order.cpu(), cpu_masked.order)
+            and torch.equal(masked.start.cpu(), cpu_masked.start)
+            and torch.equal(moved.cpu(), cpu_moved)),
+        "k1_masked_vs_k1_fresh_bitwise": bool(torch.equal(
+            on_masked.view(torch.int32), on_fresh.view(torch.int32))),
+        "k1_masked_vs_plain_bitwise": bool(torch.equal(
+            on_masked.view(torch.int32), plain_moved.view(torch.int32)))}
+    emit({"phase": "masked_index", "tolerance": "bitwise", **masked_result})
+    check(all(v for k, v in masked_result.items() if k not in (
+        "shape", "moved_features")), "K1 on the feature_fraction index")
+
     # -- 4. main path ---------------------------------------------------
     model = LightGBMClassificationModel.load_native_model(FIXTURE)
     io = np.load(FIXTURE_IO)
@@ -621,8 +713,72 @@ def main() -> int:
     check(not all(same) or float(gap.max()) <= MARGIN_TOL_FIXTURE,
           f"max margin gap {gap.max()} with all trees identical")
 
-    def card_and_cpu(name, make, table, query):
-        """Fit with the same port code on the card and on the CPU."""
+    # -- 7. the sampled Adult fit (bagging and feature_fraction) ----------
+    with open(SAMPLED) as fh:
+        sampled_fixture = Booster.load_string(fh.read())
+    sampled_io = np.load(SAMPLED_IO)
+
+    def sampled_fit():
+        return LightGBMClassifier(num_iterations=100, num_leaves=31,
+                                  learning_rate=0.1, **SAMPLED_PARAMS).fit(
+            adult, device="cuda")
+
+    reset_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    sampled = sampled_fit()
+    torch.cuda.synchronize()
+    sampled_first_s = time.perf_counter() - start
+    out_sampled = sampled.transform(Table({"features": sampled_io["x"]}),
+                                    device="cuda")
+    sampled_counts = read_counts()
+    sampled_splits = int((sampled.booster.trees_feature >= 0).sum())
+    sampled_rt = Booster.load_string(sampled.booster.save_string())
+    same_sampled = same_trees(sampled_rt, sampled_fixture)
+    ll_sampled = logloss(sampled.booster.predict_raw(x_adult, device="cuda"),
+                         y_adult)
+    ll_sampled_fixture = logloss(
+        sampled_fixture.predict_raw(x_adult, device="cuda"), y_adult)
+    raw_sampled = out_sampled["rawPrediction"]
+    sampled_gap = np.abs(raw_sampled[:, 1] - sampled_io["raw"])
+    emit({"phase": "train_sampled_adult",
+          "config": "LightGBMClassifier(num_iterations=100, num_leaves=31, "
+                    "learning_rate=0.1, bagging_fraction=0.8, "
+                    "bagging_freq=1, feature_fraction=0.8, seed=0)",
+          "fixture_jax_version": str(sampled_io["jax_version"]),
+          "rows": list(x_adult.shape), "launches": sampled_counts,
+          "splits": sampled_splits, "trees": len(same_sampled),
+          "identical_trees_vs_jax_fixture": sum(same_sampled),
+          "first_difference": first_difference(sampled_rt, sampled_fixture,
+                                               same_sampled),
+          "train_logloss": ll_sampled,
+          "train_logloss_jax_fixture": ll_sampled_fixture,
+          "margin_gap_mean": float(sampled_gap.mean()),
+          "margin_gap_max": float(sampled_gap.max()),
+          "fit_first_s": sampled_first_s})
+    check(sampled_counts["histogram"] == 100 + sampled_splits,
+          f"{sampled_counts['histogram']} K1 launches for {sampled_splits} "
+          "splits")
+    check(sampled_counts["bin_index_builds"] == 1
+          and sampled_counts["mask_features_builds"] == 100,
+          f"the sampled fit's indexes: {sampled_counts}")
+    check(sampled_counts["forest_traverse"] >= 1,
+          "transform of the sampled model did not launch K2")
+    check(raw_sampled.shape == (len(sampled_io["x"]), 2)
+          and bool(np.isfinite(raw_sampled).all()), "sampled margins")
+    check(abs(ll_sampled - ll_sampled_fixture) <= LOGLOSS_TOL,
+          f"sampled training logloss {ll_sampled} vs the JAX fixture's "
+          f"{ll_sampled_fixture}")
+    check(float(sampled_gap.mean()) <= MARGIN_TOL_FIXTURE,
+          f"sampled mean margin gap {sampled_gap.mean()}")
+    check(not all(same_sampled)
+          or float(sampled_gap.max()) <= MARGIN_TOL_FIXTURE,
+          f"sampled max margin gap {sampled_gap.max()} with all trees "
+          "identical")
+
+    def card_and_cpu(name, make, table, query, bitwise=False):
+        """Fit with the same port code on the card and on the CPU; with
+        ``bitwise``, every tree and margin must be identical."""
         boosters = {dev: make().fit(table, device=dev).booster
                     for dev in ("cuda", "cpu")}
         raw = {dev: b.predict_raw(query, device=dev)
@@ -634,11 +790,17 @@ def main() -> int:
             "first_difference": first_difference(
                 boosters["cuda"], boosters["cpu"], same_dev),
             "margin_max_gap": float(np.abs(raw["cuda"] - raw["cpu"]).max()),
+            "tree_weights_equal": bool(np.array_equal(
+                boosters["cuda"].tree_weights, boosters["cpu"].tree_weights)),
             "best_iteration": {d: b.best_iteration
-                               for d, b in boosters.items()}}
+                               for d, b in boosters.items()},
+            "bitwise_required": bitwise}
         check(result["margin_max_gap"] <= MARGIN_TOL_CPU,
               f"{name}: card and CPU margins differ by "
               f"{result['margin_max_gap']}")
+        check(not bitwise or (all(same_dev) and result["tree_weights_equal"]
+                              and result["margin_max_gap"] == 0.0),
+              f"{name}: card and CPU fits are not bitwise equal")
         return result
 
     x3, y3 = synth_rows(20_000, 10, seed=3, classes=3)
@@ -665,7 +827,48 @@ def main() -> int:
     check(best["cuda"] == best["cpu"] and 0 <= best["cuda"] < 199,
           f"early stopping: best_iteration {best}")
 
-    # -- 7. times -------------------------------------------------------
+    # -- 8. every boosting mode, card against CPU --------------------------
+    xb, yb = synth_rows(20_000, 10, seed=6, classes=2)
+    binary_t = Table({"features": xb, "label": yb})
+    regression_t = Table({"features": xr, "label": yr})
+    three_t = Table({"features": x3, "label": y3})
+
+    def clf(**kw):
+        return lambda: LightGBMClassifier(num_leaves=31, **kw)
+
+    dart = dict(boosting_type="dart", drop_rate=0.2, skip_drop=0.3)
+    modes = [
+        # GOSS binary / 3-class: a near-tie of gradient groups or gains can
+        # flip a split, so these are held within the margin tolerance
+        ("goss_binary", clf(num_iterations=30, boosting_type="goss"),
+         binary_t, xb[:2000], False),
+        ("goss_l2", lambda: LightGBMRegressor(
+            num_iterations=30, num_leaves=31, boosting_type="goss"),
+         regression_t, xr[:2000], True),
+        ("goss_multiclass_3", clf(num_iterations=20, boosting_type="goss"),
+         three_t, x3[:2000], False),
+        ("rf_bagging_feature_fraction", clf(
+            num_iterations=30, boosting_type="rf", bagging_fraction=0.7,
+            bagging_freq=1, feature_fraction=0.8), binary_t, xb[:2000],
+         True),
+        ("pos_neg_bagging_seed", clf(
+            num_iterations=30, pos_bagging_fraction=0.7,
+            neg_bagging_fraction=0.5, bagging_freq=1, bagging_seed=7),
+         binary_t, xb[:2000], True),
+        ("dart_uniform", clf(num_iterations=30, uniform_drop=True, **dart),
+         binary_t, xb[:2000], True),
+        ("dart_weighted", clf(num_iterations=30, **dart), binary_t,
+         xb[:2000], True),
+        ("dart_xgboost_mode", clf(num_iterations=30, xgboost_dart_mode=True,
+                                  **dart), binary_t, xb[:2000], True),
+        ("dart_multiclass_3", clf(num_iterations=20, **dart), three_t,
+         x3[:2000], True),
+    ]
+    mode_results = [card_and_cpu(*m) for m in modes]
+    emit({"phase": "train_modes_card_vs_cpu", "margin_tol": MARGIN_TOL_CPU,
+          "fits": mode_results})
+
+    # -- 9. times -------------------------------------------------------
     ms = cuda_ms(lambda: forest_traverse(xd_main, *fx_planes, k=1))
     xd_large = torch.from_numpy(x_large).cuda()
     ms_large = cuda_ms(lambda: forest_traverse(xd_large, *fx_planes, k=1))
@@ -790,6 +993,50 @@ def main() -> int:
           "fit_breakdown": fit_breakdown(adult_fit),
           "fit_device_busy": device_busy(adult_fit), "nvidia_smi": smi})
 
+    # the sampled fit, and the key stream and masks of one of its trees
+    # (two splits of the key, the bagging draw, the feature permutation and
+    # the masked index) on the card, host wall with a synchronise at the end
+    sampled_s = [sampled_first_s]
+    for _ in range(2):
+        reset_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        sampled_fit()
+        torch.cuda.synchronize()
+        sampled_s.append(time.perf_counter() - start)
+    sp = boosting.BoostParams(**SAMPLED_PARAMS)
+    g_card, h_card = torch.from_numpy(g0).cuda(), torch.from_numpy(h0).cuda()
+    y_card = torch.from_numpy(y_adult.astype(np.float32)).cuda()
+    card_index = bin_index(card_bins, n_bins)
+    stream = {"rng": prng.prng_key(0, "cuda")}
+
+    def tree_sampling():
+        stream["rng"], key = prng.split(stream["rng"])
+        row_key, feature_key = prng.split(key)
+        boosting._sample_rows(sp, g_card, h_card, y_card, row_key)
+        mask_features(card_index, card_bins, boosting._feature_keep(
+            sp, card_bins.shape[1], feature_key))
+
+    def wall_ms(fn, calls: int = 100) -> float:
+        fn()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - start) / calls * 1e3
+
+    sampled_median = statistics.median(sampled_s)
+    emit({"phase": "times_sampled", "config": SAMPLED_PARAMS,
+          "fit_s": sampled_s,
+          "fit_rows_iterations_per_s": n_adult * 100 / sampled_median,
+          "plain_fit_s": fit_s,
+          "sampled_over_plain_median": sampled_median / fit_median,
+          "sampling_ms_per_tree": wall_ms(tree_sampling),
+          "key_split_ms": wall_ms(lambda: prng.split(stream["rng"])),
+          "fit_breakdown": fit_breakdown(sampled_fit),
+          "fit_device_busy": device_busy(sampled_fit), "nvidia_smi": smi})
+
     emit({"kernels": [{
         "name": "forest_traverse", "route": "cuda",
         "source": "synapseml_tpu_torch/csrc/forest_traverse.cu",
@@ -800,7 +1047,9 @@ def main() -> int:
         "name": "histogram", "route": "cuda",
         "source": "synapseml_tpu_torch/csrc/histogram.cu",
         "replaces": "synapseml_tpu/gbdt/pallas_kernels.py:79",
-        "launches": train_counts["histogram"], "max_abs_err": k1_max_err,
+        "launches": train_counts["histogram"],
+        "launches_sampled_fit": sampled_counts["histogram"],
+        "max_abs_err": k1_max_err,
         "bitwise": True, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
         "library_ms": k1_library_ms}]})

@@ -2,8 +2,9 @@
 
 Counterpart of ``synapseml_tpu/gbdt/boosting.py``: ``BoostParams``, the
 ``Booster`` (a stack of flat tree arrays held on the host as numpy and
-scored on a device) and ``train``, the single-device boosting loop for
-``boosting_type="gbdt"``.
+scored on a device), ``train``, the single-device boosting loop for every
+``boosting_type`` (gbdt, goss, rf, dart), and step checkpoints
+(``save_checkpoint``/``load_checkpoint``).
 
 Scoring an ensemble is one launch of the forest-traversal kernel
 (:func:`synapseml_tpu_torch.gbdt.kernels.forest_traverse`) with the tree
@@ -16,15 +17,22 @@ Training keeps the binned rows, labels, scores and gradients on the
 device it is given; each tree is grown by
 :func:`synapseml_tpu_torch.gbdt.grower.build_tree` (kernel K1 per leaf,
 on the one :func:`~synapseml_tpu_torch.gbdt.kernels.bin_index` built per
-fit) and only its arrays come back to the host. The reference runs the loop
-as ``lax.scan`` chunks on the TPU; here it is a plain Python loop over
-iterations and classes, so early stopping and ``iteration_hook`` act
-after every iteration.
+fit, or under ``feature_fraction`` on the iteration's
+:func:`~synapseml_tpu_torch.gbdt.kernels.mask_features` of it) and only
+its arrays come back to the host. Bagging, GOSS and ``feature_fraction``
+draw their masks on the rows' device from the reference's own key stream
+(:mod:`synapseml_tpu_torch.gbdt.prng`, threefry bit for bit), so they
+sample the same rows and features. The reference runs the loop as
+``lax.scan`` chunks on the TPU; here it is a plain Python loop over
+iterations and classes, so early stopping and ``iteration_hook`` act after
+every iteration; checkpoints are written where the reference's chunks end.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import tempfile
 from functools import partial
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -32,7 +40,7 @@ import numpy as np
 import torch
 
 from synapseml_tpu_torch import device as device_policy
-from synapseml_tpu_torch.gbdt import kernels, objectives as obj
+from synapseml_tpu_torch.gbdt import kernels, objectives as obj, prng
 from synapseml_tpu_torch.gbdt.binning import BinMapper
 from synapseml_tpu_torch.gbdt.grower import (
     GrowerParams, Tree, build_tree, leaf_values, predict_tree)
@@ -414,7 +422,7 @@ def _not_ported(what: str, item: str = "1, GBDT training: what is left"
         f"Queue 1 item {item})")
 
 
-def _check_ported(p: BoostParams, mesh, checkpoint_dir) -> None:
+def _check_ported(p: BoostParams, mesh) -> None:
     """Raise for every training option this port does not have yet;
     none is ignored silently."""
     if p.tree_learner not in ("data_parallel", "voting_parallel"):
@@ -422,19 +430,12 @@ def _check_ported(p: BoostParams, mesh, checkpoint_dir) -> None:
             f"tree_learner {p.tree_learner!r}: the reference's "
             "parallelism param offers data_parallel or "
             "voting_parallel (LightGBMParams.scala:16-18)")
-    if p.boosting_type in ("goss", "rf", "dart"):
-        raise _not_ported(f"boosting_type={p.boosting_type!r}")
-    strat = p.pos_bagging_fraction < 1.0 or p.neg_bagging_fraction < 1.0
-    if strat and p.objective not in ("binary", "binary_logloss"):
+    if _stratified(p) and p.objective not in ("binary", "binary_logloss"):
         # stratified bagging splits rows by label sign — only meaningful
         # (and only defined by LightGBM) for binary objectives
         raise ValueError(
             "pos_bagging_fraction/neg_bagging_fraction require a binary "
             f"objective, got {p.objective!r}")
-    if p.bagging_freq > 0 and (p.bagging_fraction < 1.0 or strat):
-        raise _not_ported("bagging (bagging_freq > 0 with a fraction < 1)")
-    if p.feature_fraction < 1.0:
-        raise _not_ported("feature_fraction < 1")
     if p.objective in _RANKING:
         raise _not_ported(f"the {p.objective} objective (LightGBMRanker)")
     if p.categorical_features:
@@ -442,8 +443,54 @@ def _check_ported(p: BoostParams, mesh, checkpoint_dir) -> None:
     if mesh is not None or p.tree_learner == "voting_parallel":
         raise _not_ported("mesh / voting_parallel training",
                           "2, GBDT multi-GPU")
-    if checkpoint_dir is not None:
-        raise _not_ported("step checkpointing (checkpoint_dir)")
+
+
+def _stratified(p: BoostParams) -> bool:
+    return p.pos_bagging_fraction < 1.0 or p.neg_bagging_fraction < 1.0
+
+
+def _f32(v: float) -> float:
+    """``v`` rounded to float32, as the reference's weakly typed Python
+    scalars are against float32 arrays."""
+    return float(np.float32(v))
+
+
+def _sample_rows(p: BoostParams, grad: torch.Tensor, hess: torch.Tensor,
+                 y: torch.Tensor, key: torch.Tensor):
+    """Bagging or GOSS row selection from ``key`` (the reference's
+    ``sample_mask_and_weights``): (mask, grad, hess)."""
+    n = grad.shape[0]
+    if p.boosting_type == "goss":
+        a, b = p.top_rate, p.other_rate
+        n_top = max(1, int(a * n))
+        absg = grad.abs()
+        thresh = torch.sort(absg, descending=True).values[n_top - 1]
+        top = absg >= thresh
+        small = ~top & (prng.uniform(key, n) < _f32(b))
+        amp = _f32((1.0 - a) / max(b, 1e-12))
+        return (top | small, torch.where(small, grad * amp, grad),
+                torch.where(small, hess * amp, hess))
+    is_rf = p.boosting_type == "rf"
+    bkey = key if p.bagging_seed is None else prng.fold_in(key,
+                                                           p.bagging_seed)
+    u = prng.uniform(bkey, n)
+    if _stratified(p) and not is_rf:
+        # per-class subsampling (LightGBM pos/neg bagging: binary labels,
+        # no gradient amplification)
+        return (torch.where(y > 0, u < _f32(p.pos_bagging_fraction),
+                            u < _f32(p.neg_bagging_fraction)), grad, hess)
+    frac = (0.632 if is_rf and p.bagging_fraction >= 1.0
+            else p.bagging_fraction)
+    return u < _f32(frac), grad, hess
+
+
+def _feature_keep(p: BoostParams, f: int, key: torch.Tensor) -> torch.Tensor:
+    """[F] bool: the ``round(feature_fraction * F)`` features (at least
+    one) this tree may split on (the reference's ``feature_mask``)."""
+    keep = max(1, int(round(p.feature_fraction * f)))
+    mask = torch.zeros(f, dtype=torch.bool, device=key.device)
+    mask[prng.permutation(key, f)[:keep]] = True
+    return mask
 
 
 def _objective_fn(p: BoostParams) -> Callable:
@@ -520,8 +567,12 @@ class _ValidTracker:
         """Record the metric after iteration ``it``; True = stop early."""
         if not self.enabled:
             return False
+        vsum = self.vsum
+        if self.p.boosting_type == "rf":
+            # rf margins are the average of the trees so far
+            vsum = vsum * float(np.float32(1.0) / np.float32(it + 1))
         # the metric in float64, so the card and the CPU stop alike
-        vscore = (self.vsum + self.init).to(torch.float64)
+        vscore = (vsum + self.init).to(torch.float64)
         if self.k > 1:
             m = self.metric_fn(vscore, self.vy.to(torch.int32))
         else:
@@ -605,7 +656,10 @@ def _attach_init_categoricals(booster: Booster,
 
 def _assemble_booster(stacked: Tree, p: BoostParams, k: int, init: float,
                       f: int, feature_names, tracker: _ValidTracker,
-                      init_model: Optional[Booster] = None) -> Booster:
+                      init_model: Optional[Booster] = None,
+                      compute_importances: bool = True) -> Booster:
+    t_total = stacked.split_feature.shape[0]
+    is_rf = p.boosting_type == "rf"
     booster = Booster(
         trees_feature=stacked.split_feature,
         trees_threshold=stacked.threshold,
@@ -614,7 +668,9 @@ def _assemble_booster(stacked: Tree, p: BoostParams, k: int, init: float,
         trees_value=stacked.leaf_value,
         trees_cover=stacked.cover,
         trees_gain=stacked.gain,
-        tree_weights=np.ones(stacked.split_feature.shape[0], np.float32),
+        tree_weights=np.full(
+            t_total, 1.0 / (t_total / max(k, 1)) if is_rf else 1.0,
+            np.float32),
         params=p,
         init_score=init,
         num_class=k,
@@ -623,8 +679,9 @@ def _assemble_booster(stacked: Tree, p: BoostParams, k: int, init: float,
         feature_names=feature_names,
         eval_history=tracker.history,
     )
-    booster.feature_importance_split, booster.feature_importance_gain = (
-        _importances(booster, f))
+    if compute_importances:
+        booster.feature_importance_split, booster.feature_importance_gain = (
+            _importances(booster, f))
     return _attach_init_categoricals(booster, init_model)
 
 
@@ -635,6 +692,10 @@ def _resume_state(p: BoostParams, init_model: Optional[Booster], k: int,
     _prepend_init_trees prepends all its trees."""
     if init_model is None:
         return default_init, None
+    if p.boosting_type in ("dart", "rf"):
+        raise NotImplementedError(
+            f"init_model continuation is not defined for "
+            f"{p.boosting_type} (dart rescales past trees; rf averages)")
     if init_model.num_class != k:
         raise ValueError("init_model num_class mismatch")
     margins = init_model.predict_raw(
@@ -643,15 +704,81 @@ def _resume_state(p: BoostParams, init_model: Optional[Booster], k: int,
     return float(init_model.init_score), margins
 
 
+def _validate_loop_extras(p: BoostParams, checkpoint_dir) -> None:
+    if checkpoint_dir is not None and p.boosting_type == "dart":
+        raise NotImplementedError(
+            "step checkpointing is not defined for dart (past trees "
+            "are rescaled every round)")
+
+
 def _validate_lr_schedule(p: BoostParams, learning_rates):
     if learning_rates is None:
         return None
+    if p.boosting_type == "dart":
+        raise NotImplementedError(
+            "per-iteration learning_rates are not defined for dart "
+            "(tree weights are renormalized every round)")
+    if p.boosting_type == "rf":
+        raise NotImplementedError(
+            "rf averages unshrunk trees; a learning-rate schedule "
+            "does not apply")
     learning_rates = np.asarray(learning_rates, np.float32)
     if learning_rates.shape != (p.num_iterations,):
         raise ValueError(
             f"learning_rates must have shape ({p.num_iterations},), "
             f"got {learning_rates.shape}")
     return learning_rates
+
+
+def _checkpoint_every(p: BoostParams, tracker: _ValidTracker,
+                      checkpoint_every: int) -> int:
+    """Iterations between checkpoints: where the reference's scan chunks
+    end (one chunk, or ``max(early_stopping_round, 16)`` iterations when
+    early stopping can act), at most ``checkpoint_every``."""
+    esr = p.early_stopping_round
+    chunk = max(esr, 16) if (tracker.enabled and esr > 0) else p.num_iterations
+    chunk = max(1, min(chunk, p.num_iterations))
+    if checkpoint_every > 0:
+        chunk = min(chunk, int(checkpoint_every))
+    return chunk
+
+
+def _stack_trees(trees: List[Tree]) -> Tree:
+    return Tree(**{fld.name: np.stack([getattr(t, fld.name) for t in trees])
+                   for fld in dataclasses.fields(Tree)})
+
+
+def save_checkpoint(path: str, booster: Booster, iterations_done: int,
+                    total_iterations: int) -> None:
+    """Atomic step checkpoint: ``checkpoint.json`` in ``path`` holding
+    ``iterations_done``, ``total_iterations``, ``best_iteration`` and the
+    whole tree stack in LightGBM's text format (the reference's payload,
+    so either package loads the other's). One file, one ``os.replace``:
+    metadata and model cannot disagree after a kill mid-write."""
+    os.makedirs(path, exist_ok=True)
+    # the full stack: the text writer truncates at best_iteration, which
+    # would drop trees past the current best of an early-stopping run
+    full = dataclasses.replace(booster, best_iteration=-1)
+    payload = json.dumps({
+        "iterations_done": int(iterations_done),
+        "total_iterations": int(total_iterations),
+        "best_iteration": int(booster.best_iteration),
+        "model": full.save_string(),
+    })
+    fd, tmp = tempfile.mkstemp(dir=path)
+    with os.fdopen(fd, "w") as fh:
+        fh.write(payload)
+    os.replace(tmp, os.path.join(path, "checkpoint.json"))
+
+
+def load_checkpoint(path: str) -> Tuple[Booster, Dict[str, int]]:
+    """Load a step checkpoint; resume with ``train(replace(p,
+    num_iterations=total - done), x, y, init_model=booster)``."""
+    with open(os.path.join(path, "checkpoint.json")) as fh:
+        payload = json.load(fh)
+    booster = Booster.load_string(payload.pop("model"))
+    booster.best_iteration = int(payload.get("best_iteration", -1))
+    return booster, payload
 
 
 def _renew_leaves(tree: Tree, residual: torch.Tensor, row_slot, slot_value,
@@ -668,6 +795,110 @@ def _renew_leaves(tree: Tree, residual: torch.Tensor, row_slot, slot_value,
     return tree, slot_value
 
 
+def _dart_select(rng, t: int, cur_weights, p: BoostParams) -> np.ndarray:
+    """One DART iteration's drop set (host RNG, lib_lightgbm dart.hpp
+    DroppingTrees): skip_drop gates the whole round; uniform mode is
+    Bernoulli(drop_rate) per tree, weighted mode drops proportionally to
+    each tree's current |weight| (normalized by the mean weight)."""
+    if t == 0 or rng.random() < p.skip_drop:
+        return np.empty(0, np.int64)
+    w = np.abs(np.asarray(cur_weights[:t], np.float64))
+    if p.uniform_drop or w.sum() <= 0:
+        sel = rng.random(t) < p.drop_rate
+    else:
+        probs = np.minimum(1.0, p.drop_rate * t * w / w.sum())
+        sel = rng.random(t) < probs
+    dropped = np.nonzero(sel)[0]
+    if p.max_drop > 0:  # LightGBM: max_drop <= 0 = no limit
+        dropped = dropped[: p.max_drop]
+    return dropped
+
+
+def _dart_normalize(p: BoostParams, kd: int):
+    """(new_tree_weight, dropped_scale) after a round that dropped
+    ``kd`` trees: lr/(kd+1) classic, lr/(kd+lr) in xgboost_dart_mode."""
+    if kd == 0:
+        return p.learning_rate, 1.0
+    if p.xgboost_dart_mode:
+        return (p.learning_rate / (kd + p.learning_rate),
+                kd / (kd + p.learning_rate))
+    return p.learning_rate / (kd + 1.0), kd / (kd + 1.0)
+
+
+def _weighted_sum(weights: np.ndarray, preds: List[torch.Tensor]
+                  ) -> torch.Tensor:
+    """``sum_i weights[i] * preds[i]`` (the reference's einsum) in float64,
+    added in order and rounded once to float32: each product of two
+    float32 values is exact, so the card and the CPU agree bitwise."""
+    acc = torch.zeros_like(preds[0], dtype=torch.float64)
+    for w, pred in zip(weights, preds):
+        if w != 0.0:
+            acc += float(w) * pred.to(torch.float64)
+    return acc.to(torch.float32)
+
+
+def _train_dart(p: BoostParams, binned: torch.Tensor,
+                index: kernels.BinIndex, target: torch.Tensor, wd, obj_fn,
+                gp: GrowerParams, thresholds: np.ndarray, init: float, k: int,
+                f: int, feature_names) -> Booster:
+    """DART boosting (Rashmi & Gilad-Bachrach), as the reference's
+    ``_train_dart``: each round drops a random subset of the iterations so
+    far (host RNG seeded with ``p.seed``), fits the new trees against the
+    rest, then renormalizes (w_new = lr/(|D|+1), dropped *= |D|/(|D|+1)).
+    An iteration's k class trees share one weight. Each iteration's train
+    predictions stay on the device, so the reduced ensemble's score is a
+    weighted sum, not a traversal. As in the reference, dart grows every
+    tree on all rows and features (bagging, GOSS and feature_fraction do
+    not apply), renews no leaves, and reads no validation set; the
+    reference also splits a JAX key per tree that nothing reads."""
+    n = binned.shape[0]
+    dev = binned.device
+    all_rows = torch.ones(n, dtype=torch.bool, device=dev)
+    rng = np.random.default_rng(p.seed)
+    trees: List[Tree] = []               # class-interleaved, t % k == class
+    iter_preds: List[torch.Tensor] = []  # per iteration: [n] or [n, k]
+    weights: List[float] = []            # one weight per iteration
+    base = torch.full((n, k) if k > 1 else (n,), init, dtype=torch.float32,
+                      device=dev)
+    for _ in range(p.num_iterations):
+        t = len(iter_preds)
+        dropped = _dart_select(rng, t, np.asarray(weights, np.float64), p)
+        w_used = np.asarray(weights, np.float32)
+        w_used[dropped] = 0.0
+        score_used = base + _weighted_sum(w_used, iter_preds) if t else base
+        g, h = obj_fn(score_used, target, wd)
+        preds = []
+        for c in range(k):
+            gc, hc = ((g[:, c].contiguous(), h[:, c].contiguous()) if k > 1
+                      else (g, h))
+            tree, row_slot, slot_value, _ = build_tree(
+                binned, gc, hc, all_rows, thresholds, gp, index=index)
+            trees.append(tree)
+            preds.append(slot_value[row_slot.long()])
+        iter_preds.append(torch.stack(preds, dim=1) if k > 1 else preds[0])
+        new_w, scale = _dart_normalize(p, len(dropped))
+        for d in dropped:
+            weights[d] *= scale
+        weights.append(float(new_w))
+
+    stacked = _stack_trees(trees)
+    booster = Booster(
+        trees_feature=stacked.split_feature,
+        trees_threshold=stacked.threshold,
+        trees_left=stacked.left_child,
+        trees_right=stacked.right_child,
+        trees_value=stacked.leaf_value,
+        trees_cover=stacked.cover,
+        trees_gain=stacked.gain,
+        # iteration weights expanded to the class-interleaved tree stack
+        tree_weights=np.repeat(np.asarray(weights, np.float32), k),
+        params=p, init_score=init, num_class=k, num_features=f,
+        feature_names=feature_names)
+    booster.feature_importance_split, booster.feature_importance_gain = (
+        _importances(booster, f))
+    return booster
+
+
 def train(
     p: BoostParams,
     x: np.ndarray,
@@ -678,6 +909,7 @@ def train(
     mesh=None,
     init_model: Optional[Booster] = None,
     checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 0,
     learning_rates: Optional[np.ndarray] = None,
     iteration_hook: Optional[Callable[[int], None]] = None,
     device: str = device_policy.DEFAULT_DEVICE,
@@ -686,14 +918,18 @@ def train(
     the CPU).
 
     ``init_model`` continues boosting from an existing booster's margins
-    (the reference's batch-model threading, LightGBMBase.scala:49-61).
-    ``learning_rates`` is an optional per-iteration shrinkage schedule
-    (the delegate's dynamic-LR hook, LightGBMDelegate.scala:57-61).
-    ``iteration_hook(iters_done)`` fires after every iteration.
-    ``mesh`` and ``checkpoint_dir`` are not ported and raise.
+    (the reference's batch-model threading, LightGBMBase.scala:49-61, and
+    the resume half of step checkpointing). ``checkpoint_dir`` (with
+    ``checkpoint_every``) writes a loadable partial model where the
+    reference's scan chunks end, at most every ``checkpoint_every``
+    iterations (:func:`save_checkpoint`); a killed run resumes through
+    :func:`load_checkpoint` and ``init_model``. ``learning_rates`` is an
+    optional per-iteration shrinkage schedule (the delegate's dynamic-LR
+    hook, LightGBMDelegate.scala:57-61). ``iteration_hook(iters_done)``
+    fires after every iteration. ``mesh`` is not ported and raises.
     """
     dev = device_policy.resolve(device)
-    _check_ported(p, mesh, checkpoint_dir)
+    _check_ported(p, mesh)
     if p.num_iterations < 1:
         raise ValueError(f"num_iterations must be >= 1, got {p.num_iterations}")
     x = np.asarray(x, dtype=np.float64)
@@ -710,19 +946,23 @@ def train(
     obj_fn = _objective_fn(p)
     init, init_margins = _resume_state(p, init_model, k, x,
                                        _init_score(p, y, weight), dev)
+    _validate_loop_extras(p, checkpoint_dir)
     learning_rates = _validate_lr_schedule(p, learning_rates)
 
     yd = torch.from_numpy(y).to(dev)
     wd = (torch.from_numpy(np.asarray(weight, np.float32)).to(dev)
           if weight is not None else None)
+    y_onehot = (torch.nn.functional.one_hot(yd.long(), k).to(torch.float32)
+                if k > 1 else None)
+    if p.boosting_type == "dart":
+        return _train_dart(p, binned, index, y_onehot if k > 1 else yd, wd,
+                           obj_fn, gp, thresholds, init, k, f, feature_names)
     if init_margins is not None:
         scores = torch.from_numpy(np.ascontiguousarray(
             init_margins if k > 1 else init_margins[:, 0], np.float32)).to(dev)
     else:
         scores = torch.full((n, k) if k > 1 else (n,), init,
                             dtype=torch.float32, device=dev)
-    y_onehot = (torch.nn.functional.one_hot(yd.long(), k).to(torch.float32)
-                if k > 1 else None)
     renew_alpha = None
     if k == 1 and p.objective in ("regression_l1", "l1", "mae"):
         renew_alpha = 0.5
@@ -737,20 +977,45 @@ def train(
             num_iteration=init_model.num_iterations, device=dev)
         tracker.vsum = torch.from_numpy(np.ascontiguousarray(
             vraw.reshape(-1, k) - init, np.float32)).to(dev)
+    ckpt_every = (_checkpoint_every(p, tracker, checkpoint_every)
+                  if checkpoint_dir is not None else 0)
 
-    row_mask = torch.ones(n, dtype=torch.bool, device=dev)
+    is_rf = p.boosting_type == "rf"
+    sample_rows = (p.boosting_type == "goss" or is_rf or (
+        p.bagging_freq > 0 and (p.bagging_fraction < 1.0 or _stratified(p))))
+    sample_features = p.feature_fraction < 1.0
+    # the reference's key stream: one split of PRNGKey(seed) a tree, then
+    # one key for the rows and one for the features
+    rng = (prng.prng_key(p.seed, dev) if sample_rows or sample_features
+           else None)
+    all_rows = torch.ones(n, dtype=torch.bool, device=dev)
     trees: List[Tree] = []
     for it in range(p.num_iterations):
-        lr = (learning_rates[it] if learning_rates is not None
-              else p.learning_rate)
+        if is_rf:
+            lr = 1.0
+        elif learning_rates is not None:
+            lr = learning_rates[it]
+        else:
+            lr = p.learning_rate
         for c in range(k):
+            # rf fits every tree to the gradients at the init score
+            base = torch.full_like(scores, init) if is_rf else scores
             if k > 1:
-                g, h = obj_fn(scores, y_onehot, wd)
+                g, h = obj_fn(base, y_onehot, wd)
                 g, h = g[:, c].contiguous(), h[:, c].contiguous()
             else:
-                g, h = obj_fn(scores, yd, wd)
+                g, h = obj_fn(base, yd, wd)
+            row_mask, tree_bins, tree_index = all_rows, binned, index
+            if rng is not None:
+                rng, key = prng.split(rng)
+                row_key, feature_key = prng.split(key)
+                if sample_rows:
+                    row_mask, g, h = _sample_rows(p, g, h, yd, row_key)
+                if sample_features:
+                    tree_bins, tree_index = kernels.mask_features(
+                        index, binned, _feature_keep(p, f, feature_key))
             tree, row_slot, slot_value, slot_node = build_tree(
-                binned, g, h, row_mask, thresholds, gp, index=index)
+                tree_bins, g, h, row_mask, thresholds, gp, index=tree_index)
             if renew_alpha is not None:
                 tree, slot_value = _renew_leaves(
                     tree, yd - scores, row_slot, slot_value, slot_node,
@@ -768,14 +1033,27 @@ def train(
         if iteration_hook is not None:
             iteration_hook(it + 1)
         if stop:
-            break
+            break    # a stopped run writes no checkpoint past its last one
+        done = it + 1
+        if ckpt_every and (done % ckpt_every == 0
+                           or done == p.num_iterations):
+            save_checkpoint(checkpoint_dir, _combined_booster(
+                trees, p, k, init, f, feature_names, tracker, init_model,
+                compute_importances=False), done, p.num_iterations)
 
-    stacked = Tree(**{fld.name: np.stack([getattr(t, fld.name)
-                                          for t in trees])
-                      for fld in dataclasses.fields(Tree)})
+    return _combined_booster(trees, p, k, init, f, feature_names, tracker,
+                             init_model)
+
+
+def _combined_booster(trees: List[Tree], p: BoostParams, k: int,
+                      init: float, f: int, feature_names,
+                      tracker: _ValidTracker, init_model: Optional[Booster],
+                      compute_importances: bool = True) -> Booster:
+    """The booster of ``init_model``'s trees followed by ``trees``."""
     booster = _assemble_booster(
-        _prepend_init_trees(init_model, stacked), p, k, init, f,
-        feature_names, tracker, init_model=init_model)
+        _prepend_init_trees(init_model, _stack_trees(trees)), p, k, init, f,
+        feature_names, tracker, init_model=init_model,
+        compute_importances=compute_importances)
     if init_model is not None and booster.best_iteration >= 0:
         # best_iteration indexes the combined tree stack
         booster.best_iteration += init_model.num_iterations

@@ -33,13 +33,13 @@ does about that. On a CPU tensor the wrapper runs
 
 There is no fallback: a CUDA tensor takes the kernel or the call raises.
 Each wrapper counts its launches in ``<wrapper>.launches``, and
-:func:`bin_index` its builds in ``bin_index.builds``.
+:func:`bin_index` and :func:`mask_features` their builds in ``.builds``.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -68,21 +68,34 @@ def histogram_reference(binned: torch.Tensor, data: torch.Tensor,
 @dataclasses.dataclass(frozen=True)
 class BinIndex:
     """The rows of a binned matrix sorted by bin, feature by feature: what
-    K1 walks. Built by :func:`bin_index` for one (N, F, n_bins)."""
+    K1 walks. Built by :func:`bin_index` (or :func:`mask_features`) from
+    one binned tensor, which it holds as ``source`` with that tensor's
+    version counter at the time, so that it describes no other bins."""
     order: torch.Tensor   # [F, N] int32: row ids, stably sorted by bin
     start: torch.Tensor   # [F, n_bins + 1] int32: where bin b's rows begin
     n: int
     f: int
     n_bins: int
+    source: torch.Tensor = dataclasses.field(repr=False, compare=False)
+    version: int = dataclasses.field(compare=False)
 
     def check(self, binned: torch.Tensor, n_bins: int) -> None:
-        """Raise unless this index was built for ``binned``'s shape and
-        ``n_bins``."""
+        """Raise unless this index was built from ``binned`` itself (the
+        same memory, layout and dtype, not written since) and ``n_bins``."""
         if (self.n, self.f, self.n_bins) != (*binned.shape, n_bins):
             raise ValueError(
                 f"bin index built for (N, F, n_bins) = ({self.n}, {self.f}, "
                 f"{self.n_bins}), used for ({', '.join(map(str, binned.shape))}"
                 f", {n_bins})")
+        src = self.source
+        if (binned.device != src.device or binned.dtype != src.dtype
+                or binned.data_ptr() != src.data_ptr()
+                or binned.stride() != src.stride()):
+            raise ValueError("bin index built from another binned tensor "
+                             "than the one it is used with")
+        if binned._version != self.version:
+            raise ValueError("bin index built before its binned tensor was "
+                             "written in place")
 
 
 def _check_bins(name: str, binned: torch.Tensor, n_bins: int) -> None:
@@ -109,10 +122,36 @@ def bin_index(binned: torch.Tensor, n_bins: int) -> BinIndex:
     start = torch.searchsorted(keys, bounds, out_int32=True)
     bin_index.builds += 1
     return BinIndex(order.to(torch.int32).contiguous(), start.contiguous(),
-                    n, f, int(n_bins))
+                    n, f, int(n_bins), binned, binned._version)
 
 
 bin_index.builds = 0
+
+
+def mask_features(index: BinIndex, binned: torch.Tensor,
+                  keep: torch.Tensor) -> Tuple[torch.Tensor, BinIndex]:
+    """Bins with the features outside ``keep`` [F] bool moved to the last
+    bin (``feature_fraction``: such a feature has one bin, so it never
+    splits), and their index, derived from ``index`` (``binned``'s) without
+    a sort: a moved feature's rows are ``arange(N)``, all in the last
+    segment, which is what :func:`bin_index` of the moved bins gives.
+    Counted in ``mask_features.builds``."""
+    index.check(binned, index.n_bins)
+    last = index.n_bins - 1
+    moved = torch.where(keep[None, :], binned,
+                        torch.full_like(binned, last)).contiguous()
+    rows = torch.arange(index.n, dtype=torch.int32, device=binned.device)
+    one_segment = torch.full((index.n_bins + 1,), 0, dtype=torch.int32,
+                             device=binned.device)
+    one_segment[-1] = index.n
+    order = torch.where(keep[:, None], index.order, rows[None, :])
+    start = torch.where(keep[:, None], index.start, one_segment[None, :])
+    mask_features.builds += 1
+    return moved, BinIndex(order.contiguous(), start.contiguous(), index.n,
+                           index.f, index.n_bins, moved, moved._version)
+
+
+mask_features.builds = 0
 
 
 def _hist_launcher():
@@ -135,9 +174,11 @@ def histogram(binned: torch.Tensor, data: torch.Tensor, n_bins: int,
     65,536 bins); data [N, 3] f32, contiguous, on the same device: the
     (grad, hess, count) of each row, zero for masked rows. ``index`` is
     ``bin_index(binned, n_bins)``, built once by the caller that launches
-    K1 many times on the same bins; it must match (N, F, n_bins), else the
-    call raises. CPU tensors run :func:`histogram_reference` (a given index
-    is checked, then not read); CUDA tensors launch ``csrc/histogram.cu``
+    K1 many times on the same bins; it must have been built from this
+    ``binned`` tensor, unwritten since, and ``n_bins``
+    (:meth:`BinIndex.check`), else the call raises. CPU tensors run
+    :func:`histogram_reference` (a given index is checked, then not
+    read); CUDA tensors launch ``csrc/histogram.cu``
     on the index (built here when none is given) and count it in
     ``histogram.launches``.
     """

@@ -208,6 +208,62 @@ def test_histogram_checks_a_given_index_on_the_cpu():
             kernels.histogram(binned, data, 16, index=other)
 
 
+def test_histogram_refuses_a_stale_index_of_the_right_shape():
+    """An index describes the one tensor it was built from: a copy with
+    other bins, or the same tensor written in place after the build, is
+    refused (on the card K1 would walk the old bins' order)."""
+    rng = np.random.default_rng(4)
+    binned = _t(rng.integers(0, 16, (500, 3)).astype(np.uint8))
+    data = _t(_data(rng, 500, 0.5))
+    index = kernels.bin_index(binned, 16)
+    other = binned.flip(0).contiguous()            # same shape, other bins
+    with pytest.raises(ValueError, match="bin index built from another"):
+        kernels.histogram(other, data, 16, index=index)
+    with pytest.raises(ValueError, match="bin index built from another"):
+        kernels.histogram(binned.clone(), data, 16, index=index)
+    kernels.histogram(binned, data, 16, index=index)
+    binned[0, 0] = 15 - binned[0, 0]
+    with pytest.raises(ValueError, match="bin index built before"):
+        kernels.histogram(binned, data, 16, index=index)
+    assert torch.equal(kernels.histogram(binned, data, 16,
+                                         index=kernels.bin_index(binned, 16)),
+                       kernels.histogram_reference(binned, data, 16))
+
+
+@pytest.mark.parametrize("keep", [
+    [False, True, True, False, True],     # feature 0 moved
+    [True, False, True, True, False],     # feature 0 kept
+    [False, False, False, True, False],   # one feature left
+    [True] * 5,
+], ids=["f0_moved", "f0_kept", "one_left", "none_moved"])
+@pytest.mark.parametrize("n_bins,dtype", [(256, np.uint8),
+                                          (1024, np.uint16)])
+def test_mask_features_is_the_index_of_the_moved_bins(keep, n_bins, dtype):
+    """``feature_fraction``'s per-tree index, derived without a sort, is
+    ``bin_index`` of the moved bins bitwise (what K1 then walks), and the
+    walk of it is the plain version of the moved bins, bitwise."""
+    rng = np.random.default_rng(n_bins + sum(keep))
+    binned = _t(rng.integers(0, n_bins, (3_001, 5)).astype(dtype))
+    index = kernels.bin_index(binned, n_bins)
+    builds = (kernels.bin_index.builds, kernels.mask_features.builds)
+    moved, masked = kernels.mask_features(index, binned, torch.tensor(keep))
+    assert (kernels.bin_index.builds,
+            kernels.mask_features.builds) == (builds[0], builds[1] + 1)
+    want = torch.where(torch.tensor(keep)[None, :], binned,
+                       torch.full_like(binned, n_bins - 1))
+    assert moved.dtype == binned.dtype and torch.equal(moved, want)
+    fresh = kernels.bin_index(moved, n_bins)
+    assert torch.equal(masked.order, fresh.order)
+    assert torch.equal(masked.start, fresh.start)
+    data = _data(rng, 3_001, 0.6)
+    plain = kernels.histogram_reference(moved, _t(data), n_bins)
+    assert torch.equal(kernels.histogram(moved, _t(data), n_bins,
+                                         index=masked), plain)
+    assert _bitwise_equal(_walk(masked, data), plain.numpy())
+    with pytest.raises(ValueError, match="bin index"):
+        kernels.histogram(binned, _t(data), n_bins, index=masked)
+
+
 @pytest.mark.parametrize("seed,kw", [(0, {}), (1, dict(max_depth=3)),
                                      (2, dict(lambda_l1=0.5))])
 def test_build_tree_with_index_is_the_tree_without(seed, kw):

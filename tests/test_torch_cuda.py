@@ -179,6 +179,45 @@ def test_histogram_raises_on_an_index_it_was_not_built_for(card):
             kernels.histogram(bd, dd, 16, index=other)
 
 
+def test_histogram_refuses_a_stale_index_of_the_right_shape(card):
+    rng = np.random.default_rng(2)
+    binned, data = _hist_inputs(rng, 1000, 3, 16, np.uint8, 1.0)
+    bd, dd = binned.to(card), data.to(card)
+    index = kernels.bin_index(bd, 16)
+    with pytest.raises(ValueError, match="bin index built from another"):
+        kernels.histogram(bd.flip(0).contiguous(), dd, 16, index=index)
+    bd[0, 0] = 15 - bd[0, 0]
+    with pytest.raises(ValueError, match="bin index built before"):
+        kernels.histogram(bd, dd, 16, index=index)
+
+
+@pytest.mark.parametrize("f0_moved", [True, False])
+def test_histogram_on_a_masked_index_bitwise_equals_plain_version(card,
+                                                                  f0_moved):
+    """``feature_fraction``'s per-tree index (``mask_features``): the
+    card's equals the CPU's and ``bin_index`` of the moved bins, and K1 on
+    it is the plain version of the moved bins, bitwise."""
+    rng = np.random.default_rng(3)
+    binned, data = _hist_inputs(rng, 32_561, 14, 256, np.uint8, 0.8)
+    keep = torch.from_numpy(rng.random(14) < 0.8)
+    keep[0] = not f0_moved
+    bd, dd = binned.to(card), data.to(card)
+    moved, masked = kernels.mask_features(kernels.bin_index(bd, 256), bd,
+                                          keep.to(card))
+    cpu_moved, cpu_masked = kernels.mask_features(
+        kernels.bin_index(binned, 256), binned, keep)
+    fresh = kernels.bin_index(moved, 256)
+    for a, b in ((masked.order, cpu_masked.order),
+                 (masked.start, cpu_masked.start),
+                 (masked.order, fresh.order), (masked.start, fresh.start),
+                 (moved, cpu_moved)):
+        assert torch.equal(a.cpu(), b.cpu())
+    got = kernels.histogram(moved, dd, 256, index=masked)
+    torch.cuda.synchronize()
+    want = kernels.histogram_reference(cpu_moved, data, 256)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
 def test_histogram_five_launches_are_bitwise_identical(card):
     binned, data = _hist_inputs(np.random.default_rng(0), 32_561, 14, 256,
                                 np.uint8, 1.0)

@@ -521,11 +521,6 @@ def test_estimator_validation_and_batches_match_jax():
 # -- what the slice does not port, and the device rule ---------------------
 
 @pytest.mark.parametrize("kw", [
-    dict(boosting_type="goss"), dict(boosting_type="rf"),
-    dict(boosting_type="dart"),
-    dict(bagging_fraction=0.5, bagging_freq=1),
-    dict(pos_bagging_fraction=0.5, bagging_freq=1),
-    dict(feature_fraction=0.5),
     dict(objective="lambdarank"),
     dict(categorical_features=(1,)),
     dict(tree_learner="voting_parallel"),
@@ -537,8 +532,7 @@ def test_unported_options_raise(kw):
                        device="cpu")
 
 
-@pytest.mark.parametrize("extra", [dict(mesh=object()),
-                                   dict(checkpoint_dir="ckpt")])
+@pytest.mark.parametrize("extra", [dict(mesh=object())])
 def test_unported_train_arguments_raise(extra):
     x, ys = _rows(n=100)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -563,7 +557,7 @@ def test_ranker_and_estimator_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         estimators.LightGBMRanker().fit(table, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        estimators.LightGBMClassifier(boosting_type="dart").fit(
+        estimators.LightGBMClassifier(categorical_slot_indexes=[1]).fit(
             table, device="cpu")
 
 
