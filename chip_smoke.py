@@ -41,14 +41,30 @@ before the last line:
    bagging fitted on the card and on the CPU by the same port code:
    bitwise, GOSS binary and 3-class within the margin tolerance (a GOSS
    near-tie may flip a split);
-9. times   — kernel, plain-version and library-call times (CUDA events
+9. train_categorical_adult — LightGBMClassifier(100 iterations, 31
+   leaves, 8 categorical columns) on the categorical Adult rows (32,561 x
+   14, UCI Adult's layout and category counts, 2% NaN occupation) on the
+   card, held to the JAX-trained fixture at phase 6's tolerances and
+   bitwise to the port's CPU fit of the same rows;
+10. train_ranker — LightGBMRanker(100 iterations, 31 leaves) on rows
+   at MSLR-WEB10K's width (300 queries, 36,666 x 136, labels 0-4) on the
+   card, held to the JAX-trained fixture (mean margin gap on its query
+   rows within 1e-3, training NDCG@30 within 1e-3);
+11. train_ranker_card_vs_cpu — rankers fitted on the card and on the CPU
+   by the same port code (blocked and dense lambdarank, rank_xendcg,
+   weights, GOSS, bagging with feature_fraction, early stopping on a
+   grouped validation set), each bitwise or within 1e-4;
+12. times   — kernel, plain-version and library-call times (CUDA events
    around calls queued behind a device-side spin, median of repeats after
    a warm-up; the inputs stay in L2), K1's host time a call, the
    kernels' bounds, the bin index's build time, the transform's rows/s,
    the fit's wall seconds and rows*iterations/s, a breakdown of one fit
    and the card's kernel time during one fit (torch.profiler); then the
    sampled fit's seconds, rows*iterations/s and kernel time, and the host
-   time a tree's key stream and masks take.
+   time a tree's key stream and masks take; then the ranker fit's and the
+   categorical fit's seconds and rows*iterations/s, the ranker fit's
+   breakdown with the LambdaRank gradient as its own part and its device
+   busy share, and the gradient's device ms at the fit's shape.
 
 Between phases 3 and 4: prng_card_vs_cpu (the threefry key stream on the
 card equal to the CPU's, bitwise) and masked_index (K1 on a
@@ -66,6 +82,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -80,6 +97,7 @@ SAMPLED_IO = os.path.join(HERE, "tests", "fixtures",
                           "lgbm_adult_100x31_bag08_ff08_io.npz")
 SAMPLED_PARAMS = dict(bagging_fraction=0.8, bagging_freq=1,
                       feature_fraction=0.8, seed=0)
+FIXTURES = os.path.join(HERE, "tests", "fixtures")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 N_MAIN, N_LARGE = 65_536, 1_048_576
@@ -87,6 +105,7 @@ PROB_ATOL = 1e-7              # only if numpy's exp differs from the fixture's
 LOGLOSS_TOL = 1e-4            # training logloss, port fit vs JAX fixture
 MARGIN_TOL_FIXTURE = 1e-3     # mean |margin| gap on the fixture's rows
 MARGIN_TOL_CPU = 1e-4         # card fit vs CPU fit of the same port code
+NDCG_TOL = 1e-3               # training NDCG@30, port ranker vs JAX fixture
 
 
 def emit(obj) -> None:
@@ -191,13 +210,15 @@ def fit_breakdown(fit) -> dict:
     launches, the rest of the per-leaf histogram (the [N, 3] data), the
     split search, the row partition, the host syncs (device-to-host copies
     of each split's numbers), a sampled fit's row sampling (bagging or
-    GOSS) and feature sampling (the permutation and the masked index), and
-    everything else; plus the number of host syncs."""
-    from synapseml_tpu_torch.gbdt import boosting, grower, kernels
+    GOSS) and feature sampling (the permutation and the masked index), a
+    ranker's LambdaRank gradient, and everything else; plus the number of
+    host syncs."""
+    from synapseml_tpu_torch.gbdt import boosting, grower, kernels, objectives
 
     parts = {"bin_index": 0.0, "k1": 0.0, "histogram_data": 0.0,
              "split_search": 0.0, "partition": 0.0, "host_syncs": 0.0,
-             "row_sampling": 0.0, "feature_sampling": 0.0}
+             "row_sampling": 0.0, "feature_sampling": 0.0,
+             "lambdarank_grad": 0.0}
     count = {"host_syncs": 0}
     originals = {}
 
@@ -228,6 +249,8 @@ def fit_breakdown(fit) -> dict:
     wrap(boosting, "_sample_rows", "row_sampling")
     wrap(boosting, "_feature_keep", "feature_sampling")
     wrap(kernels, "mask_features", "feature_sampling")
+    wrap(objectives, "lambdarank_grad_blocked", "lambdarank_grad")
+    wrap(objectives, "lambdarank_grad", "lambdarank_grad")
     try:
         torch.cuda.synchronize()
         start = time.perf_counter()
@@ -375,11 +398,15 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from synapseml_tpu_torch import _build
     from synapseml_tpu_torch.data.table import Table
-    from synapseml_tpu_torch.gbdt import boosting, grower, prng
+    sys.path.insert(0, FIXTURES)
+    import make_lgbm_adult_cat_fixture as cat_fx
+    import make_lgbm_rank_fixture as rank_fx
+    from synapseml_tpu_torch.gbdt import boosting, grower, objectives, prng
     from synapseml_tpu_torch.gbdt.binning import BinMapper
     from synapseml_tpu_torch.gbdt.boosting import Booster
     from synapseml_tpu_torch.gbdt.estimators import (
-        LightGBMClassificationModel, LightGBMClassifier, LightGBMRegressor)
+        LightGBMClassificationModel, LightGBMClassifier, LightGBMRanker,
+        LightGBMRegressor)
     from synapseml_tpu_torch.gbdt.kernels import (
         bin_index, forest_traverse, forest_traverse_reference, histogram,
         histogram_reference, mask_features)
@@ -784,16 +811,25 @@ def main() -> int:
         raw = {dev: b.predict_raw(query, device=dev)
                for dev, b in boosters.items()}
         same_dev = same_trees(boosters["cuda"], boosters["cpu"])
+        gap = float(np.abs(raw["cuda"] - raw["cpu"]).max())
         result = {
             "fit": name, "rows": list(table["features"].shape),
             "trees": len(same_dev), "identical_trees": sum(same_dev),
+            "bitwise": bool(all(same_dev) and gap == 0.0 and np.array_equal(
+                boosters["cuda"].trees_value, boosters["cpu"].trees_value)),
             "first_difference": first_difference(
                 boosters["cuda"], boosters["cpu"], same_dev),
-            "margin_max_gap": float(np.abs(raw["cuda"] - raw["cpu"]).max()),
+            "margin_max_gap": gap,
             "tree_weights_equal": bool(np.array_equal(
                 boosters["cuda"].tree_weights, boosters["cpu"].tree_weights)),
             "best_iteration": {d: b.best_iteration
                                for d, b in boosters.items()},
+            "eval_history_equal": (boosters["cuda"].eval_history
+                                   == boosters["cpu"].eval_history),
+            "eval_history_max_gap": max(
+                [abs(a - b) for k, h in boosters["cuda"].eval_history.items()
+                 for a, b in zip(h, boosters["cpu"].eval_history[k])],
+                default=0.0),
             "bitwise_required": bitwise}
         check(result["margin_max_gap"] <= MARGIN_TOL_CPU,
               f"{name}: card and CPU margins differ by "
@@ -867,6 +903,209 @@ def main() -> int:
     mode_results = [card_and_cpu(*m) for m in modes]
     emit({"phase": "train_modes_card_vs_cpu", "margin_tol": MARGIN_TOL_CPU,
           "fits": mode_results})
+
+    # -- 9. categorical Adult fit ------------------------------------------
+    x_cat, y_cat = cat_fx.adult_cat_rows()
+    cat_table = Table({"features": x_cat, "label": y_cat})
+    with open(cat_fx.MODEL) as fh:
+        cat_fixture = Booster.load_string(fh.read())
+    cat_io = np.load(cat_fx.IO)
+
+    def cat_fit(device="cuda"):
+        return LightGBMClassifier(**cat_fx.PARAMS).fit(cat_table,
+                                                       device=device)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    cat_model = cat_fit()
+    torch.cuda.synchronize()
+    cat_first_s = time.perf_counter() - start
+    out_cat = cat_model.transform(Table({"features": cat_io["x"]}),
+                                  device="cuda")
+    cat_counts = read_counts()
+    cat_splits = int((cat_model.booster.trees_feature >= 0).sum())
+    cat_rt = Booster.load_string(cat_model.booster.save_string())
+    same_cat = same_trees(cat_rt, cat_fixture)
+    ll_cat = logloss(cat_model.booster.predict_raw(x_cat, device="cuda"),
+                     y_cat)
+    ll_cat_fixture = logloss(cat_fixture.predict_raw(x_cat, device="cuda"),
+                             y_cat)
+    raw_cat = out_cat["rawPrediction"]
+    cat_gap = np.abs(raw_cat[:, 1] - cat_io["raw"])
+    cat_cpu = cat_fit("cpu").booster
+    same_cat_cpu = same_trees(cat_model.booster, cat_cpu)
+    cat_bitwise_cpu = bool(
+        all(same_cat_cpu)
+        and np.array_equal(cat_model.booster.trees_value, cat_cpu.trees_value)
+        and np.array_equal(raw_cat[:, 1],
+                           cat_cpu.predict_raw(cat_io["x"], device="cpu")))
+    emit({"phase": "train_categorical_adult",
+          "config": "LightGBMClassifier(num_iterations=100, num_leaves=31, "
+                    "learning_rate=0.1, categorical_slot_indexes="
+                    f"{cat_fx.CATEGORICAL})",
+          "fixture_jax_version": str(cat_io["jax_version"]),
+          "rows": list(x_cat.shape), "launches": cat_counts, "splits": cat_splits,
+          "trees": len(same_cat),
+          "identical_trees_vs_jax_fixture": sum(same_cat),
+          "first_difference": first_difference(cat_rt, cat_fixture,
+                                               same_cat),
+          "splits_on_categorical_columns": int(np.isin(
+              cat_model.booster.trees_feature, cat_fx.CATEGORICAL).sum()),
+          "train_logloss": ll_cat, "train_logloss_jax_fixture": ll_cat_fixture,
+          "margin_gap_mean": float(cat_gap.mean()),
+          "margin_gap_max": float(cat_gap.max()),
+          "identical_trees_vs_cpu_fit": sum(same_cat_cpu),
+          "bitwise_vs_cpu_fit": cat_bitwise_cpu, "fit_first_s": cat_first_s})
+    check(cat_counts["histogram"] == 100 + cat_splits,
+          f"{cat_counts['histogram']} K1 launches for {cat_splits} splits")
+    check(cat_counts["bin_index_builds"] == 1,
+          f"the categorical fit built {cat_counts['bin_index_builds']} "
+          "bin indexes")
+    check(cat_counts["forest_traverse"] >= 1,
+          "transform of the categorical model did not launch K2")
+    check(raw_cat.shape == (len(cat_io["x"]), 2)
+          and bool(np.isfinite(raw_cat).all()), "categorical margins")
+    check(abs(ll_cat - ll_cat_fixture) <= LOGLOSS_TOL,
+          f"categorical training logloss {ll_cat} vs the JAX fixture's "
+          f"{ll_cat_fixture}")
+    check(float(cat_gap.mean()) <= MARGIN_TOL_FIXTURE,
+          f"categorical mean margin gap {cat_gap.mean()}")
+    check(not all(same_cat) or float(cat_gap.max()) <= MARGIN_TOL_FIXTURE,
+          f"categorical max margin gap {cat_gap.max()} with all trees "
+          "identical")
+    check(cat_bitwise_cpu, "the categorical card fit is not bitwise the "
+          "CPU fit")
+
+    # -- 10. the ranker ------------------------------------------------------
+    x_rank, y_rank, g_rank = rank_fx.rank_rows(seed=rank_fx.SEED)
+    rank_table = Table({"features": x_rank, "label": y_rank,
+                        "query": g_rank})
+    with open(rank_fx.MODEL) as fh:
+        rank_fixture = Booster.load_string(fh.read())
+    rank_io = np.load(rank_fx.IO)
+    q_rank, _, _ = rank_fx.rank_rows(rank_fx.QUERY_QUERIES,
+                                     seed=rank_fx.QUERY_SEED)
+
+    def rank_fit():
+        return LightGBMRanker(**rank_fx.PARAMS).fit(rank_table,
+                                                    device="cuda")
+
+    reset_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    ranker = rank_fit()
+    torch.cuda.synchronize()
+    rank_first_s = time.perf_counter() - start
+    out_rank = ranker.transform(Table({"features": q_rank}),
+                                device="cuda")["prediction"]
+    rank_counts = read_counts()
+    rank_splits = int((ranker.booster.trees_feature >= 0).sum())
+    rank_rt = Booster.load_string(ranker.booster.save_string())
+    same_rank = same_trees(rank_rt, rank_fixture)
+    rank_gap = np.abs(out_rank - rank_io["raw"])
+    ndcg = boosting._ndcg_score(
+        ranker.booster.predict_raw(x_rank, device="cuda"), y_rank, g_rank,
+        rank_fx.MAX_POSITION)
+    ndcg_fixture = float(rank_io["train_ndcg30"])
+    qidx, qmask, _ = objectives.build_query_blocks(g_rank)
+    emit({"phase": "train_ranker",
+          "config": "LightGBMRanker(num_iterations=100, num_leaves=31, "
+                    "learning_rate=0.1, max_position=30)",
+          "fixture_jax_version": str(rank_io["jax_version"]),
+          "rows": list(x_rank.shape), "queries": int(qidx.shape[0]),
+          "max_query": int(qidx.shape[1]), "query_rows": len(q_rank),
+          "launches": rank_counts, "splits": rank_splits,
+          "trees": len(same_rank),
+          "identical_trees_vs_jax_fixture": sum(same_rank),
+          "first_difference": first_difference(rank_rt, rank_fixture,
+                                               same_rank),
+          "train_ndcg30": ndcg, "train_ndcg30_jax_fixture": ndcg_fixture,
+          "ndcg_tol": NDCG_TOL,
+          "margin_gap_mean": float(rank_gap.mean()),
+          "margin_gap_max": float(rank_gap.max()),
+          "fit_first_s": rank_first_s})
+    check(rank_counts["histogram"] == 100 + rank_splits,
+          f"{rank_counts['histogram']} K1 launches for {rank_splits} splits")
+    check(rank_counts["bin_index_builds"] == 1,
+          f"the ranker fit built {rank_counts['bin_index_builds']} bin "
+          "indexes")
+    check(rank_counts["forest_traverse"] >= 1,
+          "transform of the ranker did not launch K2")
+    check(out_rank.shape == (len(q_rank),)
+          and bool(np.isfinite(out_rank).all()), "ranker margins")
+    check(float(rank_gap.mean()) <= MARGIN_TOL_FIXTURE,
+          f"ranker mean margin gap {rank_gap.mean()} to the JAX fixture")
+    check(abs(ndcg - ndcg_fixture) <= NDCG_TOL,
+          f"ranker training NDCG@30 {ndcg} vs the JAX fixture's "
+          f"{ndcg_fixture}")
+    check(not all(same_rank) or float(rank_gap.max()) <= MARGIN_TOL_FIXTURE,
+          f"ranker max margin gap {rank_gap.max()} with all trees identical")
+
+    # -- 11. rankers, card against CPU ----------------------------------------
+    def fit_xendcg(table, device):
+        """rank_xendcg through ``boosting.train``: ``LightGBMRanker``, as
+        the reference's, always trains lambdarank."""
+        return types.SimpleNamespace(booster=boosting.train(
+            boosting.BoostParams(objective="rank_xendcg", num_iterations=15,
+                                 num_leaves=31),
+            table["features"], table["label"], None, table["query"],
+            device=device))
+
+    xr1, yr1, gr1 = rank_fx.rank_rows(165, 20, seed=3)
+    rank_small = Table({"features": xr1, "label": yr1, "query": gr1})
+    weighted_small = rank_small.with_column(
+        "w", np.random.default_rng(4).random(len(yr1)) + 0.5)
+    # early stopping runs ~100 iterations: fewer rows keep its CPU fit short
+    xr2, yr2, gr2 = rank_fx.rank_rows(70, 20, seed=6)
+    valid_small = Table({"features": xr2, "label": yr2, "query": gr2,
+                         "valid": gr2 % 5 == 0})
+    # one query of 5,000 documents among 500 of two: the dense form
+    rng_d = np.random.default_rng(5)
+    g_dense = np.concatenate([np.zeros(5000, np.int64),
+                              1 + np.arange(1000) // 2])
+    x_dense = rng_d.normal(size=(6000, 20)).astype(np.float32)
+    y_dense = np.clip(np.floor(x_dense[:, 0] + rng_d.normal(size=6000) + 2),
+                      0, 4)
+    q_d, gmax_d = objectives.build_query_blocks(g_dense)[0].shape
+    check(q_d * gmax_d * gmax_d > len(g_dense) ** 2,
+          "the skewed ranker rows do not take the dense form")
+    dense_table = Table({"features": x_dense, "label": y_dense,
+                         "query": g_dense})
+
+    def rank_est(**kw):
+        return lambda: LightGBMRanker(num_leaves=31, **kw)
+
+    rank_modes = [
+        ("lambdarank_blocked", rank_est(num_iterations=15), rank_small,
+         xr1[:2000]),
+        ("lambdarank_dense_skewed", rank_est(num_iterations=10), dense_table,
+         x_dense[:2000]),
+        ("rank_xendcg", lambda: types.SimpleNamespace(fit=fit_xendcg),
+         rank_small, xr1[:2000]),
+        ("weighted", rank_est(num_iterations=15, weight_col="w"),
+         weighted_small, xr1[:2000]),
+        ("goss", rank_est(num_iterations=15, boosting_type="goss"),
+         rank_small, xr1[:2000]),
+        ("bagging_feature_fraction", rank_est(
+            num_iterations=15, bagging_fraction=0.8, bagging_freq=1,
+            feature_fraction=0.8), rank_small, xr1[:2000]),
+        ("early_stopping_grouped_valid", rank_est(
+            num_iterations=200, learning_rate=0.3, early_stopping_round=10,
+            validation_indicator_col="valid"), valid_small,
+         xr2[gr2 % 5 == 0]),
+    ]
+    rank_results = [card_and_cpu(*m) for m in rank_modes]
+    emit({"phase": "train_ranker_card_vs_cpu", "margin_tol": MARGIN_TOL_CPU,
+          "fits": rank_results})
+    stopped = rank_results[-1]
+    check(stopped["best_iteration"]["cuda"] == stopped["best_iteration"]["cpu"]
+          and 0 <= stopped["best_iteration"]["cuda"] < 199,
+          f"ranker early stopping: best_iteration {stopped['best_iteration']}")
+    check(stopped["eval_history_max_gap"] <= 1e-6 and len(
+        rank_results) == len(rank_modes),
+          "the early-stopped ranker's NDCG history differs card to CPU by "
+          f"{stopped['eval_history_max_gap']}")
 
     # -- 9. times -------------------------------------------------------
     ms = cuda_ms(lambda: forest_traverse(xd_main, *fx_planes, k=1))
@@ -1037,11 +1276,56 @@ def main() -> int:
           "fit_breakdown": fit_breakdown(sampled_fit),
           "fit_device_busy": device_busy(sampled_fit), "nvidia_smi": smi})
 
+    # the ranker and the categorical fit: seconds, rows*iterations/s, the
+    # ranker's breakdown and busy share, and the gradient at its shape
+    rank_s = [rank_first_s]
+    cat_s = [cat_first_s]
+    for _ in range(2):
+        for fit, times_s in ((rank_fit, rank_s), (cat_fit, cat_s)):
+            reset_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            fit()
+            torch.cuda.synchronize()
+            times_s.append(time.perf_counter() - start)
+            check(bin_index.builds == 1,
+                  f"a timed fit built {bin_index.builds} bin indexes")
+    qidx_d, qmask_d, qinv_d = (torch.from_numpy(a).cuda() for a in
+                               objectives.build_query_blocks(g_rank))
+    margins_d = torch.from_numpy(ranker.booster.predict_raw(
+        x_rank, device="cuda").astype(np.float32)).cuda()
+    labels_d = torch.from_numpy(y_rank.astype(np.float32)).cuda()
+    grad_ms = cuda_ms(lambda: objectives.lambdarank_grad_blocked(
+        margins_d, labels_d, qidx_d, qmask_d, qinv_d), reps=3, inner=5)
+    zero_ms = cuda_ms(lambda: objectives.lambdarank_grad_blocked(
+        torch.zeros_like(margins_d), labels_d, qidx_d, qmask_d, qinv_d),
+        reps=3, inner=5)
+    rank_median = statistics.median(rank_s)
+    cat_median = statistics.median(cat_s)
+    n_rank = len(y_rank)
+    emit({"phase": "times_ranker",
+          "rows": list(x_rank.shape), "queries": int(qidx.shape[0]),
+          "pairs_per_gradient": int(qidx.shape[0] * qidx.shape[1] ** 2),
+          "fit_s": rank_s,
+          "fit_rows_iterations_per_s": n_rank * 100 / rank_median,
+          "k1_launches_per_fit": rank_counts["histogram"],
+          "lambdarank_grad_ms": grad_ms,
+          "lambdarank_grad_ms_at_init_margins": zero_ms,
+          "fit_breakdown": fit_breakdown(rank_fit),
+          "fit_device_busy": device_busy(rank_fit),
+          "categorical_fit_s": cat_s,
+          "categorical_fit_rows_iterations_per_s":
+              len(y_cat) * 100 / cat_median,
+          "categorical_over_plain_median": cat_median / fit_median,
+          "nvidia_smi": smi})
+
     emit({"kernels": [{
         "name": "forest_traverse", "route": "cuda",
         "source": "synapseml_tpu_torch/csrc/forest_traverse.cu",
         "replaces": "synapseml_tpu/gbdt/pallas_kernels.py:179",
-        "launches": launches, "max_abs_err": max_err, "bitwise": True,
+        "launches": launches, "launches_ranker_fit":
+        rank_counts["forest_traverse"], "launches_categorical_fit":
+        cat_counts["forest_traverse"], "max_abs_err": max_err, "bitwise": True,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
         "name": "histogram", "route": "cuda",
@@ -1049,6 +1333,8 @@ def main() -> int:
         "replaces": "synapseml_tpu/gbdt/pallas_kernels.py:79",
         "launches": train_counts["histogram"],
         "launches_sampled_fit": sampled_counts["histogram"],
+        "launches_ranker_fit": rank_counts["histogram"],
+        "launches_categorical_fit": cat_counts["histogram"],
         "max_abs_err": k1_max_err,
         "bitwise": True, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],

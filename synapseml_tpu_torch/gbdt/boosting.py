@@ -3,8 +3,11 @@
 Counterpart of ``synapseml_tpu/gbdt/boosting.py``: ``BoostParams``, the
 ``Booster`` (a stack of flat tree arrays held on the host as numpy and
 scored on a device), ``train``, the single-device boosting loop for every
-``boosting_type`` (gbdt, goss, rf, dart), and step checkpoints
-(``save_checkpoint``/``load_checkpoint``).
+``boosting_type`` (gbdt, goss, rf, dart) and objective (the ranking ones
+over a query ``group``, with the NDCG validation metric), and step
+checkpoints (``save_checkpoint``/``load_checkpoint``). Categorical
+features are binned by category id and split like numeric ones, as in
+the reference.
 
 Scoring an ensemble is one launch of the forest-traversal kernel
 (:func:`synapseml_tpu_torch.gbdt.kernels.forest_traverse`) with the tree
@@ -415,8 +418,7 @@ _MULTICLASS = ("multiclass", "softmax", "multiclassova")
 _RANKING = ("lambdarank", "rank_xendcg")
 
 
-def _not_ported(what: str, item: str = "1, GBDT training: what is left"
-                ) -> NotImplementedError:
+def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to synapseml_tpu_torch yet (ROADMAP.md, "
         f"Queue 1 item {item})")
@@ -436,10 +438,6 @@ def _check_ported(p: BoostParams, mesh) -> None:
         raise ValueError(
             "pos_bagging_fraction/neg_bagging_fraction require a binary "
             f"objective, got {p.objective!r}")
-    if p.objective in _RANKING:
-        raise _not_ported(f"the {p.objective} objective (LightGBMRanker)")
-    if p.categorical_features:
-        raise _not_ported("training with categorical features")
     if mesh is not None or p.tree_learner == "voting_parallel":
         raise _not_ported("mesh / voting_parallel training",
                           "2, GBDT multi-GPU")
@@ -493,8 +491,39 @@ def _feature_keep(p: BoostParams, f: int, key: torch.Tensor) -> torch.Tensor:
     return mask
 
 
-def _objective_fn(p: BoostParams) -> Callable:
+def _rank_objective(p: BoostParams, group: np.ndarray, n: int,
+                    dev: torch.device) -> Callable:
+    """LambdaRank's ``(preds, labels, weight) -> (grad, hess)`` over the
+    queries of ``group``: the block-diagonal form where its ``[Q, G, G]``
+    pair terms are no more than the dense ``[N, N]`` ones and the padded
+    ``[Q, G]`` layout at most 8 N (the reference's rule), else the dense
+    form. The weight multiplies after the hessian's clamp, as there."""
+    qidx, qmask, qinv = obj.build_query_blocks(group)
+    q, gmax = qidx.shape
+    if q * gmax * gmax <= n * n and q * gmax <= 8 * n:
+        grad_fn = partial(
+            obj.lambdarank_grad_blocked,
+            row_index=torch.from_numpy(qidx).to(dev),
+            pad_mask=torch.from_numpy(qmask).to(dev),
+            inv=torch.from_numpy(qinv).to(dev), max_dcg_pos=p.max_position)
+    else:
+        grad_fn = partial(
+            obj.lambdarank_grad,
+            group_ids=torch.from_numpy(np.asarray(group, np.int64)).to(dev),
+            max_dcg_pos=p.max_position)
+
+    def rank_obj(preds, labels, weight=None):
+        return obj._weighted(*grad_fn(preds, labels), weight)
+    return rank_obj
+
+
+def _objective_fn(p: BoostParams, group: Optional[np.ndarray] = None,
+                  dev: Optional[torch.device] = None) -> Callable:
     o = p.objective
+    if o in _RANKING:
+        if group is None:
+            raise ValueError("ranking objectives need a group array")
+        return _rank_objective(p, group, len(group), dev)
     if o in ("binary", "binary_logloss"):
         return partial(obj.binary_logloss_obj, sigmoid=p.sigmoid)
     if o in _MULTICLASS:
@@ -527,12 +556,70 @@ def _default_metric(p: BoostParams) -> str:
     return "rmse"
 
 
+def _ndcg_score(scores: np.ndarray, labels: np.ndarray, group_ids: np.ndarray,
+                at: int, blocks=None) -> float:
+    """Mean NDCG@at over query groups — vectorized over [Q, Gmax] query
+    blocks (this runs once per boosting iteration in the rank eval path;
+    the per-query python loop dominated eval at large Q). Pass ``blocks``
+    (from :func:`objectives.build_query_blocks`) to reuse the layout
+    across iterations — the group array never changes during a fit."""
+    scores = np.asarray(scores)
+    labels = np.asarray(labels)
+    if len(scores) == 0:
+        return 0.0
+    if blocks is None:
+        blocks = obj.build_query_blocks(np.asarray(group_ids))
+    row_index, pad_mask, _ = blocks
+    if row_index.size > 8 * len(scores):
+        # heavy group-size skew: dense [Q, Gmax] blocks would dwarf the
+        # data — per-group loop is cheaper
+        return _ndcg_score_loop(scores, labels, np.asarray(group_ids), at)
+    s = np.where(pad_mask, scores[row_index], -np.inf)
+    rel = np.where(pad_mask, labels[row_index], 0.0)
+    gmax = s.shape[1]
+    cols = min(at, gmax)
+    # pads sort last (score -inf, gain 0): identical to per-group slicing
+    order = np.argsort(-s, axis=1, kind="stable")[:, :cols]
+    gains = np.take_along_axis(2.0 ** rel - 1.0, order, axis=1)
+    disc = 1.0 / np.log2(np.arange(2, cols + 2))
+    dcg = (gains * disc).sum(axis=1)
+    ideal = -np.sort(-(2.0 ** rel - 1.0), axis=1)[:, :cols]
+    idcg = (ideal * disc).sum(axis=1)
+    valid = idcg > 0
+    if not valid.any():
+        return 0.0
+    return float((dcg[valid] / idcg[valid]).mean())
+
+
+def _ndcg_score_loop(scores, labels, group_ids, at: int) -> float:
+    """Per-group fallback for pathologically skewed group sizes."""
+    total, count = 0.0, 0
+    for g in np.unique(group_ids):
+        sel = group_ids == g
+        rel = labels[sel]
+        if len(rel) == 0:
+            continue
+        order = np.argsort(-scores[sel], kind="stable")[:at]
+        discounts = 1.0 / np.log2(np.arange(2, len(order) + 2))
+        dcg = float(np.sum((2.0 ** rel[order] - 1.0) * discounts))
+        ideal = np.sort(rel)[::-1][:at]
+        idcg = float(np.sum((2.0 ** ideal - 1.0)
+                            / np.log2(np.arange(2, len(ideal) + 2))))
+        if idcg > 0:
+            total += dcg / idcg
+            count += 1
+    return total / max(count, 1)
+
+
 class _ValidTracker:
     """Validation scoring and early stopping.
 
-    The first validation set is scored, as in the reference. Each new tree
-    scores its rows on the device (K2 with one tree) into a running margin
-    sum; after every iteration the metric of ``init + sum`` is recorded.
+    Validation sets are ``(x, y)`` pairs or ``(x, y, group)`` triples; the
+    first set is scored, as in the reference. Each new tree scores its
+    rows on the device (K2 with one tree) into a running margin sum; after
+    every iteration the metric of ``init + sum`` is recorded. The ``ndcg``
+    metric (a ranker's default) needs the first set's group and reads the
+    margin sum itself, as the reference's does, on the host.
     ``best_iteration`` is only exported when early stopping is on
     (LightGBM semantics: merely supplying eval data must not truncate
     predictions).
@@ -544,13 +631,32 @@ class _ValidTracker:
         self.metric_name = _default_metric(p)
         self.metric_fn, self.larger_better = obj.METRICS.get(
             self.metric_name, (None, False))
-        self.enabled = bool(valid_sets) and self.metric_fn is not None
+        self.is_rank_metric = self.metric_name == "ndcg"
+        if self.is_rank_metric:
+            self.larger_better = True
+        self.vg = None
+        if valid_sets:
+            vs = valid_sets[0]
+            vx, vy = vs[0], vs[1]
+            if len(vs) > 2 and vs[2] is not None:
+                self.vg = np.asarray(vs[2])
+        self.enabled = bool(valid_sets) and (
+            self.metric_fn is not None
+            or (self.is_rank_metric and self.vg is not None))
         if self.enabled:
-            vx, vy = valid_sets[0]
+            self.vy_host = np.asarray(vy, np.float32)
             self.vx = torch.from_numpy(np.asarray(vx, np.float32)).to(dev)
-            self.vy = torch.from_numpy(np.asarray(vy, np.float32)).to(dev)
+            self.vy = torch.from_numpy(self.vy_host).to(dev)
             self.vsum = torch.zeros((len(vy), k), dtype=torch.float32,
                                     device=dev)
+        # the rank metric's query layout, built once, where the padded
+        # layout is not much larger than the set (else _ndcg_score loops
+        # over the groups)
+        self.ndcg_blocks = None
+        if self.enabled and self.is_rank_metric:
+            _, counts = np.unique(self.vg, return_counts=True)
+            if len(counts) * counts.max() <= 8 * len(self.vg):
+                self.ndcg_blocks = obj.build_query_blocks(self.vg)
         self.best_score = -np.inf if self.larger_better else np.inf
         self.best_iter = -1
         self.history: Dict[str, List[float]] = {self.metric_name: []}
@@ -568,6 +674,12 @@ class _ValidTracker:
         if not self.enabled:
             return False
         vsum = self.vsum
+        if self.is_rank_metric:
+            # the reference ranks the float32 margin sum as it stands,
+            # without the init score or rf's 1/T (one host copy)
+            m = _ndcg_score(vsum[:, 0].cpu().numpy(), self.vy_host, self.vg,
+                            self.p.max_position, blocks=self.ndcg_blocks)
+            return self.record(m, it)
         if self.p.boosting_type == "rf":
             # rf margins are the average of the trees so far
             vsum = vsum * float(np.float32(1.0) / np.float32(it + 1))
@@ -577,7 +689,10 @@ class _ValidTracker:
             m = self.metric_fn(vscore, self.vy.to(torch.int32))
         else:
             m = self.metric_fn(vscore[:, 0], self.vy.to(torch.float64))
-        m = float(m)
+        return self.record(float(m), it)
+
+    def record(self, m: float, it: int) -> bool:
+        """Record a metric value; True = stop early."""
         self.history[self.metric_name].append(m)
         tol = self.p.improvement_tolerance
         improved = (m - self.best_score > tol if self.larger_better
@@ -737,6 +852,9 @@ def _checkpoint_every(p: BoostParams, tracker: _ValidTracker,
     early stopping can act), at most ``checkpoint_every``."""
     esr = p.early_stopping_round
     chunk = max(esr, 16) if (tracker.enabled and esr > 0) else p.num_iterations
+    if tracker.enabled and tracker.is_rank_metric:
+        # the reference's rank chunks hold <= 4M margins of snapshots
+        chunk = min(chunk, max(1, 4_000_000 // max(1, len(tracker.vy_host))))
     chunk = max(1, min(chunk, p.num_iterations))
     if checkpoint_every > 0:
         chunk = min(chunk, int(checkpoint_every))
@@ -904,7 +1022,8 @@ def train(
     x: np.ndarray,
     y: np.ndarray,
     weight: Optional[np.ndarray] = None,
-    valid_sets: Sequence[Tuple[np.ndarray, np.ndarray]] = (),
+    group: Optional[np.ndarray] = None,
+    valid_sets: Sequence[Tuple[np.ndarray, ...]] = (),
     feature_names: Optional[List[str]] = None,
     mesh=None,
     init_model: Optional[Booster] = None,
@@ -916,6 +1035,12 @@ def train(
 ) -> Booster:
     """Train a Booster on ``device`` (the card unless the caller asks for
     the CPU).
+
+    ``group`` holds each row's query id for the ranking objectives
+    (lambdarank, rank_xendcg); a query's rows need not be contiguous, and
+    the rows are never reordered. ``valid_sets`` holds ``(x, y)`` pairs
+    or ``(x, y, group)`` triples; the first is scored after every
+    iteration (a ranker's ``ndcg`` needs its group).
 
     ``init_model`` continues boosting from an existing booster's margins
     (the reference's batch-model threading, LightGBMBase.scala:49-61, and
@@ -930,6 +1055,12 @@ def train(
     """
     dev = device_policy.resolve(device)
     _check_ported(p, mesh)
+    if p.objective in _RANKING and p.boosting_type == "dart":
+        # the reference fails here with a TypeError: its _train_dart calls
+        # the objective function, which is None for ranking
+        raise ValueError(
+            f"boosting_type='dart' with the {p.objective} objective is not "
+            "defined: dart has no ranking gradient")
     if p.num_iterations < 1:
         raise ValueError(f"num_iterations must be >= 1, got {p.num_iterations}")
     x = np.asarray(x, dtype=np.float64)
@@ -937,13 +1068,14 @@ def train(
     n, f = x.shape
     k = p.num_class if p.objective in _MULTICLASS else 1
 
-    mapper = BinMapper(max_bin=p.max_bin, subsample=p.bin_sample_count,
-                       seed=p.seed).fit(x)
+    mapper = BinMapper(max_bin=p.max_bin,
+                       categorical_features=p.categorical_features,
+                       subsample=p.bin_sample_count, seed=p.seed).fit(x)
     binned = torch.from_numpy(mapper.transform(x)).to(dev)
     gp = p.grower(mapper.total_bins)
     index = kernels.bin_index(binned, gp.max_bin)  # every K1 launch reads it
     thresholds = mapper.threshold_values().astype(np.float32)
-    obj_fn = _objective_fn(p)
+    obj_fn = _objective_fn(p, group, dev)
     init, init_margins = _resume_state(p, init_model, k, x,
                                        _init_score(p, y, weight), dev)
     _validate_loop_extras(p, checkpoint_dir)
@@ -954,6 +1086,15 @@ def train(
           if weight is not None else None)
     y_onehot = (torch.nn.functional.one_hot(yd.long(), k).to(torch.float32)
                 if k > 1 else None)
+
+    def compute_grad(base: torch.Tensor, c: int):
+        """(grad, hess) of class ``c`` at the margins ``base`` (the
+        reference's ``compute_grad``)."""
+        if k > 1:
+            g, h = obj_fn(base, y_onehot, wd)
+            return g[:, c].contiguous(), h[:, c].contiguous()
+        return obj_fn(base, yd, wd)
+
     if p.boosting_type == "dart":
         return _train_dart(p, binned, index, y_onehot if k > 1 else yd, wd,
                            obj_fn, gp, thresholds, init, k, f, feature_names)
@@ -1000,11 +1141,7 @@ def train(
         for c in range(k):
             # rf fits every tree to the gradients at the init score
             base = torch.full_like(scores, init) if is_rf else scores
-            if k > 1:
-                g, h = obj_fn(base, y_onehot, wd)
-                g, h = g[:, c].contiguous(), h[:, c].contiguous()
-            else:
-                g, h = obj_fn(base, yd, wd)
+            g, h = compute_grad(base, c)
             row_mask, tree_bins, tree_index = all_rows, binned, index
             if rng is not None:
                 rng, key = prng.split(rng)

@@ -8,7 +8,7 @@ predict, SHAP) and the classification, regression and ranking models
 LightGBMRanker.scala) — same param names, same output columns
 (rawPrediction / probability / prediction). ``fit`` and ``transform`` run
 on the device they are given, the card unless the caller asks for the
-CPU. ``LightGBMRanker`` (lambdarank) is not ported yet and raises.
+CPU.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ from synapseml_tpu_torch.core.param import ComplexParam, Param
 from synapseml_tpu_torch.core.pipeline import Estimator, Model
 from synapseml_tpu_torch.data.table import Table
 from synapseml_tpu_torch.gbdt.boosting import (
-    Booster, BoostParams, _not_ported, objective_transform, train)
+    Booster, BoostParams, objective_transform, train)
 
 
 class LightGBMDelegate:
@@ -428,14 +428,39 @@ class LightGBMRegressor(_LightGBMEstimatorBase):
 
 
 class LightGBMRanker(_LightGBMEstimatorBase):
-    """ref: lightgbm/.../LightGBMRanker.scala:26-177. Not ported yet: its
-    lambdarank objective waits for ROADMAP.md Queue 1 item 1."""
+    """ref: lightgbm/.../LightGBMRanker.scala:26-177."""
 
     objective = Param("lambdarank", default="lambdarank")
     group_col = Param("query/group id column", default="query")
+    max_position = Param("NDCG truncation", default=30)
+    evaluate_at = Param("eval positions", default=None)
 
-    def _fit(self, table: Table, device: str):
-        raise _not_ported("LightGBMRanker (the lambdarank objective)")
+    def _fit_single(self, table: Table, init_booster, batch_index, ctx,
+                    device) -> "LightGBMRankerModel":
+        # repartition-by-group analogue: a stable sort makes each query
+        # contiguous (ref: repartitionByGroupingColumn, LightGBMBase.scala)
+        table = table.sort(self.group_col)
+        train_t, valid_t = self._split_validation(table)
+        x = self._features(train_t)
+        y = np.asarray(train_t[self.label_col], np.float64)
+        _, group_ids = np.unique(np.asarray(train_t[self.group_col]),
+                                 return_inverse=True)
+        weight = (np.asarray(train_t[self.weight_col], np.float64)
+                  if self.weight_col else None)
+        valid = []
+        if valid_t is not None and valid_t.num_rows:
+            _, vgroup = np.unique(np.asarray(valid_t[self.group_col]),
+                                  return_inverse=True)
+            valid = [(self._features(valid_t),
+                      np.asarray(valid_t[self.label_col], np.float64),
+                      vgroup)]
+        bp = dataclasses.replace(self._boost_params("lambdarank"),
+                                 max_position=int(self.max_position))
+        booster = train(bp, x, y, weight=weight, group=group_ids,
+                        valid_sets=valid, init_model=init_booster,
+                        device=device,
+                        **self._delegate_train_kwargs(batch_index))
+        return self._make_model(LightGBMRankerModel, booster)
 
 
 class LightGBMClassificationModel(_LightGBMModelBase):

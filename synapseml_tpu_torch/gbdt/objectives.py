@@ -3,19 +3,23 @@
 Counterpart of ``synapseml_tpu/gbdt/objectives.py``: the same formulas as
 plain tensor functions, so grad/hess run on the device that holds the
 scores. Custom objectives are plain callables
-``(preds, labels, weight) -> (grad, hess)``. Lambdarank (the Ranker's
-objective) is not ported yet; see ``ROADMAP.md``.
+``(preds, labels, weight) -> (grad, hess)``. LambdaRank (the Ranker's
+objective) has a dense ``[N, N]`` form and a block-diagonal ``[Q, G, G]``
+form over query blocks.
 
-The exponentials (sigmoid, softmax, exp) of the objectives are evaluated
-in float64 and rounded once to float32: the card's and the CPU's float32
-``exp`` differ in the last bit, and through the histograms that would let
-a near-tied split go one way on the card and the other on the CPU. The
-rest of the arithmetic is float32, as in the reference.
+The transcendental functions (sigmoid, softmax, exp, log2) of the
+objectives are evaluated in float64 and rounded once to float32: the
+card's and the CPU's float32 ``exp`` differ in the last bit, and through
+the histograms that would let a near-tied split go one way on the card
+and the other on the CPU. The rest of the arithmetic is float32, as in
+the reference, but for LambdaRank's sums over a row's pairs, which add
+the reference's float32 pair terms in float64 and round once.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -105,6 +109,149 @@ def softmax_obj(preds, labels_onehot, weight=None):
         grad = grad * weight[:, None]
         hess = hess * weight[:, None]
     return grad, hess
+
+
+# -- lambdarank -------------------------------------------------------------
+
+# Pair terms a LambdaRank call forms at once (each of its few temporaries
+# holds this many elements): memory stays bounded at any query count and
+# query size.
+_PAIR_CHUNK = 1 << 22
+
+
+def _pair_sums(p_row, p_col, gain_row, gain_col, disc_row, disc_col,
+               pair, sigmoid: float):
+    """Per-row LambdaRank sums of a ``[..., R]`` block of rows against a
+    ``[..., C]`` block of columns: the terms in which the row is the
+    better-labelled document (``pair[0]``, label above the column's) less
+    those in which it is the worse one (``pair[1]``), and the hessian's
+    terms of both. Each term is the reference's float32 product, in its
+    order (scaling by ``sigmoid``, a power of two, commutes with
+    rounding); the sums are float64, rounded once."""
+    diff = p_row[..., :, None] - p_col[..., None, :]
+    delta = ((gain_row[..., :, None] - gain_col[..., None, :])
+             * (disc_row[..., :, None] - disc_col[..., None, :])).abs_()
+    out = []
+    for sign, mask in ((-1.0, pair[0]), (1.0, pair[1])):
+        # s_ij = sigmoid(-sigma (p_i - p_j)); for the pair (j, i) it is
+        # sigmoid(+sigma (p_i - p_j)), bitwise, as p_j - p_i = -(p_i - p_j)
+        s = _f64(torch.sigmoid, diff * (sign * sigmoid))
+        weighted = delta * mask
+        lam = (s * weighted).sum(-1, dtype=torch.float64) * -sigmoid
+        hp = ((s * (1.0 - s)) * weighted).sum(-1, dtype=torch.float64) * (
+            sigmoid * sigmoid)
+        out.append((lam, hp))
+    (lam_row, hp_row), (lam_col, hp_col) = out
+    return lam_row - lam_col, hp_row + hp_col
+
+
+def _discount(ranks: Tensor, max_dcg_pos: int) -> Tensor:
+    """float32 ``1 / log2(2 + min(rank, max_dcg_pos))``."""
+    return 1.0 / _f64(torch.log2,
+                      2.0 + ranks.clamp(max=max_dcg_pos).to(torch.float32))
+
+
+def _group_ranks(preds: Tensor, group_ids: Tensor) -> Tensor:
+    """Each row's 0-based rank by descending score within its group, ties
+    in row order: the reference's stable ``argsort`` of
+    ``where(same, -preds, inf)`` per row, from two stable sorts."""
+    by_score = torch.argsort(-preds, stable=True)
+    order = by_score[torch.argsort(group_ids[by_score], stable=True)]
+    g = group_ids[order]
+    pos = torch.arange(len(order), device=preds.device)
+    first = torch.ones_like(g, dtype=torch.bool)
+    first[1:] = g[1:] != g[:-1]
+    start = torch.cummax(torch.where(first, pos, 0), 0).values
+    ranks = torch.empty_like(order)
+    ranks[order] = pos - start
+    return ranks
+
+
+def lambdarank_grad(preds, labels, group_ids, max_dcg_pos: int = 30,
+                    sigmoid: float = 2.0):
+    """Pairwise LambdaRank gradients with |delta NDCG| weighting, the dense
+    form: every pair of rows, masked to pairs of one query
+    (``group_ids``, same id = same query). The ``[N, N]`` pair terms are
+    made about ``_PAIR_CHUNK`` at a time, a block of rows against all
+    columns; each row's sums are float64, rounded once. Returns float32
+    ``(grad, hess)`` with the hessian clamped at 1e-6."""
+    n = preds.shape[0]
+    p = preds.to(torch.float32)
+    lab = labels.to(torch.float32)
+    ranks = _group_ranks(p, group_ids)
+    disc = _discount(ranks, max_dcg_pos)
+    gain = 2.0 ** lab - 1.0
+    grad = torch.empty(n, dtype=torch.float64, device=preds.device)
+    hess = torch.empty_like(grad)
+    rows = max(1, _PAIR_CHUNK // max(n, 1))
+    for a in range(0, n, rows):
+        b = min(n, a + rows)
+        same = group_ids[a:b, None] == group_ids[None, :]
+        diff = lab[a:b, None] - lab[None, :]
+        g, h = _pair_sums(p[a:b], p, gain[a:b], gain, disc[a:b], disc,
+                          (same & (diff > 0), same & (diff < 0)), sigmoid)
+        grad[a:b], hess[a:b] = g, h
+    return grad.to(torch.float32), hess.to(torch.float32).clamp(min=1e-6)
+
+
+def build_query_blocks(group_ids):
+    """Host-side layout for block-diagonal lambdarank: rows gathered into
+    [Q, G] query blocks (G = max group size). Returns
+    ``(row_index [Q, G] int32, pad_mask [Q, G] bool, inv [N] int64)``
+    where ``inv`` maps each flat row to its block position (for the
+    gather back)."""
+    group_ids = np.asarray(group_ids)
+    order = np.argsort(group_ids, kind="stable")
+    sorted_g = group_ids[order]
+    bounds = np.nonzero(sorted_g[1:] != sorted_g[:-1])[0] + 1
+    groups = np.split(order, bounds)
+    gmax = max((len(g) for g in groups), default=1)
+    q = len(groups)
+    row_index = np.zeros((q, gmax), np.int32)
+    pad_mask = np.zeros((q, gmax), bool)
+    inv = np.zeros(len(group_ids), np.int64)
+    for i, rows in enumerate(groups):
+        row_index[i, : len(rows)] = rows
+        pad_mask[i, : len(rows)] = True
+        inv[rows] = i * gmax + np.arange(len(rows))
+    return row_index, pad_mask, inv
+
+
+def lambdarank_grad_blocked(preds, labels, row_index, pad_mask, inv,
+                            max_dcg_pos: int = 30, sigmoid: float = 2.0):
+    """Block-diagonal LambdaRank: O(N*G) instead of the dense O(N^2) pair
+    terms, since pairs only form within a query. The ``[Q, G, G]`` pair
+    terms are batched over query blocks (layout from
+    :func:`build_query_blocks`, as tensors on the rows' device), about
+    ``_PAIR_CHUNK`` at a time: whole blocks, or rows of one block against
+    its columns where a block alone is larger. The same math as
+    :func:`lambdarank_grad` on the same data."""
+    idx = row_index.long()
+    p = preds.to(torch.float32)[idx]
+    lab = labels.to(torch.float32)[idx]
+    valid = pad_mask
+    order = torch.argsort(torch.where(valid, -p, torch.inf), dim=-1,
+                          stable=True)
+    ranks = torch.argsort(order, dim=-1)
+    disc = _discount(ranks, max_dcg_pos)
+    gain = (2.0 ** lab - 1.0) * valid
+    q, g = idx.shape
+    rows = min(g, max(1, _PAIR_CHUNK // g))
+    blocks = max(1, _PAIR_CHUNK // (rows * g))
+    grad = torch.empty((q, g), dtype=torch.float64, device=preds.device)
+    hess = torch.empty_like(grad)
+    for a in range(0, q, blocks):
+        qs = slice(a, a + blocks)
+        for r in range(0, g, rows):
+            rs = slice(r, r + rows)
+            both = valid[qs, rs, None] & valid[qs, None, :]
+            diff = lab[qs, rs, None] - lab[qs, None, :]
+            grad[qs, rs], hess[qs, rs] = _pair_sums(
+                p[qs, rs], p[qs], gain[qs, rs], gain[qs], disc[qs, rs],
+                disc[qs], (both & (diff > 0), both & (diff < 0)), sigmoid)
+    grad = grad.reshape(-1)[inv].to(torch.float32)
+    hess = hess.reshape(-1)[inv].to(torch.float32)
+    return grad, hess.clamp(min=1e-6)
 
 
 # -- metrics ----------------------------------------------------------------

@@ -239,3 +239,100 @@ def test_histogram_wrapper_raises_on_what_the_kernel_does_not_take(card):
         kernels.histogram(binned, data[:4], 4)
     with pytest.raises(ValueError):
         kernels.histogram(binned, data, 70_000)
+
+
+# -- ranking and categorical training on the card --------------------------
+
+def _rank_rows(seed, sizes, f=8):
+    rng = np.random.default_rng(seed)
+    group = np.repeat(np.arange(len(sizes)), sizes)
+    x = rng.normal(size=(len(group), f))
+    t = x[:, 0] + 0.5 * x[:, 1] + rng.normal(scale=0.5, size=len(group))
+    return x, np.clip(np.floor(t + 2), 0, 4), group
+
+
+@pytest.mark.parametrize("form", ["blocked", "dense"])
+def test_lambdarank_grad_on_the_card_equals_the_cpu(card, form):
+    """The LambdaRank gradients on the card against the same code on the
+    CPU: float64 terms and sums rounded once, so within one float32
+    rounding of each value (the float64 sums add in another order)."""
+    from synapseml_tpu_torch.gbdt import objectives
+
+    rng = np.random.default_rng(4)
+    sizes = [30, 200, 1, 57, 120] if form == "blocked" else [600] + [2] * 40
+    _, lab, group = _rank_rows(5, sizes)
+    p = np.round(rng.normal(size=len(group)) * 4) / 4   # ties among them
+    args = [torch.from_numpy(p.astype(np.float32)),
+            torch.from_numpy(lab.astype(np.float32))]
+    if form == "blocked":
+        layout = [torch.from_numpy(a) for a in
+                  objectives.build_query_blocks(group)]
+        fn = objectives.lambdarank_grad_blocked
+    else:
+        layout = [torch.from_numpy(group)]
+        fn = objectives.lambdarank_grad
+    cpu = fn(*args, *layout)
+    gpu = fn(*(a.to(card) for a in args), *(a.to(card) for a in layout))
+    for c, g in zip(cpu, gpu):
+        assert g.is_cuda and g.dtype == torch.float32
+        np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=2 ** -23,
+                                   atol=0)
+
+
+def test_categorical_fit_bins_and_index_on_the_card_equal_the_cpu(card):
+    """A categorical column's bins (host numpy) and their bin index on the
+    card equal the CPU's, and a categorical fit on the card grows the CPU
+    fit's trees."""
+    from synapseml_tpu_torch.gbdt import boosting
+    from synapseml_tpu_torch.gbdt.binning import BinMapper
+
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(5000, 4))
+    x[:, 1] = rng.integers(0, 9, 5000)
+    x[rng.random(5000) < 0.02, 1] = np.nan
+    y = (x[:, 0] + (x[:, 1] % 3 == 0) > 0.5).astype(np.float64)
+    mapper = BinMapper(categorical_features=(1,)).fit(x)
+    binned = torch.from_numpy(mapper.transform(x))
+    index = kernels.bin_index(binned.to(card), mapper.total_bins)
+    cpu_index = kernels.bin_index(binned, mapper.total_bins)
+    assert torch.equal(index.order.cpu(), cpu_index.order)
+    assert torch.equal(index.start.cpu(), cpu_index.start)
+    p = boosting.BoostParams(num_iterations=10, num_leaves=15,
+                             categorical_features=(1,))
+    on_card = boosting.train(p, x, y, device="cuda")
+    on_cpu = boosting.train(p, x, y, device="cpu")
+    for name in ("trees_feature", "trees_threshold", "trees_left",
+                 "trees_right", "trees_cover"):
+        np.testing.assert_array_equal(getattr(on_card, name),
+                                      getattr(on_cpu, name), name)
+    np.testing.assert_allclose(on_card.predict_raw(x, device="cuda"),
+                               on_cpu.predict_raw(x, device="cpu"), rtol=0,
+                               atol=1e-4)
+
+
+def test_ranker_fit_on_the_card_equals_the_cpu(card):
+    """LightGBMRanker on the card (K1 for the trees, K2 for the grouped
+    validation set's NDCG) against the same code on the CPU: the same
+    trees and NDCG history, margins within 1e-4."""
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.gbdt import estimators
+
+    x, y, group = _rank_rows(7, np.random.default_rng(7).integers(20, 120, 40))
+    table = Table({"features": x, "label": y, "query": group,
+                   "valid": group % 5 == 0})
+    kw = dict(num_iterations=20, num_leaves=15, early_stopping_round=5,
+              validation_indicator_col="valid")
+    before = kernels.histogram.launches
+    on_card = estimators.LightGBMRanker(**kw).fit(table, device="cuda")
+    assert kernels.histogram.launches > before
+    on_cpu = estimators.LightGBMRanker(**kw).fit(table, device="cpu")
+    a, b = on_card.booster, on_cpu.booster
+    for name in ("trees_feature", "trees_threshold", "trees_left",
+                 "trees_right", "trees_cover"):
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name), name)
+    assert a.best_iteration == b.best_iteration
+    np.testing.assert_allclose(a.eval_history["ndcg"], b.eval_history["ndcg"],
+                               rtol=1e-12)
+    np.testing.assert_allclose(a.predict_raw(x, device="cuda"),
+                               b.predict_raw(x, device="cpu"), rtol=0,
+                               atol=1e-4)

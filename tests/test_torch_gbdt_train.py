@@ -521,8 +521,6 @@ def test_estimator_validation_and_batches_match_jax():
 # -- what the slice does not port, and the device rule ---------------------
 
 @pytest.mark.parametrize("kw", [
-    dict(objective="lambdarank"),
-    dict(categorical_features=(1,)),
     dict(tree_learner="voting_parallel"),
 ], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_options_raise(kw):
@@ -548,17 +546,6 @@ def test_unknown_tree_learner_raises_as_in_jax():
     with pytest.raises(ValueError, match="tree_learner"):
         boosting.train(boosting.BoostParams(tree_learner="feature_parallel"),
                        x, ys["binary"], device="cpu")
-
-
-def test_ranker_and_estimator_options_raise():
-    x, ys = _rows(n=100)
-    table = Table({"features": x, "label": ys["binary"],
-                   "query": np.arange(100) // 10})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        estimators.LightGBMRanker().fit(table, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        estimators.LightGBMClassifier(categorical_slot_indexes=[1]).fit(
-            table, device="cpu")
 
 
 def test_fit_raises_without_cuda(monkeypatch):
