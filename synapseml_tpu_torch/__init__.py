@@ -11,6 +11,8 @@ has the same path:
                     TreeSHAP, and the forest-traversal kernel (kernels.py,
                     csrc/forest_traverse.cu)
   isolationforest/  isolation forest (host fit, device scoring)
+  parallel/         collectives over a torch.distributed process group
+                    (data-parallel GBDT training)
   convert.py        carries a reference model's arrays into the port
   device.py         device policy: "cuda" by default, raise without CUDA
 

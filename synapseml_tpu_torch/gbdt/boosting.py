@@ -4,10 +4,13 @@ Counterpart of ``synapseml_tpu/gbdt/boosting.py``: ``BoostParams``, the
 ``Booster`` (a stack of flat tree arrays held on the host as numpy and
 scored on a device), ``train``, the single-device boosting loop for every
 ``boosting_type`` (gbdt, goss, rf, dart) and objective (the ranking ones
-over a query ``group``, with the NDCG validation metric), and step
-checkpoints (``save_checkpoint``/``load_checkpoint``). Categorical
-features are binned by category id and split like numeric ones, as in
-the reference.
+over a query ``group``, with the NDCG validation metric), step
+checkpoints (``save_checkpoint``/``load_checkpoint``), and data-parallel
+training over a ``torch.distributed`` process group: ``train(...,
+mesh=group)``, where every rank passes the same rows and grows on its
+block of them, and ``train_row_sharded``, where each rank passes only its
+own rows (both through ``_train_distributed``). Categorical features are
+binned by category id and split like numeric ones, as in the reference.
 
 Scoring an ensemble is one launch of the forest-traversal kernel
 (:func:`synapseml_tpu_torch.gbdt.kernels.forest_traverse`) with the tree
@@ -41,6 +44,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from synapseml_tpu_torch import device as device_policy
 from synapseml_tpu_torch.gbdt import kernels, objectives as obj, prng
@@ -48,6 +52,7 @@ from synapseml_tpu_torch.gbdt.binning import BinMapper
 from synapseml_tpu_torch.gbdt.grower import (
     GrowerParams, Tree, build_tree, leaf_values, predict_tree)
 from synapseml_tpu_torch.gbdt.kernels import forest_traverse
+from synapseml_tpu_torch.parallel import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,7 +106,7 @@ class BoostParams:
     def grower(self, device_bins: int) -> GrowerParams:
         """The grower's params, for ``device_bins`` histogram bins (the
         fitted BinMapper's ``total_bins``). ``hist_backend`` is carried,
-        not read; voting (``voting_top_k``) is not ported, so it stays 0."""
+        not read; ``voting_top_k`` is set for voting_parallel only."""
         return GrowerParams(
             num_leaves=self.num_leaves,
             max_bin=device_bins,
@@ -112,6 +117,8 @@ class BoostParams:
             min_sum_hessian_in_leaf=self.min_sum_hessian_in_leaf,
             min_gain_to_split=self.min_gain_to_split,
             hist_backend=self.hist_backend,
+            voting_top_k=(max(1, int(self.voting_top_k))
+                          if self.tree_learner == "voting_parallel" else 0),
         )
 
 
@@ -418,15 +425,8 @@ _MULTICLASS = ("multiclass", "softmax", "multiclassova")
 _RANKING = ("lambdarank", "rank_xendcg")
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to synapseml_tpu_torch yet (ROADMAP.md, "
-        f"Queue 1 item {item})")
-
-
-def _check_ported(p: BoostParams, mesh) -> None:
-    """Raise for every training option this port does not have yet;
-    none is ignored silently."""
+def _check_params(p: BoostParams) -> None:
+    """Raise for the parameter combinations the reference refuses."""
     if p.tree_learner not in ("data_parallel", "voting_parallel"):
         raise ValueError(
             f"tree_learner {p.tree_learner!r}: the reference's "
@@ -438,9 +438,6 @@ def _check_ported(p: BoostParams, mesh) -> None:
         raise ValueError(
             "pos_bagging_fraction/neg_bagging_fraction require a binary "
             f"objective, got {p.objective!r}")
-    if mesh is not None or p.tree_learner == "voting_parallel":
-        raise _not_ported("mesh / voting_parallel training",
-                          "2, GBDT multi-GPU")
 
 
 def _stratified(p: BoostParams) -> bool:
@@ -772,9 +769,14 @@ def _attach_init_categoricals(booster: Booster,
 def _assemble_booster(stacked: Tree, p: BoostParams, k: int, init: float,
                       f: int, feature_names, tracker: _ValidTracker,
                       init_model: Optional[Booster] = None,
-                      compute_importances: bool = True) -> Booster:
+                      compute_importances: bool = True,
+                      tree_weights: Optional[np.ndarray] = None) -> Booster:
     t_total = stacked.split_feature.shape[0]
     is_rf = p.boosting_type == "rf"
+    if tree_weights is None:
+        tree_weights = np.full(
+            t_total, 1.0 / (t_total / max(k, 1)) if is_rf else 1.0,
+            np.float32)
     booster = Booster(
         trees_feature=stacked.split_feature,
         trees_threshold=stacked.threshold,
@@ -783,9 +785,7 @@ def _assemble_booster(stacked: Tree, p: BoostParams, k: int, init: float,
         trees_value=stacked.leaf_value,
         trees_cover=stacked.cover,
         trees_gain=stacked.gain,
-        tree_weights=np.full(
-            t_total, 1.0 / (t_total / max(k, 1)) if is_rf else 1.0,
-            np.float32),
+        tree_weights=np.asarray(tree_weights[:t_total], np.float32),
         params=p,
         init_score=init,
         num_class=k,
@@ -899,14 +899,42 @@ def load_checkpoint(path: str) -> Tuple[Booster, Dict[str, int]]:
     return booster, payload
 
 
+def _leaf_quantiles(residual: torch.Tensor, row_slot: torch.Tensor,
+                    n_slots: int, alpha: float) -> torch.Tensor:
+    """[n_slots] float32: each slot's alpha-quantile of its rows' non-NaN
+    residuals, NaN for a slot without one (``jnp.nanquantile``'s linear
+    method: position ``alpha * (count - 1)``, ``low * (1 - w) + high * w``
+    in float32). One stable sort by (slot, residual) serves every slot;
+    the interpolation is separate element-wise ops, so the card and the
+    CPU round alike (a fused lerp could contract into an FMA)."""
+    n = residual.shape[0]
+    if n == 0:
+        return torch.full((n_slots,), torch.nan, device=residual.device)
+    slot = torch.where(torch.isnan(residual), n_slots, row_slot.long())
+    order = torch.sort(residual, stable=True).indices     # NaN last
+    order = order[torch.sort(slot[order], stable=True).indices]
+    values = residual[order]
+    counts = torch.bincount(slot, minlength=n_slots + 1)[:n_slots]
+    starts = torch.cumsum(counts, 0) - counts
+    cf = counts.to(torch.float32)
+    q = torch.full_like(cf, _f32(alpha)) * (cf - 1.0)
+    low, high = torch.floor(q), torch.ceil(q)
+    high_w = q - low
+    low_w = 1.0 - high_w
+
+    def value(pos):   # the sorted residual at a slot's position
+        pos = torch.clamp(torch.minimum(pos, cf - 1.0), min=0.0)
+        return values[(starts + pos.long()).clamp(0, n - 1)]
+    out = value(low) * low_w + value(high) * high_w
+    return torch.where(counts > 0, out, torch.nan)
+
+
 def _renew_leaves(tree: Tree, residual: torch.Tensor, row_slot, slot_value,
                   slot_node: np.ndarray, alpha: float):
     """L1-family leaf renewal (LightGBM RenewTreeOutput): a leaf's output
-    becomes the alpha-quantile of the residuals of its rows."""
-    nan = torch.full_like(residual, torch.nan)
-    renewed = torch.stack([
-        torch.nanquantile(torch.where(row_slot == s, residual, nan), alpha)
-        for s in range(slot_value.shape[0])])
+    becomes the alpha-quantile of the residuals of its rows (NaN residuals,
+    a mesh's pad rows, are skipped)."""
+    renewed = _leaf_quantiles(residual, row_slot, slot_value.shape[0], alpha)
     slot_value = torch.where(torch.isnan(renewed), slot_value, renewed)
     tree = dataclasses.replace(tree, leaf_value=leaf_values(
         slot_node, slot_value.cpu().numpy(), tree.leaf_value.shape[0]))
@@ -1051,11 +1079,23 @@ def train(
     :func:`load_checkpoint` and ``init_model``. ``learning_rates`` is an
     optional per-iteration shrinkage schedule (the delegate's dynamic-LR
     hook, LightGBMDelegate.scala:57-61). ``iteration_hook(iters_done)``
-    fires after every iteration. ``mesh`` is not ported and raises.
+    fires after every iteration.
+
+    ``mesh`` (a ``torch.distributed`` process group, the counterpart of
+    the reference's 1-axis "dp" mesh; one rank per device, rank order is
+    shard order) trains data-parallel: every rank passes the same ``x``,
+    ``y`` (and ``weight``, ``group``, ``valid_sets``), bins all of it,
+    and grows on its own block of the reference's row layout
+    (:func:`_layout_rows`), its histograms reduced across the ranks; see
+    :func:`_train_distributed` for the mesh's semantics, where checkpoints
+    (rank 0 writes them) and ``iteration_hook`` come at the reference's
+    chunk ends. Every rank returns the same booster.
     """
     dev = device_policy.resolve(device)
-    _check_ported(p, mesh)
-    if p.objective in _RANKING and p.boosting_type == "dart":
+    _check_params(p)
+    pg = collectives.check_group(mesh) if mesh is not None else None
+    if (pg is None and p.objective in _RANKING
+            and p.boosting_type == "dart"):
         # the reference fails here with a TypeError: its _train_dart calls
         # the objective function, which is None for ranking
         raise ValueError(
@@ -1071,15 +1111,32 @@ def train(
     mapper = BinMapper(max_bin=p.max_bin,
                        categorical_features=p.categorical_features,
                        subsample=p.bin_sample_count, seed=p.seed).fit(x)
-    binned = torch.from_numpy(mapper.transform(x)).to(dev)
+    binned_np = mapper.transform(x)
     gp = p.grower(mapper.total_bins)
-    index = kernels.bin_index(binned, gp.max_bin)  # every K1 launch reads it
     thresholds = mapper.threshold_values().astype(np.float32)
-    obj_fn = _objective_fn(p, group, dev)
     init, init_margins = _resume_state(p, init_model, k, x,
                                        _init_score(p, y, weight), dev)
     _validate_loop_extras(p, checkpoint_dir)
     learning_rates = _validate_lr_schedule(p, learning_rates)
+    if pg is not None:
+        # before any copy of the whole matrix to the device: each rank
+        # places only its block
+        if p.objective in _RANKING and group is None:
+            raise ValueError("ranking objectives need a group array")
+        w_ranks = collectives.axis_size(pg)
+        laid = _layout_rows(p.objective in _RANKING, w_ranks, binned_np, y,
+                            weight, init_margins, group, gp.max_bin)
+        per, r = laid[-1] // w_ranks, collectives.axis_index(pg)
+        block = slice(r * per, (r + 1) * per)
+        shard = _Shard(*(a[block] if a is not None else None
+                         for a in laid[:-1]))
+        return _train_distributed(
+            p, pg, dev, shard, k, init, gp, thresholds, valid_sets,
+            feature_names, init_model, checkpoint_dir, checkpoint_every,
+            learning_rates, iteration_hook)
+    binned = torch.from_numpy(binned_np).to(dev)
+    index = kernels.bin_index(binned, gp.max_bin)  # every K1 launch reads it
+    obj_fn = _objective_fn(p, group, dev)
 
     yd = torch.from_numpy(y).to(dev)
     wd = (torch.from_numpy(np.asarray(weight, np.float32)).to(dev)
@@ -1185,13 +1242,494 @@ def train(
 def _combined_booster(trees: List[Tree], p: BoostParams, k: int,
                       init: float, f: int, feature_names,
                       tracker: _ValidTracker, init_model: Optional[Booster],
-                      compute_importances: bool = True) -> Booster:
+                      compute_importances: bool = True,
+                      tree_weights: Optional[np.ndarray] = None) -> Booster:
     """The booster of ``init_model``'s trees followed by ``trees``."""
     booster = _assemble_booster(
         _prepend_init_trees(init_model, _stack_trees(trees)), p, k, init, f,
         feature_names, tracker, init_model=init_model,
-        compute_importances=compute_importances)
+        compute_importances=compute_importances, tree_weights=tree_weights)
     if init_model is not None and booster.best_iteration >= 0:
         # best_iteration indexes the combined tree stack
         booster.best_iteration += init_model.num_iterations
     return booster
+
+
+# -- data-parallel training ---------------------------------------------------
+
+def _pack_queries(group, n_shards):
+    """Greedily pack whole queries onto the least-loaded of ``n_shards``
+    shards, in first-appearance order. Returns (each shard's row indices,
+    dense 0..nq-1 group ids, per-shard loads)."""
+    group = np.asarray(group)
+    if group.size == 0:  # an empty rank still takes part
+        return ([np.zeros(0, np.int64) for _ in range(n_shards)],
+                np.zeros(0, np.int64), np.zeros(n_shards, np.int64))
+    sort_idx = np.argsort(group, kind="stable")
+    sorted_g = group[sort_idx]
+    bounds = np.nonzero(sorted_g[1:] != sorted_g[:-1])[0] + 1
+    query_rows = np.split(sort_idx, bounds)
+    query_rows.sort(key=lambda rows: int(rows.min()))
+    shard_rows: List[List[np.ndarray]] = [[] for _ in range(n_shards)]
+    loads = np.zeros(n_shards, np.int64)
+    for rows in query_rows:
+        tgt = int(np.argmin(loads))
+        shard_rows[tgt].append(rows)
+        loads[tgt] += len(rows)
+    shard_idx = [np.concatenate(rs) if rs else np.zeros(0, np.int64)
+                 for rs in shard_rows]
+    # dense ids: user ids may be negative, and pad rows need the negatives
+    _, dense_gid = np.unique(group, return_inverse=True)
+    return shard_idx, dense_gid, loads
+
+
+def _layout_shards(shard_idx, dense_gid, per, binned_np, y, weight,
+                   init_margins, bdev, neg_base=0):
+    """Each shard's rows followed by pad rows up to ``per``. Pad rows sit
+    in bin ``bdev - 1`` with unique negative group ids (``neg_base``
+    keeps several ranks' pads apart), so they form no pairs. Returns
+    (binned, y, weight, init_margins, valid mask, group ids)."""
+    n_shards = len(shard_idx)
+    valid = np.ones(per * n_shards, bool)
+    gids = np.full(per * n_shards, -1, np.int64)
+    for s, rows in enumerate(shard_idx):
+        gids[s * per:s * per + len(rows)] = dense_gid[rows]
+        valid[s * per + len(rows):(s + 1) * per] = False
+
+    def lay(arr, fill=0):
+        out = np.full((per * n_shards,) + arr.shape[1:], fill, arr.dtype)
+        for s, rows in enumerate(shard_idx):
+            out[s * per:s * per + len(rows)] = arr[rows]
+        return out
+    binned_np = lay(binned_np, fill=bdev - 1)
+    y = lay(y)
+    weight = lay(weight) if weight is not None else None
+    init_margins = lay(init_margins) if init_margins is not None else None
+    pads = np.nonzero(~valid)[0]
+    gids[pads] = -(np.arange(len(pads)) + 1 + neg_base)
+    return binned_np, y, weight, init_margins, valid, gids
+
+
+def _layout_rows(is_rank, n_shards, binned_np, y, weight, init_margins,
+                 group, bdev):
+    """The reference's row layout for ``n_shards`` ranks: ranking fits
+    pack whole queries onto shards (:func:`_layout_shards`); every other
+    fit pads zero-bin rows at the end up to a multiple of ``n_shards``.
+    Returns (binned, y, weight, init_margins, valid mask, group ids or
+    None, padded row count); shard ``r`` is block ``r``."""
+    n0, f = binned_np.shape
+    if is_rank:
+        shard_idx, dense_gid, loads = _pack_queries(group, n_shards)
+        per = int(loads.max())
+        laid = _layout_shards(shard_idx, dense_gid, per, binned_np, y,
+                              weight, init_margins, bdev)
+        return laid + (per * n_shards,)
+    pad = (-n0) % n_shards
+    return (*(_pad_rows(a, pad) for a in (binned_np, y, weight,
+                                          init_margins)),
+            np.arange(n0 + pad) < n0, None, n0 + pad)
+
+
+def _pad_rows(arr: Optional[np.ndarray], pad: int) -> Optional[np.ndarray]:
+    """``arr`` with ``pad`` zero rows appended (bin 0 for bins)."""
+    if arr is None or pad == 0:
+        return arr
+    return np.concatenate([arr, np.zeros((pad,) + arr.shape[1:], arr.dtype)])
+
+
+@dataclasses.dataclass
+class _Shard:
+    """This rank's block of the row layout (host numpy)."""
+    binned: np.ndarray             # [n_l, F] bins
+    y: np.ndarray                  # [n_l] labels
+    weight: Optional[np.ndarray]   # [n_l] row weights
+    margins: Optional[np.ndarray]  # [n_l, k] init_model margins
+    valid: np.ndarray              # [n_l] bool, False on pad rows
+    gids: Optional[np.ndarray]     # [n_l] query ids (ranking)
+
+
+_GOSS_BINS = 512
+
+
+def _goss_global(p: BoostParams, g: torch.Tensor, h: torch.Tensor,
+                 valid: torch.Tensor, key: torch.Tensor, pg):
+    """GOSS with the mesh's global top-rate threshold (the reference's
+    ``goss_select``): a rank-summed 512-bin |grad| histogram under the
+    ranks' max |grad| gives the threshold, in the reference's float32
+    operations; each rank draws the other rows from ``fold_in(key,
+    rank)``. Returns (mask, grad, hess)."""
+    absg = torch.where(valid, g.abs(), 0.0)
+    gmax = collectives.all_reduce_max(absg.max(), pg) + _f32(1e-12)
+    idx = (absg / gmax * _GOSS_BINS).to(torch.int32).clamp(0, _GOSS_BINS - 1)
+    counts = torch.zeros(_GOSS_BINS, dtype=torch.float32, device=g.device)
+    # counts below 2^24 add exactly in any order
+    counts.index_add_(0, idx.long(), valid.to(torch.float32))
+    hist = collectives.all_reduce_sum(counts, pg)
+    total = collectives.all_reduce_sum(valid.sum().to(torch.float32), pg)
+    n_top = torch.clamp(torch.floor(total * _f32(p.top_rate)), min=1.0)
+    from_top = torch.flip(torch.cumsum(torch.flip(hist, (0,)), 0), (0,))
+    tbin = torch.clamp((from_top >= n_top).sum() - 1, min=0)
+    thresh = tbin.to(torch.float32) * gmax / _GOSS_BINS
+    top = absg >= thresh
+    rand = prng.uniform(prng.fold_in(key, collectives.axis_index(pg)),
+                        g.shape[0]) < _f32(p.other_rate)
+    amp = _f32((1.0 - p.top_rate) / max(p.other_rate, 1e-12))
+    small = ~top & rand & valid
+    return ((top | small) & valid, torch.where(small, g * amp, g),
+            torch.where(small, h * amp, h))
+
+
+def _mesh_chunk(p: BoostParams, tracker: _ValidTracker, k: int,
+                checkpoint_dir, checkpoint_every: int) -> int:
+    """Iterations a chunk of the reference's mesh loop, where its
+    checkpoints are written and its ``iteration_hook`` fires: the
+    single-device chunks, dart's at most ``256 // k`` iterations."""
+    chunk = _checkpoint_every(
+        p, tracker, checkpoint_every if checkpoint_dir is not None else 0)
+    if p.boosting_type == "dart":
+        chunk = min(chunk, max(1, 256 // max(1, k)))
+    return chunk
+
+
+def _train_distributed(p: BoostParams, pg, dev: torch.device, shard: _Shard,
+                       k: int, init: float, gp: GrowerParams,
+                       thresholds: np.ndarray, valid_sets, feature_names,
+                       init_model: Optional[Booster], checkpoint_dir,
+                       checkpoint_every: int, learning_rates,
+                       iteration_hook) -> Booster:
+    """Data-parallel boosting over the ranks of process group ``pg``: the
+    reference's ``_train_distributed`` as a plain Python loop over
+    iterations and classes. This rank holds ``shard``, its block of the
+    row layout, on ``dev``, with one :func:`kernels.bin_index` a fit;
+    every K1 launch runs on its rows and ``build_tree`` reduces across the
+    ranks (data_parallel, or voting_parallel with ``gp.voting_top_k``), so
+    every rank grows the same trees and returns the same booster.
+
+    The mesh's semantics are the reference's mesh ones, not its
+    single-device ones:
+    - bagging and rf draw each rank's rows from ``fold_in(key, rank)``
+      (then ``fold_in(bagging_seed)``); rf's fraction is 0.632 where
+      ``bagging_fraction`` is 1;
+    - goss takes a global threshold (:func:`_goss_global`);
+    - ``feature_fraction`` keeps ``permutation(fold_in(key, 17), F)``'s
+      first features on every rank;
+    - dart keeps its drop schedule in float32 weights, an iteration's k
+      class trees sharing one, and fits on all rows and features;
+    - lambdarank and rank_xendcg both take the dense LambdaRank gradient
+      on each rank's whole queries, times the weight; pad rows (unique
+      negative query ids) get none;
+    - L1 and quantile renewal gather the residuals (NaN on pad rows) and
+      row slots of every rank and take each leaf's quantile globally.
+    The validation set is replicated: every rank scores it and stops at
+    the same iteration. Checkpoints and ``iteration_hook`` come where the
+    reference's scan chunks end (:func:`_mesh_chunk`); rank 0 alone
+    writes a checkpoint.
+    """
+    rank = collectives.axis_index(pg)
+    is_rank_obj = p.objective in _RANKING
+    is_dart = p.boosting_type == "dart"
+    is_rf = p.boosting_type == "rf"
+    use_goss = p.boosting_type == "goss"
+    strat = _stratified(p)
+    use_bagging = ((p.bagging_freq > 0 and (p.bagging_fraction < 1.0 or strat))
+                   or is_rf) and not is_dart
+    sample_features = p.feature_fraction < 1.0 and not is_dart
+    renew_alpha = None
+    if k == 1 and not is_dart:
+        if p.objective in ("regression_l1", "l1", "mae"):
+            renew_alpha = 0.5
+        elif p.objective == "quantile":
+            renew_alpha = p.alpha
+    n_l, f = shard.binned.shape
+
+    binned = torch.from_numpy(np.ascontiguousarray(shard.binned)).to(dev)
+    index = kernels.bin_index(binned, gp.max_bin)  # every K1 launch reads it
+    yd = _on(shard.y, np.float32, dev)
+    wd = _on(shard.weight, np.float32, dev) if shard.weight is not None else None
+    valid = _on(shard.valid, np.bool_, dev)
+    y_onehot = (torch.nn.functional.one_hot(yd.long(), k).to(torch.float32)
+                if k > 1 else None)
+    if is_rank_obj:
+        gids = _on(shard.gids, np.int64, dev)
+        obj_fn = None
+    else:
+        obj_fn = _objective_fn(p)
+
+    def grads(base: torch.Tensor):
+        """(grad, hess) of every class at the margins ``base``."""
+        if k > 1:
+            return obj_fn(base, y_onehot, wd)
+        if is_rank_obj:
+            return obj._weighted(*obj.lambdarank_grad(
+                base, yd, gids, max_dcg_pos=p.max_position), wd)
+        return obj_fn(base, yd, wd)
+
+    if shard.margins is not None:
+        m = shard.margins if k > 1 else shard.margins[:, 0]
+        scores = _on(m, np.float32, dev)
+    else:
+        scores = torch.full((n_l, k) if k > 1 else (n_l,), init,
+                            dtype=torch.float32, device=dev)
+
+    tracker = _ValidTracker(p, k, init, valid_sets, dev)
+    track = tracker.enabled and not is_dart
+    if track and init_model is not None:
+        vraw = init_model.predict_raw(
+            tracker.vx.cpu().numpy(),
+            num_iteration=init_model.num_iterations, device=dev)
+        tracker.vsum = torch.from_numpy(np.ascontiguousarray(
+            vraw.reshape(-1, k) - init, np.float32)).to(dev)
+    chunk = _mesh_chunk(p, tracker, k, checkpoint_dir, checkpoint_every)
+
+    # dart: running float32 iteration weights (the reference's schedule)
+    drng = np.random.default_rng(p.seed) if is_dart else None
+    dart_w = np.zeros(p.num_iterations, np.float32)
+    iter_preds: List[torch.Tensor] = []
+
+    rng = prng.prng_key(p.seed, dev)
+    trees: List[Tree] = []
+    for it in range(p.num_iterations):
+        if is_rf:
+            lr = 1.0
+        elif learning_rates is not None:
+            lr = learning_rates[it]
+        else:
+            lr = p.learning_rate
+        if is_dart:
+            dropped = _dart_select(drng, it, dart_w, p)
+            w_used = dart_w.copy()
+            w_used[dropped] = 0.0
+            base = torch.full_like(scores, init)
+            if it:
+                base = base + _weighted_sum(w_used[:it], iter_preds)
+            g_all, h_all = grads(base)
+            preds = []
+        for c in range(k):
+            rng, key = prng.split(rng)
+            if is_dart:
+                g, h = ((g_all[:, c].contiguous(), h_all[:, c].contiguous())
+                        if k > 1 else (g_all, h_all))
+            else:
+                base = torch.full_like(scores, init) if is_rf else scores
+                g, h = grads(base)
+                if k > 1:
+                    g, h = g[:, c].contiguous(), h[:, c].contiguous()
+            row_mask = valid
+            if use_goss:
+                row_mask, g, h = _goss_global(p, g, h, valid, key, pg)
+            elif use_bagging:
+                bkey = prng.fold_in(key, rank)
+                if p.bagging_seed is not None:
+                    bkey = prng.fold_in(bkey, p.bagging_seed)
+                u = prng.uniform(bkey, n_l)
+                if strat and not is_rf:
+                    row_mask = valid & torch.where(
+                        yd > 0, u < _f32(p.pos_bagging_fraction),
+                        u < _f32(p.neg_bagging_fraction))
+                else:
+                    frac = (p.bagging_fraction if p.bagging_fraction < 1.0
+                            else 0.632)
+                    row_mask = valid & (u < _f32(frac))
+            tree_bins, tree_index = binned, index
+            if sample_features:
+                # the same key on every rank: the same features mesh-wide
+                tree_bins, tree_index = kernels.mask_features(
+                    index, binned,
+                    _feature_keep(p, f, prng.fold_in(key, 17)))
+            tree, row_slot, slot_value, slot_node = build_tree(
+                tree_bins, g, h, row_mask, thresholds, gp, index=tree_index,
+                group=pg)
+            if renew_alpha is not None:
+                residual = torch.where(valid, yd - scores, torch.nan)
+                tree, slot_value = _renew_leaves(
+                    tree, collectives.all_gather(residual, pg),
+                    collectives.all_gather(row_slot, pg), slot_value,
+                    slot_node, renew_alpha)
+            if is_dart:
+                preds.append(slot_value[row_slot.long()])
+                trees.append(tree)
+                continue
+            delta = slot_value[row_slot.long()] * float(lr)
+            if k > 1:
+                scores[:, c] += delta
+            else:
+                scores = scores + delta
+            tree = dataclasses.replace(
+                tree, leaf_value=tree.leaf_value * np.float32(lr))
+            trees.append(tree)
+            if track:
+                tracker.add_tree(tree, c)
+        if is_dart:
+            iter_preds.append(torch.stack(preds, dim=1) if k > 1
+                              else preds[0])
+            new_w, scale = _dart_normalize(p, len(dropped))
+            dart_w[dropped] *= scale
+            dart_w[it] = new_w
+        if track and tracker.step(it):
+            if iteration_hook is not None:
+                iteration_hook(it + 1)
+            break    # a stopped run writes no checkpoint past its last one
+        done = it + 1
+        if done % chunk == 0 or done == p.num_iterations:
+            if checkpoint_dir is not None and rank == 0:
+                save_checkpoint(checkpoint_dir, _combined_booster(
+                    trees, p, k, init, f, feature_names, tracker, init_model,
+                    compute_importances=False), done, p.num_iterations)
+            if iteration_hook is not None:
+                iteration_hook(done)
+
+    return _combined_booster(
+        trees, p, k, init, f, feature_names, tracker, init_model,
+        tree_weights=np.repeat(dart_w, k) if is_dart else None)
+
+
+def row_sharded_mesh_ok(mesh) -> bool:
+    """Whether :func:`train_row_sharded` can take ``mesh``: None (the
+    world group) or a process group. A rank is one device and rank order
+    is process order, so the reference's device-layout conditions hold
+    for every group."""
+    return mesh is None or isinstance(mesh, dist.ProcessGroup)
+
+
+def _init_score_sync(p: BoostParams, y, weight, pg,
+                     dev: torch.device) -> float:
+    """boost_from_average over every rank's rows from this rank's labels:
+    the two float64 sums of each rank, or for the quantile family the
+    float32 labels themselves (the feature rows never move)."""
+    if not p.boost_from_average or p.objective in _MULTICLASS + _RANKING:
+        return 0.0
+    if p.objective in ("quantile", "regression_l1", "l1", "mae", "huber",
+                       "mape"):
+        y_g = collectives.gather_rows(np.asarray(y, np.float32), pg, dev)
+        if p.objective == "quantile":
+            return float(np.quantile(y_g, p.alpha))
+        return float(np.median(y_g))
+    y = np.asarray(y, np.float64)
+    w = (np.asarray(weight, np.float64) if weight is not None
+         else np.ones_like(y))
+    sums = collectives.gather_rows(np.asarray(
+        [[float(np.sum(w * y)), float(np.sum(w))]], np.float64), pg, dev)
+    mean = float(sums[:, 0].sum()) / max(float(sums[:, 1].sum()), 1e-300)
+    if p.objective in ("binary", "binary_logloss"):
+        pbar = float(np.clip(mean, 1e-12, 1 - 1e-12))
+        return float(np.log(pbar / (1 - pbar)) / p.sigmoid)
+    if p.objective in ("poisson", "tweedie"):
+        return float(np.log(max(mean, 1e-12)))
+    return mean
+
+
+def train_row_sharded(
+    p: BoostParams,
+    x: np.ndarray,
+    y: np.ndarray,
+    weight: Optional[np.ndarray] = None,
+    group: Optional[np.ndarray] = None,
+    valid_sets: Sequence[Tuple[np.ndarray, ...]] = (),
+    feature_names: Optional[List[str]] = None,
+    mesh=None,
+    init_model: Optional[Booster] = None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 0,
+    learning_rates: Optional[np.ndarray] = None,
+    iteration_hook: Optional[Callable[[int], None]] = None,
+    stats_out: Optional[Dict[str, Any]] = None,
+    device: str = device_policy.DEFAULT_DEVICE,
+) -> Booster:
+    """Data-parallel training where each rank passes only ITS rows (the
+    reference's ``tree_learner=data_parallel``: a task streams its own
+    partition, LightGBMBase.scala:482-486, and only fixed-size histograms
+    cross the network). ``mesh`` is the process group (default: the world
+    group); ``x``, ``y``, ``weight`` and ``group`` are this rank's rows,
+    a query's rows all on one rank; ``valid_sets`` the same on every rank.
+
+    What crosses the ranks: a bin-boundary sample of at most
+    ``bin_sample_count`` rows in all (each rank's share proportional to
+    its rows, drawn with ``default_rng(seed * 1000003 + rank)``; every row
+    where the job fits the budget), the two float64 label sums of the init
+    score (the float32 labels for the quantile family), query and row
+    counts, and per split the reduced histograms. Where the job's rows fit
+    the budget and the ranks hold consecutive blocks in rank order of
+    equal size, the bins, the layout and so the booster are those of
+    ``train(..., mesh=)`` on the whole rows. ``stats_out`` receives the
+    reference's layout and traffic counts; ``addressable_row_bytes`` is
+    the bytes of this rank's binned block on its device.
+    """
+    dev = device_policy.resolve(device)
+    _check_params(p)
+    pg = collectives.check_group(dist.group.WORLD if mesh is None else mesh)
+    if p.num_iterations < 1:
+        raise ValueError(
+            f"num_iterations must be >= 1, got {p.num_iterations}")
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float32)
+    n_local, f = x.shape
+    k = p.num_class if p.objective in _MULTICLASS else 1
+    if weight is not None and len(weight) != n_local:
+        raise ValueError("weight length != row count")
+    rank = collectives.axis_index(pg)
+
+    n_all = collectives.gather_rows(np.asarray([n_local], np.int64), pg, dev)
+    n_total = int(n_all.sum())
+    if n_total == 0:
+        raise ValueError("no rows to fit: every rank's partition was empty")
+    budget = max(int(p.bin_sample_count), 1)
+    if n_total <= budget:
+        sample = x
+    else:
+        share = max(1, int(budget * n_local / n_total))
+        srng = np.random.default_rng(p.seed * 1000003 + rank)
+        sample = x[np.sort(srng.choice(n_local, min(share, n_local),
+                                       replace=False))]
+    sample_g = collectives.gather_rows(sample, pg, dev)
+    mapper = BinMapper(max_bin=p.max_bin,
+                       categorical_features=p.categorical_features,
+                       subsample=budget, seed=p.seed).fit(sample_g)
+    binned_local = mapper.transform(x)
+    bdev = mapper.total_bins
+    thresholds = mapper.threshold_values().astype(np.float32)
+    gp = p.grower(bdev)
+    init = _init_score_sync(p, y, weight, pg, dev)
+    init, init_margins = _resume_state(p, init_model, k, x, init, dev)
+    _validate_loop_extras(p, checkpoint_dir)
+    learning_rates = _validate_lr_schedule(p, learning_rates)
+
+    if p.objective in _RANKING:
+        if group is None:
+            raise ValueError("ranking objectives need a group array")
+        group = np.asarray(group)
+        if group.shape[0] != n_local:
+            raise ValueError("group length != row count")
+        # disjoint dense query ids: a query must not span ranks
+        uniq, inv = np.unique(group, return_inverse=True)
+        q_counts = collectives.gather_rows(
+            np.asarray([len(uniq)], np.int64), pg, dev)
+        shard_idx, dense_gid, loads = _pack_queries(inv, 1)
+        dense_gid = dense_gid + int(q_counts[:rank].sum())
+        per_local = int(loads.max()) if len(loads) else 0
+        per = max(1, int(collectives.gather_rows(
+            np.asarray([per_local], np.int64), pg, dev).max()))
+        shard = _Shard(*_layout_shards(
+            shard_idx, dense_gid, per, binned_local, y, weight,
+            init_margins, bdev, neg_base=rank * per))
+    else:
+        per = max(int(n_all.max()), 1)
+        shard = _Shard(*(_pad_rows(a, per - n_local) for a in (
+            binned_local, y, weight, init_margins)),
+            valid=np.arange(per) < n_local, gids=None)
+
+    if stats_out is not None:
+        stats_out.update(
+            path="row_sharded",
+            n_local=int(n_local), n_total=n_total,
+            n_global=per * collectives.axis_size(pg),
+            per_host_rows=int(per), n_features=int(f),
+            binned_local_shape=tuple(shard.binned.shape),
+            sample_rows_sent=int(sample.shape[0]),
+            sample_rows_gathered=int(sample_g.shape[0]),
+            sample_gathered_bytes=int(sample_g.nbytes),
+            addressable_row_bytes=int(shard.binned.nbytes),
+            hist_backend=gp.hist_backend)
+    return _train_distributed(
+        p, pg, dev, shard, k, init, gp, thresholds, valid_sets,
+        feature_names, init_model, checkpoint_dir, checkpoint_every,
+        learning_rates, iteration_hook)

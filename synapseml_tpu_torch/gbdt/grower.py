@@ -3,7 +3,15 @@
 Counterpart of ``synapseml_tpu/gbdt/grower.py``: ``GrowerParams``, the
 per-leaf ``histogram`` (kernel K1), the split search (``_split_gains``,
 ``best_split``), leaf-wise growth (``build_tree``), the ``Tree`` record and
-``predict_tree``/``predict_tree_binned`` (kernel K2 with one tree).
+``predict_tree``/``predict_tree_binned`` (kernel K2 with one tree), and
+the data-parallel forms: with a process ``group``, ``histogram`` reduces
+each rank's K1 result across the ranks (the reference's ``psum`` over
+"dp"), and ``build_tree`` either reduces every histogram (data_parallel)
+or, with ``voting_top_k``, keeps them local and reduces only the leaf
+totals and the elected features' histograms (``best_split_voting``,
+voting_parallel). The reductions are the rank-ordered sums of
+:mod:`synapseml_tpu_torch.parallel.collectives`, so every rank takes the
+same split decisions.
 
 The reference grows a tree inside one jitted ``lax.fori_loop`` with
 one-hot selects for every state update. Here the loop is plain Python:
@@ -31,6 +39,7 @@ import torch
 
 from synapseml_tpu_torch.gbdt import kernels
 from synapseml_tpu_torch.gbdt.kernels import forest_traverse
+from synapseml_tpu_torch.parallel import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,8 +53,10 @@ class GrowerParams:
     min_sum_hessian_in_leaf: float = 1e-3
     min_gain_to_split: float = 0.0
     # carried so params round-trip with the reference; the port has one
-    # histogram (K1) and one device, so neither is read
+    # histogram (K1), so it is not read
     hist_backend: str = "auto"
+    # > 0: voting_parallel elects this many features a split (read only
+    # when build_tree is given a process group)
     voting_top_k: int = 0
 
 
@@ -64,14 +75,20 @@ class Tree:
 
 def histogram(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               mask: torch.Tensor, n_bins: int,
-              index: Optional[kernels.BinIndex] = None) -> torch.Tensor:
+              index: Optional[kernels.BinIndex] = None,
+              group=None) -> torch.Tensor:
     """[F, B, 3] histogram of (grad, hess, count) over the rows in ``mask``:
     kernel K1 on a CUDA device (on ``index``, the bins' per-fit
     :func:`~synapseml_tpu_torch.gbdt.kernels.bin_index`, where the caller
-    has one), its plain version on the CPU."""
+    has one), its plain version on the CPU. With a process ``group`` each
+    rank's histogram of its own rows is summed over the ranks in rank
+    order."""
     w = mask.to(torch.float32)
     data = torch.stack([grad * w, hess * w, w], dim=-1)
-    return kernels.histogram(binned, data, n_bins, index=index)
+    hist = kernels.histogram(binned, data, n_bins, index=index)
+    if group is not None:
+        hist = collectives.all_reduce_sum(hist, group)
+    return hist
 
 
 def _l1_threshold(g, l1):
@@ -83,16 +100,21 @@ def _leaf_objective(g, h, p: GrowerParams):
     return gl1 * gl1 / (h + p.lambda_l2 + 1e-12)
 
 
-def _split_gains(hist, totals, p: GrowerParams, depth_ok: bool):
+def _split_gains(hist, totals, p: GrowerParams, depth_ok: bool,
+                 constrained: bool = True):
     """Split gains [..., F, B] of histograms [..., F, B, 3] with leaf
     totals [..., 3]; -inf where a side breaks the min-data/min-hessian
-    limits or the depth limit is reached."""
+    limits or the depth limit is reached. ``constrained=False`` drops the
+    min-data/min-hessian limits and keeps only a non-empty right side (the
+    voting fallback's ranking, never a split decision)."""
     cum = torch.cumsum(hist, dim=-2, dtype=torch.float64).to(torch.float32)
     gl, hl, cl = cum.unbind(-1)
     gt, ht, ct = totals[..., None, None, :].unbind(-1)
     gr, hr, cr = gt - gl, ht - hl, ct - cl
     gain = (_leaf_objective(gl, hl, p) + _leaf_objective(gr, hr, p)
             - _leaf_objective(gt, ht, p))
+    if not constrained:
+        return torch.where((cr > 0) & bool(depth_ok), gain, -torch.inf)
     valid = ((cl >= p.min_data_in_leaf) & (cr >= p.min_data_in_leaf)
              & (hl >= p.min_sum_hessian_in_leaf)
              & (hr >= p.min_sum_hessian_in_leaf))
@@ -109,6 +131,47 @@ def best_split(hist, totals, p: GrowerParams, depth_ok: bool = True):
     idx = flat.argmax(-1)
     return (flat.gather(-1, idx[..., None])[..., 0],
             (idx // n_bins).to(torch.int32), (idx % n_bins).to(torch.int32))
+
+
+def _top_k(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest of ``x`` along the last dim, ties to
+    the lowest index first (``lax.top_k``; ``torch.topk`` promises no
+    order of ties)."""
+    return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def best_split_voting(hist_local, totals, p: GrowerParams, depth_ok: bool,
+                      group):
+    """PV-tree elected best split of each leaf (LightGBM voting_parallel;
+    the reference's ``best_split_voting``): hist_local [..., F, B, 3] this
+    rank's histograms, totals [..., 3] the leaves' GLOBAL totals. Each rank
+    ranks the features by their best LOCAL gain (by the unconstrained
+    gains where every local candidate breaks the min-data/min-hessian
+    limits), the rank-ordered sum of the votes elects ``voting_top_k``
+    features, ties to the lower feature id, and only the elected
+    features' histograms are reduced. Elected ids are sorted, so gain ties
+    resolve in global feature order as in :func:`best_split`. Returns
+    (gain, global feature id, bin), the same on every rank."""
+    f = hist_local.shape[-3]
+    k = int(min(p.voting_top_k, f))
+    local_tot = hist_local[..., 0, :, :].sum(-2, dtype=torch.float64).to(
+        torch.float32)
+    masked_f = _split_gains(hist_local, local_tot, p, depth_ok).amax(-1)
+    raw_f = _split_gains(hist_local, local_tot, p, depth_ok,
+                         constrained=False).amax(-1)
+    local_gain_f = torch.where(
+        torch.isfinite(masked_f.amax(-1, keepdim=True)), masked_f, raw_f)
+    top_local = _top_k(local_gain_f, k)
+    votes = torch.zeros_like(local_gain_f).scatter_(-1, top_local, 1.0)
+    votes = collectives.all_reduce_sum(votes, group)
+    order_score = votes * f + torch.arange(
+        f, 0, -1, dtype=torch.float32, device=votes.device) / f
+    elected = torch.sort(_top_k(order_score, k), dim=-1).values
+    hist_elected = collectives.all_reduce_sum(torch.take_along_dim(
+        hist_local, elected[..., None, None], dim=-3), group)
+    gain, f_local, b_best = best_split(hist_elected, totals, p, depth_ok)
+    feat = elected.gather(-1, f_local.long()[..., None])[..., 0]
+    return gain, feat.to(torch.int32), b_best
 
 
 def _leaf_totals(hist_leaf: torch.Tensor) -> torch.Tensor:
@@ -139,7 +202,7 @@ def _partition(row_slot: torch.Tensor, binned: torch.Tensor, leaf: int,
 
 def build_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                row_mask: torch.Tensor, threshold_values, p: GrowerParams,
-               index: Optional[kernels.BinIndex] = None
+               index: Optional[kernels.BinIndex] = None, group=None
                ) -> Tuple[Tree, torch.Tensor, torch.Tensor, np.ndarray]:
     """Grow one tree on the device of ``binned``.
 
@@ -149,6 +212,15 @@ def build_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     every histogram of the tree reads (the boosting loop builds it once a
     fit). Returns (tree of host numpy arrays, row_slot [N] int32 on the
     device, slot_value [L] f32 on the device, slot_node [L] host int32).
+
+    With a process ``group`` the rows are this rank's shard and every rank
+    grows the same tree (the reference's ``axis_name="dp"``): data_parallel
+    reduces the root's and each right child's histogram and takes the left
+    one by subtraction of reduced histograms; with ``p.voting_top_k > 0``
+    (voting_parallel) histograms and their subtraction stay local and only
+    the leaf totals and the elected features' histograms are reduced.
+    Without a group, ``voting_top_k`` is not read: voting_parallel trains
+    as data_parallel, as in the reference.
     """
     dev = binned.device
     n, f = binned.shape
@@ -156,13 +228,25 @@ def build_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     m = 2 * n_leaves - 1
     n_bins = p.max_bin
     min_gain = np.float32(p.min_gain_to_split)
+    voting = p.voting_top_k > 0 and group is not None
+    hist_group = None if voting else group
+
+    def leaf_totals(h):
+        tot = _leaf_totals(h)
+        return collectives.all_reduce_sum(tot, group) if voting else tot
+
+    def search(h, tot, depth_ok):
+        if voting:
+            return best_split_voting(h, tot, p, depth_ok, group)
+        return best_split(h, tot, p, depth_ok)
 
     hist = torch.zeros((n_leaves, f, n_bins, 3), dtype=torch.float32,
                        device=dev)
     totals = torch.zeros((n_leaves, 3), dtype=torch.float32, device=dev)
-    hist[0] = histogram(binned, grad, hess, row_mask, n_bins, index)
-    totals[0] = _leaf_totals(hist[0])
-    g0, f0, b0 = best_split(hist[0], totals[0], p, depth_ok=True)
+    hist[0] = histogram(binned, grad, hess, row_mask, n_bins, index,
+                        hist_group)
+    totals[0] = leaf_totals(hist[0])
+    g0, f0, b0 = search(hist[0], totals[0], True)
 
     best_gain = np.full(n_leaves, -np.inf, np.float32)
     best_feat = np.zeros(n_leaves, np.int64)
@@ -199,8 +283,8 @@ def build_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         # histogram fresh (K1) and the left one by subtraction
         row_slot = _partition(row_slot, binned, leaf, feat, thr_bin, s)
         hist_r = histogram(binned, grad, hess, (row_slot == s) & row_mask,
-                           n_bins, index)
-        tot_r = _leaf_totals(hist_r)
+                           n_bins, index, hist_group)
+        tot_r = leaf_totals(hist_r)
         hist[leaf] -= hist_r
         totals[leaf] -= tot_r
         hist[s] = hist_r
@@ -211,8 +295,8 @@ def build_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         slot_node[leaf], slot_node[s] = left_id, right_id
         depth_ok = p.max_depth <= 0 or new_depth < p.max_depth
         pair = torch.stack([hist[leaf], hist_r])
-        gains, feats, bins = best_split(
-            pair, torch.stack([totals[leaf], tot_r]), p, depth_ok)
+        gains, feats, bins = search(
+            pair, torch.stack([totals[leaf], tot_r]), depth_ok)
         gains, feats, bins, covers = _to_host(
             gains, feats, bins, torch.stack([totals[leaf, 2], tot_r[2]]))
         best_gain[[leaf, s]] = gains

@@ -336,3 +336,74 @@ def test_ranker_fit_on_the_card_equals_the_cpu(card):
     np.testing.assert_allclose(a.predict_raw(x, device="cuda"),
                                b.predict_raw(x, device="cpu"), rtol=0,
                                atol=1e-4)
+
+
+def test_data_parallel_fits_on_the_card_equal_the_cpu(card, tmp_path):
+    """Data-parallel training, two gloo ranks sharing the card against the
+    same two ranks on the CPU (``tests/torch_dp_worker.py``): bitwise in
+    every mode (K1 bitwise its plain version, the reductions rank-ordered,
+    float64 where a device could round otherwise). Both ranks' boosters
+    are equal. A one-rank NCCL group on the card trains what a one-rank
+    gloo group does."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_dp_worker import run_ranks
+
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(6000, 8))
+    t = x[:, 0] + np.sin(2 * x[:, 1]) + 0.5 * x[:, 2] * x[:, 3]
+    t += rng.normal(scale=0.3, size=len(t))
+    yb = (t > 0).astype(np.float64)
+    y3 = np.digitize(t, np.quantile(t, [1 / 3, 2 / 3])).astype(np.float64)
+    group = np.repeat(np.arange(200), 30)
+    yr = np.clip(np.floor(t + 2), 0, 4)
+    base = dict(num_iterations=8, num_leaves=15)
+    modes = {
+        "gbdt": (dict(objective="binary"), yb, {}),
+        "bagging_feature_fraction": (dict(objective="binary",
+                                          bagging_fraction=0.8,
+                                          bagging_freq=1,
+                                          feature_fraction=0.8), yb, {}),
+        "goss": (dict(objective="binary", boosting_type="goss"), yb, {}),
+        "rf": (dict(objective="binary", boosting_type="rf",
+                    bagging_fraction=0.7, bagging_freq=1), yb, {}),
+        "dart": (dict(objective="binary", boosting_type="dart",
+                      drop_rate=0.3, skip_drop=0.2), yb, {}),
+        "multiclass_3": (dict(objective="multiclass", num_class=3), y3, {}),
+        "lambdarank": (dict(objective="lambdarank"), yr,
+                       dict(group=group)),
+        "regression_l1": (dict(objective="regression_l1"), t, {}),
+        "voting_top_k_2": (dict(objective="binary",
+                                tree_learner="voting_parallel",
+                                voting_top_k=2), yb, {}),
+    }
+    both = ["cuda", "cpu"]
+    cases = [{"name": n, "kind": "train", "devices": both,
+              "kw": dict(p={**base, **pkw}, x=x, y=y, **extra)}
+             for n, (pkw, y, extra) in modes.items()]
+    cases.append({"name": "row_sharded", "kind": "row_sharded",
+                  "devices": both,
+                  "kw": dict(p={**base, "objective": "binary"},
+                             x_parts=[x[:3000], x[3000:]],
+                             y_parts=[yb[:3000], yb[3000:]])})
+    cases.append({"name": "one_rank", "kind": "one_rank", "devices": ["cuda"],
+                  "kw": dict(p={**base, "objective": "binary"}, x=x, y=yb,
+                             backends=["nccl", "gloo"])})
+    res = run_ranks(str(tmp_path), 2, cases, timeout=600, threads=2)
+    for name in [c["name"] for c in cases[:-1]]:
+        fits = [r[name] for r in res]
+        assert all("error" not in f for f in fits), fits[0].get("error")
+        card_b, cpu_b = fits[0]["cuda"]["booster"], fits[0]["cpu"]["booster"]
+        for b in (fits[1]["cuda"]["booster"], cpu_b):
+            for f in ("trees_feature", "trees_threshold", "trees_value",
+                      "tree_weights"):
+                assert getattr(b, f).tobytes() == getattr(
+                    card_b, f).tobytes(), (name, f)
+        assert fits[0]["cuda"]["k1_launches"] > 0, name
+        assert fits[0]["cpu"]["k1_launches"] == 0, name
+    one = res[0]["one_rank"]
+    assert "error" not in one, one.get("error")
+    for f in ("trees_feature", "trees_threshold", "trees_value"):
+        assert (getattr(one["nccl"]["booster"], f).tobytes()
+                == getattr(one["gloo"]["booster"], f).tobytes()), f

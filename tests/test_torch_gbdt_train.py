@@ -518,22 +518,31 @@ def test_estimator_validation_and_batches_match_jax():
     assert [c for c in td.calls if c in jd.calls] == jd.calls
 
 
-# -- what the slice does not port, and the device rule ---------------------
+# -- options once refused, and the device rule ------------------------------
 
 @pytest.mark.parametrize("kw", [
     dict(tree_learner="voting_parallel"),
 ], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_options_raise(kw):
+    """voting_parallel was refused before data-parallel training was
+    ported; without a mesh it now trains as data_parallel, bitwise, as the
+    reference's does (its grower.py:479)."""
     x, ys = _rows(n=100)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        boosting.train(boosting.BoostParams(**kw), x, ys["binary"],
-                       device="cpu")
+    got = boosting.train(boosting.BoostParams(**kw), x, ys["binary"],
+                         device="cpu")
+    want = boosting.train(boosting.BoostParams(), x, ys["binary"],
+                          device="cpu")
+    for name in ("trees_feature", "trees_threshold", "trees_value"):
+        np.testing.assert_array_equal(getattr(got, name),
+                                      getattr(want, name))
 
 
 @pytest.mark.parametrize("extra", [dict(mesh=object())])
 def test_unported_train_arguments_raise(extra):
+    """``mesh`` is a torch.distributed process group (data-parallel
+    training, tests/test_torch_gbdt_dp.py); anything else raises."""
     x, ys = _rows(n=100)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="process group"):
         boosting.train(boosting.BoostParams(), x, ys["binary"],
                        device="cpu", **extra)
 
