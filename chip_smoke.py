@@ -79,7 +79,23 @@ before the last line:
    ``train_row_sharded`` (each rank its own rows) on two card ranks and on
    two CPU ranks of the same launch: bitwise;
 15. train_nccl_one_rank — a one-rank NCCL group on the card trains
-   bitwise what a one-rank gloo group does.
+   bitwise what a one-rank gloo group does;
+16. partitions_rendezvous_adult — the data plane: two worker processes
+   sharing the card each stream their half of the Adult rows (3 and 4
+   record batches, dicts and Tables) into
+   ``data.partitions.fit_partitions(rendezvous=..., backend gloo)``,
+   joining through a ``DriverRendezvous`` run here on loopback; routed to
+   ``train_row_sharded``: both ranks' boosters bitwise equal and bitwise
+   phase 13's, each rank's K1 and K2 launches counted, the rendezvous and
+   fit seconds and the reductions reported;
+17. partitions_gather_ranker — a lambdarank fit on the gather route
+   (``row_sharded=False``), each rank numbering its queries from 0: two
+   card ranks bitwise two CPU ranks of the same launch;
+18. rendezvous_nccl_one_rank — a world of one joined through the
+   rendezvous with ``backend="nccl"``: its row-sharded fit bitwise phase
+   15's NCCL fit of the same rows;
+19. launch_smoke — ``python -m synapseml_tpu_torch.parallel.launch`` on
+   the card, single process: exits 0 and prints its accuracy.
 
 Between phases 3 and 4: prng_card_vs_cpu (the threefry key stream on the
 card equal to the CPU's, bitwise) and masked_index (K1 on a
@@ -414,6 +430,13 @@ DP_FIXTURE_IO = os.path.join(FIXTURES, "lgbm_adult_100x31_dp2_io.npz")
 DP_TIMEOUT_S = 600            # the one launch of the two data-parallel ranks
 
 
+def equal_boosters(a, b) -> bool:
+    return all(getattr(a, f).tobytes() == getattr(b, f).tobytes()
+               for f in ("trees_feature", "trees_threshold", "trees_left",
+                         "trees_right", "trees_value", "tree_weights")
+               ) and a.init_score == b.init_score
+
+
 def dp_cases(x_adult, y_adult, dp_params) -> list:
     """The data-parallel cases, run in one launch of two gloo ranks that
     share the card (``tests/torch_dp_worker.py``): the Adult fit through
@@ -504,12 +527,6 @@ def dp_phases(x_adult, y_adult, fit_s, fit_median, smi) -> list:
         for r, res in enumerate(ranks):
             check("error" not in res[name],
                   f"{name} failed on rank {r}: {res[name].get('error')}")
-
-    def equal_boosters(a, b) -> bool:
-        return all(getattr(a, f).tobytes() == getattr(b, f).tobytes()
-                   for f in ("trees_feature", "trees_threshold",
-                             "trees_left", "trees_right", "trees_value",
-                             "tree_weights")) and a.init_score == b.init_score
 
     # 13. the Adult fit at dp=2, held to the JAX 2-device fixture
     fits = [res["adult"]["cuda"] for res in ranks]
@@ -609,7 +626,218 @@ def dp_phases(x_adult, y_adult, fit_s, fit_median, smi) -> list:
     check(one["nccl"]["collective_calls"] > 0
           and one["nccl"]["k1_launches"] > 0, "the NCCL fit did not reduce")
 
-    return dp_counts
+    return {"counts": dp_counts, "params": dp_params, "adult": dp_b,
+            "adult_same_fixture":
+            sum(same_dp), "fixture": dp_fixture,
+            "nccl_one_rank": one["nccl"]["booster"], "one_rank_case":
+            next(c for c in cases if c["name"] == "one_rank")["kw"]}
+
+
+PART_TIMEOUT_S = 600          # each launch of the partition-stream ranks
+LAUNCH_TIMEOUT_S = 300        # the launcher's smoke fit
+
+
+def adult_batches(x_adult, y_adult, cols):
+    """Rank 0's rows 0-16,280 as 3 record batches, rank 1's rows
+    16,281-32,560 as 4, dicts and Tables in turn."""
+    from synapseml_tpu_torch.data.table import Table
+    n = len(y_adult)
+    half = -(-n // 2)
+    spans = [[0, 5_000, 11_000, half], [half, 20_000, 24_000, 28_500, n]]
+    parts = []
+    for bounds in spans:
+        batches = []
+        for i, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
+            d = {c: x_adult[lo:hi, j] for j, c in enumerate(cols)}
+            d["label"] = y_adult[lo:hi].astype(np.float64)
+            batches.append(Table(d) if i % 2 else d)
+        parts.append(batches)
+    return parts
+
+
+def partition_phases(x_adult, y_adult, dp_params, dp, smi) -> list:
+    """Phases 16-19: ``data.partitions.fit_partitions`` through the
+    driver rendezvous (a ``DriverRendezvous`` in this process on loopback,
+    each rank joining through ``fit_partitions(rendezvous=...)``): two
+    gloo ranks sharing the card (the Adult fit, then a ranker on the
+    gather route, on the card and on the CPU), one NCCL rank; then the
+    launcher's smoke fit. Each launch has a timeout that kills its
+    workers. Returns each rank's K1 and K2 launches of the Adult fit."""
+    from synapseml_tpu_torch.gbdt.boosting import Booster
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_dp_worker import run_ranks
+    import make_lgbm_rank_fixture as rank_fx
+
+    cols = [f"f{j}" for j in range(x_adult.shape[1])]
+    xq, yq, gq = rank_fx.rank_rows(60, 20, seed=3)
+    qcols = [f"q{j}" for j in range(xq.shape[1])]
+    first = gq < 30
+    rank_parts = [[{**{c: xq[m, j] for j, c in enumerate(qcols)},
+                    "label": yq[m], "qid": q}]   # each rank numbers 0..29
+                  for m, q in ((first, gq[first]), (~first, gq[~first] - 30))]
+    cases = [
+        {"name": "adult", "kind": "partitions", "devices": ["cuda"],
+         "kw": dict(p=dp_params, batches_parts=adult_batches(
+             x_adult, y_adult, cols), feature_cols=cols,
+             valid_sets=[(x_adult[:4096], y_adult[:4096])],
+             rendezvous=True)},
+        {"name": "gather_ranker", "kind": "partitions",
+         "devices": ["cuda", "cpu"],
+         "kw": dict(p=dict(objective="lambdarank", num_iterations=15,
+                           num_leaves=31), batches_parts=rank_parts,
+                    feature_cols=qcols, group_col="qid", row_sharded=False)}]
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        try:
+            ranks = run_ranks(work, 2, cases, timeout=PART_TIMEOUT_S,
+                              threads=4, init="rendezvous", backend="gloo")
+        except RuntimeError as exc:
+            raise SystemExit(
+                f"chip_smoke: FAILED: partition-stream ranks: {exc}")
+    launch_s = time.perf_counter() - start
+    for name in [c["name"] for c in cases]:
+        for r, res in enumerate(ranks):
+            check("error" not in res[name],
+                  f"{name} failed on rank {r}: {res[name].get('error')}")
+
+    # 16. the Adult fit streamed from two ranks' record batches
+    fits = [res["adult"]["cuda"] for res in ranks]
+    b = fits[0]["booster"]
+    splits = int((b.trees_feature >= 0).sum())
+    # through the text format, as phase 13 holds its booster to the fixture
+    same = same_trees(Booster.load_string(b.save_string()), dp["fixture"])
+    counts = [{"histogram": f["k1_launches"],
+               "forest_traverse": f["k2_launches"]} for f in fits]
+    stats = [f["stats_out"] for f in fits]
+    ranks_equal = equal_boosters(b, fits[1]["booster"])
+    equal_dp = equal_boosters(b, dp["adult"])
+    emit({"phase": "partitions_rendezvous_adult",
+          "config": "fit_partitions(BoostParams of train_dp_adult, 3 and 4 "
+                    "record batches (dicts, Tables) a rank, rendezvous="
+                    "DriverRendezvous on loopback, backend gloo, "
+                    "device cuda): two ranks sharing one card, routed to "
+                    "train_row_sharded",
+          "rows_per_rank": [s["n_local"] for s in stats],
+          "path": [s["path"] for s in stats],
+          "backend": [f["backend"] for f in fits],
+          "sample_rows_gathered": [s["sample_rows_gathered"] for s in stats],
+          "launches_per_rank": counts, "splits": splits,
+          "ranks_bitwise_equal": ranks_equal,
+          "bitwise_train_dp_adult": equal_dp,
+          "identical_trees_vs_jax_fixture": sum(same),
+          "rendezvous_s": [s["rendezvous_s"] for s in stats],
+          "aggregate_s": [s["aggregate_s"] for s in stats],
+          "fit_s": [f["seconds"] for f in fits],
+          "reductions_per_fit": [f["collective_calls"] for f in fits],
+          "reduction_bytes_per_fit_per_rank":
+              [f["collective_bytes"] for f in fits],
+          "launch_s": launch_s, "nvidia_smi": smi})
+    check(ranks_equal, "the two ranks' partition-stream boosters differ")
+    check(equal_dp, "the partition-stream Adult booster is not bitwise the "
+          "train_dp_adult booster")
+    check(sum(same) == dp["adult_same_fixture"],
+          f"{sum(same)} trees of the dp fixture, train_dp_adult has "
+          f"{dp['adult_same_fixture']}")
+    for s, f in zip(stats, fits):
+        check(s["path"] == "row_sharded" and f["backend"] == "gloo",
+              f"partition fit routed to {s['path']} over {f['backend']}")
+        check(s["sample_rows_gathered"] == len(y_adult),
+              f"{s['sample_rows_gathered']} bin-sample rows gathered")
+    for c, c_dp in zip(counts, dp["counts"]):
+        check(c == c_dp and c["histogram"] == 100 + splits
+              and c["forest_traverse"] == 100,
+              f"partition fit launches {c} a rank (train_dp_adult {c_dp}, "
+              f"{splits} splits)")
+
+    # 17. a ranker on the gather route: two card ranks against two CPU ranks
+    g = ranks[0]["gather_ranker"]
+    card_b, cpu_b = g["cuda"]["booster"], g["cpu"]["booster"]
+    q_rows = xq[:2000]
+    gap = float(np.abs(card_b.predict_raw(q_rows, device="cuda")
+                       - cpu_b.predict_raw(q_rows, device="cpu")).max())
+    g_bitwise = equal_boosters(card_b, cpu_b) and gap == 0.0
+    g_ranks = all(equal_boosters(ranks[1]["gather_ranker"][d]["booster"],
+                                 g[d]["booster"]) for d in ("cuda", "cpu"))
+    emit({"phase": "partitions_gather_ranker",
+          "fit": "lambdarank, 15 iterations of 31 leaves, 60 queries "
+                 f"({len(yq)} x {xq.shape[1]}), 30 a rank numbered 0..29 "
+                 "on each, row_sharded=False",
+          "path": g["cuda"]["stats_out"]["path"], "tolerance": "bitwise",
+          "bitwise_vs_cpu_ranks": g_bitwise, "ranks_bitwise_equal": g_ranks,
+          "margin_max_gap": gap, "trees": card_b.num_trees,
+          "k1_launches_card": g["cuda"]["k1_launches"],
+          "fit_s": {d: g[d]["seconds"] for d in ("cuda", "cpu")}})
+    check(g["cuda"]["stats_out"]["path"] == "gather",
+          f"ranker routed to {g['cuda']['stats_out']['path']}")
+    check(g_bitwise and g_ranks, "the gather-route ranker: card ranks differ "
+          "from CPU ranks or from each other")
+    check(g["cuda"]["k1_launches"] > 0, "the gather-route ranker did not "
+          "launch K1")
+
+    # 18. one NCCL rank with an explicit coordinator, against phase 15's
+    # one-rank NCCL group fit of the same rows
+    one = dp["one_rank_case"]
+    half = len(one["y"]) // 2
+    one_parts = [[{**{f"f{j}": one["x"][lo:hi, j]
+                      for j in range(one["x"].shape[1])},
+                   "label": one["y"][lo:hi]}
+                  for lo, hi in ((0, half), (half, len(one["y"])))]]
+    nccl_case = {"name": "nccl", "kind": "partitions", "devices": ["cuda"],
+                 "kw": dict(p=one["p"], batches_parts=one_parts,
+                            feature_cols=[f"f{j}" for j in range(
+                                one["x"].shape[1])],
+                            row_sharded=True, rendezvous=True)}
+    with tempfile.TemporaryDirectory() as work:
+        try:
+            res = run_ranks(work, 1, [nccl_case], timeout=PART_TIMEOUT_S,
+                            threads=4, init="rendezvous", backend="nccl",
+                            local_device=0)[0]["nccl"]
+        except RuntimeError as exc:
+            raise SystemExit(f"chip_smoke: FAILED: one NCCL rank: {exc}")
+    check("error" not in res, f"one NCCL rank failed: {res.get('error')}")
+    fit = res["cuda"]
+    nccl_equal = equal_boosters(fit["booster"], dp["nccl_one_rank"])
+    emit({"phase": "rendezvous_nccl_one_rank",
+          "fit": "fit_partitions(row_sharded=True) of train_nccl_one_rank's "
+                 "rows in 2 batches, a world of one, backend nccl, "
+                 "local_device 0",
+          "backend": fit["backend"], "path": fit["stats_out"]["path"],
+          "bitwise_vs_train_nccl_one_rank": nccl_equal,
+          "reductions": fit["collective_calls"],
+          "rendezvous_s": fit["stats_out"]["rendezvous_s"],
+          "fit_s": fit["seconds"], "k1_launches": fit["k1_launches"]})
+    check(fit["backend"] == "nccl" and fit["stats_out"]["path"]
+          == "row_sharded", "the one-rank fit did not run row-sharded over "
+          "NCCL")
+    check(nccl_equal, "the one-rank NCCL partition fit differs from "
+          "train_nccl_one_rank's")
+    check(fit["collective_calls"] > 0 and fit["k1_launches"] > 0,
+          "the one-rank NCCL partition fit did not reduce or launch K1")
+
+    # 19. the launcher's built-in smoke fit on the card, single process
+    env = dict(os.environ, PYTHONPATH=HERE)
+    for var in ("SYNAPSEML_COORDINATOR", "SYNAPSEML_NUM_PROCESSES",
+                "SYNAPSEML_PROCESS_ID"):
+        env.pop(var, None)
+    start = time.perf_counter()
+    try:
+        run = subprocess.run(
+            [sys.executable, "-m", "synapseml_tpu_torch.parallel.launch"],
+            env=env, cwd=HERE, capture_output=True, text=True,
+            timeout=LAUNCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise SystemExit("chip_smoke: FAILED: the launcher did not finish "
+                         f"within {LAUNCH_TIMEOUT_S} s") from None
+    acc = [ln.split("acc=")[-1] for ln in run.stdout.splitlines()
+           if "smoke-fit acc=" in ln]
+    emit({"phase": "launch_smoke",
+          "command": "python -m synapseml_tpu_torch.parallel.launch",
+          "returncode": run.returncode, "smoke_fit_acc": acc,
+          "seconds": time.perf_counter() - start,
+          "stdout": run.stdout.strip().splitlines()[-2:]})
+    check(run.returncode == 0 and acc and "device=cuda" in run.stdout,
+          f"the launcher exited {run.returncode}: {run.stderr[-2000:]}")
+    return counts
 
 
 def main() -> int:
@@ -1548,7 +1776,11 @@ def main() -> int:
           "nvidia_smi": smi})
 
     # -- 13-15. data-parallel training: two ranks sharing the card --------
-    dp_counts = dp_phases(x_adult, y_adult, fit_s, fit_median, smi)
+    dp = dp_phases(x_adult, y_adult, fit_s, fit_median, smi)
+    dp_counts = dp["counts"]
+
+    # -- 16-19. the data plane: partition streams, rendezvous, launcher ---
+    part_counts = partition_phases(x_adult, y_adult, dp["params"], dp, smi)
 
     emit({"kernels": [{
         "name": "forest_traverse", "route": "cuda",
@@ -1558,6 +1790,8 @@ def main() -> int:
         rank_counts["forest_traverse"], "launches_categorical_fit":
         cat_counts["forest_traverse"], "launches_dp_fit_per_rank":
         [c["forest_traverse"] for c in dp_counts],
+        "launches_partitions_fit_per_rank":
+        [c["forest_traverse"] for c in part_counts],
         "max_abs_err": max_err, "bitwise": True,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
@@ -1569,6 +1803,8 @@ def main() -> int:
         "launches_ranker_fit": rank_counts["histogram"],
         "launches_categorical_fit": cat_counts["histogram"],
         "launches_dp_fit_per_rank": [c["histogram"] for c in dp_counts],
+        "launches_partitions_fit_per_rank":
+        [c["histogram"] for c in part_counts],
         "max_abs_err": k1_max_err,
         "bitwise": True, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],

@@ -6,13 +6,17 @@ needs. Its layout mirrors the reference, so each module's counterpart
 has the same path:
 
   core/             param system + pipeline stages (own stage registry)
-  data/             columnar Table data plane
+  data/             columnar Table data plane; partition streams into a
+                    fit (partitions.py)
   gbdt/             GBDT scoring: Booster, LightGBM models, native format,
                     TreeSHAP, and the forest-traversal kernel (kernels.py,
                     csrc/forest_traverse.cu)
   isolationforest/  isolation forest (host fit, device scoring)
   parallel/         collectives over a torch.distributed process group
-                    (data-parallel GBDT training)
+                    (data-parallel GBDT training), the driver rendezvous
+                    and process-group bootstrap (distributed.py), the
+                    launcher (launch.py)
+  utils/            retry with backoff
   convert.py        carries a reference model's arrays into the port
   device.py         device policy: "cuda" by default, raise without CUDA
 

@@ -1639,8 +1639,11 @@ def train_row_sharded(
     reference's ``tree_learner=data_parallel``: a task streams its own
     partition, LightGBMBase.scala:482-486, and only fixed-size histograms
     cross the network). ``mesh`` is the process group (default: the world
-    group); ``x``, ``y``, ``weight`` and ``group`` are this rank's rows,
-    a query's rows all on one rank; ``valid_sets`` the same on every rank.
+    group; where none is initialized, this process alone trains as a
+    world of one rank, ``collectives.ALONE``, as the reference trains
+    over its one process's devices); ``x``, ``y``, ``weight`` and
+    ``group`` are this rank's rows, a query's rows all on one rank;
+    ``valid_sets`` the same on every rank.
 
     What crosses the ranks: a bin-boundary sample of at most
     ``bin_sample_count`` rows in all (each rank's share proportional to
@@ -1656,7 +1659,7 @@ def train_row_sharded(
     """
     dev = device_policy.resolve(device)
     _check_params(p)
-    pg = collectives.check_group(dist.group.WORLD if mesh is None else mesh)
+    pg = collectives.check_group(mesh)
     if p.num_iterations < 1:
         raise ValueError(
             f"num_iterations must be >= 1, got {p.num_iterations}")

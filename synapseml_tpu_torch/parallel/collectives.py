@@ -27,7 +27,11 @@ W times the tensor (``stats.bytes`` counts the buffer), where a
 reduce-scatter would move about twice it; making it cheaper is later work.
 
 The group decides the transport: NCCL between cards, gloo on the CPU and
-for ranks that share one card. Tensors stay on the device they are given.
+for ranks that share one card. Tensors stay on the device they are
+given. :data:`ALONE` stands for this process alone where no
+``torch.distributed`` group is initialized: a world of one rank, as the
+reference's one-process mesh over its own devices is, whose exchange is
+the tensor itself and makes no backend call.
 ``stats`` counts the calls, their buffer bytes and, with ``stats.timed``
 set, the seconds spent in them with the device synchronised around each.
 """
@@ -56,10 +60,29 @@ class CollectiveStats:
 stats = CollectiveStats()
 
 
-def check_group(mesh) -> "dist.ProcessGroup":
+class _Alone:
+    """The world of one rank that a process forms without a process group."""
+
+    def __repr__(self) -> str:
+        return "collectives.ALONE"
+
+
+ALONE = _Alone()
+
+
+def _initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def check_group(mesh):
     """``mesh`` as the process group a data-parallel fit runs over; raises
-    unless it is one that this process belongs to."""
-    if not (dist.is_available() and dist.is_initialized()):
+    unless it is one that this process belongs to. ``None`` is the world
+    group, or :data:`ALONE` where none is initialized."""
+    if mesh is None:
+        mesh = dist.group.WORLD if _initialized() else ALONE
+    if mesh is ALONE:
+        return ALONE
+    if not _initialized():
         raise ValueError(
             "mesh= needs an initialized torch.distributed process group "
             "(init_process_group), one rank per device")
@@ -75,12 +98,12 @@ def check_group(mesh) -> "dist.ProcessGroup":
 
 def axis_size(group) -> int:
     """Ranks in ``group`` (the reference's ``axis_size("dp")``)."""
-    return dist.get_world_size(group)
+    return 1 if group is ALONE else dist.get_world_size(group)
 
 
 def axis_index(group) -> int:
     """This process's rank in ``group`` (``lax.axis_index("dp")``)."""
-    return dist.get_rank(group)
+    return 0 if group is ALONE else dist.get_rank(group)
 
 
 def _sync(device: torch.device) -> None:
@@ -91,6 +114,8 @@ def _sync(device: torch.device) -> None:
 def exchange(x: torch.Tensor, group) -> torch.Tensor:
     """[W, *x.shape]: every rank's ``x`` (same shape and dtype on every
     rank), in rank order, bit for bit."""
+    if group is ALONE:
+        return x[None].clone()
     w, r = axis_size(group), axis_index(group)
     x = x.contiguous()
     flat = x.reshape(-1).view(torch.uint8)
@@ -140,6 +165,8 @@ def gather_rows(a: np.ndarray, group,
     rank order, as host numpy. The exchange runs on ``device`` (the fit's;
     an NCCL group needs a CUDA one)."""
     a = np.ascontiguousarray(a)
+    if group is ALONE:
+        return a
     device = torch.device("cpu") if device is None else torch.device(device)
     counts = exchange(torch.tensor([a.shape[0]], dtype=torch.int64,
                                    device=device), group).cpu().numpy()[:, 0]

@@ -407,3 +407,43 @@ def test_data_parallel_fits_on_the_card_equal_the_cpu(card, tmp_path):
     for f in ("trees_feature", "trees_threshold", "trees_value"):
         assert (getattr(one["nccl"]["booster"], f).tobytes()
                 == getattr(one["gloo"]["booster"], f).tobytes()), f
+
+
+def test_one_nccl_rank_joins_through_the_rendezvous_and_fits(card, tmp_path):
+    """A world of one joined through a ``DriverRendezvous`` with backend
+    NCCL and ``local_device_ids=[0]`` (the card selected for the rank),
+    then ``fit_partitions(row_sharded=True)`` on the card: bitwise the
+    same fit on the CPU without a process group (a world of one)."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_dp_worker import run_ranks
+
+    from synapseml_tpu_torch.gbdt.boosting import (BoostParams,
+                                                   train_row_sharded)
+
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(4000, 6))
+    y = (x[:, 0] + x[:, 1] * x[:, 2] > 0).astype(np.float64)
+    p = dict(objective="binary", num_iterations=8, num_leaves=15)
+    cols = [f"f{j}" for j in range(6)]
+    batches = [{**{c: x[lo:hi, j] for j, c in enumerate(cols)},
+                "label": y[lo:hi]} for lo, hi in ((0, 1500), (1500, 4000))]
+    cases = [{"name": "join", "kind": "join"},
+             {"name": "fit", "kind": "partitions", "devices": ["cuda"],
+              "kw": dict(p=p, batches_parts=[batches], feature_cols=cols,
+                         row_sharded=True)}]
+    res = run_ranks(str(tmp_path), 1, cases, timeout=300, init="rendezvous",
+                    backend="nccl", local_device=0)[0]
+    assert "error" not in res["join"], res["join"].get("error")
+    assert (res["join"]["backend"], res["join"]["cuda_device"]) == ("nccl", 0)
+    assert "error" not in res["fit"], res["fit"].get("error")
+    fit = res["fit"]["cuda"]
+    assert fit["backend"] == "nccl"
+    assert fit["stats_out"]["path"] == "row_sharded"
+    assert fit["k1_launches"] > 0 and fit["collective_calls"] > 0
+    want = train_row_sharded(BoostParams(**p), x, y, device="cpu")
+    for f in ("trees_feature", "trees_threshold", "trees_value",
+              "tree_weights"):
+        assert getattr(fit["booster"], f).tobytes() == getattr(
+            want, f).tobytes(), f
