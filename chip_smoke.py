@@ -95,7 +95,24 @@ before the last line:
    rendezvous with ``backend="nccl"``: its row-sharded fit bitwise phase
    15's NCCL fit of the same rows;
 19. launch_smoke — ``python -m synapseml_tpu_torch.parallel.launch`` on
-   the card, single process: exits 0 and prints its accuracy.
+   the card, single process: exits 0 and prints its accuracy;
+20. onnx_resnet50_224 — the imported-ONNX forward of ``entry()``:
+   ``zoo.resnet50`` (seed 0, 224x224, 1,000 classes) parsed and lowered
+   by ``synapseml_tpu_torch.onnx.import_model`` (timed), ``entry()``'s 8
+   images through the float32 bind (within rtol=atol=1e-3 of the JAX
+   package's logits, ``tests/fixtures/resnet50_224_logits.npz``) and the
+   bf16 bind (within 5% of their largest magnitude); a warm forward's
+   copies and syncs (none but a numpy input's copy); images/s at batch
+   128 (30 forwards after a warm one, CUDA events) in both dtypes and the
+   share of the card's peak at 8.18 GFLOP an image; the card's busy share
+   in one batch-8 and one batch-128 forward (``torch.profiler``) with its
+   top operations; the batch-8 forward's host issue time against its wall
+   and device time. No kernel of the port is on this path: K1 and K2
+   launch 0 times;
+21. onnx_fixtures — the five torch-exported graphs
+   (``tests/fixtures/torch_*.onnx``) on the card against the torch
+   outputs recorded at export: rtol=atol=1e-5, and for ``torch_quant_cnn``
+   2 output quantization steps with more than 95% within one.
 
 Between phases 3 and 4: prng_card_vs_cpu (the threefry key stream on the
 card equal to the CPU's, bitwise) and masked_index (K1 on a
@@ -838,6 +855,243 @@ def partition_phases(x_adult, y_adult, dp_params, dp, smi) -> list:
     check(run.returncode == 0 and acc and "device=cuda" in run.stdout,
           f"the launcher exited {run.returncode}: {run.stderr[-2000:]}")
     return counts
+
+
+RESNET_FIXTURE = os.path.join(FIXTURES, "resnet50_224_logits.npz")
+ONNX_FIXTURES = ("torch_cnn", "torch_gru", "torch_transformer",
+                 "torch_quant_cnn", "torch_kv_decoder")
+# ResNet-50 at 224x224: 4.09 G multiply-adds an image (torchvision's
+# ResNet50_Weights.IMAGENET1K_V1 card, "GFLOPS 4.09"), 2 operations each
+RESNET50_OPS = 2 * 4.09e9
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+LOGITS_TOL = 1e-3             # float32 logits against the JAX fixture
+BF16_SPAN_SHARE = 0.05        # bf16 logits: 5% of the float32 largest |logit|
+THROUGHPUT_BATCH, THROUGHPUT_FORWARDS = 128, 30
+
+
+class TransferCount:
+    """A dispatch mode that counts the copies between the host and the card
+    that the calls under it dispatch (``.to``, ``copy_``: host to card and
+    back) and the scalar reads of a card tensor (``.item()``)."""
+
+    # under inference_mode ``.to`` reaches the mode undecomposed
+    COPIES = ("to", "_to_copy", "copy_", "_copy_from",
+              "_copy_from_and_resize")
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counts = self.counts = {"h2d": 0, "d2h": 0}
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                name = func.overloadpacket.__name__
+                if name in TransferCount.COPIES:
+                    src = args[1] if name.startswith("copy_") else args[0]
+                    dst = out if isinstance(out, torch.Tensor) else args[0]
+                    route = (src.device.type, dst.device.type)
+                    if route == ("cpu", "cuda"):
+                        counts["h2d"] += 1
+                    elif route == ("cuda", "cpu"):
+                        counts["d2h"] += 1
+                elif name == "_local_scalar_dense" and \
+                        args[0].device.type == "cuda":
+                    counts["d2h"] += 1
+                return out
+
+        self.mode = Mode()
+
+
+def copies_and_syncs(fn, *args) -> dict:
+    """One warm call of ``fn``: its host<->card copies as the calls it
+    dispatches show them (:class:`TransferCount`), its synchronizing calls
+    (warnings of CUDA's sync debug mode, on for the call alone), and what
+    the profiler recorded of it on the card (its memcpy records and its
+    operations: in a long-lived process the profiler does not always get
+    every record, so the checks read the dispatched copies)."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    transfers = TransferCount()
+    with transfers.mode:
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"h2d_copies": transfers.counts["h2d"],
+            "d2h_copies": transfers.counts["d2h"],
+            "syncs": sum("called a synchronizing CUDA operation"
+                         in str(w.message) for w in caught),
+            "profiler_memcpy": [n for n in names if "Memcpy" in n],
+            "profiler_device_ops": len(names)}
+
+
+def onnx_phases(smi, reset_counts, read_counts) -> None:
+    """Phases 20-21: the imported-ONNX forward. ``zoo.resnet50`` (seed 0,
+    224x224, 1,000 classes) parsed and lowered by the port, run on
+    ``entry()``'s 8 images through the float32 and the bf16 bind and held
+    to the JAX package's logits (``tests/fixtures/resnet50_224_logits.npz``);
+    images/s at batch 128 (30 forwards after a warm one, CUDA events) and
+    the share of the card's peak; the card's busy share in one batch-8 and
+    one batch-128 forward; the copies and syncs of a warm forward. Then
+    the five torch-exported graphs against their recorded outputs."""
+    import make_resnet50_fixture as resnet_fx
+    from synapseml_tpu_torch.onnx import import_model, zoo
+
+    reset_counts()
+    start = time.perf_counter()
+    blob = zoo.resnet50(num_classes=1000)
+    zoo_s = time.perf_counter() - start
+    start = time.perf_counter()
+    graph = import_model(blob)
+    import_s = time.perf_counter() - start
+    binds = {}
+    for name, cast in (("float32", None), ("bf16", torch.bfloat16)):
+        start = time.perf_counter()
+        binds[name] = graph.bind(cast_dtype=cast)
+        torch.cuda.synchronize()
+        binds[name + "_s"] = time.perf_counter() - start
+    f32, bf16 = binds["float32"], binds["bf16"]
+
+    fx = np.load(RESNET_FIXTURE)
+    want = fx["logits_f32"]
+    images = resnet_fx.images()
+    x32 = torch.from_numpy(images).cuda()
+    x16 = x32.to(torch.bfloat16)
+    out32, out16 = f32(x32)[0], bf16(x16)[0]
+    from_host = f32(images)[0]
+    torch.cuda.synchronize()
+    got32 = out32.cpu().numpy()
+    got16 = out16.float().cpu().numpy()
+    span = float(np.abs(want).max())
+    f32_err = float(np.abs(got32 - want).max())
+    bf16_err = float(np.abs(got16 - want).max())
+    f32_ok = bool(np.allclose(got32, want, rtol=LOGITS_TOL, atol=LOGITS_TOL))
+    bf16_ok = bf16_err <= BF16_SPAN_SHARE * span
+    host_gap = float((from_host - out32).abs().max())
+    warm = {"bf16_device_input": copies_and_syncs(bf16, x16),
+            "float32_device_input": copies_and_syncs(f32, x32),
+            "float32_numpy_input": copies_and_syncs(f32, images)}
+
+    rng = np.random.default_rng(1)
+    x128 = torch.from_numpy(rng.standard_normal(
+        (THROUGHPUT_BATCH, 3, 224, 224)).astype(np.float32)).cuda()
+    throughput = {}
+    for name, fn, x in (("float32", f32, x128),
+                        ("bf16", bf16, x128.to(torch.bfloat16))):
+        fn(x)
+        torch.cuda.synchronize()
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        for _ in range(THROUGHPUT_FORWARDS):
+            fn(x)
+        end.record()
+        torch.cuda.synchronize()
+        s = begin.elapsed_time(end) * 1e-3
+        rate = THROUGHPUT_BATCH * THROUGHPUT_FORWARDS / s
+        peak = BF16_OPS_PER_S if name == "bf16" else FP32_OPS_PER_S
+        throughput[name] = {
+            "images_per_s": rate, "ms_per_forward": s / THROUGHPUT_FORWARDS
+            * 1e3, "peak_share": rate * RESNET50_OPS / peak,
+            "peak_ops_per_s": peak}
+    x128_16 = x128.to(torch.bfloat16)
+    busy = {"bf16_batch8": device_busy(lambda: bf16(x16)),
+            "bf16_batch128": device_busy(lambda: bf16(x128_16)),
+            "float32_batch8": device_busy(lambda: f32(x32))}
+
+    def wall_ms(fn, calls: int = 20) -> float:
+        times = []
+        for _ in range(calls):
+            torch.cuda.synchronize()
+            begin = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - begin) * 1e3)
+        return statistics.median(times)
+
+    # a forward is ~250 launches: a few forwards behind the spin stay
+    # within the launch queue, so the host never waits for the card
+    batch8 = {}
+    for name, fn, x in (("bf16", bf16, x16), ("float32", f32, x32)):
+        issue = host_ms(lambda: fn(x), calls=2)
+        wall = wall_ms(lambda: fn(x))
+        device = cuda_ms(lambda: fn(x), reps=5, inner=3)
+        batch8[name] = {"host_issue_ms": issue, "wall_ms": wall,
+                        "device_ms": device, "host_share": issue / wall}
+    counts = read_counts()
+    emit({"phase": "onnx_resnet50_224", "model": "zoo.resnet50 seed 0, "
+          "224x224, 1000 classes", "nodes": len(graph._nodes),
+          "params": len(graph.params), "param_bytes": graph.param_bytes(),
+          "zoo_s": zoo_s, "import_s": import_s,
+          "bind_float32_s": binds["float32_s"], "bind_bf16_s": binds["bf16_s"],
+          "logits_shape": list(got32.shape),
+          "float32_max_abs_err": f32_err, "float32_tolerance":
+          f"rtol=atol={LOGITS_TOL}", "float32_ok": f32_ok,
+          "bf16_max_abs_err": bf16_err, "bf16_limit": BF16_SPAN_SHARE * span,
+          "bf16_gap_to_jax_bf16": float(np.abs(
+              got16 - fx["logits_bf16"]).max()), "bf16_ok": bool(bf16_ok),
+          "numpy_input_vs_device_input_max_abs": host_gap,
+          "warm_forward": warm, "throughput_batch128": throughput,
+          "resnet50_ops_per_image": RESNET50_OPS,
+          "device_busy": busy, "batch8": batch8,
+          "kernel_launches": counts, "nvidia_smi": smi})
+    check(got32.shape == (8, 1000) and np.isfinite(got32).all()
+          and np.isfinite(got16).all(), "ResNet-50 logits not finite [8, 1000]")
+    check(out32.dtype == torch.float32 and out16.dtype == torch.bfloat16,
+          f"ResNet-50 logits dtypes {out32.dtype}, {out16.dtype}")
+    check(f32_ok, f"float32 ResNet-50 logits off the JAX fixture by {f32_err}")
+    check(bf16_ok, f"bf16 ResNet-50 logits off the JAX fixture by {bf16_err}"
+          f" (limit {BF16_SPAN_SHARE * span})")
+    check(host_gap <= LOGITS_TOL * span,
+          f"numpy input and device input differ by {host_gap}")
+    for name, w in warm.items():
+        check(w["syncs"] == 0 and w["d2h_copies"] == 0,
+              f"a warm ResNet-50 forward ({name}) synchronised: {w}")
+        check(w["h2d_copies"] == (1 if "numpy" in name else 0),
+              f"a warm ResNet-50 forward ({name}) copied to the card: {w}")
+    check(not any(counts.values()), f"ONNX path launched {counts}")
+
+    results = []
+    for name in ONNX_FIXTURES:
+        io = np.load(os.path.join(FIXTURES, f"{name}_io.npz"))
+        keys, wants = ((["input_ids", "past_key", "past_value"],
+                        ["logits", "present_key", "present_value"])
+                       if name == "torch_kv_decoder" else
+                       (["input"], ["expected"]))
+        fn = import_model(os.path.join(FIXTURES, f"{name}.onnx")).bind()
+        outs = fn(*[torch.from_numpy(io[k]).cuda() for k in keys])
+        errs, ok = [], True
+        for out, w in zip(outs, wants):
+            got = out.cpu().numpy()
+            err = np.abs(got - io[w])
+            errs.append(float(err.max()))
+            ok &= got.shape == io[w].shape and out.device.type == "cuda"
+            if name == "torch_quant_cnn":
+                step = float(io["out_scale"])
+                ok &= bool(err.max() <= 2 * step + 1e-7
+                           and (err <= step + 1e-7).mean() > 0.95)
+            else:
+                ok &= bool(np.allclose(got, io[w], atol=1e-5, rtol=1e-5))
+        results.append({"graph": name, "max_abs_err": errs, "ok": ok,
+                        "tolerance": "2 output steps, >95% within one"
+                        if name == "torch_quant_cnn" else "rtol=atol=1e-5"})
+    emit({"phase": "onnx_fixtures", "graphs": results, "nvidia_smi": smi})
+    for r in results:
+        check(r["ok"], f"{r['graph']} off its recorded outputs: {r}")
 
 
 def main() -> int:
@@ -1781,6 +2035,9 @@ def main() -> int:
 
     # -- 16-19. the data plane: partition streams, rendezvous, launcher ---
     part_counts = partition_phases(x_adult, y_adult, dp["params"], dp, smi)
+
+    # -- 20-21. the imported-ONNX forward: ResNet-50, the torch graphs ----
+    onnx_phases(smi, reset_counts, read_counts)
 
     emit({"kernels": [{
         "name": "forest_traverse", "route": "cuda",

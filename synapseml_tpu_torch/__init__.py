@@ -12,12 +12,16 @@ has the same path:
                     TreeSHAP, and the forest-traversal kernel (kernels.py,
                     csrc/forest_traverse.cu)
   isolationforest/  isolation forest (host fit, device scoring)
+  onnx/             ONNX import and scoring: protobuf codec, graph
+                    builder and zoo, the graph -> torch importer
+                    (import_model(...).bind() runs a graph on the card)
   parallel/         collectives over a torch.distributed process group
                     (data-parallel GBDT training), the driver rendezvous
                     and process-group bootstrap (distributed.py), the
                     launcher (launch.py)
   utils/            retry with backoff
-  convert.py        carries a reference model's arrays into the port
+  convert.py        carries a reference model's arrays (boosters,
+                    forests, imported graphs' params) into the port
   device.py         device policy: "cuda" by default, raise without CUDA
 
 Hand-written CUDA kernels live in ``csrc/`` and are built at first use

@@ -8,7 +8,10 @@ reference package, so this module imports nothing of it:
   port's :class:`~synapseml_tpu_torch.gbdt.boosting.Booster`;
 - :func:`iforest_model_from_arrays` takes an isolation forest's stacked
   tree arrays and normaliser and returns the port's
-  :class:`~synapseml_tpu_torch.isolationforest.IsolationForestModel`.
+  :class:`~synapseml_tpu_torch.isolationforest.IsolationForestModel`;
+- :func:`graph_params_from_arrays` takes a reference ``ImportedGraph``'s
+  ``params`` (initializer name -> numpy) and returns the port's params on
+  the device, for the port's ``ImportedGraph.apply``.
 """
 from __future__ import annotations
 
@@ -16,9 +19,12 @@ import dataclasses
 from typing import Any, Mapping, Sequence
 
 import numpy as np
+import torch
 
+from synapseml_tpu_torch.device import DEFAULT_DEVICE, resolve
 from synapseml_tpu_torch.gbdt.boosting import Booster, BoostParams
 from synapseml_tpu_torch.isolationforest.iforest import IsolationForestModel
+from synapseml_tpu_torch.onnx.importer import ImportedGraph
 
 _ARRAY_DTYPES = {
     "trees_feature": np.int32, "trees_threshold": np.float32,
@@ -74,3 +80,28 @@ def iforest_model_from_arrays(trees: Sequence[np.ndarray], max_depth: int,
     return IsolationForestModel(trees=arrays, max_depth=int(max_depth),
                                 c_norm=float(c_norm),
                                 threshold=float(threshold), **params)
+
+
+def graph_params_from_arrays(graph: ImportedGraph,
+                             arrays: Mapping[str, Any],
+                             device: str | torch.device = DEFAULT_DEVICE
+                             ) -> dict:
+    """The port's params of ``graph`` (the port's ``ImportedGraph`` of the
+    same model) from a reference ``ImportedGraph.params``: each array on
+    ``device``, after its name, shape and dtype are checked against the
+    port's own split of the initializers (``graph.params``)."""
+    dev = resolve(device)
+    missing = sorted(set(graph.params) - set(arrays))
+    unknown = sorted(set(arrays) - set(graph.params))
+    if missing or unknown:
+        raise ValueError(f"params do not match the graph's: missing "
+                         f"{missing}, not params of the graph {unknown}")
+    out = {}
+    for name, want in graph.params.items():
+        a = np.asarray(arrays[name])
+        if a.shape != want.shape or a.dtype != want.dtype:
+            raise ValueError(
+                f"param {name!r}: {a.dtype}{list(a.shape)}, the graph "
+                f"holds {want.dtype}{list(want.shape)}")
+        out[name] = torch.from_numpy(np.array(a, copy=True)).to(dev)
+    return out

@@ -1,0 +1,18 @@
+"""ONNX subsystem of the port: protobuf codec, graph builder and zoo, and
+the graph -> PyTorch importer (``import_model(...).bind()`` scores a graph
+on the card).
+
+The counterpart of the reference package's ``onnx/``; ``ONNXModel`` (which
+needs the batched executor) and ``convert_lightgbm`` (which needs the
+``ai.onnx.ml`` ops) are not ported yet.
+"""
+from synapseml_tpu_torch.onnx.builder import GraphBuilder
+from synapseml_tpu_torch.onnx.importer import (
+    ImportedGraph, import_model, supported_ops,
+)
+from synapseml_tpu_torch.onnx import proto, zoo
+
+__all__ = [
+    "GraphBuilder", "ImportedGraph", "import_model", "supported_ops",
+    "proto", "zoo",
+]

@@ -1,0 +1,1135 @@
+"""ONNX graph -> PyTorch importer: runs a loaded ONNX graph as torch ops.
+
+The counterpart of the reference package's ``onnx/importer.py``: the graph
+is parsed once (:mod:`synapseml_tpu_torch.onnx.proto`), each node is mapped
+to a torch op, and the model becomes one ``apply(params, *inputs)`` function
+over a dict of weights. ``bind`` moves the float weights to the card once and
+returns the forward. No op here is a hand-written kernel: the reference
+lowers ``Conv``/``MatMul``/``Gemm`` to XLA ops outside any Pallas kernel, so
+the port runs them as ``torch.nn.functional.conv*`` and ``torch.matmul``
+(cuDNN, cuBLAS on the card).
+
+Design notes:
+- **Host values versus device tensors.** Shape arithmetic stays in numpy,
+  exactly where the reference keeps it (``Shape -> Gather -> Concat ->
+  Reshape`` never touches the device), and the same ops take the host path
+  (:func:`_is_host`, :func:`_all_host`). A host value that meets a tensor is
+  first made a tensor on that tensor's device, explicitly
+  (:func:`_operands`); an op the reference always runs on the device
+  (``jnp``) makes its host inputs tensors on the run's device.
+- **dtype promotion follows JAX's rules**, not torch's: a numpy value or a
+  tensor is strongly typed whatever its rank (torch treats a 0-dim tensor
+  like a Python scalar), so a bf16 activation meeting a float32 constant
+  gives float32, as it does in the reference. A float64 host value becomes
+  float32 when it reaches the device, as under JAX's default 32-bit mode.
+  Integers are the exception: the reference narrows int64 to int32 on the
+  device, the port keeps int64.
+- **Rounding order is the reference's**: ``Gemm`` is matmul, then
+  ``alpha``, then ``+ c``; ``BatchNormalization`` folds its statistics in
+  float32 and casts the scale and bias to the activation dtype (``bind``
+  folds once, as XLA's constant folding does for the reference); a
+  scalar's value is rounded to the operation's dtype before it is used.
+- **Float32 means float32**: every run disables TF32 in cuDNN and cuBLAS
+  (:func:`_ieee_float32`), so a float32 forward on the card is not a TF32
+  one. bf16 (``bind(cast_dtype=torch.bfloat16)``) is the fast path.
+- Recurrent ops run a Python loop over time steps where the reference runs
+  ``lax.scan``.
+
+An op outside the registry raises ``NotImplementedError`` when the graph
+is imported; nothing falls back.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+import operator
+import threading
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from synapseml_tpu_torch import device as device_policy
+from synapseml_tpu_torch.onnx import proto
+from synapseml_tpu_torch.onnx.proto import Msg, node_attrs, tensor_to_numpy
+
+_REGISTRY: Dict[str, Callable] = {}
+
+
+def op(*names: str):
+    def deco(fn):
+        for n in names:
+            _REGISTRY[n] = fn
+        return fn
+    return deco
+
+
+class OpContext:
+    """Per-node context handed to op impls."""
+
+    __slots__ = ("attrs", "opset", "name", "op_type", "n_outputs")
+
+    def __init__(self, attrs: Dict[str, Any], opset: int, name: str,
+                 op_type: str, n_outputs: int):
+        self.attrs = attrs
+        self.opset = opset
+        self.name = name
+        self.op_type = op_type
+        self.n_outputs = n_outputs
+
+    def attr(self, key: str, default: Any = None) -> Any:
+        return self.attrs.get(key, default)
+
+
+# ---------------------------------------------------------------------------
+# Host values, device tensors and dtypes
+# ---------------------------------------------------------------------------
+
+def _is_host(x) -> bool:
+    return isinstance(x, (np.ndarray, np.generic, int, float, bool))
+
+
+def _all_host(inputs) -> bool:
+    return all(x is None or _is_host(x) for x in inputs)
+
+
+def _static_int_list(x, what: str) -> List[int]:
+    """Require a host-side (concrete) integer vector — used for shapes/axes."""
+    if x is None:
+        return []
+    if isinstance(x, (list, tuple)):
+        return [int(v) for v in x]
+    if _is_host(x):
+        return [int(v) for v in np.asarray(x).reshape(-1)]
+    raise ValueError(
+        f"ONNX import: {what} must be statically known (got a device "
+        "tensor); constant-fold the producing subgraph or use an initializer")
+
+
+_TORCH_OF = {np.dtype(k): v for k, v in (
+    (np.bool_, torch.bool), (np.uint8, torch.uint8), (np.int8, torch.int8),
+    (np.int16, torch.int16), (np.int32, torch.int32),
+    (np.int64, torch.int64), (np.float16, torch.float16),
+    (np.float32, torch.float32), (np.float64, torch.float64),
+    (np.uint16, torch.uint16), (np.uint32, torch.uint32),
+    (np.uint64, torch.uint64))}
+_NUMPY_OF = {v: k for k, v in _TORCH_OF.items()}
+
+
+def _canonical(dt: np.dtype) -> np.dtype:
+    """The dtype a host value takes on the device: float64 becomes float32
+    (the reference runs with JAX's 64-bit mode off); integers keep theirs."""
+    return np.dtype(np.float32) if dt == np.float64 else dt
+
+
+def _torch_dtype(dt) -> torch.dtype:
+    """The torch dtype for a torch dtype, a numpy dtype or its name."""
+    if isinstance(dt, torch.dtype):
+        return dt
+    dt = np.dtype(dt)
+    if dt.name == "bfloat16":
+        return torch.bfloat16
+    if dt not in _TORCH_OF:
+        raise ValueError(f"no torch dtype for {dt}")
+    return _TORCH_OF[dt]
+
+
+def _np_value(x) -> np.ndarray:
+    """A host value as a numpy array in the dtype it takes on the device."""
+    a = np.asarray(x)
+    return a.astype(_canonical(a.dtype), copy=False)
+
+
+class _Run(threading.local):
+    """The device of the graph run in progress on this thread: where an op
+    puts a tensor made from host values when no operand is a tensor."""
+    device: Optional[torch.device] = None
+
+
+_RUN = _Run()
+
+
+@contextlib.contextmanager
+def _running_on(dev: torch.device):
+    prev, _RUN.device = _RUN.device, dev
+    try:
+        yield
+    finally:
+        _RUN.device = prev
+
+
+def _device_of(xs) -> torch.device:
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            return x.device
+    if _RUN.device is None:
+        raise RuntimeError("ONNX op called outside a graph run")
+    return _RUN.device
+
+
+def _tensor(x, dev: Optional[torch.device] = None) -> torch.Tensor:
+    """``x`` as a tensor (``jnp.asarray``): a host value goes to ``dev`` (the
+    run's device by default), a 0-d one by a fill, no copy. The copy does
+    not wait for the card: CUDA stages pageable memory before the call
+    returns, so the host array may go at once."""
+    if isinstance(x, torch.Tensor):
+        return x
+    dev = dev if dev is not None else _device_of(())
+    a = _np_value(x)
+    td = _torch_dtype(a.dtype)
+    if a.ndim == 0:
+        return torch.full((), a.item(), dtype=td, device=dev)
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = a.copy()
+    t = torch.from_numpy(a.view(np.uint16) if td == torch.bfloat16 else a)
+    return t.view(td).to(dev, non_blocking=True)
+
+
+def _strong_dtype(x) -> Optional[torch.dtype]:
+    """x's dtype under JAX's promotion; None for a (weak) Python scalar."""
+    if isinstance(x, torch.Tensor):
+        return x.dtype
+    if isinstance(x, (bool, int, float)):
+        return None
+    return _torch_dtype(_np_value(x).dtype)
+
+
+def _result_dtype(xs) -> torch.dtype:
+    strong = [d for d in map(_strong_dtype, xs) if d is not None]
+    out = strong[0]
+    for d in strong[1:]:
+        out = torch.promote_types(out, d)
+    if (not out.is_floating_point
+            and any(isinstance(x, float) for x in xs)):
+        out = torch.get_default_dtype()
+    return out
+
+
+def _scalar(x, dt: torch.dtype):
+    """A 0-d host value as a Python number, rounded to ``dt`` first."""
+    return torch.tensor(_np_value(x).item()).to(dt).item()
+
+
+def _operands(xs, scalars: bool = True) -> list:
+    """The operands of a device op, in JAX's result dtype: tensors cast to
+    it, host arrays copied to the operands' device in it, and 0-d host
+    values passed as Python numbers rounded to it (``scalars``; otherwise
+    as 0-d tensors on the device, filled, not copied). A Python number
+    keeps its dtype in torch's promotion, so the op's dtype is ``dt``."""
+    dev = _device_of(xs)
+    dt = _result_dtype(xs)
+    out = []
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            out.append(x if x.dtype == dt else x.to(dt))
+        elif scalars and np.ndim(x) == 0:
+            out.append(_scalar(x, dt))
+        else:
+            out.append(_tensor(x, dev).to(dt))
+    return out
+
+
+def _bin(fn, a, b, scalars: bool = True):
+    return fn(*_operands((a, b), scalars))
+
+
+@contextlib.contextmanager
+def _ieee_float32():
+    """Float32 convolutions and matmuls in IEEE float32, not TF32: cuDNN
+    allows TF32 by default, which would miss the reference's float32 by
+    more than its tolerance. Restores the caller's flags."""
+    cudnn = torch.backends.cudnn.allow_tf32
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+# ---------------------------------------------------------------------------
+# Elementwise / math
+# ---------------------------------------------------------------------------
+
+def _ew(fn_np, fn_torch):
+    def impl(ctx, *xs):
+        if _all_host(xs):
+            return fn_np(*[np.asarray(x) for x in xs])
+        return fn_torch(*_operands(xs))
+    return impl
+
+
+for _name, _np_fn, _torch_fn in [
+    ("Add", np.add, operator.add), ("Sub", np.subtract, operator.sub),
+    ("Mul", np.multiply, operator.mul), ("Greater", np.greater, operator.gt),
+]:
+    _REGISTRY[_name] = _ew(_np_fn, _torch_fn)
+
+
+# Div on integers truncates toward zero in ONNX; a true divide would
+# promote to float. A float divisor stays a device tensor: torch on the
+# card multiplies by the reciprocal of a Python-number divisor.
+@op("Div")
+def _int_safe_div(ctx, a, b):
+    if _all_host((a, b)):
+        if np.issubdtype(np.asarray(a).dtype, np.integer):
+            return np.sign(a) * np.sign(b) * (np.abs(a) // np.abs(b))
+        return np.divide(a, b)
+    da = _strong_dtype(a)
+    a, b = _operands((a, b), scalars=False)
+    if da is not None and da != torch.bool and not da.is_floating_point:
+        return torch.sign(a) * torch.sign(b) * (torch.abs(a) // torch.abs(b))
+    return torch.div(a, b)
+
+
+@op("Relu")
+def _relu(ctx, x):
+    return torch.relu(_tensor(x))
+
+
+@op("Sqrt")
+def _sqrt(ctx, x):
+    return torch.sqrt(_tensor(x))
+
+
+@op("Gelu")
+def _gelu(ctx, x):
+    approximate = "tanh" if ctx.attr("approximate", "none") == "tanh" else "none"
+    return F.gelu(_tensor(x), approximate=approximate)
+
+
+def _per_axis_qparams(x, axis, scale, zp):
+    """Reshape 1-D per-channel quantization scale/zero-point for
+    broadcast along ``axis`` of ``x`` (shared by Quantize/Dequantize)."""
+    if np.ndim(scale) == 1 and np.ndim(x) > 1:
+        shape = [1] * np.ndim(x)
+        shape[axis % np.ndim(x)] = -1
+        scale = _tensor(scale).reshape(shape)
+        zp = _tensor(zp).reshape(shape) if np.ndim(zp) == 1 else zp
+    return scale, zp
+
+
+def _as_float32(v):
+    """``jnp.asarray(v).astype(float32)``: a strongly typed float32."""
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.float32)
+    return np.asarray(v).astype(np.float32)
+
+
+@op("QuantizeLinear")
+def _quantize_linear(ctx, x, scale, zero_point=None):
+    """fp -> int8/uint8 affine quantization: round half to even, add the
+    zero point, saturate. axis applies when scale is 1-D per-channel."""
+    if zero_point is None:
+        dtype = np.dtype(np.uint8)
+    elif isinstance(zero_point, torch.Tensor):
+        dtype = _NUMPY_OF[zero_point.dtype]
+    else:
+        dtype = np.asarray(zero_point).dtype
+    zp = 0 if zero_point is None else zero_point
+    x = _tensor(x)
+    scale, zp = _per_axis_qparams(x, ctx.attr("axis", 1), scale, zp)
+    q = torch.round(_bin(torch.div, x, scale, scalars=False))
+    q = _bin(operator.add, q, _as_float32(zp))
+    info = np.iinfo(dtype)
+    return torch.clamp(q, info.min, info.max).to(_torch_dtype(dtype))
+
+
+@op("DequantizeLinear")
+def _dequantize_linear(ctx, x, scale, zero_point=None):
+    zp = 0 if zero_point is None else zero_point
+    x = _tensor(x)
+    scale, zp = _per_axis_qparams(x, ctx.attr("axis", 1), scale, zp)
+    y = _bin(operator.sub, x.to(torch.float32), _as_float32(zp))
+    return _bin(operator.mul, y, scale)
+
+
+@op("Where")
+def _where(ctx, cond, a, b):
+    if _all_host((cond, a, b)):
+        return np.where(cond, a, b)
+    a, b = _operands((a, b), scalars=False)
+    return torch.where(_tensor(cond, a.device).to(torch.bool), a, b)
+
+
+@op("Mod")
+def _mod(ctx, a, b):
+    # host-preserving: exporters route SHAPE arithmetic through Mod
+    # (torch MultiheadAttention's head-split checks); a device result
+    # here would poison downstream Reshape/Slice static params
+    fmod = ctx.attr("fmod", 0)
+    if _all_host((a, b)):
+        return np.fmod(a, b) if fmod else np.mod(a, b)
+    a, b = _operands((a, b), scalars=False)
+    return torch.fmod(a, b) if fmod else torch.remainder(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Linear algebra
+# ---------------------------------------------------------------------------
+
+@op("MatMul")
+def _matmul(ctx, a, b):
+    return torch.matmul(*_operands((a, b), scalars=False))
+
+
+@op("Gemm")
+def _gemm(ctx, a, b, c=None):
+    alpha, beta = ctx.attr("alpha", 1.0), ctx.attr("beta", 1.0)
+    a, b = _operands((a, b), scalars=False)
+    if ctx.attr("transA", 0):
+        a = a.T
+    if ctx.attr("transB", 0):
+        b = b.T
+    # matmul, then alpha, then + c, each rounded to the result dtype, as
+    # the reference's three ops are (one addmm would round once); the
+    # scalars are rounded to that dtype first, as its dtype-pinned ones
+    y = torch.matmul(a, b)
+    dt = y.dtype
+    if alpha != 1.0:
+        y = y * _scalar(alpha, dt)
+    if c is not None:
+        cc = _tensor(c, y.device).to(dt)
+        y = y + (cc * _scalar(beta, dt) if beta != 1.0 else cc)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Convolution & pooling
+# ---------------------------------------------------------------------------
+
+def _resolve_pads(ctx, x_sp: Sequence[int], kernel: Sequence[int],
+                  strides: Sequence[int], dilations: Sequence[int],
+                  ceil_mode: int = 0) -> List[Tuple[int, int]]:
+    rank = len(kernel)
+    auto = ctx.attr("auto_pad", "NOTSET")
+    if auto in ("SAME_UPPER", "SAME_LOWER"):
+        out: List[Tuple[int, int]] = []
+        for i in range(rank):
+            o = math.ceil(x_sp[i] / strides[i])
+            eff_k = (kernel[i] - 1) * dilations[i] + 1
+            total = max(0, (o - 1) * strides[i] + eff_k - x_sp[i])
+            if auto == "SAME_UPPER":
+                out.append((total // 2, total - total // 2))
+            else:
+                out.append((total - total // 2, total // 2))
+        return out
+    pads = ctx.attr("pads", [0] * (2 * rank))
+    out = [(int(pads[i]), int(pads[i + rank])) for i in range(rank)]
+    if ceil_mode:
+        # grow the high-side pad so the final (ceil'd) window fits
+        for i in range(rank):
+            eff_k = (kernel[i] - 1) * dilations[i] + 1
+            padded = x_sp[i] + out[i][0] + out[i][1]
+            o = math.ceil((padded - eff_k) / strides[i]) + 1
+            need = (o - 1) * strides[i] + eff_k
+            if need > padded:
+                out[i] = (out[i][0], out[i][1] + need - padded)
+    return out
+
+
+def _pad(x: torch.Tensor, pads: Sequence[Tuple[int, int]], value=0):
+    """Pad the spatial dims (after N, C) by ``pads``, (low, high) each."""
+    flat = [p for lo_hi in reversed(pads) for p in lo_hi]
+    return F.pad(x, flat, value=value) if any(flat) else x
+
+
+def _symmetric(pads, limit=None) -> Optional[List[int]]:
+    """The per-dim pad if every dim pads both sides alike (and at most
+    ``limit[i]``), else None."""
+    if any(lo != hi for lo, hi in pads):
+        return None
+    if limit is not None and any(lo > m for (lo, _), m in zip(pads, limit)):
+        return None
+    return [lo for lo, _ in pads]
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}   # take divisor_override
+
+
+@op("Conv")
+def _conv(ctx, x, w, b=None):
+    x, w = _operands((x, w), scalars=False)
+    rank = x.ndim - 2
+    strides = ctx.attr("strides", [1] * rank)
+    dilations = ctx.attr("dilations", [1] * rank)
+    group = ctx.attr("group", 1)
+    kernel = ctx.attr("kernel_shape", list(w.shape[2:]))
+    pads = _resolve_pads(ctx, x.shape[2:], kernel, strides, dilations)
+    padding = _symmetric(pads)
+    if padding is None:  # F.conv* pads both sides alike: pad first
+        x, padding = _pad(x, pads), [0] * rank
+    y = _CONV[rank](x, w, None, strides, padding, dilations, group)
+    if b is not None:  # its own add, rounded after the convolution's
+        b = b.reshape((1, -1) + (1,) * rank)
+        y = _bin(operator.add, y, b)
+    return y
+
+
+def _window_reduce(x: torch.Tensor, kernel, strides, dilations, reduce):
+    """``reduce`` over every window of the (already padded) spatial dims:
+    each dim unfolded into (out, effective kernel), the kernel strided by
+    its dilation. For what the library's pools do not take (integers)."""
+    rank = len(kernel)
+    for d in range(rank):
+        eff_k = (kernel[d] - 1) * dilations[d] + 1
+        x = x.unfold(2 + d, eff_k, strides[d])[..., ::dilations[d]]
+    return reduce(x.reshape(x.shape[:2 + rank] + (-1,)), -1)
+
+
+@op("MaxPool")
+def _max_pool(ctx, x):
+    x = _tensor(x)
+    rank = x.ndim - 2
+    kernel = ctx.attr("kernel_shape")
+    strides = ctx.attr("strides", [1] * rank)
+    dilations = ctx.attr("dilations", [1] * rank)
+    if ctx.n_outputs > 1:
+        raise NotImplementedError(
+            "MaxPool's Indices output is not ported yet")
+    pads = _resolve_pads(ctx, x.shape[2:], kernel, strides, dilations,
+                         ctx.attr("ceil_mode", 0))
+    floating = x.is_floating_point()
+    if floating and rank in _MAX_POOL:
+        padding = _symmetric(pads, [k // 2 for k in kernel])
+        if padding is None:
+            x, padding = _pad(x, pads, -math.inf), [0] * rank
+        return _MAX_POOL[rank](x, kernel, strides, padding, dilations)
+    fill = -math.inf if floating else int(torch.iinfo(x.dtype).min)
+    x = _pad(x, pads, fill)
+    return _window_reduce(x, kernel, strides, dilations, torch.amax)
+
+
+def _window_sum(x: torch.Tensor, kernel, strides) -> torch.Tensor:
+    """Window sums of the (already padded) spatial dims."""
+    rank = len(kernel)
+    if rank in _AVG_POOL:
+        return _AVG_POOL[rank](x, kernel, strides, divisor_override=1)
+    return _window_reduce(x, kernel, strides, [1] * rank, torch.sum)
+
+
+@op("AveragePool")
+def _avg_pool(ctx, x):
+    x = _tensor(x)
+    rank = x.ndim - 2
+    kernel = ctx.attr("kernel_shape")
+    strides = ctx.attr("strides", [1] * rank)
+    pads = _resolve_pads(ctx, x.shape[2:], kernel, strides, [1] * rank,
+                         ctx.attr("ceil_mode", 0))
+    # zero-padded window sums divided by a device divisor: the padded
+    # cells (the ceil_mode growth included) count only where
+    # count_include_pad says so, as in the reference
+    s = _window_sum(_pad(x, pads), kernel, strides)
+    if ctx.attr("count_include_pad", 0):
+        return s / torch.full((), float(np.prod(kernel)), dtype=s.dtype,
+                              device=s.device)
+    ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
+    return s / _window_sum(_pad(ones, pads), kernel, strides)
+
+
+@op("GlobalAveragePool")
+def _gap(ctx, x):
+    x = _tensor(x)
+    return x.mean(dim=tuple(range(2, x.ndim)), keepdim=True)
+
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+
+def _bn_fold(scale, b, mean, var, eps: float):
+    """BatchNormalization's statistics as one float32 scale and bias:
+    ``rsqrt(var + eps) * scale`` and ``b - mean * inv * scale``."""
+    f32 = torch.float32
+    inv = torch.rsqrt(var.to(f32) + eps)
+    w = inv * scale.to(f32)
+    bias = b.to(f32) - mean.to(f32) * inv * scale.to(f32)
+    return w, bias
+
+
+def _bn_affine(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor):
+    """``x * w + bias`` over the channel axis, w and bias cast to x's
+    dtype: two roundings in a bf16 graph, as the reference's two ops."""
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    return (x * w.to(x.dtype).reshape(shape)
+            + bias.to(x.dtype).reshape(shape))
+
+
+@op("BatchNormalization")
+def _batch_norm(ctx, x, scale, b, mean, var):
+    x = _tensor(x)
+    stats = [_tensor(v, x.device) for v in (scale, b, mean, var)]
+    return _bn_affine(x, *_bn_fold(*stats, ctx.attr("epsilon", 1e-5)))
+
+
+def _batch_norm_bound(ctx, x, w, bias, w32, bias32):
+    """A BatchNormalization folded at ``bind``: ``w``/``bias`` cast to the
+    dtype the bind expects; the float32 fold for any other."""
+    x = _tensor(x)
+    if x.dtype != w.dtype:
+        w, bias = w32, bias32
+    return _bn_affine(x, w, bias)
+
+
+@op("LayerNormalization")
+def _layer_norm(ctx, x, scale, b=None):
+    x = _tensor(x)
+    axis = ctx.attr("axis", -1)
+    eps = ctx.attr("epsilon", 1e-5)
+    axes = tuple(range(axis % x.ndim, x.ndim))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = x.var(dim=axes, correction=0, keepdim=True)
+    inv = torch.rsqrt(var + _scalar(eps, var.dtype))
+    y = _bin(operator.mul, (x - mean) * inv, scale)
+    if b is not None:
+        y = _bin(operator.add, y, b)
+    if ctx.n_outputs > 1:
+        return (y, mean, inv)[: ctx.n_outputs]
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Shape / structure ops (host-foldable where possible)
+# ---------------------------------------------------------------------------
+
+@op("Shape")
+def _shape(ctx, x):
+    start = ctx.attr("start", 0)
+    end = ctx.attr("end", None)
+    shp = list(np.shape(x))
+    shp = shp[start:end] if end is not None else shp[start:]
+    return np.asarray(shp, dtype=np.int64)
+
+
+@op("Reshape")
+def _reshape(ctx, x, shape=None):
+    target = _static_int_list(shape if shape is not None else ctx.attr("shape"),
+                              "Reshape shape")
+    allowzero = ctx.attr("allowzero", 0)
+    cur = list(np.shape(x))
+    out = []
+    for i, d in enumerate(target):
+        if d == 0 and not allowzero:
+            out.append(cur[i])
+        else:
+            out.append(d)
+    if _is_host(x):
+        return np.reshape(x, out)
+    return x.reshape(out)
+
+
+@op("Flatten")
+def _flatten(ctx, x):
+    x = _tensor(x)
+    axis = ctx.attr("axis", 1) % (x.ndim + 1)
+    lead = int(np.prod(x.shape[:axis])) if axis else 1
+    return x.reshape(lead, -1)
+
+
+@op("Transpose")
+def _transpose(ctx, x):
+    perm = ctx.attr("perm", list(range(np.ndim(x)))[::-1])
+    if _is_host(x):
+        return np.transpose(x, perm)
+    return x.permute(perm)
+
+
+@op("Squeeze")
+def _squeeze(ctx, x, axes=None):
+    if ctx.opset < 13:
+        axes = ctx.attr("axes", None)
+    ax = _static_int_list(axes, "Squeeze axes") if axes is not None else None
+    if not ax:
+        return np.squeeze(x) if _is_host(x) else x.squeeze()
+    ax = tuple(a % np.ndim(x) for a in ax)
+    return np.squeeze(x, axis=ax) if _is_host(x) else x.squeeze(ax)
+
+
+@op("Unsqueeze")
+def _unsqueeze(ctx, x, axes=None):
+    if ctx.opset < 13:
+        axes = ctx.attr("axes")
+    ax = _static_int_list(axes, "Unsqueeze axes")
+    out_rank = np.ndim(x) + len(ax)
+    ax = sorted(a % out_rank for a in ax)
+    host = _is_host(x)
+    for a in ax:
+        x = np.expand_dims(x, a) if host else x.unsqueeze(a)
+    return x
+
+
+@op("Concat")
+def _concat(ctx, *xs):
+    axis = ctx.attr("axis")
+    if _all_host(xs):
+        return np.concatenate([np.asarray(x) for x in xs], axis=axis)
+    return torch.cat(_operands(xs, scalars=False), dim=axis)
+
+
+@op("Split")
+def _split(ctx, x, split=None):
+    axis = ctx.attr("axis", 0)
+    if ctx.opset < 13:
+        split = ctx.attr("split", None)
+    n_out = ctx.n_outputs
+    dim = np.shape(x)[axis]
+    if split is None:
+        sizes = [dim // n_out + (1 if i < dim % n_out else 0) for i in range(n_out)]
+    else:
+        sizes = _static_int_list(split, "Split sizes")
+    offs = np.cumsum([0] + sizes)
+    if _is_host(x):
+        return tuple(np.take(x, range(offs[i], offs[i + 1]), axis=axis)
+                     for i in range(len(sizes)))
+    return tuple(x.narrow(axis, int(offs[i]), int(sizes[i]))
+                 for i in range(len(sizes)))
+
+
+@op("Slice")
+def _slice(ctx, x, starts=None, ends=None, axes=None, steps=None):
+    if ctx.opset < 10:
+        starts, ends = ctx.attr("starts"), ctx.attr("ends")
+        axes = ctx.attr("axes", None)
+    starts = _static_int_list(starts, "Slice starts")
+    ends = _static_int_list(ends, "Slice ends")
+    axes = (_static_int_list(axes, "Slice axes") if axes is not None
+            else list(range(len(starts))))
+    steps = _static_int_list(steps, "Slice steps") if steps is not None else [1] * len(starts)
+    slices = [slice(None)] * np.ndim(x)
+    for st, en, ax, sp in zip(starts, ends, axes, steps):
+        d = np.shape(x)[ax]
+        INT_MAX = 2**62
+        st = max(st + d, 0) if st < 0 else min(st, d)
+        if en < -INT_MAX:
+            en = None if sp < 0 else 0
+        elif en < 0:
+            en = max(en + d, -1)
+            en = None if (sp < 0 and en < 0) else en
+        else:
+            en = min(en, d)
+        slices[ax % np.ndim(x)] = slice(st, en, sp)
+    if _is_host(x):
+        return x[tuple(slices)]
+    # torch takes no negative step: take the same elements forward, flip
+    flips = []
+    for i, s in enumerate(slices):
+        if s.step is not None and s.step < 0:
+            idx = range(*s.indices(x.shape[i]))
+            slices[i] = (slice(idx[-1], idx[0] + 1, -s.step) if len(idx)
+                         else slice(0, 0))
+            flips.append(i)
+    out = x[tuple(slices)]
+    return out.flip(flips) if flips else out
+
+
+@op("Gather")
+def _gather(ctx, x, idx):
+    axis = ctx.attr("axis", 0)
+    if _all_host((x, idx)):
+        return np.take(x, np.asarray(idx, dtype=np.int64), axis=axis)
+    x = _tensor(x)
+    axis %= x.ndim
+    dim = x.shape[axis]
+    # negative indices count from the end, as jnp.take/np.take wrap them
+    if _is_host(idx):
+        i = np.asarray(idx, dtype=np.int64)
+        i = np.where(i < 0, i + dim, i)
+        if i.ndim == 0:
+            return x.select(axis, int(i))
+        idx = _tensor(i, x.device)
+    else:
+        idx = idx.to(torch.int64)
+        idx = torch.where(idx < 0, idx + dim, idx)
+    out = x.index_select(axis, idx.reshape(-1))
+    return out.reshape(x.shape[:axis] + idx.shape + x.shape[axis + 1:])
+
+
+@op("Tile")
+def _tile(ctx, x, repeats):
+    reps = _static_int_list(repeats, "Tile repeats")
+    return np.tile(x, reps) if _is_host(x) else torch.tile(x, reps)
+
+
+@op("Cast")
+def _cast(ctx, x):
+    to = proto.TENSOR_DTYPES[ctx.attr("to")]
+    if _is_host(x):
+        return np.asarray(x).astype(to)
+    return x.to(_torch_dtype(_canonical(np.dtype(to))))
+
+
+@op("Identity")
+def _identity(ctx, x):
+    return x
+
+
+@op("Constant")
+def _constant(ctx):
+    for key in ("value", "value_float", "value_int"):
+        v = ctx.attr(key)
+        if v is not None:
+            return np.asarray(v)
+    for key, dt in (("value_floats", np.float32), ("value_ints", np.int64)):
+        v = ctx.attr(key)
+        if v is not None:
+            return np.asarray(v, dtype=dt)
+    raise ValueError("Constant node without value")
+
+
+@op("ConstantOfShape")
+def _constant_of_shape(ctx, shape):
+    dims = _static_int_list(shape, "ConstantOfShape shape")
+    v = ctx.attr("value")
+    if v is None:
+        return np.zeros(dims, dtype=np.float32)
+    v = np.asarray(v)
+    return np.full(dims, v.reshape(-1)[0], dtype=v.dtype)
+
+
+@op("Range")
+def _range(ctx, start, limit, delta):
+    if _all_host((start, limit, delta)):
+        return np.arange(int(np.asarray(start)), int(np.asarray(limit)),
+                         int(np.asarray(delta)),
+                         dtype=np.asarray(start).dtype)
+    raise ValueError("Range with device bounds is not supported (dynamic shape)")
+
+
+def _softmax_impl(ctx, x, log: bool):
+    x = _tensor(x)
+    axis = ctx.attr("axis", -1 if ctx.opset >= 13 else 1)
+    fn = torch.log_softmax if log else torch.softmax
+    if ctx.opset >= 13:
+        return fn(x, axis)
+    # legacy semantics: flatten to 2D at `axis`, softmax, reshape back
+    axis = axis % x.ndim
+    lead = int(np.prod(x.shape[:axis])) if axis else 1
+    return fn(x.reshape(lead, -1), -1).reshape(x.shape)
+
+
+@op("Softmax")
+def _softmax(ctx, x):
+    return _softmax_impl(ctx, x, log=False)
+
+
+@op("LogSoftmax")
+def _log_softmax(ctx, x):
+    return _softmax_impl(ctx, x, log=True)
+
+
+# ---------------------------------------------------------------------------
+# Recurrent: GRU, one Python step a time step
+# ---------------------------------------------------------------------------
+
+def _direction_slices(direction: str):
+    if direction == "bidirectional":
+        return [(0, False), (1, True)]
+    return [(0, direction == "reverse")]
+
+
+@op("GRU")
+def _gru(ctx, x, w, r, b=None, seq_lens=None, init_h=None):
+    # the matmuls promote their operands as jnp's do (a float32 initial
+    # state against bf16 weights gives float32); torch's elementwise ops
+    # between tensors of rank > 0 already promote as JAX does
+    hidden = ctx.attr("hidden_size")
+    direction = ctx.attr("direction", "forward")
+    linear_before_reset = ctx.attr("linear_before_reset", 0)
+    x = _tensor(x)
+    w, r = _tensor(w, x.device), _tensor(r, x.device)
+    seq, batch, _ = x.shape
+
+    def run_dir(d, reverse):
+        wd, rd = w[d], r[d]  # (3H, I), (3H, H) gate order z,r,h
+        if b is not None:
+            bd = _tensor(b, x.device)[d]
+            wb, rb = bd[: 3 * hidden], bd[3 * hidden:]
+        else:
+            wb = rb = torch.zeros((3 * hidden,), dtype=x.dtype, device=x.device)
+        h = (_tensor(init_h, x.device)[d] if init_h is not None else
+             torch.zeros((batch, hidden), dtype=x.dtype, device=x.device))
+        xs = torch.flip(x, (0,)) if reverse else x
+        x_proj = torch.einsum("sbi,gi->sbg", *_operands((xs, wd))) + wb
+        rbz, rbr, rbh = torch.split(rb, hidden)
+        rd_h = torch.split(rd, hidden, dim=0)[2]
+        ys = []
+        for t in range(seq):
+            xz, xr, xh = torch.split(x_proj[t], hidden, dim=-1)
+            hz, hr, hh = torch.split(_matmul(ctx, h, rd.T), hidden, dim=-1)
+            z = torch.sigmoid(xz + hz + rbz)
+            rg = torch.sigmoid(xr + hr + rbr)
+            if linear_before_reset:
+                h_cand = torch.tanh(xh + rg * (hh + rbh))
+            else:
+                h_cand = torch.tanh(xh + _matmul(ctx, rg * h, rd_h.T) + rbh)
+            h = (1 - z) * h_cand + z * h
+            ys.append(h)
+        ys = torch.stack(ys)
+        if reverse:
+            ys = torch.flip(ys, (0,))
+        return ys, h
+
+    outs, hs = [], []
+    for d, rev in _direction_slices(direction):
+        ys, h_f = run_dir(d, rev)
+        outs.append(ys)
+        hs.append(h_f)
+    y = torch.stack(outs, dim=1)
+    y_h = torch.stack(hs, dim=0)
+    return (y, y_h)[: max(ctx.n_outputs, 1)] if ctx.n_outputs > 1 else y
+
+
+# ---------------------------------------------------------------------------
+# Graph import
+# ---------------------------------------------------------------------------
+
+def _lower_nodes(nodes, opset: int):
+    """Pre-extract (impl, ctx, inputs, outputs) per node, so apply() does
+    no proto work per call."""
+    lowered = []
+    for node in nodes:
+        impl = _REGISTRY.get(node.op_type)
+        if impl is None:
+            raise NotImplementedError(
+                f"ONNX op {node.op_type!r} (node {node.name!r}) is not "
+                f"supported by the importer; supported: "
+                f"{sorted(_REGISTRY)}")
+        # positional arity: through the last *used* output slot — ONNX
+        # marks skipped optional outputs with "" placeholders
+        arity = max((i + 1 for i, o in enumerate(node.output) if o),
+                    default=0)
+        ctx = OpContext(node_attrs(node), opset,
+                        node.name or (node.output[0] if node.output else ""),
+                        node.op_type, arity)
+        lowered.append((impl, ctx, list(node.input), list(node.output)))
+    return lowered
+
+
+def _run_nodes(lowered, env: Dict[str, Any]):
+    for impl, ctx, in_names, out_names in lowered:
+        args = [env[n] if n else None for n in in_names]
+        out = impl(ctx, *args)
+        if not isinstance(out, tuple):
+            out = (out,)
+        for name, val in zip(out_names, out):
+            if name:  # "" marks a skipped optional output
+                env[name] = val
+
+
+def _run(lowered, env: Dict[str, Any], dev: torch.device):
+    with _running_on(dev), _ieee_float32():
+        _run_nodes(lowered, env)
+
+
+class ImportedGraph:
+    """An ONNX graph lowered to torch ops.
+
+    ``params`` holds the float initializers (host numpy); ``static_params``
+    the shape-consuming and non-float ones, which stay host numpy.
+    ``apply(params, *inputs)`` returns outputs in graph-output order;
+    ``bind`` moves the params to the card once and returns the forward.
+    """
+
+    def __init__(self, graph: Msg, opset: int, optimize: bool = False):
+        if optimize:
+            from synapseml_tpu_torch.onnx.optimize import optimize_graph
+
+            graph = optimize_graph(graph, opset)
+        self.graph = graph
+        self.opset = opset
+        all_inits = {t.name: tensor_to_numpy(t) for t in graph.initializer}
+        # Shape-consuming initializers (Reshape targets, Slice starts,
+        # Resize scales, masks...) must stay STATIC host values: a device
+        # tensor cannot give a shape. Static = every non-float initializer,
+        # plus any initializer (float included — Resize scales/roi) feeding
+        # a shape-position input slot. Float weights are the params, which
+        # bind() moves to the device and may cast. The slot table is the
+        # reference's, so both packages split a graph alike.
+        shape_consumers = {
+            "Reshape": (1,), "Expand": (1,), "Tile": (1,),
+            "Slice": (1, 2, 3, 4), "Resize": (1, 2, 3), "Upsample": (1,),
+            "ConstantOfShape": (0,), "Range": (0, 1, 2), "TopK": (1,),
+            "OneHot": (1,), "Pad": (1, 2, 3), "Unsqueeze": (1,),
+            "Squeeze": (1,), "Split": (1,), "Trilu": (1,),
+            "ReduceSum": (1,), "ReduceMean": (1,), "ReduceMax": (1,),
+            "ReduceMin": (1,), "ReduceProd": (1,), "CenterCropPad": (1,),
+            "ReduceSumSquare": (1,), "ReduceL1": (1,), "ReduceL2": (1,),
+            "ReduceLogSum": (1,), "ReduceLogSumExp": (1,),
+            "MelWeightMatrix": (0, 1, 2, 3, 4), "STFT": (1, 3),
+            "HannWindow": (0,), "HammingWindow": (0,),
+            "BlackmanWindow": (0,), "MaxUnpool": (2,),
+            "NonMaxSuppression": (2, 3, 4),
+            "DFT": (1, 2), "Col2Im": (1, 2), "AffineGrid": (1,),
+            "Unique": (0,), "Compress": (0, 1),
+        }
+        # ...while packed-integer WEIGHT slots stay params though non-float
+        weight_consumers = {"MatMulNBits": (1, 3)}
+        shape_fed = set()
+        weight_fed = set()
+        for node in graph.node:
+            for target, slots in ((shape_fed,
+                                   shape_consumers.get(node.op_type)),
+                                  (weight_fed,
+                                   weight_consumers.get(node.op_type))):
+                for i in slots or ():
+                    if i < len(node.input) and node.input[i]:
+                        target.add(node.input[i])
+        weight_fed -= shape_fed  # shape use wins: it needs host values
+        self.static_params: Dict[str, np.ndarray] = {
+            k: v for k, v in all_inits.items()
+            if (not np.issubdtype(v.dtype, np.floating) or k in shape_fed)
+            and k not in weight_fed
+        }
+        self.params: Dict[str, np.ndarray] = {
+            k: v for k, v in all_inits.items() if k not in self.static_params
+        }
+        init_names = set(all_inits)
+        self.input_names: List[str] = [
+            vi.name for vi in graph.input if vi.name not in init_names
+        ]
+        self.output_names: List[str] = [vi.name for vi in graph.output]
+        self.input_info: Dict[str, Tuple[Optional[Any], List[Optional[int]]]] = {}
+        for vi in graph.input:
+            if vi.name in init_names or vi.type is None or vi.type.tensor_type is None:
+                continue
+            tt = vi.type.tensor_type
+            dtype = proto.TENSOR_DTYPES.get(int(tt.elem_type or 0))
+            shape: List[Optional[int]] = []
+            if tt.shape is not None:
+                for d in tt.shape.dim:
+                    shape.append(int(d.dim_value) if d.dim_value else None)
+            self.input_info[vi.name] = (dtype, shape)
+        # pre-extract node metadata so apply() does no proto work per call
+        self._nodes = _lower_nodes(graph.node, opset)
+
+    def _env(self, params, inputs, named_inputs) -> Dict[str, Any]:
+        env: Dict[str, Any] = dict(self.static_params)
+        env.update(params)
+        for name, val in zip(self.input_names, inputs):
+            env[name] = val
+        env.update(named_inputs)
+        missing = [n for n in self.input_names if n not in env]
+        if missing:
+            raise ValueError(f"missing graph inputs: {missing}")
+        return env
+
+    def apply(self, params: Dict[str, Any], *inputs, **named_inputs):
+        """Run the graph. Inputs positional (graph order) or by name.
+
+        Host values (numpy) are welcome; the run takes place on the device
+        of the first tensor among the params and inputs, and on the
+        default device ("cuda", which raises without CUDA) if none is a
+        tensor."""
+        env = self._env(params, inputs, named_inputs)
+        dev = next((v.device for v in (*params.values(), *inputs,
+                                       *named_inputs.values())
+                    if isinstance(v, torch.Tensor)), None)
+        _run(self._nodes, env, dev if dev is not None
+             else device_policy.resolve())
+        return tuple(env[n] for n in self.output_names)
+
+    def bind(self, cast_dtype=None,
+             device: str | torch.device = device_policy.DEFAULT_DEVICE):
+        """Return ``fn(*inputs)`` with params closed over (optionally cast).
+
+        The float params go to ``device`` once, here (cast to
+        ``cast_dtype``, a torch or numpy dtype, where given), and each
+        BatchNormalization whose statistics are params is folded here
+        into a scale and a bias. ``fn`` runs under
+        ``torch.inference_mode()``; numpy inputs are copied to the device
+        by the first op that needs them there. ``device`` is "cuda" by
+        default and raises without CUDA."""
+        dev = device_policy.resolve(device)
+        dt = _torch_dtype(cast_dtype) if cast_dtype is not None else None
+        params: Dict[str, torch.Tensor] = {}
+        for k, v in self.params.items():
+            t = _tensor(v, dev)
+            if dt is not None and t.is_floating_point():
+                t = t.to(dt)
+            params[k] = t
+        nodes = []
+        with torch.inference_mode():
+            for node in self._nodes:
+                impl, ctx, in_names, out_names = node
+                stats = in_names[1:5]
+                if (impl is _batch_norm and len(stats) == 4
+                        and all(n in self.params for n in stats)):
+                    w32, b32 = _bn_fold(*(params[n] for n in stats),
+                                        ctx.attr("epsilon", 1e-5))
+                    act = dt if dt is not None else params[stats[0]].dtype
+                    keys = [f"{out_names[0]}::bn_{k}"
+                            for k in ("w", "b", "w32", "b32")]
+                    params.update(zip(keys, (w32.to(act), b32.to(act),
+                                             w32, b32)))
+                    node = (_batch_norm_bound, ctx, in_names[:1] + keys,
+                            out_names)
+                nodes.append(node)
+
+        def fn(*inputs):
+            env = self._env(params, inputs, {})
+            with torch.inference_mode():
+                _run(nodes, env, dev)
+            return tuple(env[n] for n in self.output_names)
+        return fn
+
+    def param_bytes(self) -> int:
+        return (sum(v.nbytes for v in self.params.values())
+                + sum(v.nbytes for v in self.static_params.values()))
+
+    def truncated(self, cut_layers: int = 1) -> "ImportedGraph":
+        """Headless copy with the last ``cut_layers`` nodes removed — the
+        transfer-learning hook. The new graph's output is the last
+        surviving node's first output; unused initializers are dropped."""
+        if not 0 <= cut_layers < len(self._nodes):
+            raise ValueError(f"cut_layers={cut_layers} out of range "
+                             f"(graph has {len(self._nodes)} nodes)")
+        out = ImportedGraph.__new__(ImportedGraph)
+        out.graph = self.graph
+        out.opset = self.opset
+        out._nodes = self._nodes[: len(self._nodes) - cut_layers]
+        out.input_names = list(self.input_names)
+        out.input_info = dict(self.input_info)
+        out.output_names = [out._nodes[-1][3][0]] if cut_layers else list(self.output_names)
+        used = set()
+        for _, _, in_names, _ in out._nodes:
+            used.update(in_names)
+        out.params = {k: v for k, v in self.params.items() if k in used}
+        out.static_params = {
+            k: v for k, v in self.static_params.items() if k in used
+        }
+        return out
+
+    def __repr__(self):
+        return (f"ImportedGraph(inputs={self.input_names}, "
+                f"outputs={self.output_names}, nodes={len(self._nodes)}, "
+                f"params={len(self.params)}, opset={self.opset})")
+
+
+def import_model(path_or_bytes, optimize: bool = False,
+                 base_dir: Optional[str] = None) -> ImportedGraph:
+    """Parse a ``.onnx`` file/bytes and lower it to an :class:`ImportedGraph`.
+
+    ``optimize`` applies proto-level graph rewrites (parallel-MatMul/QKV
+    packing — see :mod:`synapseml_tpu_torch.onnx.optimize`) before lowering;
+    off by default, as in the reference.
+
+    Models saved with external data resolve their sidecar files relative
+    to the model's directory; pass ``base_dir`` when supplying raw bytes."""
+    model = proto.load_model(path_or_bytes, base_dir=base_dir)
+    if model.graph is None:
+        raise ValueError("ONNX model has no graph")
+    opset = 13
+    for osi in model.opset_import:
+        if not osi.domain:  # default ai.onnx domain
+            opset = int(osi.version or opset)
+    return ImportedGraph(model.graph, opset, optimize=optimize)
+
+
+def supported_ops() -> List[str]:
+    return sorted(_REGISTRY)

@@ -447,3 +447,73 @@ def test_one_nccl_rank_joins_through_the_rendezvous_and_fits(card, tmp_path):
               "tree_weights"):
         assert getattr(fit["booster"], f).tobytes() == getattr(
             want, f).tobytes(), f
+
+
+# -- the imported-ONNX forward (no hand-written kernel: cuDNN/cuBLAS) -----
+
+def _bf16_rule(got, want) -> bool:
+    """Within 5% of the float32 output's largest magnitude (the reference's
+    verify rule for a cast lane)."""
+    span = max(1e-6, float(np.abs(want).max()))
+    return float(np.abs(got - want).max()) <= 0.05 * span
+
+
+def test_onnx_resnet50_on_the_card_equals_the_cpu(card):
+    """ResNet-50 at 32x32, batch 2: the float32 bind on the card within
+    1e-5 of the largest |logit| of the port's CPU forward (seen: 1.5e-6;
+    with TF32 the gap is ~1.2e-3 of it), the bf16 bind within the 5%
+    rule; a warm forward makes no synchronizing call."""
+    from synapseml_tpu_torch.onnx import import_model, zoo
+
+    g = import_model(zoo.resnet50(num_classes=1000, image_size=32))
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 3, 32, 32)).astype(np.float32))
+    cpu = g.bind(device="cpu")(x)[0].numpy()
+    f32 = g.bind()
+    got = f32(x.to(card))[0]
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    gap = float(np.abs(got.cpu().numpy() - cpu).max())
+    assert gap <= 1e-5 * float(np.abs(cpu).max()), gap
+    fn = g.bind(cast_dtype=torch.bfloat16)
+    xd = x.to(card, torch.bfloat16)
+    got16 = fn(xd)[0]
+    assert got16.dtype == torch.bfloat16
+    assert _bf16_rule(got16.float().cpu().numpy(), cpu)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn(xd)
+        f32(x.numpy())          # a host input: copied, not waited for
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["torch_cnn", "torch_gru",
+                                  "torch_transformer", "torch_quant_cnn",
+                                  "torch_kv_decoder"])
+def test_onnx_fixture_on_the_card(card, name):
+    """Each torch-exported graph on the card against the torch outputs
+    recorded at export, at its reference test's tolerance."""
+    import os
+
+    from synapseml_tpu_torch.onnx import import_model
+
+    fx = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
+    io = np.load(os.path.join(fx, f"{name}_io.npz"))
+    keys = (["input_ids", "past_key", "past_value"]
+            if name == "torch_kv_decoder" else ["input"])
+    wants = (["logits", "present_key", "present_value"]
+             if name == "torch_kv_decoder" else ["expected"])
+    fn = import_model(os.path.join(fx, f"{name}.onnx")).bind()
+    outs = fn(*[torch.from_numpy(io[k]).to(card) for k in keys])
+    for out, w in zip(outs, wants):
+        assert out.device.type == "cuda"
+        got, want = out.cpu().numpy(), io[w]
+        if name == "torch_quant_cnn":
+            step = float(io["out_scale"])
+            err = np.abs(got - want)
+            assert err.max() <= 2 * step + 1e-7
+            assert (err <= step + 1e-7).mean() > 0.95
+        else:
+            np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)

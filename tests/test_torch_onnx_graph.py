@@ -1,0 +1,168 @@
+"""The port's ONNX import surface against the JAX package's, on the CPU:
+the protobuf codec, ``import_model(optimize=True)``, the registry, the
+refusal of unsupported ops at import time, and the device policy of
+``bind``/``apply`` (CUDA by default, raising where it is absent).
+
+Tolerances: float32 outputs within rtol=atol=1e-5 of the reference's;
+the packed (optimized) transformer within rtol=atol=1e-6 of the
+unpacked one in the port, as the reference's own test holds its two.
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from synapseml_tpu.onnx import import_model as jax_import_model
+from synapseml_tpu.onnx import proto as jax_proto
+from synapseml_tpu.onnx import supported_ops as jax_supported_ops
+from synapseml_tpu_torch.onnx import (GraphBuilder, import_model, proto,
+                                      supported_ops, zoo)
+from torch_onnx_parity import assert_parity, one_node, run_both
+
+FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
+
+# the ops of zoo.resnet50 and of the five torch-exported fixtures, plus
+# Gelu and Split (the reference's transformer zoo, optimized)
+PORTED = sorted([
+    "Conv", "BatchNormalization", "Relu", "MaxPool", "Add",
+    "GlobalAveragePool", "Flatten", "Gemm", "AveragePool", "LogSoftmax",
+    "Softmax", "Shape", "Constant", "ConstantOfShape", "Gather",
+    "Unsqueeze", "Concat", "Transpose", "Reshape", "Sub", "GRU",
+    "Identity", "Div", "Cast", "Slice", "Squeeze", "MatMul", "Mod", "Mul",
+    "Sqrt", "LayerNormalization", "Gelu", "Split", "QuantizeLinear",
+    "DequantizeLinear", "Tile", "Range", "Greater", "Where"])
+
+
+def test_registry_is_the_ported_op_set():
+    assert supported_ops() == PORTED
+    assert set(PORTED) <= set(jax_supported_ops())
+
+
+@pytest.mark.parametrize("name", ["torch_cnn", "torch_transformer"])
+def test_proto_decodes_and_encodes_as_the_reference(name):
+    with open(os.path.join(FIXTURES, f"{name}.onnx"), "rb") as fh:
+        blob = fh.read()
+    mine = proto.load_model(blob)
+    theirs = jax_proto.load_model(blob)
+    assert mine.producer_name == theirs.producer_name == "pytorch"
+    assert proto.encode(mine) == jax_proto.encode(theirs)
+    init = mine.graph.initializer[0]
+    np.testing.assert_array_equal(
+        proto.tensor_to_numpy(init),
+        jax_proto.tensor_to_numpy(theirs.graph.initializer[0]))
+
+
+def test_external_data_resolves_beside_the_model(tmp_path):
+    blob = zoo.tiny_resnet(seed=4)
+    path = str(tmp_path / "tiny.onnx")
+    proto.save_model(proto.load_model(blob), path,
+                     external_data_threshold=1024)
+    assert len(os.listdir(tmp_path)) > 1            # sidecar files written
+    x = np.random.default_rng(0).standard_normal((2, 3, 32, 32)).astype(
+        np.float32)
+    jg = jax_import_model(path)
+    got = import_model(path).bind(device="cpu")(torch.from_numpy(x))
+    assert_parity(got, jg.apply(jg.params, x))
+    with open(path, "rb") as fh:
+        with pytest.raises(ValueError, match="external"):
+            import_model(fh.read())
+
+
+def test_optimize_packs_the_transformer_as_the_reference():
+    blob = zoo.transformer_encoder(100, 64, 4, 128, 2, seq_len=16, seed=0)
+    plain = import_model(blob)
+    packed = import_model(blob, optimize=True)
+    ref_packed = jax_import_model(blob, optimize=True)
+    assert len(packed._nodes) == len(plain._nodes) - 2
+    assert [c.op_type for _, c, _, _ in packed._nodes] == \
+        [c.op_type for _, c, _, _ in ref_packed._nodes]
+    assert set(packed.params) == set(ref_packed.params)
+    ids = np.random.default_rng(0).integers(0, 100, (3, 16))
+    a = plain.bind(device="cpu")(torch.from_numpy(ids))[0]
+    b = packed.bind(device="cpu")(torch.from_numpy(ids))[0]
+    np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-6)
+    assert_parity(*run_both(blob, [ids], optimize=True))
+
+
+def test_causal_transformer_needs_an_op_not_ported_yet():
+    """An op outside the port's registry (Trilu here) is refused when the
+    graph is imported, with the reference's message; nothing falls back."""
+    blob = zoo.transformer_encoder(50, 32, 4, 64, 1, seq_len=8, causal=True)
+    with pytest.raises(NotImplementedError,
+                       match="'Trilu'.*not supported by the importer"):
+        import_model(blob)
+    jax_import_model(blob)                           # the reference has it
+
+
+def test_unsupported_op_raises_at_import():
+    blob = one_node("Erf", {"x": np.zeros(3, np.float32)})
+    with pytest.raises(NotImplementedError, match="'Erf'"):
+        import_model(blob)
+    g = GraphBuilder(opset=17)
+    g.add_input("x", np.float32, [2])
+    y = g.add_node("Relu", ["x"])
+    z = g.add_node("NoSuchOp", [y])
+    g.add_output(z, np.float32, [2])
+    with pytest.raises(NotImplementedError, match="'NoSuchOp'"):
+        import_model(g.to_bytes())
+
+
+def test_bind_and_apply_run_on_cuda_by_default():
+    """No device argument means the card: where CUDA is absent, both raise
+    instead of running on the CPU."""
+    g = import_model(zoo.tiny_resnet())
+    x = np.zeros((1, 3, 32, 32), np.float32)
+    if torch.cuda.is_available():
+        out = g.bind()(x)[0]
+        assert out.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        g.bind()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        g.apply(g.params, x)            # numpy only: nothing names a device
+    out = g.bind(device="cpu")(x)[0]    # asked for: the CPU
+    assert out.device.type == "cpu"
+
+
+def test_bind_folds_batch_norm_once_and_casts_the_params(monkeypatch):
+    """Each BatchNormalization is folded at bind, none in a forward; the
+    bf16 bind's forward is bf16 end to end."""
+    from synapseml_tpu_torch.onnx import importer
+
+    folds = []
+    real = importer._bn_fold
+    monkeypatch.setattr(importer, "_bn_fold",
+                        lambda *a: folds.append(1) or real(*a))
+    g = import_model(zoo.tiny_resnet())
+    n_bn = sum(c.op_type == "BatchNormalization" for _, c, _, _ in g._nodes)
+    fn = g.bind(cast_dtype=torch.bfloat16, device="cpu")
+    assert len(folds) == n_bn > 0
+    out = fn(torch.zeros((2, 3, 32, 32), dtype=torch.bfloat16))[0]
+    assert len(folds) == n_bn
+    assert out.dtype == torch.bfloat16
+    g.apply({k: torch.from_numpy(v) for k, v in g.params.items()},
+            torch.zeros((1, 3, 32, 32)))
+    assert len(folds) == 2 * n_bn          # apply folds in the call
+
+
+def test_float64_input_is_float32_on_the_device():
+    """A float64 numpy input reaches the device as float32, as JAX's
+    default 32-bit mode makes it."""
+    x = np.random.default_rng(1).standard_normal((2, 3, 32, 32))
+    blob = zoo.tiny_resnet(seed=1)
+    port, ref = run_both(blob, [x], host=True)
+    assert port[0].dtype == torch.float32
+    assert_parity(port, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_shape_from_a_device_tensor_raises():
+    """A shape must be a host value; a device tensor is refused, as a
+    traced value is in the reference."""
+    blob = one_node("Reshape", {"x": np.zeros((2, 3), np.float32),
+                                "s": np.array([3, 2], np.int64)})
+    fn = import_model(blob).bind(device="cpu")
+    with pytest.raises(ValueError, match="statically known"):
+        fn(torch.zeros(2, 3), torch.tensor([3, 2]))
+    out = fn(torch.zeros(2, 3), np.array([3, 2]))[0]
+    assert tuple(out.shape) == (3, 2)
