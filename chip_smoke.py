@@ -112,7 +112,31 @@ before the last line:
 21. onnx_fixtures — the five torch-exported graphs
    (``tests/fixtures/torch_*.onnx``) on the card against the torch
    outputs recorded at export: rtol=atol=1e-5, and for ``torch_quant_cnn``
-   2 output quantization steps with more than 95% within one.
+   2 output quantization steps with more than 95% within one;
+22. onnx_bert_base_causal — ``zoo.transformer_encoder(30522, 768, 12,
+   3072, 12, seq_len=128, causal=True, seed=0)`` (BERT-base width, the
+   ``Trilu`` causal mask) imported and bound in float32 and bf16, its
+   2 fixture sequences held to the JAX package's outputs
+   (``tests/fixtures/transformer_graphs.npz``: float32 within
+   rtol=atol=1e-3, bf16 within 5% of the largest |value|); a warm
+   forward's copies and syncs (none); sequences/s at batch 128 (20
+   forwards after a warm one, CUDA events) in both dtypes and the share
+   of the card's peak at the operations counted by ``encoder_ops``
+   (22.35 GFLOP a sequence); batch 1's host issue against its wall and
+   device time; the card's busy share (``torch.profiler``);
+23. onnx_decoder_gqa — the default ``zoo.tiny_decoder``'s 8-token prefill
+   and 8 decode steps through its shared KV buffers and the example-width
+   BiLSTM tagger, each against the JAX fixture (rtol=atol=1e-4); then
+   ``zoo.tiny_decoder`` at BERT-base width (vocab 30,522, d_model 768, 12
+   heads, 4 KV heads, 12 layers, max_seq 1,024; 94 M params) in float32
+   and bf16: a 128-token prefill at batch 8 into zeroed ``[8, 4, 1024,
+   64]`` buffers, then 32 teacher-forced decode steps of one token
+   (``seqlens_k`` = valid keys - 1), every step's logits against one full
+   forward of the same 160 tokens (float32 within rtol=atol=1e-4, bf16
+   within 5% of the largest |logit|); the prefill's and a step's wall,
+   host-issue and card (profiler) time, prefill tokens/s, and a warm
+   step's copies and syncs (none). K1 and K2 launch 0 times in phases
+   20-23.
 
 Between phases 3 and 4: prng_card_vs_cpu (the threefry key stream on the
 card equal to the CPU's, bitwise) and masked_index (K1 on a
@@ -992,43 +1016,24 @@ def onnx_phases(smi, reset_counts, read_counts) -> None:
     throughput = {}
     for name, fn, x in (("float32", f32, x128),
                         ("bf16", bf16, x128.to(torch.bfloat16))):
-        fn(x)
-        torch.cuda.synchronize()
-        begin = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        begin.record()
-        for _ in range(THROUGHPUT_FORWARDS):
-            fn(x)
-        end.record()
-        torch.cuda.synchronize()
-        s = begin.elapsed_time(end) * 1e-3
-        rate = THROUGHPUT_BATCH * THROUGHPUT_FORWARDS / s
+        ms = event_ms(lambda: fn(x), THROUGHPUT_FORWARDS)
+        rate = THROUGHPUT_BATCH / ms * 1e3
         peak = BF16_OPS_PER_S if name == "bf16" else FP32_OPS_PER_S
         throughput[name] = {
-            "images_per_s": rate, "ms_per_forward": s / THROUGHPUT_FORWARDS
-            * 1e3, "peak_share": rate * RESNET50_OPS / peak,
+            "images_per_s": rate, "ms_per_forward": ms,
+            "peak_share": rate * RESNET50_OPS / peak,
             "peak_ops_per_s": peak}
     x128_16 = x128.to(torch.bfloat16)
     busy = {"bf16_batch8": device_busy(lambda: bf16(x16)),
             "bf16_batch128": device_busy(lambda: bf16(x128_16)),
             "float32_batch8": device_busy(lambda: f32(x32))}
 
-    def wall_ms(fn, calls: int = 20) -> float:
-        times = []
-        for _ in range(calls):
-            torch.cuda.synchronize()
-            begin = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - begin) * 1e3)
-        return statistics.median(times)
-
     # a forward is ~250 launches: a few forwards behind the spin stay
     # within the launch queue, so the host never waits for the card
     batch8 = {}
     for name, fn, x in (("bf16", bf16, x16), ("float32", f32, x32)):
         issue = host_ms(lambda: fn(x), calls=2)
-        wall = wall_ms(lambda: fn(x))
+        wall = synced_wall_ms(lambda: fn(x))
         device = cuda_ms(lambda: fn(x), reps=5, inner=3)
         batch8[name] = {"host_issue_ms": issue, "wall_ms": wall,
                         "device_ms": device, "host_share": issue / wall}
@@ -1092,6 +1097,296 @@ def onnx_phases(smi, reset_counts, read_counts) -> None:
     emit({"phase": "onnx_fixtures", "graphs": results, "nvidia_smi": smi})
     for r in results:
         check(r["ok"], f"{r['graph']} off its recorded outputs: {r}")
+
+
+TRANSFORMER_FIXTURE = os.path.join(FIXTURES, "transformer_graphs.npz")
+ENCODER_TOL = 1e-3            # BERT-base float32 output against the JAX fixture
+SMALL_GRAPH_TOL = 1e-4        # the card against JAX's CPU run, small graphs
+INCREMENTAL_TOL = 1e-4        # decode steps against one full forward (float32)
+ENCODER_BATCH, ENCODER_FORWARDS = 128, 20
+# the decoder at BERT-base width, the graph the decode scheduler serves
+DECODER_WIDE = dict(vocab=30522, d_model=768, n_heads=12, kv_heads=4,
+                    n_layers=12, max_seq=1024, seed=0)
+DECODE_BATCH, DECODE_PREFILL, DECODE_STEPS = 8, 128, 32
+
+
+def synced_wall_ms(fn, calls: int = 20) -> float:
+    """Median host wall ms of ``fn()`` from a synchronised card to the
+    card synchronised after it."""
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - begin) * 1e3)
+    return statistics.median(times)
+
+
+def issue_ms(fn, reps: int = 5) -> float:
+    """Median host ms one call of ``fn`` takes to return while the card is
+    busy with a device-side spin: the issue time alone, the launch queue
+    (~1,000 entries) not yet full for a call of up to ~1,000 launches."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        begin = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - begin) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def event_ms(fn, calls: int) -> float:
+    """Mean ms a call of ``fn`` over ``calls`` back-to-back calls after a
+    warm one, between two CUDA events (the host's issue overlaps the
+    card's work)."""
+    fn()
+    torch.cuda.synchronize()
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    begin.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return begin.elapsed_time(end) / calls
+
+
+def encoder_ops(cfg: dict) -> float:
+    """Operations of one sequence through ``zoo.transformer_encoder``: two
+    a multiply-add of the Q, K, V, output and FFN products (4 d^2 + 2 d f a
+    token a layer) and of the attention's two products (2 S^2 d a layer);
+    the elementwise work is not counted."""
+    s, d, f = cfg["seq_len"], cfg["d_model"], cfg["ffn_dim"]
+    return cfg["n_layers"] * 2 * (s * (4 * d * d + 2 * d * f) + 2 * s * s * d)
+
+
+def transformer_phases(smi, reset_counts, read_counts) -> None:
+    """Phases 22-23: the transformer and recurrent graphs; returns the
+    kernels' launch counts of each phase (none expected). The BERT-base
+    causal encoder (float32 and bf16 binds against the JAX fixture,
+    sequences/s at batch 128, batch-1 issue against wall, busy share,
+    a warm forward's copies and syncs); then the default ``tiny_decoder``
+    against the JAX fixture, the decoder at BERT-base width (a 128-token
+    prefill at batch 8 into zeroed [8, 4, 1024, 64] buffers, 32 decode
+    steps through the returned buffers, each step's logits against one
+    full forward of the same tokens; prefill tokens/s, ms a step, a warm
+    step's copies and syncs) and the example-width BiLSTM tagger against
+    the JAX fixture."""
+    import make_transformer_fixtures as tfx
+    from synapseml_tpu_torch.onnx import import_model, zoo
+
+    fixture = np.load(TRANSFORMER_FIXTURE)
+    reset_counts()
+    # -- 22. the BERT-base causal encoder --------------------------------
+    start = time.perf_counter()
+    blob = zoo.transformer_encoder(**tfx.ENCODER)
+    zoo_s = time.perf_counter() - start
+    start = time.perf_counter()
+    graph = import_model(blob)
+    import_s = time.perf_counter() - start
+    del blob
+    binds = {}
+    for name, cast in (("float32", None), ("bf16", torch.bfloat16)):
+        start = time.perf_counter()
+        binds[name] = graph.bind(cast_dtype=cast)
+        torch.cuda.synchronize()
+        binds[name + "_s"] = time.perf_counter() - start
+    f32, bf16 = binds["float32"], binds["bf16"]
+    ids = torch.from_numpy(tfx.encoder_tokens()).cuda()
+    want = fixture["enc_f32"]
+    got32 = f32(ids)[0].cpu().numpy()
+    got16 = bf16(ids)[0].float().cpu().numpy()
+    span = float(np.abs(want).max())
+    f32_err = float(np.abs(got32 - want).max())
+    bf16_err = float(np.abs(got16 - want).max())
+    f32_ok = bool(np.allclose(got32, want, rtol=ENCODER_TOL,
+                              atol=ENCODER_TOL))
+    bf16_ok = bf16_err <= BF16_SPAN_SHARE * span
+    warm = {"float32": copies_and_syncs(f32, ids),
+            "bf16": copies_and_syncs(bf16, ids)}
+
+    ops = encoder_ops(tfx.ENCODER)
+    big = torch.from_numpy(np.random.default_rng(3).integers(
+        0, tfx.ENCODER["vocab"], (ENCODER_BATCH, tfx.ENCODER["seq_len"]))
+    ).cuda()
+    throughput = {}
+    for name, fn in (("float32", f32), ("bf16", bf16)):
+        ms = event_ms(lambda: fn(big), ENCODER_FORWARDS)
+        rate = ENCODER_BATCH / ms * 1e3
+        peak = BF16_OPS_PER_S if name == "bf16" else FP32_OPS_PER_S
+        throughput[name] = {"sequences_per_s": rate, "ms_per_forward": ms,
+                            "peak_share": rate * ops / peak,
+                            "peak_ops_per_s": peak}
+    one = ids[:1]
+    batch1 = {}
+    for name, fn in (("bf16", bf16), ("float32", f32)):
+        issue = issue_ms(lambda: fn(one))
+        wall = synced_wall_ms(lambda: fn(one))
+        batch1[name] = {"host_issue_ms": issue, "wall_ms": wall,
+                        "device_ms": cuda_ms(lambda: fn(one), reps=5,
+                                             inner=3),
+                        "host_share": issue / wall}
+    busy = {"bf16_batch1": device_busy(lambda: bf16(one)),
+            "bf16_batch128": device_busy(lambda: bf16(big)),
+            "float32_batch128": device_busy(lambda: f32(big))}
+    counts = read_counts()
+    emit({"phase": "onnx_bert_base_causal", "model": "zoo.transformer_"
+          "encoder(30522, 768, 12, 3072, 12, seq_len=128, causal=True, "
+          "seed=0)", "nodes": len(graph._nodes),
+          "params": int(sum(v.size for v in graph.params.values())),
+          "param_bytes": graph.param_bytes(), "zoo_s": zoo_s,
+          "import_s": import_s, "bind_float32_s": binds["float32_s"],
+          "bind_bf16_s": binds["bf16_s"], "output_shape": list(got32.shape),
+          "float32_max_abs_err": f32_err,
+          "float32_tolerance": f"rtol=atol={ENCODER_TOL}",
+          "float32_ok": f32_ok, "bf16_max_abs_err": bf16_err,
+          "bf16_limit": BF16_SPAN_SHARE * span,
+          "bf16_gap_to_jax_bf16": float(np.abs(
+              got16 - fixture["enc_bf16"]).max()), "bf16_ok": bool(bf16_ok),
+          "warm_forward": warm, "ops_per_sequence": ops,
+          "throughput_batch128": throughput, "batch1": batch1,
+          "device_busy": busy, "kernel_launches": counts,
+          "nvidia_smi": smi})
+    check(got32.shape == (2, 128, 768) and np.isfinite(got32).all()
+          and np.isfinite(got16).all(), "encoder output not finite")
+    check(f32_ok, f"float32 encoder off the JAX fixture by {f32_err}")
+    check(bf16_ok, f"bf16 encoder off the JAX fixture by {bf16_err} "
+          f"(limit {BF16_SPAN_SHARE * span})")
+    for name, w in warm.items():
+        check(w["syncs"] == 0 and w["d2h_copies"] == 0
+              and w["h2d_copies"] == 0,
+              f"a warm encoder forward ({name}) synchronised or copied: {w}")
+    check(not any(counts.values()), f"encoder path launched {counts}")
+    encoder_counts = counts
+    del graph, f32, bf16, binds
+    torch.cuda.empty_cache()
+
+    # -- 23. the GQA decoder and the BiLSTM tagger -----------------------
+    reset_counts()
+    tiny = import_model(zoo.tiny_decoder()).bind()
+
+    def zeros(batch, t, kv, head, layers, dtype=torch.float32):
+        return [torch.zeros((batch, kv, t, head), dtype=dtype,
+                            device="cuda") for _ in range(2 * layers)]
+
+    tiny_logits = tfx.decode_stream(
+        tiny, tfx.decoder_tokens(), zeros(tfx.DECODER_BATCH,
+                                          tfx.DECODER_BUFFER, 2, 8, 2),
+        2, lambda a: torch.from_numpy(a).cuda(),
+        lambda t: t.cpu().numpy())
+    tiny_err = float(np.abs(tiny_logits - fixture["dec_logits"]).max())
+    tiny_ok = bool(np.allclose(tiny_logits, fixture["dec_logits"],
+                               rtol=SMALL_GRAPH_TOL, atol=SMALL_GRAPH_TOL))
+    tagger = import_model(zoo.bilstm_tagger(**tfx.TAGGER)).bind()
+    tags = tagger(torch.from_numpy(tfx.tagger_tokens()).cuda())[0]
+    tags = tags.cpu().numpy()
+    tagger_err = float(np.abs(tags - fixture["lstm_out"]).max())
+    tagger_ok = bool(np.allclose(tags, fixture["lstm_out"],
+                                 rtol=SMALL_GRAPH_TOL, atol=SMALL_GRAPH_TOL))
+
+    layers, kv = DECODER_WIDE["n_layers"], DECODER_WIDE["kv_heads"]
+    head = DECODER_WIDE["d_model"] // DECODER_WIDE["n_heads"]
+    t_buf = DECODER_WIDE["max_seq"]
+    start = time.perf_counter()
+    blob = zoo.tiny_decoder(**DECODER_WIDE)
+    wide_zoo_s = time.perf_counter() - start
+    start = time.perf_counter()
+    wide = import_model(blob)
+    wide_import_s = time.perf_counter() - start
+    wide_bytes = len(blob)
+    del blob
+    n_tok = DECODE_PREFILL + DECODE_STEPS
+    stream = torch.from_numpy(np.random.default_rng(4).integers(
+        0, DECODER_WIDE["vocab"], (DECODE_BATCH, n_tok))).cuda()
+
+    def lens(n):
+        return torch.full((DECODE_BATCH,), n - 1, dtype=torch.int32,
+                          device="cuda")
+
+    decode = {}
+    incremental = {}
+    for name, cast in (("float32", None), ("bf16", torch.bfloat16)):
+        fn = wide.bind(cast_dtype=cast)
+        dt = cast or torch.float32
+        empty = zeros(DECODE_BATCH, t_buf, kv, head, layers, dt)
+        prompt = stream[:, :DECODE_PREFILL]
+        pre_lens = lens(DECODE_PREFILL)
+        outs = fn(prompt, pre_lens, *empty)
+        logits = [outs[0].float()]
+        buffers = list(outs[1:])
+        for i in range(DECODE_PREFILL, n_tok):
+            outs = fn(stream[:, i:i + 1], lens(i + 1), *buffers)
+            logits.append(outs[0].float())
+            buffers = list(outs[1:])
+        steps = torch.cat(logits, dim=1)
+        full = fn(stream, lens(n_tok), *empty)[0].float()
+        err = float((steps - full).abs().max())
+        tol = (INCREMENTAL_TOL if cast is None
+               else BF16_SPAN_SHARE * float(full.abs().max()))
+        incremental[name] = {
+            "max_abs_err": err, "tolerance": tol,
+            "max_abs_logit": float(full.abs().max()),
+            "greedy_equal_share": float(
+                (steps.argmax(-1) == full.argmax(-1)).float().mean()),
+            "ok": bool(torch.isfinite(steps).all()) and err <= tol}
+        del logits, steps, full
+        # timings: a prefill chunk into the zeroed buffers and one decode
+        # step at the stream's last position; both return new buffers, so
+        # repeated calls do the same work. A call issues ~1,000 launches:
+        # host-bound, so its card time is the profiler's kernel time
+        last = stream[:, n_tok - 1:n_tok]
+        step_lens = lens(n_tok)
+
+        def prefill():
+            return fn(prompt, pre_lens, *empty)
+
+        def step():
+            return fn(last, step_lens, *buffers)
+
+        prefill_wall_ms = synced_wall_ms(prefill, calls=5)
+        step_wall_ms = synced_wall_ms(step)
+        decode[name] = {
+            "prefill_wall_ms": prefill_wall_ms,
+            "prefill_tokens_per_s": DECODE_BATCH * DECODE_PREFILL
+            / prefill_wall_ms * 1e3,
+            "prefill_host_issue_ms": issue_ms(prefill),
+            "prefill_device_busy": device_busy(prefill),
+            "step_wall_ms": step_wall_ms,
+            "step_host_issue_ms": issue_ms(step),
+            "decode_tokens_per_s": DECODE_BATCH / step_wall_ms * 1e3,
+            "warm_step": copies_and_syncs(fn, last, step_lens, *buffers),
+            "step_device_busy": device_busy(step)}
+        del fn, empty, buffers
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    emit({"phase": "onnx_decoder_gqa", "tiny_decoder_max_abs_err": tiny_err,
+          "tiny_decoder_ok": tiny_ok, "bilstm_max_abs_err": tagger_err,
+          "bilstm_ok": tagger_ok,
+          "small_graph_tolerance": f"rtol=atol={SMALL_GRAPH_TOL}",
+          "wide_model": "zoo.tiny_decoder(" + ", ".join(
+              f"{k}={v}" for k, v in DECODER_WIDE.items()) + ")",
+          "wide_params": int(sum(v.size for v in wide.params.values())),
+          "wide_graph_bytes": wide_bytes, "wide_zoo_s": wide_zoo_s,
+          "wide_import_s": wide_import_s, "batch": DECODE_BATCH,
+          "prefill_tokens": DECODE_PREFILL, "decode_steps": DECODE_STEPS,
+          "buffer": [DECODE_BATCH, kv, t_buf, head],
+          "incremental_vs_full": incremental, "timings": decode,
+          "kernel_launches": counts, "nvidia_smi": smi})
+    check(tiny_ok, f"tiny_decoder off the JAX fixture by {tiny_err}")
+    check(tagger_ok, f"BiLSTM tagger off the JAX fixture by {tagger_err}")
+    for name, r in incremental.items():
+        check(r["ok"], f"{name} decode steps differ from a full forward: {r}")
+    for name, d in decode.items():
+        w = d["warm_step"]
+        check(w["syncs"] == 0 and w["d2h_copies"] == 0
+              and w["h2d_copies"] == 0,
+              f"a warm {name} decode step synchronised or copied: {w}")
+    check(not any(counts.values()), f"decoder path launched {counts}")
+    return {"encoder": encoder_counts, "decoder": counts}
 
 
 def main() -> int:
@@ -2039,6 +2334,9 @@ def main() -> int:
     # -- 20-21. the imported-ONNX forward: ResNet-50, the torch graphs ----
     onnx_phases(smi, reset_counts, read_counts)
 
+    # -- 22-23. transformer and recurrent graphs: encoder, decoder, BiLSTM -
+    transformer_counts = transformer_phases(smi, reset_counts, read_counts)
+
     emit({"kernels": [{
         "name": "forest_traverse", "route": "cuda",
         "source": "synapseml_tpu_torch/csrc/forest_traverse.cu",
@@ -2049,6 +2347,8 @@ def main() -> int:
         [c["forest_traverse"] for c in dp_counts],
         "launches_partitions_fit_per_rank":
         [c["forest_traverse"] for c in part_counts],
+        "launches_onnx_transformer_paths": {
+            k: c["forest_traverse"] for k, c in transformer_counts.items()},
         "max_abs_err": max_err, "bitwise": True,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
@@ -2062,6 +2362,8 @@ def main() -> int:
         "launches_dp_fit_per_rank": [c["histogram"] for c in dp_counts],
         "launches_partitions_fit_per_rank":
         [c["histogram"] for c in part_counts],
+        "launches_onnx_transformer_paths": {
+            k: c["histogram"] for k, c in transformer_counts.items()},
         "max_abs_err": k1_max_err,
         "bitwise": True, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],

@@ -264,7 +264,44 @@ def _ew(fn_np, fn_torch):
 
 for _name, _np_fn, _torch_fn in [
     ("Add", np.add, operator.add), ("Sub", np.subtract, operator.sub),
-    ("Mul", np.multiply, operator.mul), ("Greater", np.greater, operator.gt),
+    ("Mul", np.multiply, operator.mul), ("Pow", np.power, torch.pow),
+    ("Equal", np.equal, torch.eq), ("Greater", np.greater, operator.gt),
+    ("Less", np.less, torch.lt),
+    ("GreaterOrEqual", np.greater_equal, torch.ge),
+    ("LessOrEqual", np.less_equal, torch.le),
+    ("And", np.logical_and, torch.logical_and),
+    ("Or", np.logical_or, torch.logical_or),
+    ("Xor", np.logical_xor, torch.logical_xor),
+]:
+    _REGISTRY[_name] = _ew(_np_fn, _torch_fn)
+
+
+# the reference runs these on the device whatever their input (``jnp``): a
+# host input becomes a tensor on the run's device
+for _name, _fn in [
+    ("Sigmoid", torch.sigmoid), ("Tanh", torch.tanh), ("Exp", torch.exp),
+    ("Log", torch.log), ("Reciprocal", lambda x: 1.0 / x),
+    ("Neg", torch.neg), ("Abs", torch.abs), ("Floor", torch.floor),
+    ("Ceil", torch.ceil), ("Sign", torch.sign), ("Erf", torch.erf),
+    # jax.nn.softplus is logaddexp(x, 0), with no linear tail
+    ("Softplus", lambda x: torch.logaddexp(x, torch.zeros_like(x))),
+    ("Not", torch.logical_not),
+    ("Sin", torch.sin), ("Cos", torch.cos), ("Tan", torch.tan),
+    ("Asin", torch.asin), ("Acos", torch.acos), ("Atan", torch.atan),
+    ("Sinh", torch.sinh), ("Cosh", torch.cosh),
+    ("Asinh", torch.asinh), ("Acosh", torch.acosh), ("Atanh", torch.atanh),
+    ("Det", torch.linalg.det),
+    ("IsNaN", torch.isnan), ("IsInf", torch.isinf),
+    ("Softsign", lambda x: x / (1 + torch.abs(x))),
+    ("Round", torch.round),      # half to even, as jnp.round
+]:
+    _REGISTRY[_name] = (lambda f: lambda ctx, x: f(_tensor(x)))(_fn)
+
+for _name, _np_fn, _torch_fn in [
+    ("BitwiseAnd", np.bitwise_and, torch.bitwise_and),
+    ("BitwiseOr", np.bitwise_or, torch.bitwise_or),
+    ("BitwiseXor", np.bitwise_xor, torch.bitwise_xor),
+    ("BitwiseNot", np.invert, torch.bitwise_not),
 ]:
     _REGISTRY[_name] = _ew(_np_fn, _torch_fn)
 
@@ -355,6 +392,67 @@ def _where(ctx, cond, a, b):
     return torch.where(_tensor(cond, a.device).to(torch.bool), a, b)
 
 
+@op("Clip")
+def _clip(ctx, x, lo=None, hi=None):
+    if ctx.opset < 11:
+        lo = ctx.attr("min", -np.inf)
+        hi = ctx.attr("max", np.inf)
+    # a missing bound is a weak float infinity, as in the reference: an
+    # integer input clipped without both bounds becomes float
+    lo = -math.inf if lo is None else lo
+    hi = math.inf if hi is None else hi
+    x, lo, hi = _operands((x, lo, hi), scalars=False)
+    return torch.clamp(x, lo, hi)
+
+
+def _fold(np_fn, torch_fn, xs):
+    """``fn`` folded left over ``xs``: numpy where all are host values (shape
+    chains clamp through Min/Max), else tensors in the joint dtype."""
+    if _all_host(xs):
+        out = xs[0]
+        for x in xs[1:]:
+            out = np_fn(out, x)
+        return out
+    xs = _operands(xs, scalars=False)
+    out = xs[0]
+    for x in xs[1:]:
+        out = torch_fn(out, x)
+    return out
+
+
+@op("Min")
+def _min(ctx, *xs):
+    return _fold(np.minimum, torch.minimum, xs)
+
+
+@op("Max")
+def _max(ctx, *xs):
+    return _fold(np.maximum, torch.maximum, xs)
+
+
+@op("Sum")
+def _sum(ctx, *xs):
+    return _fold(np.add, torch.add, xs)
+
+
+@op("Mean")
+def _mean(ctx, *xs):
+    s = _sum(ctx, *xs)
+    if _is_host(s):
+        return s / float(len(xs))
+    return _bin(torch.div, s, float(len(xs)), scalars=False)
+
+
+@op("Trilu")
+def _trilu(ctx, x, k=None):
+    """Upper/lower triangle (causal-mask construction in transformer
+    graphs)."""
+    kk = _static_int_list(k, "Trilu k")[0] if k is not None else 0
+    if _is_host(x):
+        return (np.triu if ctx.attr("upper", 1) else np.tril)(x, kk)
+    return (torch.triu if ctx.attr("upper", 1) else torch.tril)(x, kk)
+
+
 @op("Mod")
 def _mod(ctx, a, b):
     # host-preserving: exporters route SHAPE arithmetic through Mod
@@ -395,6 +493,11 @@ def _gemm(ctx, a, b, c=None):
         cc = _tensor(c, y.device).to(dt)
         y = y + (cc * _scalar(beta, dt) if beta != 1.0 else cc)
     return y
+
+
+@op("Einsum")
+def _einsum(ctx, *xs):
+    return torch.einsum(ctx.attr("equation"), *_operands(xs, scalars=False))
 
 
 # ---------------------------------------------------------------------------
@@ -750,6 +853,25 @@ def _gather(ctx, x, idx):
     return out.reshape(x.shape[:axis] + idx.shape + x.shape[axis + 1:])
 
 
+@op("Expand")
+def _expand(ctx, x, shape):
+    # bidirectional numpy broadcast: align ranks from the right, then each
+    # result dim is max(cur, target) with 1s broadcasting either way
+    target = _static_int_list(shape, "Expand shape")
+    cur = list(np.shape(x))
+    rank = max(len(cur), len(target))
+    cur = [1] * (rank - len(cur)) + cur
+    target = [1] * (rank - len(target)) + target
+    out = []
+    for c, t in zip(cur, target):
+        if c != t and 1 not in (c, t):
+            raise ValueError(f"Expand: incompatible dims {c} vs {t}")
+        out.append(max(c, t))
+    if _is_host(x):
+        return np.broadcast_to(np.reshape(x, cur), out)
+    return x.reshape(cur).expand(out)
+
+
 @op("Tile")
 def _tile(ctx, x, repeats):
     reps = _static_int_list(repeats, "Tile repeats")
@@ -824,8 +946,97 @@ def _log_softmax(ctx, x):
 
 
 # ---------------------------------------------------------------------------
-# Recurrent: GRU, one Python step a time step
+# Reductions
 # ---------------------------------------------------------------------------
+
+def _int_kept(x: torch.Tensor) -> Optional[torch.dtype]:
+    """The accumulation dtype of a sum or product: an int32 or int64 input
+    keeps its width, as JAX's does (torch would widen int32); bool and
+    narrower integers take torch's default, int64."""
+    return x.dtype if x.dtype in (torch.int32, torch.int64) else None
+
+
+def _sum_dims(x, dims, keep):
+    return torch.sum(x, dim=dims, keepdim=keep, dtype=_int_kept(x))
+
+
+def _prod_dims(x, dims, keep):
+    dt = _int_kept(x)
+    for d in sorted(dims, reverse=True):
+        x = torch.prod(x, d, keepdim=keep, dtype=dt)
+    return x
+
+
+def _mean_dims(x, dims, keep):
+    if not x.is_floating_point():   # jnp.mean of integers is float32
+        x = x.to(torch.get_default_dtype())
+    return torch.mean(x, dim=dims, keepdim=keep)
+
+
+def _reduce(fn):
+    def impl(ctx, x, axes=None):
+        if ctx.opset < 18 and axes is None:
+            axes = ctx.attr("axes", None)
+        keep = bool(ctx.attr("keepdims", 1))
+        x = _tensor(x)
+        if axes is None or np.size(axes) == 0:
+            if ctx.attr("noop_with_empty_axes", 0):
+                return x
+            dims = tuple(range(x.ndim))
+        else:
+            dims = tuple(a % x.ndim
+                         for a in _static_int_list(axes, "Reduce axes"))
+        return fn(x, dims, keep)
+    return impl
+
+
+for _name, _fn in [
+    ("ReduceMean", _mean_dims), ("ReduceSum", _sum_dims),
+    ("ReduceMax", lambda x, d, k: torch.amax(x, dim=d, keepdim=k)),
+    ("ReduceMin", lambda x, d, k: torch.amin(x, dim=d, keepdim=k)),
+    ("ReduceProd", _prod_dims),
+    ("ReduceL1", lambda x, d, k: _sum_dims(torch.abs(x), d, k)),
+    ("ReduceL2", lambda x, d, k: torch.sqrt(_sum_dims(x * x, d, k))),
+    ("ReduceLogSumExp", lambda x, d, k: torch.logsumexp(x, dim=d,
+                                                        keepdim=k)),
+    ("ReduceLogSum", lambda x, d, k: torch.log(_sum_dims(x, d, k))),
+    ("ReduceSumSquare", lambda x, d, k: _sum_dims(x * x, d, k)),
+]:
+    _REGISTRY[_name] = _reduce(_fn)
+
+
+def _arg_reduce(fn):
+    def impl(ctx, x):
+        return fn(_tensor(x), dim=ctx.attr("axis", 0),
+                  keepdim=bool(ctx.attr("keepdims", 1)))
+    return impl
+
+
+_REGISTRY["ArgMax"] = _arg_reduce(torch.argmax)
+_REGISTRY["ArgMin"] = _arg_reduce(torch.argmin)
+
+
+@op("CumSum")
+def _cumsum(ctx, x, axis):
+    ax = _static_int_list(axis, "CumSum axis")[0]
+    y = _tensor(x)
+    reverse = ctx.attr("reverse", 0)
+    if reverse:
+        y = torch.flip(y, (ax,))
+    out = torch.cumsum(y, ax, dtype=_int_kept(y))
+    if ctx.attr("exclusive", 0):
+        out = out - y
+    if reverse:
+        out = torch.flip(out, (ax,))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Recurrent: LSTM / GRU / RNN, one Python step a time step
+# ---------------------------------------------------------------------------
+# As in the reference, ``seq_lens``, LSTM's peepholes ``p``, ``clip``,
+# ``input_forget`` and ``layout`` are not read (every sequence runs its
+# full length); LSTM and GRU take their default activations.
 
 def _direction_slices(direction: str):
     if direction == "bidirectional":
@@ -833,56 +1044,742 @@ def _direction_slices(direction: str):
     return [(0, direction == "reverse")]
 
 
-@op("GRU")
-def _gru(ctx, x, w, r, b=None, seq_lens=None, init_h=None):
-    # the matmuls promote their operands as jnp's do (a float32 initial
-    # state against bf16 weights gives float32); torch's elementwise ops
-    # between tensors of rank > 0 already promote as JAX does
+def _recurrent_dirs(ctx, x, w, r, b, init, n_gates, step):
+    """Run ``step(x_proj_t, carry, rd, rb) -> (carry, h)`` over the time
+    steps of each direction. The input projection is one product a
+    direction; ``init`` holds the initial states (``None``: zeros).
+    Returns the op's outputs: ``Y [S, dirs, B, H]``, then each state's
+    final value ``[dirs, B, H]`` as far as the node names outputs.
+
+    The products promote their operands as jnp's do (a float32 initial
+    state against bf16 weights gives float32); torch's elementwise ops
+    between tensors of rank > 0 already promote as JAX does."""
     hidden = ctx.attr("hidden_size")
-    direction = ctx.attr("direction", "forward")
-    linear_before_reset = ctx.attr("linear_before_reset", 0)
     x = _tensor(x)
     w, r = _tensor(w, x.device), _tensor(r, x.device)
     seq, batch, _ = x.shape
-
-    def run_dir(d, reverse):
-        wd, rd = w[d], r[d]  # (3H, I), (3H, H) gate order z,r,h
+    outs, finals = [], []
+    for d, reverse in _direction_slices(ctx.attr("direction", "forward")):
+        wd, rd = w[d], r[d]
         if b is not None:
             bd = _tensor(b, x.device)[d]
-            wb, rb = bd[: 3 * hidden], bd[3 * hidden:]
+            wb, rb = bd[: n_gates * hidden], bd[n_gates * hidden:]
         else:
-            wb = rb = torch.zeros((3 * hidden,), dtype=x.dtype, device=x.device)
-        h = (_tensor(init_h, x.device)[d] if init_h is not None else
-             torch.zeros((batch, hidden), dtype=x.dtype, device=x.device))
+            wb = rb = torch.zeros((n_gates * hidden,), dtype=x.dtype,
+                                  device=x.device)
+        carry = tuple(
+            _tensor(s, x.device)[d] if s is not None else
+            torch.zeros((batch, hidden), dtype=x.dtype, device=x.device)
+            for s in init)
         xs = torch.flip(x, (0,)) if reverse else x
         x_proj = torch.einsum("sbi,gi->sbg", *_operands((xs, wd))) + wb
-        rbz, rbr, rbh = torch.split(rb, hidden)
-        rd_h = torch.split(rd, hidden, dim=0)[2]
         ys = []
         for t in range(seq):
-            xz, xr, xh = torch.split(x_proj[t], hidden, dim=-1)
-            hz, hr, hh = torch.split(_matmul(ctx, h, rd.T), hidden, dim=-1)
-            z = torch.sigmoid(xz + hz + rbz)
-            rg = torch.sigmoid(xr + hr + rbr)
-            if linear_before_reset:
-                h_cand = torch.tanh(xh + rg * (hh + rbh))
-            else:
-                h_cand = torch.tanh(xh + _matmul(ctx, rg * h, rd_h.T) + rbh)
-            h = (1 - z) * h_cand + z * h
+            carry, h = step(x_proj[t], carry, rd, rb)
             ys.append(h)
         ys = torch.stack(ys)
-        if reverse:
-            ys = torch.flip(ys, (0,))
-        return ys, h
-
-    outs, hs = [], []
-    for d, rev in _direction_slices(direction):
-        ys, h_f = run_dir(d, rev)
-        outs.append(ys)
-        hs.append(h_f)
+        outs.append(torch.flip(ys, (0,)) if reverse else ys)
+        finals.append(carry)
     y = torch.stack(outs, dim=1)
-    y_h = torch.stack(hs, dim=0)
-    return (y, y_h)[: max(ctx.n_outputs, 1)] if ctx.n_outputs > 1 else y
+    if ctx.n_outputs <= 1:
+        return y
+    return (y, *(torch.stack(s) for s in zip(*finals)))[: ctx.n_outputs]
+
+
+@op("LSTM")
+def _lstm(ctx, x, w, r, b=None, seq_lens=None, init_h=None, init_c=None,
+          p=None):
+    """ONNX LSTM, gate order i,o,f,c."""
+    def step(xp_t, carry, rd, rb):
+        h, c = carry
+        gates = xp_t + _matmul(ctx, h, rd.T) + rb
+        i_g, o_g, f_g, c_g = torch.chunk(gates, 4, dim=-1)
+        c_new = (torch.sigmoid(f_g) * c
+                 + torch.sigmoid(i_g) * torch.tanh(c_g))
+        h_new = torch.sigmoid(o_g) * torch.tanh(c_new)
+        return (h_new, c_new), h_new
+
+    return _recurrent_dirs(ctx, x, w, r, b, (init_h, init_c), 4, step)
+
+
+@op("GRU")
+def _gru(ctx, x, w, r, b=None, seq_lens=None, init_h=None):
+    """ONNX GRU, gate order z,r,h."""
+    hidden = ctx.attr("hidden_size")
+    linear_before_reset = ctx.attr("linear_before_reset", 0)
+
+    def step(xp_t, carry, rd, rb):
+        (h,) = carry
+        xz, xr, xh = torch.split(xp_t, hidden, dim=-1)
+        hz, hr, hh = torch.split(_matmul(ctx, h, rd.T), hidden, dim=-1)
+        rbz, rbr, rbh = torch.split(rb, hidden)
+        z = torch.sigmoid(xz + hz + rbz)
+        rg = torch.sigmoid(xr + hr + rbr)
+        if linear_before_reset:
+            h_cand = torch.tanh(xh + rg * (hh + rbh))
+        else:
+            h_cand = torch.tanh(
+                xh + _matmul(ctx, rg * h, rd[2 * hidden:].T) + rbh)
+        h = (1 - z) * h_cand + z * h
+        return (h,), h
+
+    return _recurrent_dirs(ctx, x, w, r, b, (init_h,), 3, step)
+
+
+_RNN_ACTIVATIONS = {"Tanh": torch.tanh, "Relu": torch.relu,
+                    "Sigmoid": torch.sigmoid}
+
+
+@op("RNN")
+def _rnn(ctx, x, w, r, b=None, seq_lens=None, init_h=None):
+    acts = [a.decode() if isinstance(a, bytes) else str(a)
+            for a in (ctx.attr("activations", None) or [])]
+    if len(set(acts)) > 1:
+        raise NotImplementedError(
+            f"RNN: per-direction activations {acts} are not supported")
+    name = acts[0] if acts else "Tanh"
+    act = _RNN_ACTIVATIONS.get(name)
+    if act is None:
+        raise NotImplementedError(f"RNN activation {name!r}")
+
+    def step(xp_t, carry, rd, rb):
+        h = act(xp_t + _matmul(ctx, carry[0], rd.T) + rb)
+        return (h,), h
+
+    return _recurrent_dirs(ctx, x, w, r, b, (init_h,), 1, step)
+
+
+# ---------------------------------------------------------------------------
+# com.microsoft LLM weights and positions: MatMulNBits, RotaryEmbedding
+# ---------------------------------------------------------------------------
+
+def _absent(x) -> bool:
+    """An optional input left out: no value, or an empty one."""
+    if x is None:
+        return True
+    return (np.size(x) if _is_host(x) else x.numel()) == 0
+
+
+def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` as the reference's gather reads it: a negative index
+    counts from the end, an index past the end reads the last row (JAX
+    clamps a gather's indices)."""
+    n = table.shape[0]
+    idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+    return table[idx]
+
+
+@op("MatMulNBits")
+def _matmul_nbits(ctx, a, b_packed, scales, zero_points=None):
+    """com.microsoft blockwise 4-bit quantized matmul. B is ``[N, K/block,
+    block/2]`` packed nibbles (the low nibble is the even element); it is
+    dequantized blockwise to ``[N, K]`` in float32 (zero point 8 unless
+    given), cast to ``a``'s dtype, and multiplied."""
+    bits = int(ctx.attr("bits", 4))
+    if bits != 4:
+        raise NotImplementedError("MatMulNBits: only bits=4 is supported")
+    K = int(ctx.attr("K"))
+    N = int(ctx.attr("N"))
+    block = int(ctx.attr("block_size"))
+    a = _tensor(a)
+    bp = _tensor(b_packed, a.device)
+    n_blocks = bp.shape[1]
+    nibbles = torch.stack([bp & 0xF, bp >> 4], -1).reshape(N, n_blocks, -1)
+    sc = _tensor(scales, a.device).to(torch.float32).reshape(N, n_blocks)
+    if zero_points is None:
+        zp = torch.full((N, n_blocks), 8.0, device=a.device)
+    else:
+        zpa = _tensor(zero_points, a.device)
+        if zpa.dtype == torch.uint8 and zpa.ndim == 1:
+            # packed 4-bit zero points, one nibble per block
+            zp = torch.stack([zpa & 0xF, zpa >> 4], -1).reshape(N, -1)
+            zp = zp[:, :n_blocks].to(torch.float32)
+        else:
+            zp = zpa.to(torch.float32).reshape(N, n_blocks)
+    deq = (nibbles.to(torch.float32) - zp[..., None]) * sc[..., None]
+    w = deq.reshape(N, n_blocks * block)[:, :K]               # [N, K]
+    return torch.matmul(a, w.T.to(a.dtype))
+
+
+def _apply_rope(t, cc, ss, interleaved, rot):
+    """Rotate the leading ``rot`` features of ``t`` by (cos, sin), the core
+    shared by RotaryEmbedding and GroupQueryAttention's internal rope.
+    ``cc``/``ss`` (float32) broadcast against ``t[..., :rot//2]``; the
+    rotation runs in the promoted dtype and is cast back to ``t``'s."""
+    tr, tp = t[..., :rot], t[..., rot:]
+    if interleaved:
+        t1, t2 = tr[..., 0::2], tr[..., 1::2]
+    else:
+        t1, t2 = tr[..., : rot // 2], tr[..., rot // 2:]
+    o1 = t1 * cc - t2 * ss
+    o2 = t2 * cc + t1 * ss
+    out = (torch.stack([o1, o2], -1).reshape(tr.shape) if interleaved
+           else torch.cat([o1, o2], -1))
+    return torch.cat([out.to(t.dtype), tp], -1)
+
+
+@op("RotaryEmbedding")
+def _rotary_embedding(ctx, x, position_ids, cos_cache, sin_cache):
+    """com.microsoft rotary position embedding: 3-D ``[B, S, H]`` input
+    (``num_heads`` attr) or 4-D ``[B, NH, S, Hd]``; interleaved and
+    half-split layouts; one position id is ORT's start offset."""
+    interleaved = bool(ctx.attr("interleaved", 0))
+    x = _tensor(x)
+    squeeze_back = x.ndim == 3
+    if squeeze_back:
+        nh = int(ctx.attr("num_heads", 0))
+        b, s, h = x.shape
+        if nh <= 0:
+            raise ValueError("RotaryEmbedding: 3-D input needs num_heads")
+        x = x.reshape(b, s, nh, h // nh).transpose(1, 2)
+    b, nh, s, hd = x.shape
+    rot = int(ctx.attr("rotary_embedding_dim", 0)) or hd
+    pos = _tensor(position_ids, x.device).to(torch.int64)
+    if pos.numel() == 1:
+        # ORT's start-offset form: one position id means positions start
+        # there and increment per token
+        pos = pos.reshape(1, 1) + torch.arange(s, device=x.device)[None, :]
+    elif pos.ndim == 1:
+        pos = pos[None, :]
+    cos = _rows(_tensor(cos_cache, x.device).to(torch.float32), pos)
+    sin = _rows(_tensor(sin_cache, x.device).to(torch.float32), pos)
+    out = _apply_rope(x, cos[:, None], sin[:, None], interleaved, rot)
+    if squeeze_back:
+        out = out.transpose(1, 2).reshape(b, s, nh * hd)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Attention: GroupQueryAttention, MultiHeadAttention, Attention
+# ---------------------------------------------------------------------------
+# As in the reference: q, k and v in float32, grouped heads without a
+# materialised repeat of K/V, masking by -inf (or ORT's additive filter
+# value), a float32 softmax, the result cast back to the input's dtype.
+
+def _grouped_scores(q, k, kv_heads, scale):
+    """``einsum("bkgsd,bktd->bkgst")`` of ``q [B, Hq, S, D]`` grouped onto
+    ``k [B, Hkv, T, D]``, in float32, times ``scale``: one batched product
+    of ``[G*S, D]`` by ``[D, T]`` a KV head."""
+    b, nq, s, d = q.shape
+    qg = q.reshape(b, kv_heads, (nq // kv_heads) * s, d).to(torch.float32)
+    logits = torch.matmul(qg, k.to(torch.float32).transpose(-1, -2)) * scale
+    return logits.reshape(b, kv_heads, nq // kv_heads, s, k.shape[2])
+
+
+def _grouped_values(probs, v):
+    """``einsum("bkgst,bktd->bkgsd")`` in float32, as ``[B, Hq, S, Dv]``."""
+    b, nk, g, s, t = probs.shape
+    out = torch.matmul(probs.reshape(b, nk, g * s, t), v.to(torch.float32))
+    return out.reshape(b, nk * g, s, v.shape[-1])
+
+
+def _merge_heads(out, dt):
+    """``[B, N, S, D]`` -> ``[B, S, N*D]`` in ``dt``."""
+    b, n, s, d = out.shape
+    return out.transpose(1, 2).reshape(b, s, n * d).to(dt)
+
+
+@op("GroupQueryAttention")
+def _group_query_attention(ctx, query, key=None, value=None,
+                           past_key=None, past_value=None, seqlens_k=None,
+                           total_sequence_length=None, cos_cache=None,
+                           sin_cache=None):
+    """com.microsoft GroupQueryAttention: causal grouped-head attention
+    with an optional KV cache, separate or packed QKV, internal rotary
+    (``do_rotary``).
+
+    ``past_present_share_buffer=1`` is the serving-cache layout:
+    ``past_key/past_value`` are max-length buffers ``[B, Hkv, T, D]``;
+    row b's new K/V rows go at ``past_len_b = max(seqlens_k + 1 - S, 0)``
+    (ORT: ``seqlens_k`` = total valid keys - 1), the start clamped to
+    ``[0, T - S]`` as JAX's ``dynamic_update_slice`` clamps it; rotary
+    positions and the causal frontier ``k_pos <= past_len_b + q_idx`` use
+    the unclamped ``past_len_b``. Everything is computed on the device
+    from ``seqlens_k``: no host sync. ``present_*`` are new tensors; the
+    caller's buffers are not written."""
+    num_heads = int(ctx.attr("num_heads", 0))
+    kv_heads = int(ctx.attr("kv_num_heads", 0))
+    if num_heads <= 0 or kv_heads <= 0:
+        raise ValueError("GroupQueryAttention needs num_heads and "
+                         "kv_num_heads attributes")
+    q = _tensor(query)
+    dev = q.device
+    b, s, dq = q.shape
+    if _absent(key):
+        # packed QKV: [B, S, (Hq + 2*Hkv) * D]
+        head = dq // (num_heads + 2 * kv_heads)
+        qw, kw = num_heads * head, (num_heads + kv_heads) * head
+        q, k, v = q[..., :qw], q[..., qw:kw], q[..., kw:]
+    else:
+        head = dq // num_heads
+        k, v = _tensor(key, dev), _tensor(value, dev)
+    dt = q.dtype
+
+    def heads(t, h):
+        return t.reshape(b, s, h, head).transpose(1, 2)
+
+    q = heads(q, num_heads)                        # [B, Hq, S, D]
+    k = heads(k, kv_heads)                         # [B, Hkv, S, D]
+    v = heads(v, kv_heads)
+    share = bool(ctx.attr("past_present_share_buffer", 0))
+    if share and (past_key is None or seqlens_k is None):
+        raise ValueError(
+            "GroupQueryAttention: past_present_share_buffer=1 needs "
+            "past_key/past_value buffers and seqlens_k")
+    past_len = np.shape(past_key)[2] if past_key is not None else 0
+    steps = torch.arange(s, device=dev)
+    if share:
+        lens = _tensor(seqlens_k, dev).to(torch.int64).reshape(b)
+        past_len_b = torch.clamp(lens + 1 - s, min=0)   # [B] write positions
+
+    if ctx.attr("do_rotary", 0):
+        if cos_cache is None or sin_cache is None:
+            raise ValueError("do_rotary=1 needs cos_cache/sin_cache")
+        cos = _tensor(cos_cache, dev).to(torch.float32)
+        sin = _tensor(sin_cache, dev).to(torch.float32)
+        rot = 2 * cos.shape[-1]
+        max_pos = past_len if share else past_len + s
+        if max_pos > cos.shape[0]:
+            # a clamped gather would silently freeze the rotary angle
+            raise ValueError(
+                f"GroupQueryAttention: positions up to {max_pos} exceed "
+                f"the exported rope cache ({cos.shape[0]} rows); "
+                "re-export with a longer max position")
+        inter = bool(ctx.attr("rotary_interleaved", 0))
+        if share:
+            pos = past_len_b[:, None] + steps
+            cc, ss = _rows(cos, pos)[:, None], _rows(sin, pos)[:, None]
+        else:
+            pos = past_len + steps
+            cc, ss = cos[pos][None, None], sin[pos][None, None]
+        q = _apply_rope(q, cc, ss, inter, rot)
+        k = _apply_rope(k, cc, ss, inter, rot)
+
+    if share:
+        # out-of-place scatter at each row's write position: the buffer's
+        # shape is step-invariant and the caller's buffer stays as it was
+        start = torch.clamp(past_len_b, max=past_len - s)
+        idx = (start[:, None] + steps)[:, None, :, None].expand(
+            b, kv_heads, s, head)
+        k = _tensor(past_key, dev).to(dt).scatter(2, idx, k)
+        v = _tensor(past_value, dev).to(dt).scatter(2, idx, v)
+    elif past_key is not None:
+        k = torch.cat([_tensor(past_key, dev).to(dt), k], dim=2)
+        v = torch.cat([_tensor(past_value, dev).to(dt), v], dim=2)
+    present_k, present_v = k, v
+    t_kv = k.shape[2]
+
+    scale = ctx.attr("scale", 0.0) or 1.0 / math.sqrt(head)
+    logits = _grouped_scores(q, k, kv_heads, scale)   # [B, Hkv, G, S, T]
+    k_pos = torch.arange(t_kv, device=dev)
+    if share:
+        # per-row causal frontier: row b's query j sits at global
+        # position past_len_b[b] + j; slots beyond it never enter the
+        # softmax
+        q_pos = past_len_b[:, None, None] + steps[None, :, None]
+        mask = (k_pos <= q_pos)[:, None, None]              # [B,1,1,S,T]
+    else:
+        mask = (k_pos <= past_len + steps[:, None])[None, None, None]
+        if seqlens_k is not None:
+            # ORT convention: seqlens_k = total valid keys per batch - 1
+            lim = _tensor(seqlens_k, dev).to(torch.int64).reshape(b) + 1
+            mask = mask & (k_pos < lim[:, None])[:, None, None, None, :]
+    logits = torch.where(mask, logits, -math.inf)
+    out = _grouped_values(torch.softmax(logits, dim=-1), v)
+    out = _merge_heads(out, dt)
+    if ctx.n_outputs > 1:
+        return out, present_k, present_v
+    return out
+
+
+def _standard_attention(ctx, q, k, v, attn_mask=None, past_key=None,
+                        past_value=None):
+    """Standard ai.onnx Attention (opset 23): scaled dot-product attention
+    over separate Q/K/V, 3-D (``[B, S, N*D]`` with q/kv_num_heads attrs)
+    or 4-D (``[B, N, S, D]``). Grouped-query head counts, ``is_causal``
+    (top-left alignment), additive or boolean masks, scale and softcap;
+    KV cache inputs/outputs and the qk_matmul_output modes raise."""
+    if k is None or v is None:
+        raise NotImplementedError(
+            "standard Attention needs Q, K and V inputs")
+    if past_key is not None or past_value is not None:
+        raise NotImplementedError(
+            "standard Attention with past_key/past_value (KV cache) is "
+            "not supported; re-export the decode step with explicit "
+            "Concat of the cache, or use the com.microsoft "
+            "GroupQueryAttention form")
+    if ctx.n_outputs > 1:
+        raise NotImplementedError(
+            "standard Attention present_key/present_value (or "
+            "qk_matmul_output) outputs are not supported")
+    if int(ctx.attr("qk_matmul_output_mode", 0)) != 0:
+        raise NotImplementedError(
+            "Attention qk_matmul_output_mode != 0 (exposing the raw "
+            "QK product) is not supported")
+    q = _tensor(q)
+    dev = q.device
+    k, v = _tensor(k, dev), _tensor(v, dev)
+    three_d = q.ndim == 3
+    if three_d:
+        nq = int(ctx.attr("q_num_heads", 0))
+        nk = int(ctx.attr("kv_num_heads", 0))
+        if nq <= 0 or nk <= 0:
+            raise ValueError(
+                "3-D standard Attention needs q_num_heads/kv_num_heads")
+        b, s, dq = q.shape
+        q = q.reshape(b, s, nq, dq // nq).transpose(1, 2)
+        k = k.reshape(k.shape[0], k.shape[1], nk,
+                      k.shape[2] // nk).transpose(1, 2)
+        v = v.reshape(v.shape[0], v.shape[1], nk,
+                      v.shape[2] // nk).transpose(1, 2)
+    b, nq, s, head = q.shape
+    nk, t_kv = k.shape[1], k.shape[2]
+    if nq % nk:
+        raise ValueError(
+            f"Attention q heads {nq} not a multiple of kv heads {nk}")
+    group = nq // nk
+    dt = q.dtype
+    scale = ctx.attr("scale", 0.0) or 1.0 / math.sqrt(head)
+    logits = _grouped_scores(q, k, nk, scale)
+    bool_mask = None
+    if attn_mask is not None:
+        m = _tensor(attn_mask, dev)
+        # right-align onto [B, N, S, T] then add the group axis
+        m4 = m.reshape((1,) * (4 - m.ndim) + tuple(m.shape))
+        if m4.shape[1] == 1:        # broadcast over heads
+            m5 = m4[:, :, None]
+        else:                       # per-q-head mask: split (nk, group)
+            m5 = m4.reshape(m4.shape[0], nk, group, m4.shape[2],
+                            m4.shape[3])
+        if m.dtype == torch.bool:
+            bool_mask = m5
+        else:
+            # an additive float mask adds before softcap (the spec's
+            # Add -> softcap -> Softmax node order)
+            logits = logits + m5.to(torch.float32)
+    softcap = float(ctx.attr("softcap", 0.0))
+    if softcap > 0.0:
+        logits = softcap * torch.tanh(logits / softcap)
+    # hard masking applies after softcap: a -inf folded into the tanh
+    # would become -softcap and unmask the position
+    if bool_mask is not None:
+        logits = torch.where(bool_mask, logits, -math.inf)
+    if ctx.attr("is_causal", 0):
+        # top-left alignment: query i attends keys j <= i
+        causal = (torch.arange(t_kv, device=dev)[None, :]
+                  <= torch.arange(s, device=dev)[:, None])
+        logits = torch.where(causal, logits, -math.inf)
+    probs = torch.softmax(logits, dim=-1)
+    probs = torch.where(torch.isnan(probs), 0.0, probs)  # fully-masked rows
+    out = _grouped_values(probs, v).to(dt)
+    if three_d:
+        out = _merge_heads(out, dt)
+    return out
+
+
+def _additive_key_mask(ok, neg):
+    """0 where a key is attended, ORT's filter value ``neg`` (a float32
+    tensor) where it is not: ORT masks additively, which keeps the order
+    of masked logits (soft masking with a small filter value)."""
+    return torch.where(ok, 0.0, neg)
+
+
+@op("MultiHeadAttention")
+def _multi_head_attention(ctx, query, key=None, value=None, bias=None,
+                          key_padding_mask=None, attention_bias=None,
+                          past_key=None, past_value=None):
+    """com.microsoft MultiHeadAttention (already-projected Q/K/V): 3-D
+    ``[B, S, N*D]`` Q/K/V with ``num_heads``, a combined QKV bias split at
+    the actual q/k/v widths, ``[B]`` or ``[B, T]`` key padding masks, an
+    additive attention_bias, unidirectional, past/present KV cache. The
+    5-D packed-QKV and 4-D past-format K/V layouts raise."""
+    num_heads = int(ctx.attr("num_heads", 0))
+    if num_heads <= 0:
+        raise ValueError("MultiHeadAttention needs num_heads")
+    q = _tensor(query)
+    dev, out_dt = q.device, q.dtype
+    if q.ndim != 3:
+        raise NotImplementedError(
+            "MultiHeadAttention supports 3-D [B, S, N*D] inputs; the "
+            "5-D packed-QKV form is not supported — re-export unpacked")
+    b, s, _ = q.shape
+    if _absent(key):
+        raise NotImplementedError(
+            "MultiHeadAttention needs separate 3-D key/value inputs "
+            "(the packed-QKV layout is 5-D and unsupported — re-export "
+            "unpacked)")
+    k, v = _tensor(key, dev), _tensor(value, dev)
+    if k.ndim != 3:
+        raise NotImplementedError(
+            "MultiHeadAttention past-format (4-D) K/V inputs are "
+            "not supported; re-export with 3-D K/V + past_key/"
+            "past_value cache inputs")
+    if bias is not None:
+        # ORT layout: (q_hidden | k_hidden | v_hidden); v may differ
+        bias = _tensor(bias, dev)
+        qw, kw = q.shape[-1], q.shape[-1] + k.shape[-1]
+        q = _bin(operator.add, q, bias[:qw])
+        k = _bin(operator.add, k, bias[qw:kw])
+        v = _bin(operator.add, v, bias[kw:])
+    head = q.shape[-1] // num_heads
+
+    def heads(t):
+        return t.reshape(t.shape[0], t.shape[1], num_heads,
+                         -1).transpose(1, 2)
+
+    q, k, v = heads(q), heads(k), heads(v)          # [B, N, S|T, D]
+    if past_key is not None:
+        k = torch.cat([_tensor(past_key, dev).to(k.dtype), k], dim=2)
+        v = torch.cat([_tensor(past_value, dev).to(v.dtype), v], dim=2)
+    present_k, present_v = k, v
+    t_kv = k.shape[2]
+    scale = ctx.attr("scale", 0.0) or 1.0 / math.sqrt(head)
+    logits = _grouped_scores(q, k, num_heads, scale)[:, :, 0]
+    if attention_bias is not None:
+        ab = _tensor(attention_bias, dev).to(torch.float32)
+        logits = logits + ab.reshape((1,) * (4 - ab.ndim) + tuple(ab.shape))
+    neg = torch.full((), ctx.attr("mask_filter_value", -10000.0),
+                     dtype=torch.float32, device=dev)
+    k_pos = torch.arange(t_kv, device=dev)
+    if key_padding_mask is not None:
+        m = _tensor(key_padding_mask, dev)
+        if m.ndim == 1:                             # [B] valid lengths
+            ok = k_pos[None, :] < m.to(torch.int64)[:, None]
+        elif m.ndim == 2:                           # [B, T_kv] 0/1
+            ok = m != 0
+        else:
+            raise NotImplementedError(
+                "MultiHeadAttention key_padding_mask must be [B] "
+                "lengths or a [B, T_kv] 0/1 mask")
+        logits = logits + _additive_key_mask(ok[:, None, None, :], neg)
+    if ctx.attr("unidirectional", 0):
+        q_pos = (t_kv - s) + torch.arange(s, device=dev)[:, None]
+        logits = logits + _additive_key_mask(k_pos[None, :] <= q_pos, neg)
+    probs = torch.softmax(logits, dim=-1)
+    out = _grouped_values(probs[:, :, None], v)
+    out = _merge_heads(out, out_dt)
+    if ctx.n_outputs > 1:
+        return out, present_k, present_v
+    return out
+
+
+@op("Attention")
+def _contrib_attention(ctx, x, weights, bias=None, mask_index=None,
+                       past=None, attention_bias=None,
+                       past_sequence_length=None):
+    """com.microsoft Attention: the fused BERT self-attention block (input
+    projection and multi-head attention): equal Q/K/V widths, ``[B]``
+    lengths or ``[B, T]`` / broadcastable 0/1 key masks, an additive
+    attention_bias, unidirectional, the stacked ``[2, B, N, P, D]``
+    past/present cache. The standard opset-23 Attention shares the
+    op_type; its second input is not a 2-D weight, and it goes to
+    :func:`_standard_attention`."""
+    if weights is None or np.ndim(weights) != 2:
+        return _standard_attention(ctx, x, weights, bias, mask_index,
+                                   past, attention_bias)
+    num_heads = int(ctx.attr("num_heads", 0))
+    if num_heads <= 0:
+        raise ValueError("Attention needs the num_heads attribute")
+    sizes = ctx.attr("qkv_hidden_sizes")
+    if sizes and len(set(int(v) for v in sizes)) != 1:
+        raise NotImplementedError(
+            "Attention with asymmetric qkv_hidden_sizes is not "
+            "supported; re-export with equal Q/K/V widths")
+    if int(ctx.attr("past_present_share_buffer", 0)) \
+            or past_sequence_length is not None:
+        raise NotImplementedError(
+            "Attention with past_present_share_buffer (max-length cache "
+            "buffer + past_sequence_length) is not supported: the cached "
+            "length would be read from the buffer dimension and attend "
+            "uninitialized rows; re-export with a dense (unshared) past")
+    x = _tensor(x)
+    dev = x.device
+    b, s, _ = x.shape
+    w = _tensor(weights, dev)
+    hidden = w.shape[1] // 3
+    head = hidden // num_heads
+    qkv = _matmul(ctx, x, w)
+    if bias is not None:
+        qkv = _bin(operator.add, qkv, bias)
+    q, k, v = torch.chunk(qkv, 3, dim=-1)
+
+    def heads(t):
+        return t.reshape(b, s, num_heads, head).transpose(1, 2)
+
+    q, k, v = heads(q), heads(k), heads(v)          # [B, N, S, D]
+    past_len = 0
+    if past is not None:
+        p = _tensor(past, dev)                      # [2, B, N, P, D]
+        past_len = p.shape[3]
+        k = torch.cat([p[0].to(k.dtype), k], dim=2)
+        v = torch.cat([p[1].to(v.dtype), v], dim=2)
+    t_kv = k.shape[2]
+    scale = ctx.attr("scale", 0.0) or 1.0 / math.sqrt(head)
+    logits = _grouped_scores(q, k, num_heads, scale)[:, :, 0]
+    if attention_bias is not None:
+        logits = logits + _tensor(attention_bias, dev).to(torch.float32)
+    neg = torch.full((), ctx.attr("mask_filter_value", -10000.0),
+                     dtype=torch.float32, device=dev)
+    k_pos = torch.arange(t_kv, device=dev)
+    if mask_index is not None:
+        m = _tensor(mask_index, dev)
+        if m.ndim == 1 and m.shape[0] != b:
+            raise NotImplementedError(
+                f"Attention 1-D mask_index has {m.shape[0]} entries for "
+                f"batch {b}: the (2*batch,) end/start left-padding format "
+                "is not supported; re-export with a [batch] lengths "
+                "vector or a [batch, seq] key mask")
+        if m.ndim == 1:                             # [B] valid-key lengths
+            ok = k_pos[None, :] < m.to(torch.int64)[:, None]
+            logits = logits + _additive_key_mask(ok[:, None, None, :], neg)
+        else:                                       # 0/1 key mask
+            # right-align onto [B, N, S, T]: [B,T] -> [B,1,1,T],
+            # [B,S,T] -> [B,1,S,T], 4-D passes through
+            m2 = m.reshape((b,) + (1,) * (4 - m.ndim) + tuple(m.shape[1:]))
+            logits = logits + _additive_key_mask(m2 != 0, neg)
+    if ctx.attr("unidirectional", 0):
+        q_pos = past_len + torch.arange(s, device=dev)[:, None]
+        logits = logits + _additive_key_mask(k_pos[None, :] <= q_pos, neg)
+    probs = torch.softmax(logits, dim=-1)
+    out = _merge_heads(_grouped_values(probs[:, :, None], v), x.dtype)
+    if ctx.n_outputs > 1:
+        return out, torch.stack([k, v], dim=0)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# com.microsoft transformer-fusion family: what onnxruntime's transformer
+# optimizer rewrites BERT/GPT graphs into. Each fused node lowers to what
+# its unfused composition would; the contrib layer norms normalize in
+# float32 whatever the input dtype, as ORT does.
+# ---------------------------------------------------------------------------
+
+@op("FusedMatMul")
+def _fused_matmul(ctx, a, b):
+    if int(ctx.attr("transBatchA", 0)) or int(ctx.attr("transBatchB", 0)):
+        raise NotImplementedError(
+            "FusedMatMul transBatchA/transBatchB (batch-axis folding) is "
+            "not supported; re-export without batch transpose")
+    a, b = _operands((a, b), scalars=False)
+    if int(ctx.attr("transA", 0)):
+        a = a.transpose(-1, -2)
+    if int(ctx.attr("transB", 0)):
+        b = b.transpose(-1, -2)
+    y = torch.matmul(a, b)
+    return y * _scalar(float(ctx.attr("alpha", 1.0)), y.dtype)
+
+
+@op("BiasGelu")
+def _bias_gelu(ctx, x, bias):
+    return F.gelu(_bin(operator.add, x, bias))
+
+
+@op("FastGelu")
+def _fast_gelu(ctx, x, bias=None):
+    x = _tensor(x)
+    if bias is not None:
+        x = _bin(operator.add, x, bias)
+    return F.gelu(x, approximate="tanh")
+
+
+@op("QuickGelu")
+def _quick_gelu(ctx, x):
+    x = _tensor(x)
+    return x * torch.sigmoid(x * _scalar(float(ctx.attr("alpha", 1.702)),
+                                         x.dtype))
+
+
+def _rms_norm(x, scale, eps, dims):
+    x = _tensor(x)
+    x32 = x.to(torch.float32)
+    ms = torch.mean(x32 * x32, dim=dims, keepdim=True)
+    inv = torch.rsqrt(ms + eps)
+    scale = _tensor(scale, x.device).to(torch.float32)
+    return (x32 * inv * scale).to(x.dtype), inv
+
+
+@op("SimplifiedLayerNormalization", "RMSNormalization")
+def _simplified_layer_norm(ctx, x, scale):
+    """RMSNorm: ORT's contrib name for it and the opset-23 standard one
+    (same signature and attributes)."""
+    axis = int(ctx.attr("axis", -1)) % np.ndim(x)
+    y, inv = _rms_norm(x, scale, ctx.attr("epsilon", 1e-5),
+                       tuple(range(axis, np.ndim(x))))
+    return (y, inv)[: ctx.n_outputs] if ctx.n_outputs > 1 else y
+
+
+def _ln_affine(h, gamma, beta, eps):
+    """The fusion family's float32 layer norm. Returns (y, mean,
+    inv_std), y cast back to ``h``'s dtype; the variance is the mean of
+    squared deviations, as ``jnp.var`` forms it."""
+    h32 = h.to(torch.float32)
+    mean = torch.mean(h32, dim=-1, keepdim=True)
+    c = h32 - mean
+    inv = torch.rsqrt(torch.mean(c * c, dim=-1, keepdim=True) + eps)
+    y = c * inv * _tensor(gamma, h.device).to(torch.float32)
+    if beta is not None:
+        y = y + _tensor(beta, h.device).to(torch.float32)
+    return y.to(h.dtype), mean, inv
+
+
+def _skip_sum(x, skip, bias):
+    h = _bin(operator.add, x, skip)
+    return h if bias is None else _bin(operator.add, h, bias)
+
+
+@op("SkipSimplifiedLayerNormalization")
+def _skip_simplified_layer_norm(ctx, x, skip, gamma, bias=None):
+    h = _skip_sum(x, skip, bias)
+    y, inv = _rms_norm(h, gamma, ctx.attr("epsilon", 1e-5), -1)
+    if ctx.n_outputs > 1:
+        # slot 2 ("mean") is defined on the summed input though the RMS
+        # normalization itself takes no mean
+        mean = torch.mean(h.to(torch.float32), dim=-1, keepdim=True)
+        return (y, mean, inv, h)[: ctx.n_outputs]
+    return y
+
+
+@op("SkipLayerNormalization")
+def _skip_layer_norm(ctx, x, skip, gamma, beta=None, bias=None):
+    h = _skip_sum(x, skip, bias)
+    y, mean, inv = _ln_affine(h, gamma, beta, ctx.attr("epsilon", 1e-5))
+    if ctx.n_outputs > 1:
+        return (y, mean, inv, h)[: ctx.n_outputs]
+    return y
+
+
+@op("EmbedLayerNormalization")
+def _embed_layer_norm(ctx, input_ids, segment_ids=None, word_emb=None,
+                      pos_emb=None, seg_emb=None, gamma=None, beta=None,
+                      mask=None, position_ids=None):
+    """com.microsoft EmbedLayerNormalization: the BERT front-end fusion
+    (word + position + segment gather, layer norm, mask length)."""
+    ids = _tensor(input_ids).to(torch.int64)
+    dev = ids.device
+    b, s = ids.shape
+    emb = _rows(_tensor(word_emb, dev), ids)
+    if position_ids is not None:
+        pos = _tensor(position_ids, dev).to(torch.int64)
+        pos = pos.reshape(-1, s).expand(b, s)
+    else:
+        pos = torch.arange(s, device=dev).expand(b, s)
+    emb = _bin(operator.add, emb, _rows(_tensor(pos_emb, dev), pos))
+    if seg_emb is not None:
+        if segment_ids is None:
+            raise ValueError(
+                "EmbedLayerNormalization has a segment embedding but no "
+                "segment_ids input")
+        seg = _tensor(segment_ids, dev).to(torch.int64)
+        emb = _bin(operator.add, emb, _rows(_tensor(seg_emb, dev), seg))
+    y, _, _ = _ln_affine(emb, gamma, beta, ctx.attr("epsilon", 1e-12))
+    if mask is not None:
+        mask_index = torch.sum(_tensor(mask, dev).to(torch.int32), dim=1,
+                               dtype=torch.int32)
+    else:
+        mask_index = torch.zeros((b,), dtype=torch.int32, device=dev)
+    if ctx.n_outputs > 2:
+        return y, mask_index, emb
+    return y, mask_index
 
 
 # ---------------------------------------------------------------------------

@@ -517,3 +517,95 @@ def test_onnx_fixture_on_the_card(card, name):
             assert (err <= step + 1e-7).mean() > 0.95
         else:
             np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_onnx_causal_encoder_on_the_card_equals_the_cpu(card):
+    """The causal encoder (``Trilu`` mask) at a small width, batch 3: the
+    float32 bind on the card within 1e-5 of the largest |value| of the
+    port's CPU forward, the bf16 bind within the 5% rule; a warm forward
+    makes no synchronizing call."""
+    from synapseml_tpu_torch.onnx import import_model, zoo
+
+    g = import_model(zoo.transformer_encoder(100, 64, 4, 128, 2, seq_len=16,
+                                             causal=True, seed=1))
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, 100, (3, 16)))
+    cpu = g.bind(device="cpu")(ids)[0].numpy()
+    f32 = g.bind()
+    got = f32(ids.to(card))[0]
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    gap = float(np.abs(got.cpu().numpy() - cpu).max())
+    assert gap <= 1e-5 * float(np.abs(cpu).max()), gap
+    bf16 = g.bind(cast_dtype=torch.bfloat16)
+    got16 = bf16(ids.to(card))[0]
+    assert got16.dtype == torch.bfloat16
+    assert _bf16_rule(got16.float().cpu().numpy(), cpu)
+    idc = ids.to(card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        f32(idc)
+        bf16(idc)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_onnx_gqa_decode_steps_on_the_card_equal_the_cpu(card):
+    """``zoo.tiny_decoder`` through its shared KV buffers: a right-padded
+    prefill (row 1: 3 valid tokens of 5) and three decode steps on the
+    card, each call's logits and buffers within 1e-5 of the CPU's; a warm
+    step makes no synchronizing call and leaves its input buffers as they
+    were."""
+    from synapseml_tpu_torch.onnx import import_model, zoo
+
+    g = import_model(zoo.tiny_decoder())
+    on_card, on_cpu = g.bind(), g.bind(device="cpu")
+    ids = torch.from_numpy(np.random.default_rng(1).integers(0, 64, (2, 8)))
+    lens = torch.tensor([4, 2], dtype=torch.int32)
+    bufs_cpu = [torch.zeros((2, 2, 16, 8)) for _ in range(4)]
+    bufs_card = [b.to(card) for b in bufs_cpu]
+    for start, stop, add in ((0, 5, 0), (5, 6, 1), (6, 7, 2), (7, 8, 3)):
+        args = (ids[:, start:stop], lens + add)
+        cpu = on_cpu(*args, *bufs_cpu)
+        got = on_card(*[a.to(card) for a in args], *bufs_card)
+        for c, d in zip(cpu, got):
+            assert d.device.type == "cuda"
+            gap = float((d.cpu() - c).abs().max())
+            assert gap <= 1e-5 * max(1.0, float(c.abs().max())), gap
+        bufs_cpu, bufs_card = list(cpu[1:]), list(got[1:])
+    step = (ids[:, 7:8].to(card), (lens + 3).to(card))
+    before = [b.clone() for b in bufs_card]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        on_card(*step, *bufs_card)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(bufs_card, before))
+
+
+def test_onnx_lstm_on_the_card_equals_the_cpu(card):
+    """The BiLSTM tagger at the example's width (bidirectional LSTM) and a
+    one-node RNN: the card's float32 output within 1e-5 of the CPU's."""
+    from synapseml_tpu_torch.onnx import GraphBuilder, import_model, zoo
+
+    g = import_model(zoo.bilstm_tagger(vocab=64, embed=16, hidden=16,
+                                       n_tags=4, seq_len=16))
+    ids = torch.from_numpy(np.random.default_rng(2).integers(0, 64, (16, 16)))
+    cpu = g.bind(device="cpu")(ids)[0]
+    got = g.bind()(ids.to(card))[0]
+    assert float((got.cpu() - cpu).abs().max()) <= 1e-5
+    rng = np.random.default_rng(3)
+    b = GraphBuilder(opset=17)
+    x = b.add_input("x", np.float32, [6, 2, 5])
+    y = b.add_node("RNN", [x, b.add_initializer(
+        "w", rng.normal(size=(2, 4, 5)).astype(np.float32)),
+        b.add_initializer("r", rng.normal(size=(2, 4, 4)).astype(
+            np.float32))], hidden_size=4, direction="bidirectional")
+    b.add_output(y, np.float32, None)
+    rnn = import_model(b.to_bytes())
+    xs = torch.from_numpy(rng.normal(size=(6, 2, 5)).astype(np.float32))
+    cpu = rnn.bind(device="cpu")(xs)[0]
+    got = rnn.bind()(xs.to(card))[0]
+    assert float((got.cpu() - cpu).abs().max()) <= 1e-5

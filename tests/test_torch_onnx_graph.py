@@ -24,14 +24,34 @@ FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 
 # the ops of zoo.resnet50 and of the five torch-exported fixtures, plus
 # Gelu and Split (the reference's transformer zoo, optimized)
-PORTED = sorted([
+RESNET_AND_FIXTURES = [
     "Conv", "BatchNormalization", "Relu", "MaxPool", "Add",
     "GlobalAveragePool", "Flatten", "Gemm", "AveragePool", "LogSoftmax",
     "Softmax", "Shape", "Constant", "ConstantOfShape", "Gather",
     "Unsqueeze", "Concat", "Transpose", "Reshape", "Sub", "GRU",
     "Identity", "Div", "Cast", "Slice", "Squeeze", "MatMul", "Mod", "Mul",
     "Sqrt", "LayerNormalization", "Gelu", "Split", "QuantizeLinear",
-    "DequantizeLinear", "Tile", "Range", "Greater", "Where"])
+    "DequantizeLinear", "Tile", "Range", "Greater", "Where"]
+# the ops a transformer or recurrent export reaches: the elementwise and
+# reduction tables, the recurrent ops, the com.microsoft fusion family,
+# the LLM weight and position ops and the attention ops
+TRANSFORMER_AND_RECURRENT = [
+    "Pow", "Equal", "Less", "GreaterOrEqual", "LessOrEqual", "And", "Or",
+    "Xor", "Sigmoid", "Tanh", "Exp", "Log", "Reciprocal", "Neg", "Abs",
+    "Floor", "Ceil", "Sign", "Erf", "Softplus", "Not", "Sin", "Cos", "Tan",
+    "Asin", "Acos", "Atan", "Sinh", "Cosh", "Asinh", "Acosh", "Atanh",
+    "Det", "IsNaN", "IsInf", "Softsign", "Round", "BitwiseAnd",
+    "BitwiseOr", "BitwiseXor", "BitwiseNot", "Clip", "Min", "Max", "Sum",
+    "Mean", "Trilu", "Einsum", "Expand", "CumSum", "ReduceMean",
+    "ReduceSum", "ReduceMax", "ReduceMin", "ReduceProd", "ReduceL1",
+    "ReduceL2", "ReduceLogSumExp", "ReduceLogSum", "ReduceSumSquare",
+    "ArgMax", "ArgMin", "LSTM", "RNN", "FusedMatMul", "BiasGelu",
+    "FastGelu", "QuickGelu", "SimplifiedLayerNormalization",
+    "RMSNormalization", "SkipSimplifiedLayerNormalization",
+    "SkipLayerNormalization", "EmbedLayerNormalization", "MatMulNBits",
+    "RotaryEmbedding", "GroupQueryAttention", "MultiHeadAttention",
+    "Attention"]
+PORTED = sorted(RESNET_AND_FIXTURES + TRANSFORMER_AND_RECURRENT)
 
 
 def test_registry_is_the_ported_op_set():
@@ -86,19 +106,26 @@ def test_optimize_packs_the_transformer_as_the_reference():
 
 
 def test_causal_transformer_needs_an_op_not_ported_yet():
-    """An op outside the port's registry (Trilu here) is refused when the
-    graph is imported, with the reference's message; nothing falls back."""
+    """The causal encoder needed ``Trilu``, which the port now has: the
+    graph imports and its float32 output matches the reference's."""
     blob = zoo.transformer_encoder(50, 32, 4, 64, 1, seq_len=8, causal=True)
-    with pytest.raises(NotImplementedError,
-                       match="'Trilu'.*not supported by the importer"):
-        import_model(blob)
-    jax_import_model(blob)                           # the reference has it
+    assert "Trilu" in {c.op_type for _, c, _, _ in import_model(blob)._nodes}
+    ids = np.random.default_rng(2).integers(0, 50, (2, 8))
+    assert_parity(*run_both(blob, [ids]))
 
 
 def test_unsupported_op_raises_at_import():
-    blob = one_node("Erf", {"x": np.zeros(3, np.float32)})
-    with pytest.raises(NotImplementedError, match="'Erf'"):
+    """An op outside the port's registry is refused when the graph is
+    imported, with the reference's message; nothing falls back."""
+    blob = one_node("NonMaxSuppression", {"b": np.zeros((1, 2, 4),
+                                                         np.float32),
+                                          "s": np.zeros((1, 1, 2),
+                                                        np.float32)})
+    with pytest.raises(NotImplementedError,
+                       match="'NonMaxSuppression'.*not supported by the "
+                             "importer"):
         import_model(blob)
+    jax_import_model(blob)                           # the reference has it
     g = GraphBuilder(opset=17)
     g.add_input("x", np.float32, [2])
     y = g.add_node("Relu", ["x"])
