@@ -136,7 +136,25 @@ before the last line:
    within 5% of the largest |logit|); the prefill's and a step's wall,
    host-issue and card (profiler) time, prefill tokens/s, and a warm
    step's copies and syncs (none). K1 and K2 launch 0 times in phases
-   20-23.
+   20-23;
+24. onnx_model_resnet50 — ``ONNXModel(mini_batch_size=128).transform``
+   of ResNet-50 224 (seed 0) on the batched executor (pinned staging,
+   the executor's own stream, one drain thread): a 1,000-image table (7
+   full buckets, a 104-row tail; rows 0-7 are ``entry()``'s images) in
+   float32 (rows 0-7 within rtol=atol=1e-3 of the JAX fixture), bf16
+   (within 5% of the fixture's largest |logit|) and bf16 fed uint8 pixels
+   normalised on the card (within 5% of bf16 on host-normalised pixels);
+   every bucket bitwise the port's ``bind()`` forward of the same padded
+   batch; ``transform_stream`` over 8 tables of 128 rows bitwise
+   ``transform``'s rows; softmax and argmax against the logits; the
+   BERT-base causal encoder on an int64 token column (coerced to int32 on
+   the host) within rtol=atol=1e-3 of its ``bind()`` forward. Images/s
+   through ``transform`` (host clock, median of 3 after a warm call)
+   beside ``bind()``'s over the same buckets, ``transform_stream``'s, the
+   8-row wall, the executor's stage/dispatch/compute/drain seconds, the
+   card's busy share in one bf16 ``transform`` and its host-to-card
+   copies overlapped with kernels (``torch.profiler``). K1 and K2 launch
+   0 times.
 
 Between phases 3 and 4: prng_card_vs_cpu (the threefry key stream on the
 card equal to the CPU's, bitwise) and masked_index (K1 on a
@@ -1389,6 +1407,289 @@ def transformer_phases(smi, reset_counts, read_counts) -> None:
     return {"encoder": encoder_counts, "decoder": counts}
 
 
+MODEL_ROWS, MODEL_BATCH, STREAM_TABLES = 1000, 128, 8
+# ImageNet's per-channel mean and 1/std in pixel units: the uint8 wire's
+# on-card normalisation
+IMAGENET_NORM = {"mean": np.array([123.675, 116.28, 103.53]).reshape(3, 1, 1),
+                 "scale": 1.0 / np.array([58.395, 57.12, 57.375]).reshape(
+                     3, 1, 1)}
+
+
+def wall_median(fn, calls: int = 3):
+    """Median host seconds of ``fn()`` (whose result ends on the host)
+    after one warm call, and the last call's result."""
+    fn()
+    times = []
+    for _ in range(calls):
+        start = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - start)
+    return statistics.median(times), out
+
+
+def executor_stages(tm) -> dict:
+    """The executor's stage histograms since the last ``tm.reset()``: the
+    batches, seconds summed and median of each stage."""
+    out = {}
+    for stage in ("stage", "dispatch", "compute", "drain"):
+        h = tm.histogram(f"executor_{stage}_seconds")
+        out[stage] = {"batches": h.count, "sum_s": h.sum,
+                      "p50_s": h.percentile(0.5)}
+    return out
+
+
+def _union(intervals) -> list:
+    merged = []
+    for a, b in sorted(intervals):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return merged
+
+
+def copy_overlap(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (CUDA activity, the
+    tracer started on a warm-up first): its wall, the span from its first
+    card record to its last, the card's busy share (the union of its
+    kernels' intervals over the wall), and the host-to-card copies' time
+    against the part of it that ran while a kernel ran. A profiler failure
+    is reported, not checked."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.zeros(1, device="cuda").add_(1)  # the tracer's start-up
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+        kernels, h2d = [], []
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            span = (e.time_range.start, e.time_range.end)
+            if "Memcpy HtoD" in e.name:
+                h2d.append(span)
+            elif "Memcpy" not in e.name and "Memset" not in e.name:
+                kernels.append(span)
+    except Exception as exc:
+        return {"error": f"{type(exc).__name__}: {exc}"}
+    busy = _union(kernels)
+    overlapped = sum(max(0, min(b, kb) - max(a, ka))
+                     for a, b in h2d for ka, kb in busy)
+    h2d_us = sum(b - a for a, b in h2d)
+    spans = kernels + h2d
+    return {"wall_s": wall, "kernels": len(kernels),
+            "device_span_s": (max(b for _, b in spans)
+                              - min(a for a, _ in spans)) * 1e-6
+            if spans else None,
+            "kernel_union_s": sum(b - a for a, b in busy) * 1e-6,
+            "busy_share": sum(b - a for a, b in busy) * 1e-6 / wall,
+            "h2d_copies": len(h2d), "h2d_s": h2d_us * 1e-6,
+            "h2d_overlapped_s": overlapped * 1e-6,
+            "h2d_overlapped_share": overlapped / h2d_us if h2d_us else None}
+
+
+def onnx_model_phase(smi, reset_counts, read_counts) -> dict:
+    """Phase 24: ``ONNXModel.transform`` over ResNet-50 224 (seed 0) on
+    the batched executor, ``mini_batch_size=128``: a 1,000-image table
+    (7 full buckets and a 104-row tail; rows 0-7 are ``entry()``'s images)
+    in float32, in bf16, and in bf16 fed uint8 pixels normalised on the
+    card; each bucket bitwise the port's ``bind()`` forward of the same
+    padded batch, rows 0-7 against the JAX fixture, the uint8 wire against
+    bf16 on host-normalised pixels, ``transform_stream`` over 8 tables of
+    128 rows against ``transform``, softmax and argmax against the logits,
+    and the BERT-base causal encoder on an int64 token column against its
+    ``bind()`` forward. Images/s through ``transform`` beside ``bind()``'s
+    over the same rows, the executor's stage seconds, the card's busy
+    share and the host-to-card copies overlapped with kernels. Returns the
+    kernels' launch counts (none expected)."""
+    import make_resnet50_fixture as resnet_fx
+    import make_transformer_fixtures as tfx
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.onnx import ONNXModel, zoo
+    from synapseml_tpu_torch.runtime import telemetry as tm
+
+    reset_counts()
+    phase_start = time.perf_counter()
+    blob = zoo.resnet50(num_classes=1000)
+    x = np.empty((MODEL_ROWS, 3, 224, 224), np.float32)
+    x[:8] = resnet_fx.images()
+    x[8:] = np.random.default_rng(1).standard_normal(
+        (MODEL_ROWS - 8, 3, 224, 224), dtype=np.float32)
+    pixels = np.random.default_rng(2).integers(
+        0, 256, (MODEL_ROWS, 3, 224, 224), dtype=np.uint8)
+    models = {
+        "float32": ONNXModel(model_bytes=blob, mini_batch_size=MODEL_BATCH),
+        "bf16": ONNXModel(model_bytes=blob, mini_batch_size=MODEL_BATCH,
+                          compute_dtype="bfloat16"),
+        "bf16_uint8": ONNXModel(model_bytes=blob,
+                                mini_batch_size=MODEL_BATCH,
+                                compute_dtype="bfloat16",
+                                input_norm={"data": IMAGENET_NORM})}
+    graph = models["float32"].graph
+    out_name = graph.output_names[0]
+    tables = {"float32": Table({"data": x}), "bf16": Table({"data": x}),
+              "bf16_uint8": Table({"data": pixels})}
+    rates, outs, stages, first_s = {}, {}, {}, {}
+    for name, model in models.items():
+        start = time.perf_counter()
+        model.transform(tables[name])
+        first_s[name] = time.perf_counter() - start
+        tm.reset()
+        s, t = wall_median(lambda: model.transform(tables[name]))
+        stages[name] = executor_stages(tm)
+        rates[name] = {"images_per_s": MODEL_ROWS / s, "wall_s": s}
+        outs[name] = np.asarray(t[out_name])
+
+    # bind() over the same rows, in the same buckets: the forward alone
+    # on card-resident batches, and a serial host round trip a bucket
+    binds = {"float32": graph.bind(),
+             "bf16": graph.bind(cast_dtype=torch.bfloat16)}
+    starts = range(0, MODEL_ROWS, MODEL_BATCH)
+    padded = []
+    for s0 in starts:
+        b = x[s0:s0 + MODEL_BATCH]
+        padded.append((np.concatenate([b, np.zeros(
+            (MODEL_BATCH - len(b),) + b.shape[1:], np.float32)]), len(b)))
+    bucket_bitwise, bind_rates = {}, {}
+    for name, fn in binds.items():
+        cast = torch.bfloat16 if name == "bf16" else torch.float32
+        on_card = [torch.from_numpy(p).cuda().to(cast) for p, _ in padded]
+        same = []
+        for (p, n), xd, s0 in zip(padded, on_card, starts):
+            got = fn(xd)[0][:n].float().cpu().numpy()
+            same.append(bool(np.array_equal(
+                got, outs[name][s0:s0 + n])))
+        bucket_bitwise[name] = same
+
+        def forward_only(fn=fn, on_card=on_card):
+            for xd in on_card:
+                fn(xd)
+            torch.cuda.synchronize()
+
+        def round_trip(fn=fn, cast=cast):
+            return [fn(torch.from_numpy(p).cuda().to(cast))[0].cpu()
+                    for p, _ in padded]
+        s_fwd, _ = wall_median(forward_only)
+        s_rt, _ = wall_median(round_trip)
+        bind_rates[name] = {"card_input_images_per_s": MODEL_ROWS / s_fwd,
+                            "host_round_trip_images_per_s":
+                            MODEL_ROWS / s_rt}
+        del on_card
+
+    fx = np.load(RESNET_FIXTURE)
+    f32_err = float(np.abs(outs["float32"][:8] - fx["logits_f32"]).max())
+    f32_ok = bool(np.allclose(outs["float32"][:8], fx["logits_f32"],
+                              rtol=LOGITS_TOL, atol=LOGITS_TOL))
+    bf16_span = float(np.abs(fx["logits_bf16"]).max())
+    bf16_err = float(np.abs(outs["bf16"][:8] - fx["logits_bf16"]).max())
+    host_norm = ((pixels.astype(np.float32)
+                  - IMAGENET_NORM["mean"].astype(np.float32))
+                 * IMAGENET_NORM["scale"].astype(np.float32))
+    want_u8 = np.asarray(models["bf16"].transform(
+        Table({"data": host_norm}))[out_name])
+    del host_norm
+    u8_span = float(np.abs(want_u8).max())
+    u8_err = float(np.abs(outs["bf16_uint8"] - want_u8).max())
+
+    # 7 tables of transform's full buckets, then its first bucket again
+    stream_tables = [
+        Table({"data": x[i * MODEL_BATCH:(i + 1) * MODEL_BATCH]})
+        for i in range(STREAM_TABLES - 1)] + [Table({"data": x[:MODEL_BATCH]})]
+    stream_s, streamed = wall_median(
+        lambda: list(models["bf16"].transform_stream(stream_tables)))
+    stream_same = [bool(np.array_equal(
+        np.asarray(t[out_name]),
+        outs["bf16"][(i % (STREAM_TABLES - 1)) * MODEL_BATCH:
+                     (i % (STREAM_TABLES - 1)) * MODEL_BATCH
+                     + MODEL_BATCH])) for i, t in enumerate(streamed)]
+    small = Table({"data": x[:8]})
+    small_wall = {name: wall_median(lambda m=models[name]: m.transform(
+        small), calls=5)[0] for name in ("float32", "bf16")}
+    overlap = copy_overlap(lambda: models["bf16"].transform(tables["bf16"]))
+
+    post = models["float32"].copy(softmax_output_col="prob",
+                                  argmax_output_col="label")
+    t = post.transform(Table({"data": x[:MODEL_BATCH]}))
+    logits = np.asarray(t[out_name], np.float64)
+    e = np.exp(logits - logits.max(-1, keepdims=True))
+    post_ok = bool(
+        np.array_equal(np.asarray(t[out_name]), outs["float32"][:MODEL_BATCH])
+        and np.allclose(t["prob"], e / e.sum(-1, keepdims=True), rtol=1e-6,
+                        atol=1e-9)
+        and np.array_equal(t["label"], logits.argmax(-1))
+        and t["label"].dtype == np.int64)
+
+    enc = ONNXModel(model_bytes=zoo.transformer_encoder(**tfx.ENCODER),
+                    mini_batch_size=MODEL_BATCH)
+    enc_in, enc_out = enc.graph.input_names[0], enc.graph.output_names[0]
+    ids = np.random.default_rng(3).integers(
+        0, tfx.ENCODER["vocab"], (MODEL_BATCH, tfx.ENCODER["seq_len"]))
+    ex = enc._executor("cuda")
+    seen = []
+    inner = ex._fn
+    ex._fn = lambda *a: (seen.append(a[0].dtype), inner(*a))[1]
+    enc_got = np.asarray(enc.transform(Table({enc_in: ids}))[enc_out])
+    ex._fn = inner
+    enc_want = enc.graph.bind()(torch.from_numpy(ids).cuda())[0].cpu().numpy()
+    enc_err = float(np.abs(enc_got - enc_want).max())
+    enc_ok = bool(np.allclose(enc_got, enc_want, rtol=ENCODER_TOL,
+                              atol=ENCODER_TOL)) and seen == [torch.int32]
+    counts = read_counts()
+    for m in (*models.values(), post, enc):
+        for executor in m._executor_cache.values():
+            executor.close()
+    emit({"phase": "onnx_model_resnet50",
+          "model": "zoo.resnet50 seed 0, 224x224, 1000 classes; "
+          "ONNXModel(mini_batch_size=128).transform",
+          "rows": MODEL_ROWS, "first_call_s": first_s,
+          "transform": rates, "bind": bind_rates,
+          "transform_stream": {"tables": STREAM_TABLES,
+                               "rows_per_table": MODEL_BATCH,
+                               "images_per_s": STREAM_TABLES * MODEL_BATCH
+                               / stream_s, "wall_s": stream_s,
+                               "same_rows_as_transform": stream_same},
+          "wall_8_rows_s": small_wall, "executor_stages": stages,
+          "bf16_transform_timeline": overlap,
+          "bucket_bitwise_vs_bind": bucket_bitwise,
+          "float32_rows0_7_max_abs_err": f32_err, "float32_ok": f32_ok,
+          "bf16_rows0_7_max_abs_err": bf16_err,
+          "bf16_limit": BF16_SPAN_SHARE * bf16_span,
+          "uint8_wire_max_abs_err": u8_err,
+          "uint8_wire_limit": BF16_SPAN_SHARE * u8_span,
+          "softmax_argmax_ok": post_ok,
+          "encoder": {"model": "zoo.transformer_encoder BERT-base causal",
+                      "ids": list(ids.shape), "fn_input_dtype":
+                      [str(d) for d in seen], "max_abs_err_vs_bind":
+                      enc_err, "tolerance": f"rtol=atol={ENCODER_TOL}",
+                      "ok": enc_ok},
+          "kernel_launches": counts,
+          "phase_s": time.perf_counter() - phase_start, "nvidia_smi": smi})
+    for name, o in outs.items():
+        check(o.shape == (MODEL_ROWS, 1000) and np.isfinite(o).all(),
+              f"ONNXModel {name} logits not finite [{MODEL_ROWS}, 1000]")
+    check(f32_ok, f"ONNXModel float32 rows 0-7 off the JAX fixture by "
+          f"{f32_err}")
+    check(bf16_err <= BF16_SPAN_SHARE * bf16_span,
+          f"ONNXModel bf16 rows 0-7 off the JAX fixture by {bf16_err}")
+    for name, same in bucket_bitwise.items():
+        check(all(same), f"ONNXModel {name} buckets differ from bind(): "
+              f"{same}")
+    check(u8_err <= BF16_SPAN_SHARE * u8_span,
+          f"uint8 wire off host-normalised bf16 by {u8_err}")
+    check(all(stream_same), f"transform_stream rows differ: {stream_same}")
+    check(post_ok, "softmax/argmax columns disagree with the logits")
+    check(enc_ok, f"encoder through ONNXModel off bind() by {enc_err}, "
+          f"fn saw {seen}")
+    check(not any(counts.values()), f"ONNXModel path launched {counts}")
+    return counts
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2337,6 +2638,9 @@ def main() -> int:
     # -- 22-23. transformer and recurrent graphs: encoder, decoder, BiLSTM -
     transformer_counts = transformer_phases(smi, reset_counts, read_counts)
 
+    # -- 24. ONNXModel over ResNet-50 on the batched executor ------------
+    model_counts = onnx_model_phase(smi, reset_counts, read_counts)
+
     emit({"kernels": [{
         "name": "forest_traverse", "route": "cuda",
         "source": "synapseml_tpu_torch/csrc/forest_traverse.cu",
@@ -2349,6 +2653,7 @@ def main() -> int:
         [c["forest_traverse"] for c in part_counts],
         "launches_onnx_transformer_paths": {
             k: c["forest_traverse"] for k, c in transformer_counts.items()},
+        "launches_onnx_model_path": model_counts["forest_traverse"],
         "max_abs_err": max_err, "bitwise": True,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
@@ -2364,6 +2669,7 @@ def main() -> int:
         [c["histogram"] for c in part_counts],
         "launches_onnx_transformer_paths": {
             k: c["histogram"] for k, c in transformer_counts.items()},
+        "launches_onnx_model_path": model_counts["histogram"],
         "max_abs_err": k1_max_err,
         "bitwise": True, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],

@@ -234,20 +234,44 @@ def _bin(fn, a, b, scalars: bool = True):
     return fn(*_operands((a, b), scalars))
 
 
+class _TF32Runs:
+    """How many graph runs are inside :func:`_ieee_float32`, process-wide,
+    and the flags the first of them found."""
+
+    lock = threading.Lock()
+    active = 0
+    saved: Tuple[bool, bool] = (True, True)
+
+
 @contextlib.contextmanager
 def _ieee_float32():
     """Float32 convolutions and matmuls in IEEE float32, not TF32: cuDNN
     allows TF32 by default, which would miss the reference's float32 by
-    more than its tolerance. Restores the caller's flags."""
-    cudnn = torch.backends.cudnn.allow_tf32
-    matmul = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    more than its tolerance.
+
+    The flags are process-global and graphs run on several threads at
+    once (one dispatch thread an executor), so the runs are counted under
+    a lock: the first to enter saves the caller's flags and sets both
+    False, the last to leave restores them, and while any run is inside
+    both stay False. A thread that sets the flags itself while a run is
+    inside is not stopped: the runs issuing after its write use its value
+    until the last run leaves and restores the flags saved at the first
+    entry, overwriting that write."""
+    with _TF32Runs.lock:
+        if _TF32Runs.active == 0:
+            _TF32Runs.saved = (torch.backends.cudnn.allow_tf32,
+                               torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _TF32Runs.active += 1
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = cudnn
-        torch.backends.cuda.matmul.allow_tf32 = matmul
+        with _TF32Runs.lock:
+            _TF32Runs.active -= 1
+            if _TF32Runs.active == 0:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = _TF32Runs.saved
 
 
 # ---------------------------------------------------------------------------

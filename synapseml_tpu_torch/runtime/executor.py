@@ -1,0 +1,1132 @@
+"""Batched-inference executor: the device runtime of the port.
+
+The counterpart of the reference package's ``runtime/executor.py``, on one
+device. It runs ``fn(*bound_args, *batch)`` over row batches:
+
+- **Shape bucketing**: batches are padded up to power-of-two buckets
+  (``round_up_pow2``, capped by ``max_bucket``), so an arbitrary row
+  stream meets a few shapes, and the padding is sliced off the outputs.
+- **dtype coercion**: host columns are coerced once (f64→f32, i64→i32,
+  u64→u32; floating columns to ``compute_dtype``) while they are copied
+  into a staging buffer — no per-row marshalling loop.
+- **Async submit/dispatch/drain pipeline**: every call rides a
+  per-executor pipeline of (a) a bounded pool of staging workers that
+  coerce and pad each chunk into a **pinned** host buffer, (b) one ordered
+  dispatch thread that starts the ``non_blocking`` host-to-card copy on
+  the executor's copy-in stream, runs ``fn`` under
+  ``torch.inference_mode()`` on its compute stream once the copy's event
+  has passed, and starts the card-to-host copy of each output into
+  pinned memory on its copy-out stream, then records an event and moves
+  on — so batch k+1's copy in runs while batch k computes — and (c) one
+  drain thread, the only place the pipeline waits for the card: it waits
+  on that event, slices the padding off and resolves the future.
+  :meth:`submit` returns a future, :meth:`stream` pipelines an iterable
+  with ``pipeline_depth`` batches in flight, ``__call__`` is submit +
+  result.
+
+Supervision: a pipeline thread that dies fails every in-flight future with
+:class:`~synapseml_tpu_torch.runtime.faults.PipelineBrokenError`, never a
+hang, and the next :meth:`submit` starts a fresh pipeline.
+
+The reference donates a bucket's input buffers to XLA; PyTorch has no
+donation, and its caching allocator reuses a bucket's device blocks from
+one batch to the next, so there is no ``donate`` parameter. Multi-device
+layouts, tensor parallelism, the AOT executable table and its persistent
+store, the recompile sentinel and the autotuned H2D lane are not ported
+yet (ROADMAP Queue 1 items 1c, 1d and 4).
+"""
+from __future__ import annotations
+
+import atexit
+import math
+import queue as _queue
+import threading
+import time
+import weakref
+from collections import deque
+from concurrent.futures import Future, InvalidStateError
+from typing import (Any, Callable, Dict, Iterable, Iterator, List, Optional,
+                    Sequence, Tuple, Union)
+
+import numpy as np
+import torch
+
+from synapseml_tpu_torch import device as device_policy
+from synapseml_tpu_torch.runtime import faults as _flt
+from synapseml_tpu_torch.runtime import telemetry as _tm
+from synapseml_tpu_torch.runtime.faults import PipelineBrokenError
+
+# module-level metric handles, resolved once. Stage semantics are the
+# reference's: "stage" is the host coerce+pad into the staging buffer,
+# "dispatch" the host cost of starting H2D + compute + D2H, "compute"
+# dispatch-end -> drain-pickup (overlap-inclusive: the tightest bound the
+# host can observe without waiting for the card on the hot path),
+# "drain" the wait on the batch's event plus the slicing
+_M_SUBMIT = _tm.counter("executor_submit_total")
+_M_STAGE_S = _tm.histogram("executor_stage_seconds")
+_M_DISPATCH_S = _tm.histogram("executor_dispatch_seconds")
+_M_COMPUTE_S = _tm.histogram("executor_compute_seconds")
+_M_DRAIN_S = _tm.histogram("executor_drain_seconds")
+_M_PIPE_RESTARTS = _tm.counter("executor_pipeline_restarts_total")
+
+# fault-injection points (runtime/faults.py), resolved once at import:
+# fire() is a single attribute test when nothing is armed. The
+# thread_kill points sit at the pipeline-loop tops OUTSIDE every per-unit
+# handler, so an armed kill terminates the THREAD, never just one batch.
+_F_STAGING = _flt.point("staging")
+_F_H2D = _flt.point("h2d")
+_F_COMPUTE = _flt.point("compute")
+_F_DRAIN = _flt.point("drain")
+_F_LAT_DISPATCH = _flt.point("latency", "dispatch")
+_F_KILL_STAGE = _flt.point("thread_kill", "stage")
+_F_KILL_DISPATCH = _flt.point("thread_kill", "dispatch")
+_F_KILL_DRAIN = _flt.point("thread_kill", "drain")
+
+
+def round_up_pow2(n: int, minimum: int = 8) -> int:
+    if n <= minimum:
+        return minimum
+    return 1 << math.ceil(math.log2(n))
+
+
+_COERCE = {
+    np.dtype(np.float64): np.float32,
+    np.dtype(np.int64): np.int32,
+    np.dtype(np.uint64): np.uint32,
+}
+_TORCH_COERCE = {torch.float64: torch.float32, torch.int64: torch.int32,
+                 torch.uint64: torch.uint32}
+_DTYPE_NAMES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16, "float64": torch.float64}
+
+
+def _torch_dtype(dt) -> Optional[torch.dtype]:
+    """A compute dtype given as a torch dtype, a name or a numpy dtype."""
+    if dt is None or isinstance(dt, torch.dtype):
+        return dt
+    name = dt if isinstance(dt, str) else np.dtype(dt).name
+    if name not in _DTYPE_NAMES:
+        raise ValueError(f"compute_dtype {dt!r} is not a float dtype "
+                         f"({', '.join(_DTYPE_NAMES)})")
+    return _DTYPE_NAMES[name]
+
+
+def _host_source(a) -> torch.Tensor:
+    """A host column as a CPU tensor after the reference's coercions
+    (f64→f32, i64→i32, u64→u32), sharing the caller's memory where it can."""
+    if isinstance(a, torch.Tensor):
+        t = a.detach().cpu()
+        return t.to(_TORCH_COERCE[t.dtype]) if t.dtype in _TORCH_COERCE \
+            else t
+    arr = np.ascontiguousarray(np.asarray(a))
+    if arr.dtype in _COERCE:
+        arr = arr.astype(_COERCE[arr.dtype])
+    elif not arr.flags.writeable:
+        arr = arr.copy()  # torch.from_numpy refuses to share read-only memory
+    return torch.from_numpy(arr)
+
+
+def coerce_host_array(arr, compute_dtype: Any = None) -> torch.Tensor:
+    """Coerce a host column (f64→f32, i64→i32, u64→u32; floating columns
+    to ``compute_dtype``), as the reference's ``coerce_host_array`` does.
+    Returns a CPU tensor: numpy has no bfloat16, and torch's float→bf16
+    cast rounds to nearest even, as the reference's ``astype`` does."""
+    t = _host_source(arr)
+    dt = _torch_dtype(compute_dtype)
+    if dt is not None and t.is_floating_point():
+        t = t.to(dt)
+    return t
+
+
+def _leaves(out) -> list:
+    """The leaves of an output tree in the reference's order (``jax``'s
+    pytree: tuples and lists in order, dicts by sorted key)."""
+    if isinstance(out, (tuple, list)):
+        return [leaf for o in out for leaf in _leaves(o)]
+    if isinstance(out, dict):
+        return [leaf for k in sorted(out) for leaf in _leaves(out[k])]
+    return [out]
+
+
+def _to_device(tree, dev: torch.device):
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to_device(t, dev) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(tree)).to(dev)
+    return tree
+
+
+def _concat(parts: list):
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts)
+    return np.concatenate(parts)
+
+
+_SHUTDOWN = object()
+
+
+class ExecutorFuture:
+    """Future-like handle for one :meth:`BatchedExecutor.submit`.
+
+    Resolves to the exact tuple ``__call__`` returns. Assembly (gathering
+    per-bucket chunks, concatenating) happens in the *waiter's* thread, so
+    the pipeline's drain thread never blocks on host-side concatenation of
+    someone else's result.
+    """
+
+    __slots__ = ("_chunks",)
+
+    def __init__(self, chunk_futs: Sequence[Future]):
+        self._chunks = list(chunk_futs)
+
+    def result(self, timeout: Optional[float] = None):
+        """Block until every chunk lands; ``timeout`` is ONE overall
+        monotonic deadline across all chunks — waiting n_chunks slow
+        chunks can never stretch the total wait past ``timeout``."""
+        deadline = None if timeout is None \
+            else time.monotonic() + timeout
+        outs = [f.result(
+            None if deadline is None
+            else max(0.0, deadline - time.monotonic()))
+            for f in self._chunks]
+        if len(outs) == 1:
+            return outs[0]
+        return tuple(_concat([o[i] for o in outs])
+                     for i in range(len(outs[0])))
+
+    def done(self) -> bool:
+        return all(f.done() for f in self._chunks)
+
+    def exception(self, timeout: Optional[float] = None):
+        """First chunk error, or None; ``timeout`` is one overall
+        deadline, same as :meth:`result`."""
+        deadline = None if timeout is None \
+            else time.monotonic() + timeout
+        for f in self._chunks:
+            exc = f.exception(
+                None if deadline is None
+                else max(0.0, deadline - time.monotonic()))
+            if exc is not None:
+                return exc
+        return None
+
+    def add_done_callback(self, fn: Callable[["ExecutorFuture"], None]):
+        """Invoke ``fn(self)`` once the LAST chunk completes."""
+        remaining = [len(self._chunks)]
+        lock = threading.Lock()
+
+        def _one(_f):
+            with lock:
+                remaining[0] -= 1
+                if remaining[0]:
+                    return
+            fn(self)
+
+        for f in self._chunks:
+            f.add_done_callback(_one)
+
+
+class _PinnedPool:
+    """Pinned host staging buffers, kept per (shape, dtype). A buffer comes
+    back only after the event that follows its host-to-card copy has
+    completed (:meth:`BatchedExecutor._fetch` gives it back after waiting
+    on the batch's event), so a copy in flight never reads rows being
+    overwritten. ``take`` allocates when none is free: holders are bounded
+    by the staging window plus the batches in flight, which is also the
+    cap kept per signature."""
+
+    def __init__(self, cap: int):
+        self._cap = cap
+        self._free: Dict[tuple, List[torch.Tensor]] = {}
+        self._lock = threading.Lock()
+
+    def take(self, shape: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+        with self._lock:
+            free = self._free.get((shape, dtype))
+            if free:
+                return free.pop()
+        return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+    def give(self, buf: torch.Tensor):
+        with self._lock:
+            free = self._free.setdefault((tuple(buf.shape), buf.dtype), [])
+            if len(free) < self._cap:
+                free.append(buf)
+
+
+class _HostBatch:
+    """Rows of one input staged on the host for ONE host-to-card copy,
+    shared by the chunks sliced from it (``transfer_batches`` groups
+    several buckets into one). ``device`` is set by the dispatch thread's
+    copy; the staging buffer goes back to the pool once the last of its
+    ``users`` chunks has drained."""
+
+    __slots__ = ("host", "device", "ready", "users", "pool")
+
+    def __init__(self, host: torch.Tensor, users: int,
+                 pool: Optional[_PinnedPool]):
+        self.host = host
+        self.device: Optional[torch.Tensor] = None
+        # recorded on the copy-in stream after the copy (None on the CPU)
+        self.ready: Optional[torch.cuda.Event] = None
+        self.users = users
+        self.pool = pool
+
+    def release(self):
+        self.users -= 1  # drain thread only
+        if self.users == 0 and self.pool is not None:
+            self.pool.give(self.host)
+
+
+class _Rows:
+    """Rows ``start:stop`` of a :class:`_HostBatch`: one chunk's share of
+    a staged input."""
+
+    __slots__ = ("batch", "start", "stop")
+
+    def __init__(self, batch: _HostBatch, start: int, stop: int):
+        self.batch = batch
+        self.start = start
+        self.stop = stop
+
+
+class _Flight:
+    """One dispatched batch: its output leaves (pinned host copies in
+    flight, or card tensors for ``device_outputs``), the event recorded
+    after its last copy (None on the CPU) and the staged inputs it holds."""
+
+    __slots__ = ("leaves", "event", "leases")
+
+    def __init__(self, leaves: list, event, leases: List[_HostBatch]):
+        self.leaves = leaves
+        self.event = event
+        self.leases = leases
+
+
+class _Unit:
+    """One staging unit: a callable producing 1+ dispatch-ready chunks.
+
+    A plain chunk stages one bucket; a super-chunk (``transfer_batches``)
+    stages one grouped host-to-card copy that fans out into several bucket
+    dispatches on card-side slices.
+    """
+
+    __slots__ = ("stage", "futs", "staged", "error", "ready", "ex",
+                 "spans", "after")
+
+    def __init__(self, n_chunks: int,
+                 spans: Optional[Tuple["_tm.Span", ...]] = None):
+        self.stage: Callable[[], List[tuple]] = None  # set by _plan
+        self.futs = [Future() for _ in range(n_chunks)]
+        self.staged: Optional[List[tuple]] = None
+        self.error: Optional[BaseException] = None
+        self.ready = threading.Event()
+        # strong ref while work is pending: 'fut = ex.submit(x); del ex;
+        # fut.result()' must complete, not die to a mid-flight GC. The
+        # ref is dropped as each stage finishes, so an IDLE executor is
+        # still collectable (and its threads reaped via the finalizer).
+        self.ex: Optional["BatchedExecutor"] = None
+        # trace spans of the requests riding this unit (the submitting
+        # thread's ambient context); read by the pipeline threads
+        self.spans = spans
+        # an event on the submitting thread's stream, recorded when the
+        # call passed card tensors: the executor's stream waits on it
+        # before reading them
+        self.after: Optional[torch.cuda.Event] = None
+
+
+class _PipelineState:
+    """Shared queues/threads of one executor's pipeline.
+
+    Lives OUTSIDE the executor so worker threads can hold it strongly
+    while holding the executor itself only weakly — a dropped executor is
+    then garbage-collected and its threads reaped via ``weakref.finalize``
+    instead of leaking a parked thread set.
+    """
+
+    __slots__ = ("stage_q", "dispatch_q", "inflight_q", "depth_sem",
+                 "stage_slots", "lock", "closed", "broken", "pending",
+                 "threads", "device", "stream", "__weakref__")
+
+    def __init__(self, depth: int, stage_workers: int,
+                 device: torch.device = torch.device("cpu"),
+                 stream: Optional[torch.cuda.Stream] = None):
+        self.stage_q: "_queue.Queue" = _queue.Queue()
+        self.dispatch_q: "_queue.Queue" = _queue.Queue()
+        # unbounded queue + explicit semaphore: "in flight" counts
+        # dispatched-but-unfetched batches exactly
+        self.inflight_q: "_queue.Queue" = _queue.Queue()
+        self.depth_sem = threading.Semaphore(depth)
+        # backpressure on submit: at most depth + workers staging units
+        # may be pending host-side
+        self.stage_slots = threading.Semaphore(depth + stage_workers)
+        self.lock = threading.Lock()
+        self.closed = False
+        # supervision: set (under lock) to the PipelineBrokenError when a
+        # pipeline thread dies unexpectedly
+        self.broken: Optional["PipelineBrokenError"] = None
+        # every submitted-but-unresolved chunk Future, so a dying thread
+        # can fail ALL in-flight work wherever it sits in the pipeline
+        self.pending: set = set()
+        self.threads: List[threading.Thread] = []
+        # the dispatch thread's device and compute stream (None on the CPU)
+        self.device = device
+        self.stream = stream
+
+
+def _untrack_future(state: _PipelineState, fut: Future):
+    """Done-callback: a resolved chunk future leaves the supervision
+    registry (runs on whichever thread resolved it)."""
+    with state.lock:
+        state.pending.discard(fut)
+
+
+def _acquire_or_broken(sem: threading.Semaphore,
+                       state: _PipelineState) -> bool:
+    """Acquire ``sem``, polling the supervisor's broken flag: a dead drain
+    thread (its releases gone with it) must never park the dispatch thread
+    forever. False = the pipeline broke while waiting. Re-checks
+    ``broken`` after a successful acquire: the permit may be the wake-up
+    one :func:`_break_pipeline` released, and it goes back so the cascade
+    keeps waking other waiters."""
+    while True:
+        if sem.acquire(timeout=0.2):
+            if state.broken is not None:
+                sem.release()
+                return False
+            return True
+        if state.broken is not None:
+            return False
+
+
+def _fut_resolve(fut: Future, result=None, error: Optional[BaseException] = None):
+    """Resolve a chunk future, tolerating one already failed by
+    :func:`_break_pipeline`."""
+    try:
+        if error is not None:
+            fut.set_exception(error)
+        else:
+            fut.set_result(result)
+    except InvalidStateError:
+        pass
+
+
+def _stage_worker(state: _PipelineState):
+    while True:
+        unit = state.stage_q.get()
+        if unit is _SHUTDOWN:
+            state.stage_q.put(_SHUTDOWN)  # propagate to sibling workers
+            return
+        # kill point AFTER the get, OUTSIDE the per-unit handler: the
+        # armed kill dies with a unit in hand
+        _F_KILL_STAGE.fire()
+        t0 = time.monotonic()
+        killed = False
+        try:
+            with _tm.trace_annotation("synapseml/executor/stage"):
+                _F_STAGING.fire()
+                unit.staged = unit.stage()
+        except Exception as e:  # noqa: BLE001 - delivered via futures
+            # Exception, not BaseException: a kill (ThreadKilled) must
+            # escape to the supervisor and terminate the THREAD
+            unit.error = e
+        except BaseException:
+            # dying with the unit in hand: leave ready UNSET, so the
+            # dispatch thread's bounded ready-poll sees state.broken
+            killed = True
+            raise
+        finally:
+            unit.stage = None  # drop array refs promptly
+            dt = time.monotonic() - t0
+            _M_STAGE_S.observe(dt)
+            if unit.spans:
+                for sp in unit.spans:
+                    sp.note("stage", dt)
+            if not killed:
+                unit.ready.set()
+
+
+def _dispatch_loop(state: _PipelineState):
+    if state.stream is not None:
+        # once for this thread: its kernels go to the executor's compute
+        # stream (the copies name their own streams)
+        torch.cuda.set_device(state.device)
+        torch.cuda.set_stream(state.stream)
+    while True:
+        unit = state.dispatch_q.get()
+        if unit is _SHUTDOWN:
+            state.inflight_q.put(_SHUTDOWN)
+            return
+        _F_KILL_DISPATCH.fire()
+        # bounded wait: a stage worker that DIED holding this unit never
+        # sets ready
+        while not unit.ready.wait(0.2):
+            if state.broken is not None:
+                break
+        try:
+            if state.broken is not None:
+                continue
+            if unit.error is not None:
+                for f in unit.futs:
+                    _fut_resolve(f, error=unit.error)
+                continue
+            if unit.after is not None:
+                state.stream.wait_event(unit.after)
+            ex = unit.ex
+            for (arrays, n, bucket), fut in zip(unit.staged, unit.futs):
+                if not _acquire_or_broken(state.depth_sem, state):
+                    break  # broke while waiting; futures already failed
+                t0 = time.monotonic()
+                try:
+                    # instance-attribute lookup: tests (and tracing
+                    # wrappers) may patch ex._dispatch per instance
+                    with _tm.trace_annotation(
+                            "synapseml/executor/dispatch"):
+                        out, n, bucket = ex._dispatch(arrays, n, bucket)
+                except Exception as e:  # noqa: BLE001
+                    state.depth_sem.release()
+                    _fut_resolve(fut, error=e)
+                    continue
+                t1 = time.monotonic()
+                _M_DISPATCH_S.observe(t1 - t0)
+                state.inflight_q.put(
+                    (out, n, bucket, fut, ex, unit.spans, t1))
+            del ex
+        finally:
+            unit.staged = None
+            unit.ex = None
+            state.stage_slots.release()
+            del unit
+
+
+def _drain_loop(state: _PipelineState):
+    while True:
+        rec = state.inflight_q.get()
+        if rec is _SHUTDOWN:
+            return
+        _F_KILL_DRAIN.fire()
+        out, n, bucket, fut, ex, spans, t_disp = rec
+        del rec
+        t0 = time.monotonic()
+        try:
+            err: Optional[BaseException] = None
+            try:
+                with _tm.trace_annotation("synapseml/executor/drain"):
+                    _F_DRAIN.fire()
+                    res = ex._fetch(out, n, bucket)
+            except Exception as e:  # noqa: BLE001
+                err = e
+            t1 = time.monotonic()
+            # span notes land BEFORE the future resolves
+            _M_COMPUTE_S.observe(t0 - t_disp)
+            _M_DRAIN_S.observe(t1 - t0)
+            if spans:
+                for sp in spans:
+                    sp.note("compute", t0 - t_disp)
+                    sp.note("drain", t1 - t0)
+            if err is not None:
+                _fut_resolve(fut, error=err)
+            else:
+                _fut_resolve(fut, res)
+        finally:
+            state.depth_sem.release()
+            del ex, out, fut, spans
+
+
+def _shutdown_pipeline(state: _PipelineState):
+    """Idempotent: wake every pipeline thread with sentinels. Pending
+    units already queued ahead of the sentinels still complete."""
+    with state.lock:
+        if state.closed:
+            return
+        state.closed = True
+    state.stage_q.put(_SHUTDOWN)
+    state.dispatch_q.put(_SHUTDOWN)
+
+
+def _break_pipeline(state: _PipelineState, exc: BaseException):
+    """Supervision: a pipeline thread died unexpectedly. Fail EVERY
+    in-flight future with a descriptive :class:`PipelineBrokenError`,
+    mark the state broken so the owning executor's next submit builds a
+    fresh pipeline, and wake the surviving threads so they exit."""
+    err = PipelineBrokenError(
+        f"executor pipeline thread "
+        f"{threading.current_thread().name!r} died: {exc!r}; all "
+        "in-flight work failed — the pipeline restarts on the next "
+        "submit")
+    err.__cause__ = exc
+    with state.lock:
+        if state.broken is not None:
+            return  # a sibling thread already broke the pipeline
+        state.broken = err
+        state.closed = True
+        pending = list(state.pending)
+        state.pending.clear()
+    _M_PIPE_RESTARTS.inc()
+    for fut in pending:
+        try:
+            fut.set_exception(err)
+        except InvalidStateError:
+            pass  # resolved in the race window
+    # sentinels for every loop; surviving threads drain to them and exit
+    state.stage_q.put(_SHUTDOWN)
+    state.dispatch_q.put(_SHUTDOWN)
+    state.inflight_q.put(_SHUTDOWN)
+    # wake anything parked on backpressure: ONE extra permit cascades
+    state.stage_slots.release()
+    state.depth_sem.release()
+    _reap_broken_pipeline(state)
+
+
+def _reap_broken_pipeline(state: _PipelineState):
+    """Post-break cleanup, run on the dying thread: wait for the surviving
+    loops to drain to their sentinels, then empty the dead queues —
+    stranded in-flight records would otherwise pin card outputs and the
+    executor for the life of the process. Sentinels are re-put afterwards
+    so a straggler that outlived the join timeout still exits."""
+    me = threading.current_thread()
+    for t in state.threads:
+        if t is not me:
+            t.join(timeout=5)
+    for q in (state.stage_q, state.dispatch_q, state.inflight_q):
+        while True:
+            try:
+                q.get_nowait()
+            except _queue.Empty:
+                break
+    state.stage_q.put(_SHUTDOWN)
+    state.dispatch_q.put(_SHUTDOWN)
+    state.inflight_q.put(_SHUTDOWN)
+
+
+def _pipeline_thread(target, state: _PipelineState):
+    """Thread entry for every pipeline loop: an escaped exception —
+    including an injected :class:`~synapseml_tpu_torch.runtime.faults.ThreadKilled`
+    — breaks the pipeline instead of dying silently with every in-flight
+    future deadlocked."""
+    try:
+        target(state)
+    except BaseException as e:  # noqa: BLE001 - supervision boundary
+        _break_pipeline(state, e)
+
+
+# pipelines still running at interpreter shutdown are drained while
+# threading still works
+_LIVE_PIPELINES: "weakref.WeakSet[_PipelineState]" = weakref.WeakSet()
+
+# pipeline-depth gauges, sampled at snapshot time (never the hot path)
+_tm.gauge_fn(
+    "executor_inflight_batches",
+    lambda: sum(s.inflight_q.qsize() for s in list(_LIVE_PIPELINES)))
+_tm.gauge_fn(
+    "executor_staging_queue_depth",
+    lambda: sum(s.stage_q.qsize() for s in list(_LIVE_PIPELINES)))
+
+
+@atexit.register
+def _shutdown_all_pipelines():
+    states = list(_LIVE_PIPELINES)
+    for state in states:
+        _shutdown_pipeline(state)
+    for state in states:
+        for t in state.threads:
+            t.join(timeout=10)
+
+
+class BatchedExecutor:
+    """Runs ``fn(*bound_args, *arrays) -> arrays`` over row batches padded
+    to shape buckets.
+
+    ``fn`` must treat axis 0 of every batch argument as the batch axis; it
+    receives tensors on ``device`` and returns a tensor, or a tuple, list
+    or dict of them. The executor pads the batch to a bucket, runs ``fn``
+    and slices the padding off the outputs. Host outputs come back as
+    numpy arrays, except bfloat16 leaves, which numpy cannot hold: those
+    are CPU ``torch.bfloat16`` tensors.
+
+    - :meth:`submit` — returns an :class:`ExecutorFuture`.
+    - :meth:`stream` — generator over an iterable of inputs, yielding
+      results in order with ``pipeline_depth`` batches in flight.
+    - ``__call__`` — submit + result.
+    """
+
+    def __init__(
+        self,
+        fn: Callable[..., Any],
+        device: Union[str, torch.device] = device_policy.DEFAULT_DEVICE,
+        compute_dtype: Any = None,
+        min_bucket: int = 8,
+        max_bucket: Optional[int] = None,
+        static_batch: Optional[int] = None,
+        bound_args: Tuple[Any, ...] = (),
+        pipeline_depth: Optional[int] = None,
+        transfer_batches: Union[int, str, None] = None,
+        stage_workers: int = 2,
+        device_outputs: Optional[Sequence[int]] = None,
+    ):
+        """``device`` is "cuda" by default and raises without CUDA; the
+        CPU runs only when asked for (``device="cpu"``).
+
+        ``bound_args`` are prepended to every call unpadded — use for a
+        weights tree (dicts, tuples, lists of arrays or tensors): it goes
+        to ``device`` once, here, shared by every bucket. Construction
+        then waits for the caller's current stream, so the bound args and
+        anything the caller placed on the card before (weights ``fn``
+        closes over) are ready for the executor's stream.
+
+        ``compute_dtype`` (a torch dtype or "bfloat16", "float16",
+        "float32") is the dtype floating host columns are staged in; the
+        cast happens on the host while the chunk is copied into its
+        staging buffer, so a bf16 batch crosses to the card at 2 bytes a
+        value. A caller's card tensor is cast on the card.
+
+        ``transfer_batches`` groups that many buckets into ONE host-to-card
+        copy (compute then runs per bucket on card-side slices);
+        ``"auto"`` sizes the group to ~32 MB per copy. Default 1.
+
+        ``stage_workers`` bounds the host-staging pool: that many batches'
+        coerce+pad host work can proceed concurrently with dispatch and
+        fetch of earlier batches.
+
+        ``device_outputs`` lists output-leaf indices (position in the
+        flattened output tree) that stay on the card: they resolve as
+        card tensors, row-sliced lazily, ready to be fed back into the
+        next ``submit``. The drain still waits for the batch's event, so
+        a resolved future means the leaf is computed. Such a leaf is
+        marked used on the card's default stream (``record_stream``), so
+        the caching allocator does not hand its block to the executor's
+        stream while a caller's kernel on the default stream still reads
+        it."""
+        dev = device_policy.resolve(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self._device = dev
+        self._cuda = dev.type == "cuda"
+        self._compute_dtype = _torch_dtype(compute_dtype)
+        self._min_bucket = min_bucket
+        self._max_bucket = max_bucket
+        self._static_batch = static_batch
+        self._depth = max(1, int(2 if pipeline_depth is None
+                                 else pipeline_depth))
+        self._stage_workers = max(1, int(stage_workers))
+        self._fn = fn
+        self._bound = tuple(_to_device(b, dev) for b in bound_args)
+        if self._cuda:
+            torch.cuda.current_stream(dev).synchronize()
+        if transfer_batches is None:
+            transfer_batches = 1
+        elif transfer_batches != "auto":
+            transfer_batches = max(1, int(transfer_batches))
+        self._transfer_batches = transfer_batches
+        self._device_outputs = (frozenset(int(i) for i in device_outputs)
+                                if device_outputs is not None
+                                else frozenset())
+        # holders of a staging buffer: the staging window (depth +
+        # workers units) plus the batches in flight (depth)
+        self._pool = (_PinnedPool(2 * self._depth + self._stage_workers)
+                      if self._cuda else None)
+        # compute, copy-in and copy-out streams of the dispatch thread
+        self._streams = (tuple(torch.cuda.Stream(dev) for _ in range(3))
+                         if self._cuda else (None, None, None))
+        self._pipeline: Optional[_PipelineState] = None
+        self._pipeline_init_lock = threading.Lock()
+        # user-initiated close(): permanent, unlike a supervision break
+        self._closed = False
+        self._finalizer = None
+        self._m_disp_one = _tm.counter("executor_dispatch_total",
+                                       device=str(dev))
+        self._m_bucket: Dict[int, _tm.Counter] = {}
+
+    @property
+    def pipeline_depth(self) -> int:
+        return self._depth
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def _bucket(self, n: int) -> int:
+        if self._static_batch is not None:
+            return self._static_batch
+        b = round_up_pow2(n, self._min_bucket)
+        if self._max_bucket is not None:
+            b = min(b, self._max_bucket)
+        return b
+
+    # -- pipeline plumbing ----------------------------------------------
+    def _ensure_pipeline(self) -> _PipelineState:
+        state = self._pipeline
+        if state is not None and state.broken is None:
+            return state
+        with self._pipeline_init_lock:
+            state = self._pipeline
+            if (state is not None and state.broken is not None
+                    and not self._closed):
+                # supervision restart: the broken state already failed
+                # its in-flight futures and its threads are exiting.
+                # Detach the superseded finalizer: it would otherwise hold
+                # the dead state for the life of the executor
+                if self._finalizer is not None:
+                    self._finalizer.detach()
+                self._pipeline = state = None
+            if state is None:
+                state = _PipelineState(self._depth, self._stage_workers,
+                                       self._device, self._streams[0])
+                threads = [threading.Thread(
+                    target=_pipeline_thread, args=(_stage_worker, state),
+                    name=f"executor-stage-{i}", daemon=True)
+                    for i in range(self._stage_workers)]
+                threads.append(threading.Thread(
+                    target=_pipeline_thread, args=(_dispatch_loop, state),
+                    name="executor-dispatch", daemon=True))
+                threads.append(threading.Thread(
+                    target=_pipeline_thread, args=(_drain_loop, state),
+                    name="executor-drain", daemon=True))
+                state.threads = threads
+                _LIVE_PIPELINES.add(state)
+                for t in threads:
+                    t.start()
+                self._pipeline = state
+                # reap the threads when the executor is dropped without
+                # an explicit close()
+                self._finalizer = weakref.finalize(
+                    self, _shutdown_pipeline, state)
+        return state
+
+    def close(self, wait: bool = True):
+        """Shut the pipeline down. Batches already submitted complete
+        (their futures resolve); later :meth:`submit` calls raise.
+        Idempotent; ``wait=True`` joins the pipeline threads."""
+        with self._pipeline_init_lock:
+            # _ensure_pipeline must never rebuild a broken pipeline after
+            # (or while) close() marks the executor permanently closed
+            self._closed = True
+        state = self._pipeline
+        if state is None:
+            with self._pipeline_init_lock:
+                # never-started pipeline: mark closed so submit refuses
+                if self._pipeline is None:
+                    self._pipeline = state = _PipelineState(
+                        self._depth, self._stage_workers)
+                    state.closed = True
+                    return
+                state = self._pipeline
+        _shutdown_pipeline(state)
+        if wait:
+            for t in state.threads:
+                t.join(timeout=60)
+
+    def _on_device(self, a) -> bool:
+        """A caller's tensor already on the executor's device type (padded
+        and cast there); anything else is a host column."""
+        return isinstance(a, torch.Tensor) and \
+            a.device.type == self._device.type
+
+    def _resolve_transfer_batches(self, host_arrays, bucket: int) -> int:
+        tb = self._transfer_batches
+        if tb != "auto":
+            return tb
+        # group buckets up to ~32MB per copy, by the staged row bytes
+        row_bytes = 0
+        for a in host_arrays:
+            t = a if isinstance(a, torch.Tensor) else None
+            shape = a.shape if hasattr(a, "shape") else np.shape(a)
+            if t is not None:
+                floating, itemsize = t.is_floating_point(), t.element_size()
+            else:
+                dt = np.asarray(a).dtype if not hasattr(a, "dtype") \
+                    else np.dtype(a.dtype)
+                floating = np.issubdtype(dt, np.floating)
+                itemsize = min(dt.itemsize, 4)
+            if floating and self._compute_dtype is not None:
+                itemsize = self._compute_dtype.itemsize
+            row_bytes += int(np.prod(shape[1:], dtype=np.int64)) * itemsize
+        return max(1, (32 << 20) // max(1, bucket * row_bytes))
+
+    def _stage_host(self, a, rows: int, users: int = 1) -> _HostBatch:
+        """Coerce one host column into a staging buffer of ``rows`` rows
+        (zero padding after the column's own), cast to the compute dtype
+        on the way: pinned and from the pool on the card, a fresh tensor
+        on the CPU (there ``fn``'s outputs may be views of it)."""
+        src = _host_source(a)
+        dt = (self._compute_dtype
+              if self._compute_dtype is not None and src.is_floating_point()
+              else src.dtype)
+        shape = (max(rows, len(src)),) + tuple(src.shape[1:])
+        buf = (self._pool.take(shape, dt) if self._pool is not None
+               else torch.empty(shape, dtype=dt))
+        buf[:len(src)].copy_(src)
+        if len(src) < shape[0]:
+            buf[len(src):].zero_()
+        return _HostBatch(buf, users, self._pool)
+
+    def _stage_host_chunk(self, arrays, n: int, bucket: int) -> list:
+        """Host-side staging (the work the pool does off the dispatch
+        thread): coerce + bucket-pad host inputs. Card-resident inputs
+        pass through untouched, for ``_dispatch`` to pad and cast on the
+        card."""
+        staged = []
+        for a in arrays:
+            if self._on_device(a):
+                staged.append(a)
+                continue
+            # never re-pad a padded tail
+            rows = bucket if n < bucket and len(a) < bucket else len(a)
+            hb = self._stage_host(a, rows)
+            staged.append(_Rows(hb, 0, len(hb.host)))
+        return staged
+
+    def _stage_superchunk(self, host_arrays, sc_start: int, sc_stop: int,
+                          bucket: int) -> List[tuple]:
+        """super-chunk: ONE coerce+pad into one staging buffer an input,
+        copied to the card by the first of its chunks' dispatches, then
+        per-bucket compute on card-side slices."""
+        sc_n = sc_stop - sc_start
+        rows = -(-sc_n // bucket) * bucket
+        starts = range(0, sc_n, bucket)
+        columns = []
+        for a in host_arrays:
+            sl = a[sc_start:sc_stop]
+            columns.append(sl if self._on_device(sl)
+                           else self._stage_host(sl, rows, len(starts)))
+        return [([c[b:b + bucket] if isinstance(c, torch.Tensor)
+                  else _Rows(c, b, b + bucket) for c in columns],
+                 min(bucket, sc_n - b), bucket)
+                for b in starts]
+
+    def _plan(self, host_arrays, n: int, bucket: int,
+              spans: Optional[tuple] = None) -> List[_Unit]:
+        """Split one logical call into ordered staging units."""
+        if n == 0:
+            # run one padded batch to learn output structure; slice to empty
+            unit = _Unit(1, spans)
+            unit.ex = self
+            arrays = list(host_arrays)
+            unit.stage = lambda: [(self._stage_host_chunk(arrays, 0, bucket),
+                                   0, bucket)]
+            return [unit]
+        units: List[_Unit] = []
+        tb = self._resolve_transfer_batches(host_arrays, bucket)
+        super_rows = bucket * tb
+        for sc_start in range(0, n, super_rows):
+            sc_stop = min(sc_start + super_rows, n)
+            sc_n = sc_stop - sc_start
+            if tb == 1 or sc_n <= bucket:
+                unit = _Unit(1, spans)
+                unit.stage = (
+                    lambda s=sc_start, e=sc_stop, m=sc_n:
+                    [(self._stage_host_chunk(
+                        [a[s:e] for a in host_arrays], m, bucket),
+                      m, bucket)])
+            else:
+                unit = _Unit(-(-sc_n // bucket), spans)
+                unit.stage = (
+                    lambda s=sc_start, e=sc_stop:
+                    self._stage_superchunk(host_arrays, s, e, bucket))
+            unit.ex = self
+            units.append(unit)
+        return units
+
+    # -- public API -----------------------------------------------------
+    def submit(self, *host_arrays) -> ExecutorFuture:
+        """Enqueue one logical batch; returns a future resolving to the
+        same tuple ``__call__`` returns. Safe to call from any number of
+        threads concurrently. Blocks only when the staging window
+        (``pipeline_depth + stage_workers`` units) is full.
+
+        Inputs are numpy arrays (or anything ``np.asarray`` takes), CPU
+        tensors, or tensors on the executor's card. Staging reads them
+        asynchronously: do not mutate them until the future resolves."""
+        state = self._ensure_pipeline()
+        _M_SUBMIT.inc()
+        n = len(host_arrays[0])
+        bucket = self._bucket(max(n, 1))
+        spans = _tm.current_spans()
+        after = None
+        if self._cuda and any(self._on_device(a) for a in host_arrays):
+            after = torch.cuda.Event()
+            after.record(torch.cuda.current_stream(self._device))
+        units = self._plan(host_arrays, n, bucket, spans)
+        futs: List[Future] = []
+        for unit in units:
+            unit.after = after
+            # slot acquisition happens OUTSIDE the lock: a large
+            # multi-unit submission waiting for the pipeline to drain
+            # must not convoy other callers' submits behind it
+            state.stage_slots.acquire()
+            with state.lock:
+                if state.closed:
+                    state.stage_slots.release()
+                    if state.broken is not None and not self._closed:
+                        # the narrow window between a thread dying and
+                        # supervision swapping the pipeline
+                        raise PipelineBrokenError(
+                            "submitted during the pipeline-restart "
+                            f"window: {state.broken}") from state.broken
+                    raise RuntimeError("executor pipeline is closed")
+                state.stage_q.put(unit)
+                state.dispatch_q.put(unit)
+                state.pending.update(unit.futs)
+            for f in unit.futs:
+                f.add_done_callback(
+                    lambda f, s=state: _untrack_future(s, f))
+            futs.extend(unit.futs)
+        return ExecutorFuture(futs)
+
+    def stream(self, items: Iterable) -> Iterator[tuple]:
+        """Pipeline an iterable of inputs; yield result tuples in order.
+
+        Each item is a tuple/list of arrays (or a single array).
+        ``pipeline_depth`` items stay in flight, and the iterable is
+        advanced lazily so a generator's per-item host work overlaps the
+        card's."""
+        pending: deque = deque()
+        for item in items:
+            arrays = tuple(item) if isinstance(item, (tuple, list)) \
+                else (item,)
+            pending.append(self.submit(*arrays))
+            while len(pending) > self._depth:
+                yield pending.popleft().result()
+        while pending:
+            yield pending.popleft().result()
+
+    def __call__(self, *host_arrays) -> tuple:
+        return self.submit(*host_arrays).result()
+
+    # -- pipeline stages (overridable/patchable per instance) ------------
+    def _stage_device_array(self, a: torch.Tensor,
+                            target_rows: int) -> torch.Tensor:
+        """Pad/cast a caller's card tensor on the card (the dispatch
+        thread's stream). The tensor is marked used on that stream, so
+        the caching allocator keeps its block until the stream is past
+        it."""
+        if self._cuda:
+            a.record_stream(torch.cuda.current_stream())
+        if len(a) != target_rows:
+            a = torch.cat([a, a.new_zeros(
+                (target_rows - len(a),) + tuple(a.shape[1:]))])
+        if (self._compute_dtype is not None and a.is_floating_point()
+                and a.dtype != self._compute_dtype):
+            a = a.to(self._compute_dtype)
+        return a
+
+    def _dispatch(self, arrays, n: int, bucket: int):
+        """Start the host-to-card copy of the staged inputs on the copy-in
+        stream (card-resident ones are padded and cast on the card), run
+        ``fn`` on the compute stream after the copy's event, start the
+        card-to-host copy of each host output into pinned memory on the
+        copy-out stream after the compute's event, then record an event;
+        returns without waiting for the card. A tensor made on one stream
+        and read on another is marked used there (``record_stream``), so
+        the caching allocator does not reuse its block early. Raw host
+        arrays (not staged by the pool) are staged here."""
+        _F_LAT_DISPATCH.fire()
+        self._m_disp_one.inc()
+        mc = self._m_bucket.get(bucket)
+        if mc is None:  # first batch at this bucket: register the series
+            mc = self._m_bucket.setdefault(bucket, _tm.counter(
+                "executor_bucket_total", bucket=str(bucket)))
+        mc.inc()
+        _F_H2D.fire()
+        padded: List[torch.Tensor] = []
+        leases: List[_HostBatch] = []
+        for a in arrays:
+            if not isinstance(a, _Rows):
+                if self._on_device(a):
+                    padded.append(self._stage_device_array(a, bucket))
+                    continue
+                rows = bucket if n < bucket and len(a) < bucket else len(a)
+                hb = self._stage_host(a, rows)
+                a = _Rows(hb, 0, len(hb.host))
+            hb = a.batch
+            if hb.device is None and not self._cuda:
+                hb.device = hb.host
+            elif hb.device is None:
+                copy_in = self._streams[1]
+                with torch.cuda.stream(copy_in):
+                    hb.device = hb.host.to(self._device, non_blocking=True)
+                    hb.ready = torch.cuda.Event()
+                    hb.ready.record(copy_in)
+                hb.device.record_stream(torch.cuda.current_stream())
+            if hb.ready is not None:
+                torch.cuda.current_stream().wait_event(hb.ready)
+            padded.append(hb.device[a.start:a.stop])
+            leases.append(hb)
+        _F_COMPUTE.fire()
+        with torch.inference_mode():
+            out = self._fn(*self._bound, *padded)
+            leaves = _leaves(out)
+            event = None
+            if self._cuda:
+                computed = torch.cuda.Event()
+                computed.record()
+                copy_out = self._streams[2]
+                with torch.cuda.stream(copy_out):
+                    copy_out.wait_event(computed)
+                    for i, leaf in enumerate(leaves):
+                        if (i in self._device_outputs
+                                or not isinstance(leaf, torch.Tensor)
+                                or not leaf.is_cuda):
+                            continue
+                        host = torch.empty(leaf.shape, dtype=leaf.dtype,
+                                           pin_memory=True)
+                        host.copy_(leaf, non_blocking=True)
+                        leaf.record_stream(copy_out)
+                        leaves[i] = host
+                    event = torch.cuda.Event()
+                    event.record(copy_out)
+        return _Flight(leaves, event, leases), n, bucket
+
+    def _fetch(self, out: _Flight, n: int, bucket: int):
+        """Wait for one batch (its event: the drain thread's only wait on
+        the card), give its staging buffers back, and slice the padding
+        off each output leaf. A leaf whose leading dim is NOT the batch
+        axis cannot be row-sliced, and doing it silently would mis-assign
+        rows — fail with a recipe instead.
+
+        Leaves listed in ``device_outputs`` stay card tensors, row-sliced
+        lazily when the bucket padded."""
+        if out.event is not None:
+            out.event.synchronize()
+        for hb in out.leases:
+            hb.release()
+        leaves = []
+        for i, leaf in enumerate(out.leaves):
+            if i in self._device_outputs and isinstance(leaf, torch.Tensor):
+                if leaf.is_cuda:
+                    leaf.record_stream(
+                        torch.cuda.default_stream(leaf.device))
+                leaves.append(leaf)
+            elif isinstance(leaf, torch.Tensor):
+                leaf = leaf.cpu()
+                leaves.append(leaf if leaf.dtype == torch.bfloat16
+                              else leaf.numpy())
+            else:
+                leaves.append(np.asarray(leaf))
+        trimmed = []
+        for l in leaves:
+            if np.ndim(l) == 0:
+                raise ValueError(
+                    "executor outputs must carry a batch axis: a scalar "
+                    "output aggregates over the PADDING rows of the "
+                    f"bucket ({bucket} padded vs {n} real) — keep a "
+                    "leading batch dim and reduce outside the executor")
+            if len(l) == bucket:
+                trimmed.append(l[:n])
+            elif len(l) <= n:
+                # smaller-than-batch outputs were never sliced before;
+                # keep the pass-through (no row mis-assignment occurs)
+                trimmed.append(l)
+            else:
+                raise ValueError(
+                    f"executor output with leading dim {len(l)} is not "
+                    f"batch-aligned (batch bucket {bucket}, {n} real "
+                    "rows): per-row slicing would silently mis-assign "
+                    "rows. Batch-align it in-graph — e.g. Reshape "
+                    "NonMaxSuppression's [B*C*max_out, 3] output to "
+                    "[B, C*max_out, 3] before the graph output.")
+        return tuple(trimmed)

@@ -609,3 +609,184 @@ def test_onnx_lstm_on_the_card_equals_the_cpu(card):
     cpu = rnn.bind(device="cpu")(xs)[0]
     got = rnn.bind()(xs.to(card))[0]
     assert float((got.cpu() - cpu).abs().max()) <= 1e-5
+
+
+# -- the batched executor and ONNXModel (no hand-written kernel) -----------
+
+SLEEP_CYCLES = 1_000_000_000  # ~0.5 s of device spin (~1.8 GHz)
+
+
+def test_executor_dispatch_returns_before_the_card_finishes(card):
+    """The dispatch thread starts the copies and the compute and moves
+    on: ``_dispatch`` returns while a ``torch.cuda._sleep``-padded ``fn``
+    still runs on the card; the drain thread is what waits."""
+    import time
+
+    from synapseml_tpu_torch.runtime.executor import BatchedExecutor
+
+    def fn(x):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        return (x * 2.0,)
+
+    ex = BatchedExecutor(fn, min_bucket=8)
+    try:
+        x = np.arange(8, dtype=np.float32)
+        ex.submit(x).result(timeout=60)  # warm
+        stamps = {}
+        orig = ex._dispatch
+
+        def dispatch(arrays, n, bucket):
+            out = orig(arrays, n, bucket)
+            stamps["dispatched"] = time.perf_counter()
+            return out
+
+        ex._dispatch = dispatch
+        start = time.perf_counter()
+        fut = ex.submit(x)
+        submitted = time.perf_counter()
+        (y,) = fut.result(timeout=60)
+        done = time.perf_counter()
+        assert submitted - start < 0.1
+        assert done - stamps["dispatched"] > 0.2, (stamps, done)
+        np.testing.assert_array_equal(y, x * 2.0)
+    finally:
+        ex.close()
+
+
+def test_executor_stages_into_pinned_buffers(card):
+    """Host columns (float64 grouped by ``transfer_batches``, uint8) are
+    staged in pinned memory, and the pool keeps pinned buffers."""
+    from synapseml_tpu_torch.runtime import executor as exmod
+
+    ex = exmod.BatchedExecutor(lambda x, p: (x + 1.0, p.float()),
+                               max_bucket=16, transfer_batches=2)
+    seen = []
+    orig = ex._dispatch
+
+    def dispatch(arrays, n, bucket):
+        seen.extend(a.batch.host.is_pinned() for a in arrays
+                    if isinstance(a, exmod._Rows))
+        return orig(arrays, n, bucket)
+
+    ex._dispatch = dispatch
+    try:
+        rng = np.random.default_rng(0)
+        x = rng.standard_normal((70, 5))
+        p = rng.integers(0, 256, (70, 3), dtype=np.uint8)
+        y, q = ex.submit(x, p).result(timeout=60)
+        np.testing.assert_array_equal(y, x.astype(np.float32) + 1.0)
+        np.testing.assert_array_equal(q, p.astype(np.float32))
+        assert len(seen) == 10 and all(seen)
+        pooled = [b for free in ex._pool._free.values() for b in free]
+        assert pooled and all(b.is_pinned() for b in pooled)
+    finally:
+        ex.close()
+
+
+def test_executor_card_tensor_input_and_device_outputs(card):
+    """A caller's card tensor is padded on the card (after the caller's
+    stream), a ``device_outputs`` leaf comes back a card tensor."""
+    from synapseml_tpu_torch.runtime.executor import BatchedExecutor
+
+    ex = BatchedExecutor(lambda x: (x * 3.0, x + 1.0), min_bucket=8,
+                         device_outputs=[1])
+    try:
+        x = torch.randn(13, 4, device=card) * 2  # produced on the caller's stream
+        host, dev = ex.submit(x).result(timeout=60)
+        assert isinstance(host, np.ndarray) and dev.is_cuda
+        assert dev.shape == (13, 4)
+        np.testing.assert_array_equal(host, (x * 3.0).cpu().numpy())
+        assert torch.equal(dev, x + 1.0)
+    finally:
+        ex.close()
+
+
+def test_executor_close_resolves_batches_in_flight(card):
+    from synapseml_tpu_torch.runtime.executor import BatchedExecutor
+
+    def fn(x):
+        torch.cuda._sleep(SLEEP_CYCLES // 5)
+        return (x + 2.0,)
+
+    ex = BatchedExecutor(fn, min_bucket=8, pipeline_depth=2)
+    xs = [np.full(8, float(i), np.float32) for i in range(5)]
+    futs = [ex.submit(x) for x in xs]
+    ex.close(wait=True)
+    for x, f in zip(xs, futs):
+        np.testing.assert_array_equal(f.result(timeout=60)[0], x + 2.0)
+    with pytest.raises(RuntimeError, match="closed"):
+        ex.submit(xs[0])
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_onnx_model_bucket_is_bitwise_its_bind_forward(card, compute):
+    """ResNet-50 at 64x64 through ``ONNXModel.transform`` (20 rows at
+    mini_batch_size 8: two full buckets and a padded tail): each bucket
+    bitwise the port's ``bind()`` forward of the same padded batch."""
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.onnx import ONNXModel, zoo
+
+    m = ONNXModel(model_bytes=zoo.resnet50(num_classes=1000, image_size=64),
+                  mini_batch_size=8, compute_dtype=compute)
+    x = np.random.default_rng(0).standard_normal(
+        (20, 3, 64, 64)).astype(np.float32)
+    got = m.transform(Table({"data": x}))[m.graph.output_names[0]]
+    cast = torch.bfloat16 if compute == "bfloat16" else None
+    fn = m.graph.bind(cast_dtype=cast)
+    for s in range(0, 20, 8):
+        b = x[s:s + 8]
+        pad = np.concatenate([b, np.zeros((8 - len(b), 3, 64, 64),
+                                          np.float32)])
+        xd = torch.from_numpy(pad).to(card, cast or torch.float32)
+        want = fn(xd)[0][:len(b)].float().cpu().numpy()
+        np.testing.assert_array_equal(got[s:s + len(b)], want)
+
+
+def test_float32_and_bf16_executors_on_two_threads_stay_bitwise(card):
+    """A float32 and a bf16 ``ONNXModel`` scoring at once on two threads
+    (one dispatch thread each): each result bitwise its single-thread
+    result, so no float32 run ever ran with TF32 on."""
+    import threading
+
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.onnx import ONNXModel, zoo
+
+    blob = zoo.resnet50(num_classes=1000, image_size=32)
+    x = np.random.default_rng(1).standard_normal(
+        (64, 3, 32, 32)).astype(np.float32)
+    table = Table({"data": x})
+    models = {c: ONNXModel(model_bytes=blob, mini_batch_size=32,
+                           compute_dtype=c) for c in ("float32", "bfloat16")}
+    out = models["float32"].graph.output_names[0]
+    alone = {c: m.transform(table)[out] for c, m in models.items()}
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    results = {c: [] for c in models}
+    errors = []
+
+    def run(c):
+        try:
+            for _ in range(12):
+                results[c].append(models[c].transform(table)[out])
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        threads = [threading.Thread(target=run, args=(c,)) for c in models]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+        assert errors == []
+        for c, rs in results.items():
+            assert len(rs) == 12
+            for r in rs:
+                np.testing.assert_array_equal(r, alone[c])
+        assert (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32) == (True, True)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
