@@ -1832,8 +1832,28 @@ def _lower_nodes(nodes, opset: int):
     return lowered
 
 
-def _run_nodes(lowered, env: Dict[str, Any]):
-    for impl, ctx, in_names, out_names in lowered:
+def _last_uses(lowered, keep: Sequence[str]) -> List[Tuple[str, ...]]:
+    """For each node, the values that no later node reads and that are not
+    in ``keep`` (the graph's outputs): ``_run_nodes`` drops them from the
+    environment after the node, so an intermediate lives only until its
+    last consumer, and a CUDA graph's capture records the live peak, not
+    every activation of the forward."""
+    last: Dict[str, int] = {}
+    for i, (_, _, in_names, out_names) in enumerate(lowered):
+        for n in (*in_names, *out_names):
+            if n:
+                last[n] = i
+    keep = set(keep)
+    drops: List[List[str]] = [[] for _ in lowered]
+    for n, i in last.items():
+        if n not in keep:
+            drops[i].append(n)
+    return [tuple(d) for d in drops]
+
+
+def _run_nodes(lowered, env: Dict[str, Any],
+               drops: Sequence[Tuple[str, ...]]):
+    for (impl, ctx, in_names, out_names), dead in zip(lowered, drops):
         args = [env[n] if n else None for n in in_names]
         out = impl(ctx, *args)
         if not isinstance(out, tuple):
@@ -1841,11 +1861,15 @@ def _run_nodes(lowered, env: Dict[str, Any]):
         for name, val in zip(out_names, out):
             if name:  # "" marks a skipped optional output
                 env[name] = val
+        del args, out
+        for name in dead:
+            env.pop(name, None)
 
 
-def _run(lowered, env: Dict[str, Any], dev: torch.device):
+def _run(lowered, env: Dict[str, Any], dev: torch.device,
+         drops: Sequence[Tuple[str, ...]]):
     with _running_on(dev), _ieee_float32():
-        _run_nodes(lowered, env)
+        _run_nodes(lowered, env, drops)
 
 
 class ImportedGraph:
@@ -1952,7 +1976,8 @@ class ImportedGraph:
                                        *named_inputs.values())
                     if isinstance(v, torch.Tensor)), None)
         _run(self._nodes, env, dev if dev is not None
-             else device_policy.resolve())
+             else device_policy.resolve(),
+             _last_uses(self._nodes, self.output_names))
         return tuple(env[n] for n in self.output_names)
 
     def bind(self, cast_dtype=None,
@@ -1991,11 +2016,12 @@ class ImportedGraph:
                     node = (_batch_norm_bound, ctx, in_names[:1] + keys,
                             out_names)
                 nodes.append(node)
+        drops = _last_uses(nodes, self.output_names)
 
         def fn(*inputs):
             env = self._env(params, inputs, {})
             with torch.inference_mode():
-                _run(nodes, env, dev)
+                _run(nodes, env, dev, drops)
             return tuple(env[n] for n in self.output_names)
         return fn
 

@@ -11,13 +11,18 @@ the executor's own stream, optional bf16 compute. Softmax/argmax
 post-processing columns mirror the reference (:519-562), and feed/fetch
 dicts mirror ``setFeedDict``/``setFetchDict``.
 
+:meth:`ONNXModel.warmup` captures every mini-batch bucket's forward as a
+CUDA graph before traffic (``BatchedExecutor.warmup``); with
+``compile_cache_dir`` each bucket's record is kept in the executable store
+under a content hash of the model bytes and config, so a changed model
+misses (runtime/compile_cache.py).
+
 Not ported yet, each under its ROADMAP Queue 1 item: ``compute_dtype=
 "auto"``, ``preferred_wire`` and ``routed_compute_dtype`` (1d: the autotune
-lanes), ``devices`` and ``compile_cache_dir`` with ``warmup`` (1c),
-``tensor_parallel``/``partition_rules`` and ``partition_coverage`` (4),
-``decode_scheduler`` (3). Setting one of those Params raises
-``NotImplementedError`` when the model runs; none runs quietly on one
-device.
+lanes), ``devices`` (1e), ``tensor_parallel``/``partition_rules`` and
+``partition_coverage`` (4), ``decode_scheduler`` (3). Setting one of those
+Params raises ``NotImplementedError`` when the model runs; none runs
+quietly on one device.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from synapseml_tpu_torch.core.pipeline import Transformer
 from synapseml_tpu_torch.data.table import Table
 from synapseml_tpu_torch.onnx import proto as _proto
 from synapseml_tpu_torch.onnx.importer import ImportedGraph, import_model
+from synapseml_tpu_torch.runtime import compile_cache as _cc
 from synapseml_tpu_torch.runtime.executor import BatchedExecutor
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -96,7 +102,8 @@ class ONNXModel(Transformer):
         "the reference's per-model partition-rule overrides for "
         "tensor_parallel > 1; not ported", default=None)
     compile_cache_dir = Param(
-        "the reference's persistent compile-cache directory; not ported",
+        "directory of the executable store warmup() records each bucket's "
+        "warm program in (default: the SYNAPSEML_COMPILE_CACHE env var)",
         default=None)
 
     def __init__(self, model_path: Optional[str] = None,
@@ -186,7 +193,7 @@ class ONNXModel(Transformer):
         if self.devices is not None:
             raise NotImplementedError(
                 "devices= (data parallelism over several devices) is not "
-                "ported yet: ROADMAP Queue 1 item 1c")
+                "ported yet: ROADMAP Queue 1 item 1e")
         tp = int(self.tensor_parallel or 1)
         if tp < 1:
             raise ValueError(f"tensor_parallel must be >= 1, got {tp}")
@@ -194,10 +201,6 @@ class ONNXModel(Transformer):
             raise NotImplementedError(
                 "tensor_parallel > 1 and partition_rules are not ported "
                 "yet: ROADMAP Queue 1 item 4")
-        if self.compile_cache_dir is not None:
-            raise NotImplementedError(
-                "compile_cache_dir (the persistent executable store) is not "
-                "ported yet: ROADMAP Queue 1 item 1c")
         return tp
 
     def _executor(self, device=device_policy.DEFAULT_DEVICE
@@ -277,10 +280,53 @@ class ONNXModel(Transformer):
                 del cache[stale]
             while len(cache) >= 4:
                 cache.pop(next(iter(cache)))
+            # content hash over graph+weights config: the store key's
+            # ingredient that misses on changed model bytes. The graph's
+            # node count + outputs disambiguate truncated subgraphs
+            # sharing a payload
+            cache_key = _cc.content_hash(
+                self.model_payload or b"", len(g._nodes),
+                tuple(g.output_names), cd, norm_key)
             cache[key] = BatchedExecutor(
                 apply_fn, device=dev, compute_dtype=compute,
-                max_bucket=self.mini_batch_size)
+                max_bucket=self.mini_batch_size, cache_key=cache_key,
+                cache_dir=self.compile_cache_dir)
         return cache[key]
+
+    def warmup(self, buckets=None, example_feeds=None,
+               device=device_policy.DEFAULT_DEVICE):
+        """Capture every mini-batch bucket's forward as a CUDA graph
+        BEFORE traffic arrives (on the CPU, warm the eager forward of each
+        bucket), recording each in the executable store when
+        ``compile_cache_dir`` is set; transform then replays one graph a
+        bucket (``BatchedExecutor.warmup``; the reference ships prebuilt
+        engines in its jars, ONNXModel.scala:173-193).
+
+        Input shapes/dtypes come from the graph's declared inputs; pass
+        ``example_feeds`` (graph input name -> example array with a batch
+        dim) for inputs with dynamic non-batch dims or a different wire
+        dtype (e.g. the uint8-pixel wire under ``input_norm``). Returns a
+        :class:`~synapseml_tpu_torch.runtime.compile_cache.WarmupReport`."""
+        g = self.graph
+        example_feeds = example_feeds or {}
+        args = []
+        for name in g.input_names:
+            if name in example_feeds:
+                a = np.asarray(example_feeds[name])
+                args.append((tuple(a.shape[1:]), a.dtype))
+                continue
+            want_dtype, shape = g.input_info.get(name, (None, None))
+            row = list(shape)[1:] if shape is not None else None
+            if row is None or any(not isinstance(d, int) or d <= 0
+                                  for d in row):
+                raise ValueError(
+                    f"graph input {name!r} has dynamic non-batch dims "
+                    f"{shape}: pass example_feeds[{name!r}] with the "
+                    "concrete serving shape")
+            args.append((tuple(int(d) for d in row),
+                         np.dtype(want_dtype) if want_dtype is not None
+                         else np.dtype(np.float32)))
+        return self._executor(device).warmup(args, buckets=buckets)
 
     def _transform(self, table: Table, device) -> Table:
         # ride the executor's shared submit/drain pipeline: concurrent

@@ -28,17 +28,31 @@ Supervision: a pipeline thread that dies fails every in-flight future with
 :class:`~synapseml_tpu_torch.runtime.faults.PipelineBrokenError`, never a
 hang, and the next :meth:`submit` starts a fresh pipeline.
 
+**Warm programs** (:meth:`BatchedExecutor.warmup`): the reference
+AOT-compiles every bucket's XLA program before traffic. Here a bucket's
+warm program is a **CUDA graph** captured per (bucket, staged signature),
+with static input tensors in the staged dtype and the static output leaves
+it returns; a dispatch copies the staged batch into the static inputs and
+replays the graph — the whole forward in one launch. On the CPU the warm
+program is the eager ``fn`` bound to that signature, warmed by one run on
+zeros, so the CPU sees the same ladder, statuses, hits and sentinel. The
+table of warm programs (``_aot``), its hit counter and the recompile
+sentinel (``executor_recompiles_total{reason=}``) are the reference's; the
+persistent store keeps each signature's record (runtime/compile_cache.py).
+
 The reference donates a bucket's input buffers to XLA; PyTorch has no
 donation, and its caching allocator reuses a bucket's device blocks from
-one batch to the next, so there is no ``donate`` parameter. Multi-device
-layouts, tensor parallelism, the AOT executable table and its persistent
-store, the recompile sentinel and the autotuned H2D lane are not ported
-yet (ROADMAP Queue 1 items 1c, 1d and 4).
+one batch to the next, so there is no ``donate`` parameter and the
+sentinel's ``donation_mask`` series stays at 0. Multi-device layouts
+(``devices=``), tensor parallelism, the autotuned H2D lane and the cost
+model's records are not ported yet (ROADMAP Queue 1 items 1e, 1d, 4 and
+6).
 """
 from __future__ import annotations
 
 import atexit
 import math
+import os
 import queue as _queue
 import threading
 import time
@@ -52,6 +66,7 @@ import numpy as np
 import torch
 
 from synapseml_tpu_torch import device as device_policy
+from synapseml_tpu_torch.runtime import compile_cache as _cc
 from synapseml_tpu_torch.runtime import faults as _flt
 from synapseml_tpu_torch.runtime import telemetry as _tm
 from synapseml_tpu_torch.runtime.faults import PipelineBrokenError
@@ -68,6 +83,32 @@ _M_DISPATCH_S = _tm.histogram("executor_dispatch_seconds")
 _M_COMPUTE_S = _tm.histogram("executor_compute_seconds")
 _M_DRAIN_S = _tm.histogram("executor_drain_seconds")
 _M_PIPE_RESTARTS = _tm.counter("executor_pipeline_restarts_total")
+_M_AOT_HIT = _tm.counter("executor_aot_hits_total")
+_M_AOT_MISS = _tm.counter("executor_aot_misses_total")
+_M_AOT_RETIRED = _tm.counter("executor_aot_retired_total")
+
+# -- recompile sentinel ------------------------------------------------------
+# After warmup() has warmed the executor's full signature set, an eager
+# first run of a signature on the dispatch path is an INCIDENT — a mystery
+# latency spike with a name. Reasons: "shape_drift" (a signature outside
+# the warmed set — usually an unwarmed bucket or feature-width change),
+# "arity" (a call arity warmup never saw), "donation_mask" (the
+# reference's: same shapes, another donation annotation; the port does
+# not donate, so the series stays 0), "cache_skew" (a warm program retired
+# after its replay raised). Handles resolved at import so the series exist
+# (at 0) on every scrape.
+RECOMPILE_REASONS = ("shape_drift", "arity", "donation_mask",
+                     "cache_skew")
+_M_RECOMPILE = {r: _tm.counter("executor_recompiles_total", reason=r)
+                for r in RECOMPILE_REASONS}
+# warm-program build time by phase: "warmup" = captures off the serving
+# path, "dispatch" = a signature's first eager run ON the dispatch path
+# (post-warmup these are exactly the recompiles above), "deserialize" =
+# the capture and check of a store-loaded signature (compile_cache.py)
+_M_COMPILE_WARM_S = _tm.histogram("executor_compile_seconds",
+                                  phase="warmup")
+_M_COMPILE_DISP_S = _tm.histogram("executor_compile_seconds",
+                                  phase="dispatch")
 
 # fault-injection points (runtime/faults.py), resolved once at import:
 # fire() is a single attribute test when nothing is armed. The
@@ -104,7 +145,7 @@ def _torch_dtype(dt) -> Optional[torch.dtype]:
     """A compute dtype given as a torch dtype, a name or a numpy dtype."""
     if dt is None or isinstance(dt, torch.dtype):
         return dt
-    name = dt if isinstance(dt, str) else np.dtype(dt).name
+    name = _cc.dtype_name(dt)
     if name not in _DTYPE_NAMES:
         raise ValueError(f"compute_dtype {dt!r} is not a float dtype "
                          f"({', '.join(_DTYPE_NAMES)})")
@@ -305,6 +346,22 @@ class _Flight:
         self.leaves = leaves
         self.event = event
         self.leases = leases
+
+
+class _Warm:
+    """One warm program of the AOT table. On the card: a CUDA graph, its
+    static inputs (zero-filled at capture, in the staged dtype) and its
+    static output leaves. On the CPU ``graph`` is None and the eager
+    ``fn`` runs bound to the signature."""
+
+    __slots__ = ("graph", "inputs", "outputs")
+
+    def __init__(self, graph: Optional["torch.cuda.CUDAGraph"] = None,
+                 inputs: Sequence[torch.Tensor] = (),
+                 outputs: Sequence[Any] = ()):
+        self.graph = graph
+        self.inputs = list(inputs)
+        self.outputs = list(outputs)
 
 
 class _Unit:
@@ -667,6 +724,8 @@ class BatchedExecutor:
         transfer_batches: Union[int, str, None] = None,
         stage_workers: int = 2,
         device_outputs: Optional[Sequence[int]] = None,
+        cache_key: Optional[str] = None,
+        cache_dir: Optional[str] = None,
     ):
         """``device`` is "cuda" by default and raises without CUDA; the
         CPU runs only when asked for (``device="cpu"``).
@@ -700,7 +759,15 @@ class BatchedExecutor:
         marked used on the card's default stream (``record_stream``), so
         the caching allocator does not hand its block to the executor's
         stream while a caller's kernel on the default stream still reads
-        it."""
+        it.
+
+        ``cache_dir`` (default: the ``SYNAPSEML_COMPILE_CACHE`` env var)
+        together with ``cache_key``, the caller's content hash over
+        graph/weights config, enables the store that :meth:`warmup`
+        records each warmed signature into, so a restarted process knows
+        its warm programs reproduce the persisted ones
+        (runtime/compile_cache.py). Any miss, skew or corrupt entry
+        silently degrades to a fresh capture."""
         dev = device_policy.resolve(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -740,6 +807,48 @@ class BatchedExecutor:
         self._m_disp_one = _tm.counter("executor_dispatch_total",
                                        device=str(dev))
         self._m_bucket: Dict[int, _tm.Counter] = {}
+        # -- the store and the warm programs --------------------------------
+        resolved_dir = cache_dir if cache_dir is not None \
+            else _cc.default_cache_dir()
+        self._cache_key = cache_key
+        self._store: Optional[_cc.ExecutableStore] = None
+        if resolved_dir:
+            _cc.enable_persistent_cache(resolved_dir)
+            if cache_key:
+                self._store = _cc.ExecutableStore(
+                    os.path.join(resolved_dir, "executables"), device=dev)
+        # _tables_lock guards the tables below: warmup() writes them on
+        # the caller's thread, _dispatch reads and retires on the dispatch
+        # thread. Slow work (capture, a run on zeros) happens OUTSIDE it.
+        self._tables_lock = threading.Lock()
+        # warm programs from warmup(), keyed by the staged input signature
+        # (shape and dtype name of each batch argument)
+        self._aot: Dict[tuple, _Warm] = {}
+        self._aot_hits = 0
+        # recompile-sentinel state: warmup() flips _warmed and records
+        # the call arities it warmed; _lazy_seen holds every signature the
+        # eager path has already run (only FIRST runs are timed and
+        # counted)
+        self._warmed = False
+        self._warm_arities: set = set()
+        self._lazy_seen: set = set()
+        # CUDA graphs: one memory pool per executor, shared by its
+        # buckets' graphs. A graph captured later may hold its static
+        # outputs in blocks that an earlier graph's capture used for
+        # temporaries, so replaying ANY graph of the pool may overwrite
+        # ANY graph's static outputs. Sharing is therefore safe only
+        # while every graph's static outputs stay alive (the table holds
+        # them), replays run on the one compute stream, and each replay
+        # waits for _released: the event after the last batch's copies
+        # out of static outputs. The copy-out stream runs in order, so
+        # that one event covers every earlier batch of every graph.
+        # _replay_lock keeps a capture (and its check replay and digest
+        # copy) from interleaving with a replay call; dispatch holds it
+        # only around the replay call.
+        self._graph_pool = None
+        self._capture_stream: Optional[torch.cuda.Stream] = None
+        self._replay_lock = threading.Lock()
+        self._released: Optional[torch.cuda.Event] = None
 
     @property
     def pipeline_depth(self) -> int:
@@ -997,6 +1106,223 @@ class BatchedExecutor:
     def __call__(self, *host_arrays) -> tuple:
         return self.submit(*host_arrays).result()
 
+    # -- warm programs: warmup, the AOT table, the recompile sentinel -----
+    def _bucket_ladder(self) -> List[int]:
+        """Every bucket size this executor can route a batch to: the
+        pow2 ladder from ``min_bucket`` up to the (possibly non-pow2)
+        ``max_bucket`` cap, or the single static batch."""
+        if self._static_batch is not None:
+            return [self._static_batch]
+        if self._max_bucket is None:
+            raise ValueError(
+                "warmup(buckets=None) needs a bounded executor "
+                "(max_bucket= or static_batch=) to derive the bucket "
+                "ladder — pass buckets= explicitly")
+        top = self._bucket(self._max_bucket)
+        out: List[int] = []
+        b = self._min_bucket
+        while b < top:
+            out.append(b)
+            b <<= 1
+        out.append(top)
+        return out
+
+    def _mesh_shape(self) -> Tuple[int, ...]:
+        """Folded into every store key; one device until ``devices=``
+        is ported (ROADMAP Queue 1 item 1e)."""
+        return (1,)
+
+    def _device_kind(self) -> str:
+        if self._cuda:
+            return torch.cuda.get_device_name(self._device)
+        return "cpu"
+
+    def _staged_dtype(self, dt: Any, device_rules: bool = False
+                      ) -> torch.dtype:
+        """The dtype staging hands ``_dispatch`` for an input of dtype
+        ``dt``: the host coercions of :func:`coerce_host_array` (f64→f32,
+        i64→i32, u64→u32), or with ``device_rules`` those of
+        :meth:`_stage_device_array` (none); floating inputs then take the
+        compute dtype."""
+        td = getattr(torch, _cc.dtype_name(dt), None)
+        if not isinstance(td, torch.dtype):
+            raise TypeError(f"no torch dtype for {dt!r}")
+        if not device_rules:
+            td = _TORCH_COERCE.get(td, td)
+        if self._compute_dtype is not None and td.is_floating_point:
+            td = self._compute_dtype
+        return td
+
+    def warmup(self, args_like: Sequence[Any],
+               buckets: Optional[Sequence[int]] = None) -> "_cc.WarmupReport":
+        """Warm every bucket signature this executor will serve, so no
+        caller ever lands on a cold program — the reference's AOT
+        precompile, rebuilt for the card as one CUDA graph a bucket.
+
+        ``args_like``: one entry per batch argument — an example array or
+        tensor (leading dim = batch, any size; only ``shape[1:]`` and its
+        dtype are read, a tensor on the executor's device under the card
+        rules) or a ``(row_shape, dtype)`` pair. ``buckets`` defaults to
+        the executor's full bucket ladder.
+
+        Each signature's graph is captured after one eager run on a side
+        stream, then replayed once on zero-filled inputs; with a
+        configured store (``cache_dir`` + ``cache_key``) that replay's
+        digest is checked against the persisted record (``loaded``) or
+        persisted (``compiled``). Never raises for cache or capture
+        problems — a signature that fails serves eagerly, and the
+        returned :class:`~synapseml_tpu_torch.runtime.compile_cache.WarmupReport`
+        records each signature's disposition (warm / loaded / compiled /
+        error). From here on, an eager first run on the dispatch path is
+        a counted recompile."""
+        report = _cc.WarmupReport()
+        specs: List[Tuple[Tuple[int, ...], torch.dtype]] = []
+        for a in args_like:
+            if hasattr(a, "shape") and hasattr(a, "dtype"):
+                specs.append((tuple(a.shape)[1:], self._staged_dtype(
+                    a.dtype, device_rules=self._on_device(a))))
+            else:
+                row, dt = a
+                specs.append((tuple(int(d) for d in row),
+                              self._staged_dtype(dt)))
+        buckets = (self._bucket_ladder() if buckets is None
+                   else sorted({int(b) for b in buckets}))
+        for bucket in buckets:
+            sig = tuple(((bucket,) + row, _cc.dtype_name(dt))
+                        for row, dt in specs)
+            entry: Dict[str, Any] = {"bucket": bucket, "layout": "single",
+                                     "sig": sig}
+            report.entries.append(entry)
+            with self._tables_lock:
+                warm = sig in self._aot
+            if warm:
+                entry["status"] = "warm"
+                self._note_warm_sig(sig)
+                continue
+            try:
+                skey = record = None
+                if self._store is not None:
+                    skey = _cc.executable_key(
+                        self._cache_key, bucket=bucket, sig=sig,
+                        layout="single", mesh_shape=self._mesh_shape(),
+                        device_kind=self._device_kind(),
+                        fingerprint=self._store.fingerprint())
+                    record = self._store.load(skey)
+                t0 = time.monotonic()
+                program, leaves = self._capture(sig)
+                fresh = _cc.signature_record(sig, leaves,
+                                             _cc.output_digest(leaves))
+                seconds = time.monotonic() - t0
+                loaded = (record is not None
+                          and self._store.matches(skey, record, fresh))
+                (_cc._M_DESER_S if loaded
+                 else _M_COMPILE_WARM_S).observe(seconds)
+                with self._tables_lock:
+                    self._aot[sig] = program
+                entry["status"] = "loaded" if loaded else "compiled"
+                entry["seconds"] = seconds
+                self._note_warm_sig(sig)
+                if skey is not None and not loaded:
+                    entry["persisted"] = self._store.save(skey, fresh)
+            except Exception as e:  # noqa: BLE001 - degrade to eager
+                entry["status"] = "error"
+                report.errors.append(f"bucket={bucket} single: {e!r}")
+        # the sentinel arms HERE: from now on an eager first run on the
+        # dispatch path is a counted, classified recompile incident
+        with self._tables_lock:
+            self._warmed = True
+        return report
+
+    def _capture(self, sig: tuple) -> Tuple[_Warm, list]:
+        """Build the warm program of one signature; returns it and the
+        output leaves of its run on zero-filled inputs.
+
+        On the card: zero-filled static inputs, one eager run on the
+        capture stream (lazy initialisation, cuDNN and cuBLAS plans and
+        workspaces happen outside the capture), the capture into the
+        executor's pool (``thread_local``: the dispatch thread may be
+        issuing meanwhile), then one replay on the compute stream, after
+        whatever is queued there and after the last batch's copies out of
+        static outputs. The leaves returned are clones of that replay's
+        outputs, taken on the compute stream before any later replay can
+        overwrite them. The forward enters ``_ieee_float32`` while it is
+        captured, so a float32 graph keeps TF32 off in every replay
+        whatever the flags are then."""
+        shapes = [(shape, getattr(torch, name)) for shape, name in sig]
+        if not self._cuda:
+            with torch.inference_mode():
+                inputs = [torch.zeros(s, dtype=d) for s, d in shapes]
+                leaves = _leaves(self._fn(*self._bound, *inputs))
+            return _Warm(), leaves
+        dev = self._device
+        with torch.cuda.device(dev), torch.inference_mode():
+            side = self._capture_stream
+            if side is None:
+                side = self._capture_stream = torch.cuda.Stream(dev)
+            inputs = [torch.zeros(s, dtype=d, device=dev) for s, d in shapes]
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self._fn(*self._bound, *inputs)
+            graph = torch.cuda.CUDAGraph()
+            with self._replay_lock:
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                try:
+                    with torch.cuda.graph(
+                            graph, pool=self._graph_pool, stream=side,
+                            capture_error_mode="thread_local"):
+                        out = self._fn(*self._bound, *inputs)
+                except BaseException:
+                    # a failed capture may leave its stream unusable
+                    self._capture_stream = None
+                    raise
+                statics = _leaves(out)
+                compute = self._streams[0]
+                compute.wait_stream(side)
+                if self._released is not None:
+                    compute.wait_event(self._released)
+                with torch.cuda.stream(compute):
+                    graph.replay()
+                    leaves = [leaf.clone() if isinstance(leaf, torch.Tensor)
+                              else leaf for leaf in statics]
+                done = torch.cuda.Event()
+                done.record(compute)
+            done.synchronize()
+        return _Warm(graph, inputs, statics), leaves
+
+    def _replay(self, warm: _Warm, padded: List[torch.Tensor]) -> list:
+        """Run a warm program on one staged batch; returns its output
+        leaves. On the card: after the last batch's copies out of static
+        outputs (``_released``, whichever graph that batch replayed),
+        copy the batch into the static inputs on the compute stream (card
+        to card) and replay."""
+        if warm.graph is None:
+            return _leaves(self._fn(*self._bound, *padded))
+        stream = torch.cuda.current_stream()
+        if self._released is not None:
+            stream.wait_event(self._released)
+        for static, a in zip(warm.inputs, padded):
+            static.copy_(a)
+        with self._replay_lock:
+            warm.graph.replay()
+        return list(warm.outputs)
+
+    def _note_warm_sig(self, sig: tuple):
+        """Record one warmed signature for the recompile sentinel's
+        post-warmup classification (shape vs arity drift)."""
+        with self._tables_lock:
+            self._warm_arities.add(len(sig))
+
+    def _classify_recompile(self, sig: tuple, retired: bool) -> str:
+        """Why is the dispatch path running a cold signature after
+        warmup? Called with ``_tables_lock`` held. ``donation_mask``
+        cannot fire: the port does not donate."""
+        if retired:
+            return "cache_skew"
+        if self._warm_arities and len(sig) not in self._warm_arities:
+            return "arity"
+        return "shape_drift"
+
     # -- pipeline stages (overridable/patchable per instance) ------------
     def _stage_device_array(self, a: torch.Tensor,
                             target_rows: int) -> torch.Tensor:
@@ -1057,9 +1383,37 @@ class BatchedExecutor:
             padded.append(hb.device[a.start:a.stop])
             leases.append(hb)
         _F_COMPUTE.fire()
+        sig = tuple((tuple(a.shape), _cc.dtype_name(a.dtype)) for a in padded)
+        with self._tables_lock:
+            warm = self._aot.get(sig)
+        retired = False
+        leaves = None
         with torch.inference_mode():
-            out = self._fn(*self._bound, *padded)
-            leaves = _leaves(out)
+            if warm is not None:
+                # warmup()'s program: one replay, no per-node launches
+                try:
+                    leaves = self._replay(warm, padded)
+                    with self._tables_lock:
+                        self._aot_hits += 1
+                    _M_AOT_HIT.inc()
+                except Exception:  # noqa: BLE001 - degrade, never error
+                    # retire the program and run eagerly: a genuine
+                    # program error re-raises from the eager call
+                    with self._tables_lock:
+                        self._aot.pop(sig, None)
+                    _M_AOT_RETIRED.inc()
+                    retired, warm = True, None
+            else:
+                _M_AOT_MISS.inc()
+            if leaves is None:
+                leaves = self._run_cold(sig, padded, retired)
+            elif warm.graph is not None:
+                # a caller keeps a device_outputs leaf past the next
+                # replay, which overwrites the static outputs
+                for i in self._device_outputs:
+                    if i < len(leaves) and isinstance(leaves[i],
+                                                      torch.Tensor):
+                        leaves[i] = leaves[i].clone()
             event = None
             if self._cuda:
                 computed = torch.cuda.Event()
@@ -1079,7 +1433,38 @@ class BatchedExecutor:
                         leaves[i] = host
                     event = torch.cuda.Event()
                     event.record(copy_out)
+                if warm is not None:
+                    self._released = event
         return _Flight(leaves, event, leases), n, bucket
+
+    def _run_cold(self, sig: tuple, padded: List[torch.Tensor],
+                  retired: bool) -> list:
+        """The eager path of a signature without a warm program. Its
+        first run is timed into ``executor_compile_seconds{phase=
+        "dispatch"}``; after :meth:`warmup` it is also counted in
+        ``executor_recompiles_total`` by reason — an incident, not a
+        mystery latency spike."""
+        with self._tables_lock:
+            unseen = sig not in self._lazy_seen
+            if unseen:
+                self._lazy_seen.add(sig)
+            reason = (self._classify_recompile(sig, retired)
+                      if unseen and self._warmed else None)
+        t0 = time.monotonic()
+        try:
+            out = self._fn(*self._bound, *padded)
+        except BaseException:
+            if unseen:
+                # a first run that RAISED is not a warm signature: the
+                # retry is still counted and timed
+                with self._tables_lock:
+                    self._lazy_seen.discard(sig)
+            raise
+        if unseen:
+            _M_COMPILE_DISP_S.observe(time.monotonic() - t0)
+            if reason is not None:
+                _M_RECOMPILE[reason].inc()
+        return _leaves(out)
 
     def _fetch(self, out: _Flight, n: int, bucket: int):
         """Wait for one batch (its event: the drain thread's only wait on
@@ -1130,3 +1515,46 @@ class BatchedExecutor:
                     "NonMaxSuppression's [B*C*max_out, 3] output to "
                     "[B, C*max_out, 3] before the graph output.")
         return tuple(trimmed)
+
+
+class JitCache:
+    """Explicit cache of built callables (executors) keyed by a user key:
+    one warm executor shared by every batch on a host, as the reference
+    shares one jitted executable (ref: ONNXModel.scala:497-508)."""
+
+    def __init__(self):
+        self._cache: Dict[Any, Callable] = {}
+        self._lock = threading.Lock()
+
+    def get(self, key: Any, build: Callable[[], Callable]) -> Callable:
+        # callers come from arbitrary scorer threads: build() runs
+        # outside the lock and setdefault crowns one winner for everyone
+        with self._lock:
+            got = self._cache.get(key)
+        if got is None:
+            built = build()
+            with self._lock:
+                got = self._cache.setdefault(key, built)
+        return got
+
+    def clear(self):
+        """Drop cached callables AND invalidate every open store: a test
+        that clears caches must not read back a memoized (possibly
+        stale) record — the next load re-reads disk."""
+        with self._lock:
+            self._cache.clear()
+        _cc.invalidate_open_stores()
+
+
+GLOBAL_JIT_CACHE = JitCache()
+
+
+def default_device() -> torch.device:
+    """The card the entry points run on by default (raises without
+    CUDA, as every entry point does)."""
+    device_policy.resolve()
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def local_device_count() -> int:
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0

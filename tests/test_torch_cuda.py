@@ -790,3 +790,263 @@ def test_float32_and_bf16_executors_on_two_threads_stay_bitwise(card):
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+# -- warm programs: CUDA graphs captured per bucket at warmup() -----------
+
+def _warm_resnet(compute, batch=8, image=64, **params):
+    from synapseml_tpu_torch.onnx import ONNXModel, zoo
+
+    m = ONNXModel(model_bytes=zoo.resnet50(num_classes=1000,
+                                           image_size=image),
+                  mini_batch_size=batch, compute_dtype=compute, **params)
+    rep = m.warmup()
+    assert rep.errors == [] and rep.compiled == len(rep.entries)
+    return m
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_replayed_bucket_is_bitwise_the_eager_bind(card, compute):
+    """ResNet-50 at 64x64 warmed at mini_batch_size 8 (one graph), 20
+    rows through ``transform``: every bucket a replay, each bitwise the
+    port's eager ``bind()`` forward of the same padded batch."""
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.runtime import telemetry as tm
+
+    m = _warm_resnet(compute)
+    x = np.random.default_rng(0).standard_normal(
+        (20, 3, 64, 64)).astype(np.float32)
+    tm.reset()
+    got = m.transform(Table({"data": x}))[m.graph.output_names[0]]
+    ex = m._executor("cuda")
+    assert ex._aot_hits == 3
+    assert tm.counter("executor_aot_misses_total").value == 0
+    cast = torch.bfloat16 if compute == "bfloat16" else None
+    fn = m.graph.bind(cast_dtype=cast)
+    for s in range(0, 20, 8):
+        b = x[s:s + 8]
+        pad = np.concatenate([b, np.zeros((8 - len(b), 3, 64, 64),
+                                          np.float32)])
+        xd = torch.from_numpy(pad).to(card, cast or torch.float32)
+        want = fn(xd)[0][:len(b)].float().cpu().numpy()
+        np.testing.assert_array_equal(got[s:s + len(b)], want)
+    ex.close()
+
+
+def test_a_replay_issues_no_per_node_launches_from_python(card):
+    """A warm dispatch dispatches one card-to-card copy an input from
+    Python and replays the graph; the eager forward of the same batch
+    dispatches hundreds of operations."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    m = _warm_resnet("bfloat16", image=32)
+    ex = m._executor("cuda")
+    (warm,) = ex._aot.values()
+    xd = torch.randn(8, 3, 32, 32, device=card, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        with Count():
+            ex._replay(warm, [xd])
+        replayed, Count.n = Count.n, 0
+        with Count():
+            ex._fn(*ex._bound, xd)
+        eager = Count.n
+    torch.cuda.synchronize()
+    assert replayed == 1, replayed
+    assert eager > 200, eager
+    ex.close()
+
+
+@pytest.mark.parametrize("depth", [2, 3])
+def test_pipelined_replays_give_every_batch_its_own_rows(card, depth):
+    """Replay k+1 overwrites the static outputs replay k's copy out reads:
+    with ``depth`` batches in flight and outputs of 8 MB, every batch
+    still gets its own rows."""
+    from synapseml_tpu_torch.runtime.executor import BatchedExecutor
+
+    ex = BatchedExecutor(lambda x: (x * 2.0 + 1.0, x.sum(1)), min_bucket=8,
+                         max_bucket=8, pipeline_depth=depth)
+    try:
+        rep = ex.warmup([((1 << 18,), np.float32)])
+        assert rep.errors == [] and rep.compiled == 1
+        xs = [np.full((8, 1 << 18), float(i), np.float32) for i in range(24)]
+        outs = list(ex.stream(xs))
+        for i, (y, s) in enumerate(outs):
+            assert np.all(y == 2.0 * i + 1.0), i
+            assert np.all(s == float(i) * (1 << 18)), i
+        assert ex._aot_hits == 24
+    finally:
+        ex.close()
+
+
+@pytest.mark.parametrize("depth", [2, 3])
+def test_replays_of_two_buckets_give_every_batch_its_own_rows(card, depth):
+    """The buckets' graphs share one memory pool: bucket 16's static
+    output (16 MB) fits in the blocks bucket 8's capture used for its
+    temporary (32 MB), so a bucket-8 replay may overwrite bucket 16's
+    outputs. Each replay ends with a ~10 ms spin, so the host queues the
+    next replay before the card is done and it starts as the previous
+    batch's copy out does. Alternating 8- and 16-row batches with
+    ``depth`` in flight must still each get their own rows."""
+    from synapseml_tpu_torch.runtime.executor import BatchedExecutor
+
+    def fn(x):
+        t = x.repeat(1, 4) * 2.0
+        out = t[:, :x.shape[1]] + 1.0
+        torch.cuda._sleep(20_000_000)
+        return (out,)
+
+    ex = BatchedExecutor(fn, min_bucket=8, max_bucket=16,
+                         pipeline_depth=depth)
+    try:
+        rep = ex.warmup([((1 << 18,), np.float32)], buckets=[8, 16])
+        assert rep.errors == [] and rep.compiled == 2
+        xs = [np.full((8 << (i % 2), 1 << 18), float(i), np.float32)
+              for i in range(32)]
+        outs = list(ex.stream(xs))
+        for i, (y,) in enumerate(outs):
+            assert y.shape == xs[i].shape, i
+            assert np.all(y == 2.0 * i + 1.0), i
+        assert ex._aot_hits == 32
+    finally:
+        ex.close()
+
+
+def test_a_device_outputs_leaf_survives_the_next_replay(card):
+    from synapseml_tpu_torch.runtime.executor import BatchedExecutor
+
+    ex = BatchedExecutor(lambda x: (x * 3.0, x + 1.0), min_bucket=8,
+                         max_bucket=8, device_outputs=[1])
+    try:
+        ex.warmup([((4,), np.float32)])
+        a = np.full((8, 4), 1.0, np.float32)
+        b = np.full((8, 4), 5.0, np.float32)
+        host_a, dev_a = ex.submit(a).result(timeout=60)
+        host_b, dev_b = ex.submit(b).result(timeout=60)
+        torch.cuda.synchronize()
+        assert dev_a.is_cuda and torch.equal(dev_a.cpu(),
+                                             torch.from_numpy(a + 1.0))
+        assert torch.equal(dev_b.cpu(), torch.from_numpy(b + 1.0))
+        np.testing.assert_array_equal(host_a, a * 3.0)
+        np.testing.assert_array_equal(host_b, b * 3.0)
+        assert ex._aot_hits == 2
+    finally:
+        ex.close()
+
+
+def test_warmup_while_another_thread_transforms(card):
+    """``warmup()`` captures on the caller's thread while another thread's
+    ``transform`` runs eagerly on the dispatch thread: every result stays
+    the single-thread one, and later calls replay."""
+    import threading
+
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.onnx import ONNXModel, zoo
+
+    m = ONNXModel(model_bytes=zoo.resnet50(num_classes=1000, image_size=32),
+                  mini_batch_size=32, compute_dtype="bfloat16")
+    x = np.random.default_rng(2).standard_normal(
+        (64, 3, 32, 32)).astype(np.float32)
+    table = Table({"data": x})
+    out = m.graph.output_names[0]
+    alone = m.transform(table)[out]
+    results, errors, stop = [], [], threading.Event()
+
+    def run():
+        try:
+            while not stop.is_set():
+                results.append(m.transform(table)[out])
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    t = threading.Thread(target=run)
+    t.start()
+    try:
+        rep = m.warmup()
+    finally:
+        stop.set()
+        t.join(timeout=300)
+    assert not t.is_alive() and errors == []
+    assert rep.errors == [] and rep.compiled == 3
+    assert results
+    for r in results:
+        np.testing.assert_array_equal(r, alone)
+    ex = m._executor("cuda")
+    hits = ex._aot_hits
+    np.testing.assert_array_equal(m.transform(table)[out], alone)
+    assert ex._aot_hits == hits + 2
+    ex.close()
+
+
+def test_float32_capture_under_a_foreign_threads_tf32_replays_bitwise(card):
+    """Another thread turns TF32 on and holds it while a float32 model is
+    warmed and served: the capture ran inside ``_ieee_float32``, so every
+    replay is bitwise the eager float32 forward (TF32 off), whatever the
+    flags are at replay."""
+    import threading
+
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.onnx import ONNXModel, zoo
+
+    m = ONNXModel(model_bytes=zoo.resnet50(num_classes=1000, image_size=32),
+                  mini_batch_size=8)
+    x = np.random.default_rng(3).standard_normal(
+        (8, 3, 32, 32)).astype(np.float32)
+    want = m.graph.bind()(torch.from_numpy(x).to(card))[0].cpu().numpy()
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    on, done = threading.Event(), threading.Event()
+
+    def foreign():
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on.set()
+        done.wait(timeout=300)
+
+    t = threading.Thread(target=foreign)
+    t.start()
+    try:
+        assert on.wait(timeout=60)
+        rep = m.warmup()
+        assert rep.errors == [] and rep.compiled == 1
+        got = m.transform(Table({"data": x}))[m.graph.output_names[0]]
+        assert (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32) == (True, True)
+        assert m._executor("cuda")._aot_hits == 1
+        np.testing.assert_array_equal(got, want)
+    finally:
+        done.set()
+        t.join(timeout=60)
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+        for ex in m._executor_cache.values():
+            ex.close()
+
+
+def test_a_forward_that_cannot_be_captured_reports_error_and_serves_eagerly(
+        card):
+    """A forward that reads a card value on the host (``.item()``, a sync)
+    cannot be captured: warmup reports ``error`` and the executor serves
+    the bucket eagerly, with the right rows."""
+    from synapseml_tpu_torch.runtime.executor import BatchedExecutor
+
+    def fn(x):
+        return (x * float(x.abs().max().item() >= 0.0),)
+
+    ex = BatchedExecutor(fn, min_bucket=8, max_bucket=8)
+    try:
+        rep = ex.warmup([((4,), np.float32)])
+        assert [e["status"] for e in rep.entries] == ["error"]
+        assert rep.errors
+        x = np.arange(32, dtype=np.float32).reshape(8, 4)
+        (y,) = ex.submit(x).result(timeout=60)
+        np.testing.assert_array_equal(y, x)
+        assert ex._aot_hits == 0
+    finally:
+        ex.close()

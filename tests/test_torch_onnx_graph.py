@@ -173,6 +173,42 @@ def test_bind_folds_batch_norm_once_and_casts_the_params(monkeypatch):
     assert len(folds) == 2 * n_bn          # apply folds in the call
 
 
+@pytest.mark.parametrize("cut", [0, 2])
+def test_intermediates_are_dropped_after_their_last_consumer(monkeypatch,
+                                                              cut):
+    """A forward drops each value after the last node that reads it (a
+    captured CUDA graph then holds the live peak, not every activation):
+    after a run no value a node wrote is left in the environment but the
+    graph's outputs, and the outputs, of the whole graph and of one
+    truncated to an intermediate, are the reference's within
+    rtol=atol=1e-5."""
+    from synapseml_tpu_torch.onnx import importer
+
+    envs = []
+    real = importer._run_nodes
+
+    def spy(lowered, env, drops):
+        real(lowered, env, drops)
+        envs.append(set(env))
+
+    monkeypatch.setattr(importer, "_run_nodes", spy)
+    blob = zoo.tiny_resnet(seed=2)
+    x = np.random.default_rng(2).standard_normal(
+        (2, 3, 32, 32)).astype(np.float32)
+    g = import_model(blob).truncated(cut)
+    ref = jax_import_model(blob).truncated(cut)
+    written = {o for *_, outs in g._nodes for o in outs if o}
+    got = g.bind(device="cpu")(torch.from_numpy(x))
+    assert len(envs) == 1 and envs[0] & written == set(g.output_names)
+    assert len(got) == len(ref.output_names) == 1
+    want = ref.bind()(x)
+    assert_parity(got, want, rtol=1e-5, atol=1e-5)
+    applied = g.apply({k: torch.from_numpy(v) for k, v in g.params.items()},
+                      torch.from_numpy(x))
+    assert envs[-1] & written == set(g.output_names)
+    torch.testing.assert_close(applied[0], got[0], rtol=1e-5, atol=1e-5)
+
+
 def test_float64_input_is_float32_on_the_device():
     """A float64 numpy input reaches the device as float32, as JAX's
     default 32-bit mode makes it."""

@@ -249,11 +249,10 @@ def test_input_norm_on_an_integer_input_is_the_references_type_error(
 
 @pytest.mark.parametrize("params, item", [
     ({"compute_dtype": "auto"}, "1d"),
-    ({"devices": "all"}, "1c"),
-    ({"devices": 1}, "1c"),
+    ({"devices": "all"}, "1e"),
+    ({"devices": 1}, "1e"),
     ({"tensor_parallel": 2}, "item 4"),
     ({"partition_rules": "megatron"}, "item 4"),
-    ({"compile_cache_dir": "/nonexistent"}, "1c"),
 ])
 def test_unported_params_raise_naming_their_roadmap_item(resnet, params,
                                                          item):
