@@ -179,6 +179,35 @@ before the last line:
    against eager, its replayed graph's host issue against its card time.
    K1 and K2 launch 0 times.
 
+26. image_stages_featurizer_resnet50 — ``ImageTransformer`` (resize to
+   240, center-crop 224, flip, blur 3x3, gaussian 5, threshold, BT.601
+   gray) over 64 256x256 images, each stage prefix held to the JAX
+   fixture (``tests/fixtures/image_explainer_fixtures.npz``) and to the
+   port's CPU run at atol 1e-3, ``to_uint8`` equal but at half ties;
+   ``ImageFeaturizer`` over ResNet-50 224 (``cut_output_layers=1``,
+   ``mini_batch_size=64``) in float32 and bf16 on 512 images of 256x256
+   (resized on the card by ``_prepare``): rows 0-7 against the JAX
+   fixture (float32 rtol=atol=1e-3, bf16 5% of the largest |value|), PPM
+   bytes bitwise the arrays, images/s eager and warm with ``_prepare``'s
+   host seconds beside the executor's stages (and ``_prepare``'s
+   milliseconds an image by part), the memory ``warmup()``
+   reserves, every bucket (8-64) warm bitwise eager; the texture dataset
+   (200 images a class at 224) featurised and a ``LightGBMClassifier(20
+   iterations, 7 leaves)`` head fitted on 300 (K1) and scored on 100 (K2):
+   held-out accuracy at least 0.85. The featurization launches K1 and K2
+   0 times;
+27. explainers — ``TabularSHAP``/``TabularLIME`` (100 samples) over the
+   Adult fixture model on 256 rows, one ``transform`` of 25,600
+   perturbed rows through K2: held to the JAX fixture within S · cond(A)
+   · eps32 · max|coef| a row, SHAP's efficiency within 1e-4; rows
+   explained/s; ``ImageLIME``/``ImageSHAP`` (196 superpixels, 512
+   samples) over ``ImageFeaturizer(cut_output_layers=0)`` on ResNet-50:
+   superpixels equal but at the fixture's ties, scores within 1e-3 of the
+   JAX scores, coefficients within the same bound once the exact image of
+   the score difference is taken off; images/s split into superpixels,
+   masking, sampling, scoring and the fit; one lasso fit (100 sweeps of
+   196 coordinates) timed and held to the CPU's.
+
 Between phases 3 and 4: prng_card_vs_cpu (the threefry key stream on the
 card equal to the CPU's, bitwise) and masked_index (K1 on a
 feature_fraction index equal to K1 on a fresh index of the moved bins and
@@ -2002,6 +2031,598 @@ def onnx_model_warmup_phase(smi, reset_counts, read_counts, eager) -> dict:
     return counts
 
 
+# -- 26-27. the image stages, ImageFeaturizer and the local explainers ----
+IMAGE_FIXTURE = os.path.join(FIXTURES, "image_explainer_fixtures.npz")
+STAGE_ATOL = 1e-3             # image stages, 0-255 scale, vs JAX and the CPU
+HALF_TIE = 1e-3               # to_uint8: JAX floats this near k + 0.5 differ
+FEATURE_TOL = 1e-3            # float32 features against the JAX fixture
+FEATURIZER_ROWS, FEATURIZER_BATCH = 512, 64
+PIPELINE_IMAGES = 64
+TRANSFER_BAR = 0.85           # examples/image_transfer_learning.py's gate
+EFFICIENCY_TOL = 1e-4         # KernelSHAP: sum(phi_1..D) = f(x) - f(null)
+FITTED_REL = 1e-4             # surrogate fitted values, of the largest score
+LASSO_ALPHA = 0.01
+EPS32 = float(np.finfo(np.float32).eps)
+ADULT_FEATURES = [f"f{j}" for j in range(14)]
+
+
+def ppm_bytes(img: np.ndarray) -> bytes:
+    return b"P6\n%d %d\n255\n" % (img.shape[1], img.shape[0]) + img.tobytes()
+
+
+class HostTimer:
+    """Host seconds spent inside wrapped callables, summed by name."""
+
+    def __init__(self):
+        self.s: dict = {}
+
+    def wrap(self, name, fn):
+        def timed(*args, **kw):
+            start = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.s[name] = self.s.get(name, 0.0) + (
+                    time.perf_counter() - start)
+        return timed
+
+    def patch(self, stack, obj, attr, name=None):
+        from unittest import mock
+        stack.enter_context(mock.patch.object(
+            obj, attr, self.wrap(name or attr, getattr(obj, attr))))
+
+
+def captured(stack, local) -> list:
+    """Record the arguments the explainers hand their surrogate solvers
+    (card tensors, kept without a copy), in call order."""
+    from unittest import mock
+    calls: list = []
+    for name in ("weighted_least_squares", "weighted_lasso",
+                 "shap_weighted_fit"):
+        fn = getattr(local, name)
+
+        def record(*args, _fn=fn, _name=name):
+            calls.append((_name, args))
+            return _fn(*args)
+        stack.enter_context(mock.patch.object(local, name, record))
+    return calls
+
+
+def f64(t) -> torch.Tensor:
+    return torch.as_tensor(t).detach().cpu().to(torch.float64)
+
+
+def solve_cond(states, weights, kind: str) -> np.ndarray:
+    """cond(A) a row of the system each surrogate solves (float64):
+    LIME's weighted-centered normal matrix (+1e-6 I), the lasso's
+    standardized Gram, SHAP's reduced matrix (+1e-8 I)."""
+    x, w = f64(states).numpy(), f64(weights).numpy()
+    if kind == "shap":
+        x = x[..., :-1] - x[..., -1:]
+        a = np.swapaxes(x, -1, -2) @ (x * w[..., None]) \
+            + 1e-8 * np.eye(x.shape[-1])
+        return np.linalg.cond(a)
+    w = w / (w.sum(-1, keepdims=True) + 1e-12)
+    xc = x - (x * w[..., None]).sum(-2, keepdims=True)
+    if kind == "lasso":
+        xc = xc / (np.sqrt((xc * xc * w[..., None]).sum(-2, keepdims=True))
+                   + 1e-12)
+        return np.linalg.cond(np.swapaxes(xc, -1, -2) @ (xc * w[..., None]))
+    return np.linalg.cond(np.swapaxes(xc, -1, -2) @ (xc * w[..., None])
+                          + 1e-6 * np.eye(x.shape[-1]))
+
+
+def held_under_cond(got, want, cond, samples, shift=None) -> dict:
+    """Row r of ``got - want - shift`` within S · cond(A_r) · eps32 ·
+    max|want_r|: the worst-case float32 error of summing S samples into
+    the normal equations, amplified by the system's condition number.
+    ``shift`` is the exact (float64) change the surrogate's linear map
+    gives the difference of the scores the two fits saw."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    resid = got - want - (0.0 if shift is None else np.asarray(shift))
+    err = np.abs(resid).reshape(len(got), -1).max(1)
+    tol = samples * np.asarray(cond) * EPS32 \
+        * np.abs(want).reshape(len(want), -1).max(1)
+    return {"cond_max": float(np.max(cond)),
+            "max_abs_diff": float(np.abs(got - want).max()),
+            "max_abs_err": float(err.max()),
+            "tolerance_min": float(tol.min()),
+            "within": bool((err <= tol).all())}
+
+
+def fitted_gap(got, want, shift, states, weights, kind: str,
+               target) -> dict:
+    """How far the surrogate's fitted values move between the two fits,
+    once ``shift`` (the exact image of the score difference) is taken off:
+    ``phi_0 + z · phi`` for SHAP, ``(x - weighted mean) · coef`` for LIME
+    (the scores' weighted mean cancels). Measured in the norm the fit
+    minimises, the weighted RMS over the samples: there the fitted values
+    are well determined where the coefficients are not (KernelSHAP's
+    reduced system has cond ~1e6 at 196 features; a sample of tiny weight
+    may move far). Held within 1e-4 of the weighted RMS of ``target``, the
+    scores about the fit's reference (f(null) for SHAP, their weighted
+    mean for LIME)."""
+    x = f64(states).numpy()
+    w = f64(weights).numpy()
+    w = w / (w.sum(-1, keepdims=True) + 1e-12)
+    d = np.asarray(got, np.float64) - np.asarray(want, np.float64) - shift
+    if kind == "shap":
+        gap = d[:, :1] + (x @ d[:, 1:, None])[..., 0]
+    else:
+        xc = x - (x * w[..., None]).sum(-2, keepdims=True)
+        gap = (xc @ d[..., None])[..., 0]
+    gap_w = np.sqrt((w * gap ** 2).sum(-1))
+    scale_w = np.sqrt((w * np.asarray(target, np.float64) ** 2).sum(-1))
+    return {"weighted_rms_gap": gap_w.tolist(),
+            "weighted_rms_target": scale_w.tolist(),
+            "max_abs_gap_unweighted": float(np.abs(gap).max()),
+            "within": bool((gap_w <= FITTED_REL * scale_w).all())}
+
+
+def prepare_split(images, size: int) -> dict:
+    """Where ``ImageFeaturizer._prepare``'s time goes, milliseconds an
+    image (host clock, each part synchronised): the float32 conversion
+    on the host, the two resize weight matrices built on the card, the
+    copy in, the two products and the copy back."""
+    from synapseml_tpu_torch import device as device_policy
+    from synapseml_tpu_torch.image import ops
+
+    parts = dict.fromkeys(("to_float32", "weights", "copy_in", "products",
+                           "copy_out"), 0.0)
+    dev = device_policy.resolve("cuda")
+    for img in images:
+        t0 = time.perf_counter()
+        arr = np.asarray(img, np.float32)
+        t1 = time.perf_counter()
+        ops.resize_weights(arr.shape[0], size, dev)
+        ops.resize_weights(arr.shape[1], size, dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        x = torch.from_numpy(arr).to(dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        y = ops.resize(x, height=size, width=size)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        y.cpu().numpy()
+        t5 = time.perf_counter()
+        for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+                                 t5 - t4)):
+            parts[k] += dt * 1e3 / len(images)
+    return parts
+
+
+def image_phase(smi, reset_counts, read_counts) -> dict:
+    """Phase 26: the image stages and ``ImageFeaturizer`` on the card.
+
+    ``ImageTransformer`` over 64 256x256 uint8 images (8 stored in the
+    fixture, 56 seeded): resize to 240, center-crop 224, flip, blur 3x3,
+    gaussian 5, threshold (trunc at 200), BT.601 gray, one prefix at a
+    time, each held to the JAX fixture (every 8th row and column of the
+    stored 8) and to the port's CPU run of all 64 at atol 1e-3; the
+    whole pipeline with ``to_uint8`` equal to the fixture except within
+    1e-3 of a half. ``ImageFeaturizer`` over ResNet-50 224 (seed 0,
+    ``cut_output_layers=1``, ``mini_batch_size=64``) in float32 and bf16
+    on 512 images of 256x256 (``_prepare`` resizes each on the card):
+    rows 0-7 against the JAX fixture (float32 rtol=atol=1e-3, bf16 5% of
+    the float32 largest |value|), the same 8 as PPM bytes bitwise the
+    arrays; images/s eager and warm, ``_prepare``'s host seconds beside
+    the executor's stage, dispatch and drain seconds, the memory warmup
+    reserves; after ``warmup()`` every bucket (8, 16, 32, 64) bitwise its
+    eager run; ``_prepare``'s milliseconds an image by part
+    (:func:`prepare_split`). Then transfer learning: the texture dataset of
+    ``examples/image_transfer_learning.py`` at 224, 200 images a class,
+    featurised, the port's ``LightGBMClassifier(20 iterations, 7 leaves,
+    min_data_in_leaf=5)`` fitted on 300 and scored on 100: held-out
+    accuracy beside the JAX package's and the example's 0.85 bar, K1 and
+    K2 launches. Returns the launch counts of the featurization (none
+    expected), the head's fit and its scoring."""
+    import make_image_explainer_fixtures as imfx
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.gbdt.estimators import LightGBMClassifier
+    from synapseml_tpu_torch.image import ImageFeaturizer, ImageTransformer
+    from synapseml_tpu_torch.onnx import zoo
+    from synapseml_tpu_torch.runtime import telemetry as tm
+
+    phase_start = time.perf_counter()
+    fx = np.load(IMAGE_FIXTURE)
+    pipeline = tuple(json.loads(str(fx["pipeline"])))
+    stored = fx["images"]
+    extra = np.random.default_rng(1).integers(
+        0, 256, (FEATURIZER_ROWS - len(stored), 256, 256, 3), dtype=np.uint8)
+    pipe = Table({"image": imfx.obj_col(list(stored) + list(
+        extra[:PIPELINE_IMAGES - len(stored)]))})
+
+    # -- ImageTransformer: each stage prefix on the card, JAX and the CPU
+    stages = []
+    for k in range(len(pipeline)):
+        t = ImageTransformer(input_col="image", output_col="out",
+                             stages=pipeline[:k + 1])
+        card = np.stack(list(t.transform(pipe, "cuda")["out"]))
+        cpu = np.stack(list(t.transform(pipe, "cpu")["out"]))
+        stages.append({
+            "action": pipeline[k]["action"], "shape": list(card.shape[1:]),
+            "max_abs_err_vs_jax": float(np.abs(
+                card[:8, ::8, ::8] - fx[f"stage_{k}"]).max()),
+            "max_abs_err_vs_cpu": float(np.abs(card - cpu).max())})
+    u8 = ImageTransformer(input_col="image", output_col="out",
+                          stages=pipeline, to_uint8=True)
+    pipe_s, u8_out = wall_median(
+        lambda: np.stack(list(u8.transform(pipe, "cuda")["out"])))
+    jax_float = fx[f"stage_{len(pipeline) - 1}"]
+    ties = np.abs(jax_float - np.floor(jax_float) - 0.5) < HALF_TIE
+    u8_got = u8_out[:8, ::8, ::8].astype(np.int64)
+    u8_want = fx["pipeline_uint8"].astype(np.int64)
+    u8_ok = bool(np.array_equal(u8_got[~ties], u8_want[~ties])
+                 and (np.abs(u8_got - u8_want)[ties] <= 1).all())
+
+    # -- ImageFeaturizer over ResNet-50 224, cut 1, float32 and bf16 -----
+    blob = zoo.resnet50(num_classes=1000, image_size=224, seed=0)
+    col = imfx.obj_col(list(stored) + list(extra))
+    table = Table({"image": col})
+    small = {n: Table({"image": col[:n]})
+             for n in (8, 16, 24)}          # buckets 8, 16 and 32
+    span = float(np.abs(fx["features_f32"]).max())
+    reset_counts()
+    feats, featurizer = {}, {}
+    for dtype, key in (("float32", "features_f32"),
+                       ("bfloat16", "features_bf16")):
+        feat = ImageFeaturizer(model_bytes=blob, cut_output_layers=1,
+                               input_col="image", output_col="features",
+                               compute_dtype=dtype,
+                               mini_batch_size=FEATURIZER_BATCH)
+        timer = HostTimer()
+        feat._prepare = timer.wrap("prepare", feat._prepare)
+
+        def run(t, feat=feat):
+            return np.asarray(feat.transform(t, "cuda")["features"])
+        run(small[8])                       # lazy init, cuDNN plans
+        runs = {}
+        for mode in ("eager", "warm"):
+            if mode == "warm":
+                torch.cuda.synchronize()
+                reserved = torch.cuda.memory_reserved()
+                start = time.perf_counter()
+                report = feat.warmup(device="cuda")
+                warmup_s = time.perf_counter() - start
+                reserved_after = torch.cuda.memory_reserved()
+            tm.reset()
+            timer.s.clear()
+            start = time.perf_counter()
+            out = run(table)
+            seconds = time.perf_counter() - start
+            runs[mode] = {"out": out, "seconds": seconds,
+                          "images_per_s": FEATURIZER_ROWS / seconds,
+                          "prepare_host_s": timer.s.get("prepare", 0.0),
+                          "executor": executor_stages(tm),
+                          "aot": aot_counts(tm),
+                          "small": {n: run(t) for n, t in small.items()}}
+        eager, warm = runs["eager"], runs["warm"]
+        binary = run(Table({"image": imfx.obj_col([ppm_bytes(im)
+                                              for im in stored])}))
+        err = float(np.abs(eager["out"][:8] - fx[key]).max())
+        feats[dtype] = eager["out"]
+        featurizer[dtype] = {
+            "shape": list(eager["out"].shape),
+            "finite": bool(np.isfinite(eager["out"]).all()),
+            "rows_0_7_max_abs_err_vs_jax": err,
+            "rows_0_7_vs_jax": bool(
+                np.allclose(eager["out"][:8], fx[key], rtol=FEATURE_TOL,
+                            atol=FEATURE_TOL) if dtype == "float32"
+                else err <= BF16_SPAN_SHARE * span),
+            "ppm_bytes_bitwise_arrays": bool(np.array_equal(
+                binary, warm["small"][8])),
+            "warm_bitwise_eager": {
+                "512": bool(np.array_equal(warm["out"], eager["out"])),
+                **{str(n): bool(np.array_equal(warm["small"][n],
+                                               eager["small"][n]))
+                   for n in small}},
+            "warmup": {"buckets": [e["bucket"] for e in report.entries],
+                       "status": [e.get("status") for e in report.entries],
+                       "errors": report.errors, "seconds": warmup_s,
+                       "reserved_gb_before": reserved / 1e9,
+                       "reserved_gb_after": reserved_after / 1e9},
+            **{mode: {k: v for k, v in r.items()
+                      if k not in ("out", "small")}
+               for mode, r in runs.items()}}
+        del feat, runs, eager, warm
+        torch.cuda.empty_cache()
+    featurize_counts = read_counts()
+    split = prepare_split(list(stored) + list(extra[:56]), 224)
+
+    # -- transfer learning: texture features -> LightGBM head (K1, K2) --
+    tex, labels = imfx.texture_dataset(imfx.TRANSFER["n_per_class"],
+                                       imfx.TRANSFER["size"])
+    feat = ImageFeaturizer(model_bytes=blob, cut_output_layers=1,
+                           input_col="image", output_col="features",
+                           mini_batch_size=FEATURIZER_BATCH)
+    reset_counts()
+    start = time.perf_counter()
+    tex_feats = np.asarray(feat.transform(Table({"image": tex}),
+                                          "cuda")["features"])
+    tex_s = time.perf_counter() - start
+    featurize_counts = {k: featurize_counts[k] + v
+                        for k, v in read_counts().items()}
+    n_train, n_test = imfx.TRANSFER["n_train"], imfx.TRANSFER["n_test"]
+    reset_counts()
+    start = time.perf_counter()
+    head = LightGBMClassifier(**imfx.HEAD).fit(Table({
+        "features": tex_feats[:n_train],
+        "label": labels[:n_train].astype(np.float64)}), device="cuda")
+    fit_s = time.perf_counter() - start
+    fit_counts = read_counts()
+    reset_counts()
+    pred = np.asarray(head.transform(Table({
+        "features": tex_feats[n_train:n_train + n_test]}),
+        "cuda")["prediction"])
+    score_counts = read_counts()
+    accuracy = float((pred == labels[n_train:n_train + n_test]).mean())
+    del feat
+    torch.cuda.empty_cache()
+
+    emit({"phase": "image_stages_featurizer_resnet50",
+          "pipeline": [s["action"] for s in pipeline],
+          "stages": stages, "to_uint8_vs_jax": u8_ok,
+          "to_uint8_half_ties_excluded": int(ties.sum()),
+          "pipeline_images": PIPELINE_IMAGES,
+          "pipeline_uint8_images_per_s": PIPELINE_IMAGES / pipe_s,
+          "featurizer": featurizer,
+          "prepare_ms_per_image": split,
+          "featurize_launches": featurize_counts,
+          "transfer": {"images": len(tex), "featurize_s": tex_s,
+                       "head": imfx.HEAD, "fit_s": fit_s,
+                       "train": n_train, "test": n_test,
+                       "accuracy": accuracy,
+                       "accuracy_jax": float(fx["transfer_accuracy"]),
+                       "bar": TRANSFER_BAR, "fit_launches": fit_counts,
+                       "score_launches": score_counts},
+          "phase_s": time.perf_counter() - phase_start, "nvidia_smi": smi})
+    for s in stages:
+        check(s["max_abs_err_vs_jax"] <= STAGE_ATOL
+              and s["max_abs_err_vs_cpu"] <= STAGE_ATOL,
+              f"image stage {s['action']} off: {s}")
+    check(u8_ok, "to_uint8 pipeline differs from the JAX fixture")
+    for dtype, f in featurizer.items():
+        check(f["shape"] == [FEATURIZER_ROWS, 2048] and f["finite"]
+              and f["rows_0_7_vs_jax"],
+              f"{dtype} features off the JAX fixture: "
+              f"{f['rows_0_7_max_abs_err_vs_jax']}")
+        check(f["ppm_bytes_bitwise_arrays"],
+              f"{dtype} PPM bytes featurize other than their arrays")
+        w = f["warmup"]
+        check(w["buckets"] == [8, 16, 32, 64] and not w["errors"]
+              and w["status"] == ["compiled"] * 4,
+              f"{dtype} featurizer warmup: {w}")
+        check(all(f["warm_bitwise_eager"].values()),
+              f"{dtype} warm buckets off eager: {f['warm_bitwise_eager']}")
+        check(f["warm"]["aot"]["hits"] > 0 and f["warm"]["aot"]["misses"]
+              == 0, f"{dtype} warm featurizer not replayed: "
+              f"{f['warm']['aot']}")
+    check(featurize_counts["forest_traverse"] == 0
+          and featurize_counts["histogram"] == 0,
+          f"the ONNX featurization launched {featurize_counts}")
+    check(accuracy >= TRANSFER_BAR,
+          f"transfer accuracy {accuracy} under {TRANSFER_BAR}")
+    check(fit_counts["histogram"] > 0 and score_counts["forest_traverse"] > 0,
+          f"the transfer head ran without its kernels: fit {fit_counts}, "
+          f"score {score_counts}")
+    return {"featurize": featurize_counts, "head_fit": fit_counts,
+            "head_score": score_counts}
+
+
+def explainer_phase(smi, reset_counts, read_counts) -> dict:
+    """Phase 27: the local explainers on the card.
+
+    ``TabularSHAP`` and ``TabularLIME`` (100 samples, seed 0, class 1)
+    over the 100-tree Adult fixture model on 256 Adult rows (25,600
+    perturbed rows scored in one ``transform``, through K2): held to the
+    JAX fixture within S · cond(A) · eps32 · max|coef| a row (A the system
+    the row's surrogate solves, its condition number computed here), SHAP's
+    efficiency within 1e-4 a row; K2's launches and rows explained/s.
+    ``ImageLIME`` and ``ImageSHAP`` (``cell_size=16``, 196 superpixels,
+    512 samples) over ``ImageFeaturizer(cut_output_layers=0)`` on ResNet-50
+    224 (float32) on the center crops of the fixture's images 0 and 1:
+    superpixels equal to the fixture's but at the pixels the JAX centers
+    place within 1e-5 of a tie; the scores the surrogates fit within the
+    featurizer's float32 gate of the JAX scores; coefficients within
+    S · cond(A) · eps32 · max|coef| of the JAX fixture once the exact
+    (float64) image of the score difference under the surrogate's linear
+    map is taken off; explained images/s split into superpixels, host
+    masking, sampling, scoring and the surrogate fit. Then one
+    ``ImageLIME(regularization=0.01)`` fit alone: the lasso's 100 sweeps
+    of 196 coordinate updates timed on the card and held to the CPU's.
+    Returns the kernels' launch counts of each explainer."""
+    import make_image_explainer_fixtures as imfx
+    from contextlib import ExitStack
+    import synapseml_tpu_torch.explainers.local as local
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.explainers import (ImageLIME, ImageSHAP,
+                                                TabularLIME, TabularSHAP,
+                                                samplers, superpixel)
+    from synapseml_tpu_torch.explainers.surrogate import (
+        shap_weighted_fit, weighted_lasso, weighted_least_squares)
+    from synapseml_tpu_torch.gbdt.estimators import \
+        LightGBMClassificationModel
+    from synapseml_tpu_torch.image import ImageFeaturizer
+    from synapseml_tpu_torch.onnx import zoo
+
+    phase_start = time.perf_counter()
+    fx = np.load(IMAGE_FIXTURE)
+    model = LightGBMClassificationModel.load_native_model(
+        FIXTURE, feature_cols=ADULT_FEATURES)
+    rows = np.load(FIXTURE_IO)["x"][:imfx.TABULAR_ROWS]
+    table = Table(imfx.adult_columns(rows))
+    f_x = np.asarray(model.transform(table, "cuda")["probability"])[:, 1]
+    # the coalition TabularSHAP presents as x: x * 1 + background * 0,
+    # NaN wherever a column's mean is (the reference's background stats
+    # take no NaN out, so 0 * NaN replaces the row's value there)
+    on = samplers.apply_mask_background(
+        rows, np.ones((len(rows), 1, rows.shape[1]), np.float32),
+        rows.mean(axis=0))[:, 0]
+    f_on = np.asarray(model.transform(Table(imfx.adult_columns(on)),
+                                      "cuda")["probability"])[:, 1]
+
+    def run(ex, tbl, timer=None):
+        """One explained table with the solver inputs recorded, or (with
+        ``timer``) timed by part: sampling, superpixels, host masking,
+        scoring and the surrogate fit."""
+        with ExitStack() as stack:
+            calls = captured(stack, local)
+            if timer is not None:
+                for name in ("kernel_shap_samples", "lime_state_samples",
+                             "tabular_value_samples"):
+                    timer.patch(stack, samplers, name, "sampling")
+                timer.patch(stack, local, "superpixels")
+                timer.patch(stack, superpixel.SuperpixelData,
+                            "masked_image", "masking")
+                timer.patch(stack, ex.model, "transform", "scoring")
+                for name in ("_fit_surrogate", "_fit_surrogate_shap"):
+                    if hasattr(ex, name):
+                        timer.patch(stack, ex, name, "fit")
+            start = time.perf_counter()
+            out = ex.transform(tbl, "cuda")
+            seconds = time.perf_counter() - start
+        return out, calls, seconds
+
+    tabular, counts = {}, {}
+    for cls, key in ((TabularSHAP, "tabular_shap"),
+                     (TabularLIME, "tabular_lime")):
+        ex = cls(model=model, input_cols=ADULT_FEATURES,
+                 target_col="probability", target_classes=(1,),
+                 num_samples=imfx.TABULAR_SAMPLES, seed=0)
+        run(ex, table.slice(0, 8))
+        reset_counts()
+        out, calls, _ = run(ex, table)
+        counts[cls.__name__] = read_counts()
+        timer = HostTimer()
+        _, _, seconds = run(ex, table, timer)
+        got = np.asarray(out["output"])[:, 0]
+        (kind, args), = calls
+        kind = "shap" if kind == "shap_weighted_fit" else "ls"
+        cond = solve_cond(args[0], args[2], kind)
+        res = {"shape": list(np.asarray(out["output"]).shape),
+               "vs_jax": held_under_cond(got, fx[key][:, 0], cond,
+                                         imfx.TABULAR_SAMPLES),
+               "rows_explained_per_s": imfx.TABULAR_ROWS / seconds,
+               "seconds": seconds, "host_split_s": timer.s,
+               "launches": counts[cls.__name__]}
+        if kind == "shap":
+            res["efficiency_max_err"] = float(np.abs(
+                got[:, 1:].sum(1) - (f_on - got[:, 0])).max())
+            res["nan_background_columns"] = int(np.isnan(
+                rows.mean(axis=0)).sum())
+            res["all_on_vs_row_max_abs"] = float(np.abs(f_on - f_x).max())
+        tabular[cls.__name__] = res
+
+    # -- ImageLIME / ImageSHAP over ResNet-50 224 logits ----------------
+    blob = zoo.resnet50(num_classes=1000, image_size=224, seed=0)
+    logits = ImageFeaturizer(model_bytes=blob, cut_output_layers=0,
+                             input_col="image", output_col="logits",
+                             mini_batch_size=FEATURIZER_BATCH)
+    crops = Table({"image": imfx.obj_col([imfx.center_crop(im)
+                                     for im in fx["images"][:2]])})
+    images, lasso_in = {}, None
+    for cls, key in ((ImageLIME, "image_lime"), (ImageSHAP, "image_shap")):
+        ex = cls(model=logits, input_col="image", target_col="logits",
+                 target_classes=(0,), num_samples=imfx.IMAGE_SAMPLES, seed=0,
+                 cell_size=imfx.CELL)
+        reset_counts()
+        out, calls, _ = run(ex, crops)
+        counts[cls.__name__] = read_counts()
+        timer = HostTimer()
+        _, _, seconds = run(ex, crops, timer)
+        sp = np.stack(list(out["superpixels"]))
+        ties = fx["superpixel_ties"]
+        got = np.asarray(out["output"])[:, 0]
+        want = fx[key][:, 0]
+        (name, args), = calls
+        y = f64(args[1])
+        y_jax = torch.from_numpy(fx[key + "_y"].astype(np.float64))
+        st, w = f64(args[0]), f64(args[2])
+        if name == "shap_weighted_fit":
+            fnull = f64(args[3])
+            d_fnull = fnull - float(fx["image_shap_fnull"][0])
+            shift = shap_weighted_fit(st, y - y_jax, w, d_fnull,
+                                      (y - y_jax)[:, 0]).numpy()
+            kind = "shap"
+            target = (y_jax - float(fx["image_shap_fnull"][0])).numpy()
+        else:
+            shift = weighted_least_squares(st, y - y_jax, w)[0].numpy()
+            kind = "ls"
+            wn = (w / w.sum(-1, keepdim=True)).numpy()
+            target = y_jax.numpy() - (wn * y_jax.numpy()).sum(
+                -1, keepdims=True)
+            lasso_in = args[:3]
+        cond = solve_cond(st, w, kind)
+        res = {"superpixels": [int(s.max()) + 1 for s in sp],
+               "superpixels_vs_jax": bool(np.array_equal(sp[~ties],
+                                                         fx["superpixels"]
+                                                         [~ties])),
+               "superpixel_ties_excluded": int(ties.sum()),
+               "scores_max_abs_err_vs_jax": float((y - y_jax).abs().max()),
+               "scores_vs_jax": bool(np.allclose(
+                   y.numpy(), y_jax.numpy(), rtol=FEATURE_TOL,
+                   atol=FEATURE_TOL)),
+               "vs_jax": held_under_cond(got, want, cond,
+                                         imfx.IMAGE_SAMPLES, shift),
+               "fitted_vs_jax": fitted_gap(
+                   got, want, shift, st, w, kind, target),
+               "images_explained_per_s": len(sp) / seconds,
+               "seconds": seconds, "host_split_s": timer.s,
+               "launches": counts[cls.__name__]}
+        if name == "shap_weighted_fit":
+            res["efficiency_max_err"] = float(np.abs(
+                got[:, 1:].sum(1) - (y[:, 0] - fnull).numpy()).max())
+        images[cls.__name__] = res
+    del logits
+    torch.cuda.empty_cache()
+
+    # -- one lasso fit alone: 100 sweeps x 196 coordinates --------------
+    st, y, w = lasso_in
+    weighted_lasso(st[:, :, :8], y, w, LASSO_ALPHA, iters=2)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    card_coef, _ = weighted_lasso(st, y, w, LASSO_ALPHA)
+    torch.cuda.synchronize()
+    lasso_s = time.perf_counter() - start
+    cpu_coef, _ = weighted_lasso(st.cpu(), y.cpu(), w.cpu(), LASSO_ALPHA)
+    lasso = {"rows": int(st.shape[0]), "samples": int(st.shape[1]),
+             "coordinates": int(st.shape[2]), "sweeps": 100,
+             "alpha": LASSO_ALPHA, "seconds": lasso_s,
+             "us_per_coordinate_update": lasso_s / (100 * st.shape[2]) * 1e6,
+             "nonzero": int((card_coef != 0).sum()),
+             "card_vs_cpu": held_under_cond(
+                 card_coef.cpu().numpy(), cpu_coef.numpy(),
+                 solve_cond(st, w, "lasso"), int(st.shape[1]))}
+
+    emit({"phase": "explainers", "tabular": tabular, "images": images,
+          "lasso_fit": lasso,
+          "phase_s": time.perf_counter() - phase_start, "nvidia_smi": smi})
+    for name, r in tabular.items():
+        check(r["vs_jax"]["within"], f"{name} off the JAX fixture: "
+              f"{r['vs_jax']}")
+        check(r["launches"]["forest_traverse"] >= 1,
+              f"{name} scored without K2: {r['launches']}")
+    check(tabular["TabularSHAP"]["efficiency_max_err"] <= EFFICIENCY_TOL,
+          f"TabularSHAP efficiency off by "
+          f"{tabular['TabularSHAP']['efficiency_max_err']}")
+    for name, r in images.items():
+        check(r["superpixels_vs_jax"], f"{name} superpixels off the fixture")
+        check(r["scores_vs_jax"], f"{name} scores off the JAX scores: "
+              f"{r['scores_max_abs_err_vs_jax']}")
+        check(r["vs_jax"]["within"] and r["fitted_vs_jax"]["within"],
+              f"{name} off the JAX fixture: {r['vs_jax']} "
+              f"{r['fitted_vs_jax']}")
+        check(not any(r["launches"].values()),
+              f"{name} over the featurizer launched {r['launches']}")
+    check(images["ImageSHAP"]["efficiency_max_err"] <= EFFICIENCY_TOL,
+          f"ImageSHAP efficiency off by "
+          f"{images['ImageSHAP']['efficiency_max_err']}")
+    check(lasso["card_vs_cpu"]["within"],
+          f"the lasso on the card is off the CPU's: {lasso['card_vs_cpu']}")
+    return counts
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2959,6 +3580,12 @@ def main() -> int:
                                           eager_model)
     del eager_model
 
+    # -- 26. image stages, ImageFeaturizer, the transfer head -------------
+    image_counts = image_phase(smi, reset_counts, read_counts)
+
+    # -- 27. local explainers over K2 and over ResNet-50 ------------------
+    explainer_counts = explainer_phase(smi, reset_counts, read_counts)
+
     emit({"kernels": [{
         "name": "forest_traverse", "route": "cuda",
         "source": "synapseml_tpu_torch/csrc/forest_traverse.cu",
@@ -2973,6 +3600,11 @@ def main() -> int:
             k: c["forest_traverse"] for k, c in transformer_counts.items()},
         "launches_onnx_model_path": model_counts["forest_traverse"],
         "launches_onnx_warmup_path": warm_counts["forest_traverse"],
+        "launches_image_featurizer":
+        image_counts["featurize"]["forest_traverse"],
+        "launches_image_head": image_counts["head_score"]["forest_traverse"],
+        "launches_explainer_path": {
+            k: c["forest_traverse"] for k, c in explainer_counts.items()},
         "max_abs_err": max_err, "bitwise": True,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
@@ -2990,6 +3622,10 @@ def main() -> int:
             k: c["histogram"] for k, c in transformer_counts.items()},
         "launches_onnx_model_path": model_counts["histogram"],
         "launches_onnx_warmup_path": warm_counts["histogram"],
+        "launches_image_featurizer": image_counts["featurize"]["histogram"],
+        "launches_image_head_fit": image_counts["head_fit"]["histogram"],
+        "launches_explainer_path": {
+            k: c["histogram"] for k, c in explainer_counts.items()},
         "max_abs_err": k1_max_err,
         "bitwise": True, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],

@@ -1050,3 +1050,279 @@ def test_a_forward_that_cannot_be_captured_reports_error_and_serves_eagerly(
         assert ex._aot_hits == 0
     finally:
         ex.close()
+
+
+# -- the image stages, ImageFeaturizer and the explainers -------------------
+
+def _uint8_images(shapes, seed=0):
+    rng = np.random.default_rng(seed)
+    col = np.empty(len(shapes), dtype=object)
+    for i, shape in enumerate(shapes):
+        col[i] = rng.integers(0, 256, shape).astype(np.uint8)
+    return col
+
+
+def test_image_transformer_on_the_card_equals_the_cpu(card):
+    """Every stage over two shapes of image on the card within 1e-3 (0-255
+    scale) of the CPU run; ``to_uint8`` equal but where the CPU float lies
+    within 1e-3 of a half."""
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.image import ImageTransformer, ops
+
+    stages = ({"action": "resize", "height": 30, "width": 36},
+              {"action": "centercrop", "height": 24, "width": 24},
+              {"action": "flip", "flipCode": ops.FLIP_BOTH},
+              {"action": "blur", "height": 4, "width": 3},
+              {"action": "gaussiankernel", "apertureSize": 5, "sigma": 0.0},
+              {"action": "threshold", "threshold": 180.0, "maxVal": 255.0,
+               "type": ops.THRESH_TRUNC},
+              {"action": "colorformat", "format": ops.COLOR_RGB2GRAY})
+    table = Table({"image": _uint8_images([(40, 48, 3)] * 3
+                                          + [(27, 31, 3)] * 2)})
+    floats = ImageTransformer(input_col="image", output_col="o",
+                              stages=stages)
+    for a, b in zip(floats.transform(table, "cuda")["o"],
+                    floats.transform(table, "cpu")["o"]):
+        np.testing.assert_allclose(a, b, atol=1e-3, rtol=0)
+    u8 = ImageTransformer(input_col="image", output_col="o", stages=stages,
+                          to_uint8=True)
+    for a, b, f in zip(u8.transform(table, "cuda")["o"],
+                       u8.transform(table, "cpu")["o"],
+                       floats.transform(table, "cpu")["o"]):
+        tie = np.abs(f - np.floor(f) - 0.5) < 1e-3
+        np.testing.assert_array_equal(a[~tie], b[~tie])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_featurizer_on_the_card_equals_the_cpu(card, dtype):
+    """``zoo.tiny_resnet`` features (cut 1) of 40x36 images resized on the
+    card: float32 within rtol = atol = 1e-4 of the CPU's, bf16 within 5%
+    of the CPU float32's largest |value|."""
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.image import ImageFeaturizer
+    from synapseml_tpu_torch.onnx import zoo
+
+    feat = ImageFeaturizer(model_bytes=zoo.tiny_resnet(image_size=32),
+                           image_size=32, input_col="image",
+                           output_col="f", compute_dtype=dtype,
+                           mini_batch_size=16)
+    table = Table({"image": _uint8_images([(40, 36, 3)] * 19
+                                          + [(32, 32, 1)])})
+    got = feat.transform(table, "cuda")["f"]
+    ref = feat.copy(compute_dtype="float32").transform(table, "cpu")["f"]
+    assert got.shape == (20, 64) and got.dtype == np.float32
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+    else:
+        assert _bf16_rule(got, ref)
+
+
+def test_featurizer_warm_buckets_are_bitwise_eager_on_the_card(card):
+    """After ``warmup()`` (buckets 8 and 16 captured as CUDA graphs)
+    tables of 8, 16 and 21 rows score bitwise as before it, replayed."""
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.image import ImageFeaturizer
+    from synapseml_tpu_torch.onnx import zoo
+
+    feat = ImageFeaturizer(model_bytes=zoo.tiny_resnet(image_size=32),
+                           image_size=32, input_col="image",
+                           mini_batch_size=16)
+    tables = [Table({"image": _uint8_images([(32, 32, 3)] * n, seed=n)})
+              for n in (8, 16, 21)]
+    eager = [feat.transform(t, "cuda")[feat.output_col] for t in tables]
+    report = feat.warmup(device="cuda")
+    assert [e["status"] for e in report.entries] == ["compiled"] * 2
+    ex = feat._pieces("cuda")
+    hits = ex._aot_hits
+    for t, want in zip(tables, eager):
+        np.testing.assert_array_equal(
+            feat.transform(t, "cuda")[feat.output_col], want)
+    assert ex._aot_hits - hits == 4
+
+
+def test_superpixels_on_the_card_equal_the_fixture_but_at_ties(card):
+    """The 224x224 crops of ``image_explainer_fixtures.npz``: the card's
+    superpixels equal the JAX package's except at the pixels its centers
+    place within 1e-5 of a tie (stored in the fixture)."""
+    import os
+    import sys
+
+    from synapseml_tpu_torch.explainers import superpixels
+
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "fixtures")
+    sys.path.insert(0, fixtures)
+    import make_image_explainer_fixtures as imfx
+
+    fx = np.load(os.path.join(fixtures, "image_explainer_fixtures.npz"))
+    for i in range(2):
+        sp = superpixels(imfx.center_crop(fx["images"][i]), imfx.CELL,
+                         device="cuda")
+        ties = fx["superpixel_ties"][i]
+        assert sp.num_clusters == int(fx["superpixels"][i].max()) + 1
+        np.testing.assert_array_equal(sp.assignment[~ties],
+                                      fx["superpixels"][i][~ties])
+
+
+def _solver_inputs(monkeypatch):
+    """Record the inputs the explainers hand their surrogate solvers."""
+    import synapseml_tpu_torch.explainers.local as local
+
+    calls = []
+    for name in ("weighted_least_squares", "weighted_lasso",
+                 "shap_weighted_fit"):
+        fn = getattr(local, name)
+
+        def record(*args, _fn=fn, _name=name):
+            calls.append((_name, [a.cpu().numpy()
+                                  if isinstance(a, torch.Tensor) else a
+                                  for a in args]))
+            return _fn(*args)
+        monkeypatch.setattr(local, name, record)
+    return calls
+
+
+def _cond(name, x, w):
+    x, w = x.astype(np.float64), w.astype(np.float64)
+    if name == "shap_weighted_fit":
+        x = x[..., :-1] - x[..., -1:]
+        return np.linalg.cond(np.swapaxes(x, -1, -2) @ (x * w[..., None])
+                              + 1e-8 * np.eye(x.shape[-1]))
+    w = w / w.sum(-1, keepdims=True)
+    x = x - (x * w[..., None]).sum(-2, keepdims=True)
+    if name == "weighted_lasso":
+        x = x / (np.sqrt((x * x * w[..., None]).sum(-2, keepdims=True))
+                 + 1e-12)
+        return np.linalg.cond(np.swapaxes(x, -1, -2) @ (x * w[..., None]))
+    return np.linalg.cond(np.swapaxes(x, -1, -2) @ (x * w[..., None])
+                          + 1e-6 * np.eye(x.shape[-1]))
+
+
+@pytest.mark.parametrize("name", ["VectorLIME", "VectorSHAP", "TabularLIME",
+                                  "TabularSHAP", "TextLIME", "TextSHAP",
+                                  "ImageLIME", "ImageSHAP"])
+def test_explainers_on_the_card_equal_the_cpu(card, name, monkeypatch):
+    """Each explainer over a numpy scorer on the card and on the CPU: the
+    same solver inputs, bitwise; coefficients within S · cond(A) · eps32 ·
+    max|coef| a row where S >= 2 D, else (ImageLIME, 64 superpixels, 50
+    samples) the fitted values within 1e-4 of their largest magnitude."""
+    from synapseml_tpu_torch.core.pipeline import Transformer
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.explainers import local
+
+    rng = np.random.default_rng(0)
+
+    class Scorer(Transformer):
+        def _transform(self, table, device):
+            if "image" in table:
+                p = [[float(np.mean(im)), float(np.mean(im[..., 0] ** 2))]
+                     for im in table["image"]]
+            elif "text" in table:
+                p = [["good" in str(t).split(), 0.1 * len(str(t).split())]
+                     for t in table["text"]]
+            elif "features" in table:
+                x = np.asarray(table["features"], np.float32)
+                p = np.column_stack([x @ np.float32([2, -1, 0.5]),
+                                     np.tanh(x[:, 0])])
+            else:
+                a, b = (np.asarray(table[c], np.float32) for c in "ab")
+                p = np.column_stack([2 * a - b, a * b])
+            return table.with_column("probability", np.asarray(p, np.float32))
+
+    kind = name[:-4]
+    tables = {
+        "Vector": Table({"features": rng.normal(size=(6, 3))
+                         .astype(np.float32)}),
+        "Tabular": Table({"a": rng.normal(size=5), "b": rng.normal(size=5)}),
+        "Text": Table({"text": np.array(["good movie plot", "bad plot twist",
+                                         "fine"], dtype=object)}),
+        "Image": Table({"image": np.array(
+            [rng.random((32, 32, 3)).astype(np.float32)], dtype=object)}),
+    }
+    params = {"Vector": dict(input_col="features"),
+              "Tabular": dict(input_cols=["a", "b"]),
+              "Text": dict(input_col="text"),
+              "Image": dict(input_col="image", cell_size=4.0)}[kind]
+    ex = getattr(local, name)(model=Scorer(), target_col="probability",
+                              target_classes=(0, 1), seed=1, **params)
+    calls = _solver_inputs(monkeypatch)
+    got = np.asarray(ex.transform(tables[kind], "cuda")["output"])
+    on_card = list(calls)
+    calls.clear()
+    out = ex.transform(tables[kind], "cpu")
+    want = np.asarray(out["output"])
+    assert got.shape == want.shape
+    assert [n for n, _ in on_card] == [n for n, _ in calls]
+    for (_, a), (_, b) in zip(on_card, calls):
+        for u, v in zip(a, b):
+            np.testing.assert_array_equal(u, v)
+    eps = np.finfo(np.float32).eps
+    if name.endswith("LIME"):
+        for ki, (fn, (x, y, w, *_)) in enumerate(calls):
+            s, d = x.shape[-2:]
+            g, r = got[:, ki, :d], want[:, ki, :d]
+            if s >= 2 * d:
+                tol = s * _cond(fn, x, w) * eps * np.abs(r).max(-1)
+                assert (np.abs(g - r).max(-1) <= tol).all()
+            else:
+                wn = w / w.sum(-1, keepdims=True)
+                xc = x - (x * wn[..., None]).sum(-2, keepdims=True)
+                fit_r = (xc @ r[..., None])[..., 0]
+                np.testing.assert_allclose(
+                    (xc @ g[..., None])[..., 0], fit_r, rtol=0,
+                    atol=1e-4 * np.abs(fit_r).max())
+        return
+    # SHAP: one call a (feature count, class), as the reference groups
+    if kind == "Text":
+        ds = np.array([max(len(t), 1) for t in out["tokens"]])
+    elif kind == "Image":
+        ds = np.array([int(sp.max()) + 1 for sp in out["superpixels"]])
+    else:
+        ds = np.full(got.shape[0], got.shape[-1] - 1)
+    it = iter(calls)
+    for dv in np.unique(ds):
+        idx = np.flatnonzero(ds == dv)
+        for ki in range(got.shape[1]):
+            fn, (z, y, w, fnull, fx) = next(it)
+            g, r = got[idx, ki, :dv + 1], want[idx, ki, :dv + 1]
+            if dv > 1:
+                tol = z.shape[-2] * _cond(fn, z, w) * eps * np.abs(r).max(-1)
+                assert (np.abs(g - r).max(-1) <= tol).all()
+            else:
+                np.testing.assert_array_equal(g, r)
+            np.testing.assert_allclose(g[:, 1:].sum(1), fx - fnull,
+                                       atol=1e-4)
+
+
+def test_tabular_shap_over_adult_launches_k2_on_the_card(card, monkeypatch):
+    """TabularSHAP over the Adult fixture model scores its 32 x 50
+    perturbed rows through the forest-traversal kernel in one call, and
+    agrees with the CPU run within S · cond(A) · eps32 · max|phi| a row;
+    its phis add up to f(all-on coalition) - f(null) within 1e-4."""
+    import os
+
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.explainers import TabularSHAP
+    from synapseml_tpu_torch.gbdt.estimators import \
+        LightGBMClassificationModel
+
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "fixtures")
+    cols = [f"f{j}" for j in range(14)]
+    model = LightGBMClassificationModel.load_native_model(
+        os.path.join(fixtures, "lgbm_adult_100x31.txt"), feature_cols=cols)
+    x = np.load(os.path.join(fixtures, "lgbm_adult_100x31_io.npz"))["x"][:32]
+    table = Table({c: x[:, j].astype(np.float64) for j, c in enumerate(cols)})
+    ex = TabularSHAP(model=model, input_cols=cols, target_col="probability",
+                     target_classes=(1,), num_samples=50, seed=0)
+    calls = _solver_inputs(monkeypatch)
+    kernels.forest_traverse.launches = 0
+    got = np.asarray(ex.transform(table, "cuda")["output"])[:, 0]
+    assert kernels.forest_traverse.launches >= 1
+    want = np.asarray(ex.transform(table, "cpu")["output"])[:, 0]
+    (_, (z, y, w, fnull, fx)), (_, cpu_args) = calls
+    np.testing.assert_array_equal(z, cpu_args[0])
+    cond = _cond("shap_weighted_fit", z, w)
+    tol = 50 * cond * np.finfo(np.float32).eps * np.abs(want).max(-1)
+    assert (np.abs(got - want).max(-1) <= tol).all()
+    np.testing.assert_allclose(got[:, 1:].sum(1), fx - fnull, atol=1e-4)
