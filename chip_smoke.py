@@ -207,6 +207,24 @@ before the last line:
    the score difference is taken off; images/s split into superpixels,
    masking, sampling, scoring and the fit; one lasso fit (100 sweeps of
    196 coordinates) timed and held to the CPU's.
+28. cntk_model — ``CNTKModel`` on the committed recurrent fixture
+   (``tests/fixtures/cntk_rnn.model``, two ``Scan``s) within
+   rtol=atol=2e-5 of its expected outputs and of the CPU; small
+   control-flow graphs through ``ONNXModel``: an ``If`` on a device
+   condition and a host-trip ``Loop`` with a scan output warmed and
+   bitwise eager, a device-condition ``Loop`` whose bucket warmup reports
+   ``error`` with the reason, served eagerly and right, while the later
+   buckets capture and replay bitwise; the CNTK 202 ATIS BiLSTM slot
+   tagger at its published width (943 words, Embedding 150, BiLSTM 2 x
+   150, Dense 129; random weights; the port's builder writes the
+   fixture's bytes) over 1,024 sequences of 64 tokens through
+   ``CNTKModel(mini_batch_size=128)`` in float32 and bf16: rows 0-7
+   against the JAX fixture (``tests/fixtures/cntk_tagger_io.npz``) and
+   the CPU, a bound forward's copies and syncs (none), its launches and
+   card time, ``warmup()`` (5 buckets captured, no host-to-card copy),
+   every warm bucket bitwise eager, sequences/s and tokens/s eager and
+   warm, the executor's stages, the busy share of a warm ``transform``.
+   K1 and K2 launch 0 times.
 
 Between phases 3 and 4: prng_card_vs_cpu (the threefry key stream on the
 card equal to the CPU's, bitwise) and masked_index (K1 on a
@@ -218,6 +236,7 @@ last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import shutil
@@ -2623,6 +2642,255 @@ def explainer_phase(smi, reset_counts, read_counts) -> dict:
     return counts
 
 
+CNTK_FIXTURE = os.path.join(FIXTURES, "cntk_rnn.model")
+CNTK_FIXTURE_TOL = 2e-5       # the committed recurrent fixture (its test's bound)
+TAGGER_ROWS, TAGGER_BATCH = 1024, 128
+TAGGER_CPU_TOL = 1e-4         # float32 card rows against the port's CPU run
+CONTROL_FLOW_ROWS = 20
+
+
+def served(model, table, out=None):
+    """``model.transform`` on the card: every output column, host arrays."""
+    got = model.transform(table, "cuda")
+    return {c: np.asarray(got[c]) for c in (
+        [out] if out else model.graph.output_names)}
+
+
+def control_flow_checks() -> dict:
+    """Phase 28's small graphs (``tests/fixtures/control_flow_graphs.py``)
+    through ``ONNXModel(mini_batch_size=16 or 32)`` on the card: an ``If``
+    on a device condition (rows 16-19 negative, so their bucket takes the
+    other branch) and a host-trip ``Loop`` with a scan output, each warmed
+    (every bucket captured) and bitwise eager, within 1e-6 of its numpy
+    forward; the device-condition ``Loop`` below 16 rows: its bucket 8
+    reported ``error`` with the reason, served eagerly and right, buckets
+    16 and 32 captured after it and replayed bitwise eager."""
+    import control_flow_graphs as cfg
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.onnx import ONNXModel
+
+    x = cfg.rows(CONTROL_FLOW_ROWS, seed=3)
+    x[16:] *= -1.0
+    out = {}
+    for name in ("if_on_device", "loop_on_host"):
+        blob = getattr(cfg, name)()
+        eager = ONNXModel(model_bytes=blob, mini_batch_size=16)
+        warm = ONNXModel(model_bytes=blob, mini_batch_size=16)
+        rep = warm.warmup(device="cuda")
+        a, b = served(eager, Table({"x": x})), served(warm, Table({"x": x}))
+        # the If selects by each bucket's sum: rows 0-15, then 16-19
+        want = ((np.concatenate([cfg.if_on_device_reference(x[:16]),
+                                 cfg.if_on_device_reference(x[16:])]),)
+                if name == "if_on_device" else cfg.loop_on_host_reference(x))
+        out[name] = {
+            "status": [e["status"] for e in rep.entries],
+            "errors": rep.errors,
+            "aot_hits": warm._executor("cuda")._aot_hits,
+            "warm_bitwise_eager": all(np.array_equal(a[c], b[c]) for c in a),
+            "max_abs_err_vs_numpy": max(float(np.abs(a[c] - w).max())
+                                        for c, w in zip(a, want))}
+    blob = cfg.loop_on_device_below(16)
+    m = ONNXModel(model_bytes=blob, mini_batch_size=32)
+    rep = m.warmup(device="cuda")
+    x8 = cfg.rows(8, seed=1)
+    y8 = served(m, Table({"x": x8}))["y"]
+    x48 = cfg.rows(48, seed=2)               # buckets 32 and 16: replays
+    eager = ONNXModel(model_bytes=blob, mini_batch_size=32)
+    out["loop_on_device_below_16"] = {
+        "buckets": [e["bucket"] for e in rep.entries],
+        "status": [e["status"] for e in rep.entries],
+        "errors": rep.errors,
+        "eager_bucket_8_right": bool(np.array_equal(
+            y8, cfg.loop_on_device_reference(x8))),
+        "later_buckets_bitwise_eager": bool(np.array_equal(
+            served(m, Table({"x": x48}))["y"],
+            served(eager, Table({"x": x48}))["y"])),
+        "aot_hits": m._executor("cuda")._aot_hits}
+    return out
+
+
+def cntk_phase(smi, reset_counts, read_counts) -> dict:
+    """Phase 28: control flow and ``CNTKModel`` on the card.
+
+    The committed recurrent fixture (``tests/fixtures/cntk_rnn.model``,
+    two Scans) through ``CNTKModel(model_path=...).transform`` within
+    rtol=atol=2e-5 of its expected outputs and of the port's CPU run;
+    :func:`control_flow_checks`; then the CNTK 202 ATIS slot tagger at its
+    published width (``tests/fixtures/make_cntk_tagger_fixture.py``: 943
+    words, Embedding 150, BiLSTM 2 x 150, Dense 129; random weights),
+    written by the port's ``CntkModelBuilder`` (sha256 equal to the
+    fixture's), over 1,024 sequences of 64 tokens (rows 0-7 the fixture's)
+    through ``CNTKModel(mini_batch_size=128).transform`` in float32 and
+    bf16: rows 0-7 against the JAX fixture (float32 rtol=atol=1e-3, bf16
+    5% of the largest |value|) and against the port's CPU run (float32
+    rtol=atol=1e-4, bf16 5%); a bound forward's copies and syncs (none)
+    and its launches and card time (``torch.profiler``); ``warmup()`` (5
+    buckets, each captured with no host-to-card copy) with its seconds
+    and the memory it reserves; every warm bucket bitwise its eager one;
+    sequences/s and tokens/s eager and warm (host clock, median of 3
+    after a warm call) with the executor's stage p50s; the card's busy
+    share in one warm ``transform``. Returns the phase's K1/K2 launches
+    (none expected)."""
+    import make_cntk_tagger_fixture as tagger
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.dl import cntk_format
+    from synapseml_tpu_torch.dl.cntk import CNTKModel
+    from synapseml_tpu_torch.runtime import telemetry as tm
+
+    phase_start = time.perf_counter()
+    reset_counts()
+    # -- the committed recurrent fixture ---------------------------------
+    io = np.load(CNTK_FIXTURE.replace(".model", "_io.npz"))
+    fixture = CNTKModel(model_path=CNTK_FIXTURE)
+    fixture.set(feed_dict={fixture.graph.input_names[0]: "x"})
+    out = fixture.graph.output_names[0]
+    fx_card = served(fixture, Table({"x": io["input"]}), out)[out]
+    fx_cpu = np.asarray(fixture.transform(Table({"x": io["input"]}),
+                                          "cpu")[out])
+    fixture_res = {
+        "shape": list(fx_card.shape),
+        "max_abs_err_vs_expected": float(np.abs(
+            fx_card - io["expected"]).max()),
+        "max_abs_err_vs_cpu": float(np.abs(fx_card - fx_cpu).max()),
+        "within_tol": bool(
+            np.allclose(fx_card, io["expected"], rtol=CNTK_FIXTURE_TOL,
+                        atol=CNTK_FIXTURE_TOL)
+            and np.allclose(fx_card, fx_cpu, rtol=CNTK_FIXTURE_TOL,
+                            atol=CNTK_FIXTURE_TOL))}
+    flows = control_flow_checks()
+
+    # -- the CNTK 202 slot tagger at its published width -----------------
+    fx = np.load(tagger.OUT)
+    blob = tagger.build(cntk_format)
+    sha_ok = hashlib.sha256(blob).hexdigest() == str(fx["sha256"])
+    ids = np.concatenate([fx["tokens"], tagger.tokens(
+        TAGGER_ROWS - len(fx["tokens"]), seed=tagger.SEED + 1)])
+    onehot = tagger.one_hot(ids)
+    table = Table({"query": onehot})
+    span = float(np.abs(fx["expected"]).max())
+    sizes = (8, 16, 24, 64, 128)        # one table a bucket: 8-128
+    results = {}
+    for dtype in ("float32", "bfloat16"):
+        def model(dtype=dtype):
+            m = CNTKModel(model_bytes=blob, mini_batch_size=TAGGER_BATCH,
+                          compute_dtype=dtype)
+            m.set(feed_dict={m.graph.input_names[0]: "query"})
+            return m
+
+        m = model()
+        out = m.graph.output_names[0]
+        cpu8 = np.asarray(m.transform(Table({"query": onehot[:8]}),
+                                      "cpu")[out])
+        runs = {}
+        for mode in ("eager", "warm"):
+            if mode == "warm":
+                transfers = TransferCount()
+                warmup = warm_model(m, transfers, example_feeds={
+                    m.graph.input_names[0]: onehot[:1]}, device="cuda")
+                warmup["h2d_copies_in_captures"] = transfers.counts["h2d"]
+            tm.reset()
+            seconds, got = wall_median(
+                lambda m=m: served(m, table, out)[out])
+            runs[mode] = {"out": got, "seconds": seconds,
+                          "sequences_per_s": TAGGER_ROWS / seconds,
+                          "tokens_per_s": TAGGER_ROWS * tagger.SEQ_LEN
+                          / seconds,
+                          "executor": executor_stages(tm),
+                          "aot": aot_counts(tm),
+                          "small": {n: served(m, Table(
+                              {"query": onehot[:n]}), out)[out]
+                              for n in sizes}}
+        eager, warm = runs["eager"], runs["warm"]
+        err = float(np.abs(eager["out"][:8] - fx["expected"]).max())
+        cpu_err = float(np.abs(eager["out"][:8] - cpu8).max())
+        g = m.graph
+        fwd = g.bind(cast_dtype=None if dtype == "float32"
+                     else torch.bfloat16, device="cuda")
+        xd = torch.from_numpy(onehot[:TAGGER_BATCH]).cuda().to(
+            torch.float32 if dtype == "float32" else torch.bfloat16)
+        results[dtype] = {
+            "shape": list(eager["out"].shape),
+            "out_dtype": str(eager["out"].dtype),
+            "finite": bool(np.isfinite(eager["out"]).all()),
+            "rows_0_7_max_abs_err_vs_jax": err,
+            "rows_0_7_vs_jax": bool(
+                np.allclose(eager["out"][:8], fx["expected"],
+                            rtol=LOGITS_TOL, atol=LOGITS_TOL)
+                if dtype == "float32" else err <= BF16_SPAN_SHARE * span),
+            "rows_0_7_max_abs_err_vs_cpu": cpu_err,
+            "rows_0_7_vs_cpu": bool(
+                np.allclose(eager["out"][:8], cpu8, rtol=TAGGER_CPU_TOL,
+                            atol=TAGGER_CPU_TOL)
+                if dtype == "float32" else cpu_err <= BF16_SPAN_SHARE * span),
+            "bound_forward_copies_and_syncs": copies_and_syncs(fwd, xd),
+            "bound_forward_128": device_busy(lambda: fwd(xd)),
+            "warmup": warmup,
+            "warm_bitwise_eager": {
+                str(TAGGER_ROWS): bool(np.array_equal(warm["out"],
+                                                      eager["out"])),
+                **{str(n): bool(np.array_equal(warm["small"][n],
+                                               eager["small"][n]))
+                   for n in sizes}},
+            "warm_transform_timeline": copy_overlap(
+                lambda m=m: served(m, table, out)),
+            **{mode: {k: v for k, v in r.items()
+                      if k not in ("out", "small")}
+               for mode, r in runs.items()}}
+        del m, runs, eager, warm, fwd, xd
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    emit({"phase": "cntk_model", "fixture": fixture_res,
+          "control_flow": flows,
+          "tagger": {"source": "CNTK 202 ATIS slot tagger, bidirectional: "
+                     "vocab 943, Embedding 150, BiLSTM 2x150, Dense 129, "
+                     "initial_state 0.1; random weights",
+                     "rows": TAGGER_ROWS, "seq_len": tagger.SEQ_LEN,
+                     "mini_batch_size": TAGGER_BATCH,
+                     "model_bytes": len(blob), "sha256_equal_fixture": sha_ok,
+                     **results},
+          "launches": counts,
+          "phase_s": time.perf_counter() - phase_start, "nvidia_smi": smi})
+    check(fixture_res["within_tol"],
+          f"cntk_rnn fixture off on the card: {fixture_res}")
+    for name in ("if_on_device", "loop_on_host"):
+        f = flows[name]
+        check(f["status"] == ["compiled", "compiled"] and not f["errors"]
+              and f["aot_hits"] == 2 and f["warm_bitwise_eager"]
+              and f["max_abs_err_vs_numpy"] <= 1e-6,
+              f"control flow {name} on the card: {f}")
+    f = flows["loop_on_device_below_16"]
+    check(f["status"] == ["error", "compiled", "compiled"]
+          and len(f["errors"]) == 1 and f["errors"][0].startswith("bucket=8")
+          and "cannot be captured" in f["errors"][0]
+          and f["eager_bucket_8_right"] and f["later_buckets_bitwise_eager"]
+          and f["aot_hits"] == 2,
+          f"device-condition Loop on the card: {f}")
+    check(sha_ok, "the port's builder wrote other tagger bytes than the "
+          "fixture's")
+    for dtype, r in results.items():
+        check(r["shape"] == [TAGGER_ROWS, tagger.SEQ_LEN, tagger.LABELS]
+              and r["finite"] and r["rows_0_7_vs_jax"] and r["rows_0_7_vs_cpu"],
+              f"{dtype} tagger off: JAX {r['rows_0_7_max_abs_err_vs_jax']}, "
+              f"CPU {r['rows_0_7_max_abs_err_vs_cpu']}")
+        cs = r["bound_forward_copies_and_syncs"]
+        check(cs["h2d_copies"] == 0 and cs["syncs"] == 0,
+              f"{dtype} tagger forward copies or syncs: {cs}")
+        w = r["warmup"]
+        check(w["buckets"] == [8, 16, 32, 64, 128] and not w["errors"]
+              and w["status"] == ["compiled"] * 5
+              and w["h2d_copies_in_captures"] == 0,
+              f"{dtype} tagger warmup: {w}")
+        check(all(r["warm_bitwise_eager"].values()),
+              f"{dtype} warm tagger buckets off eager: "
+              f"{r['warm_bitwise_eager']}")
+        check(r["warm"]["aot"]["hits"] > 0
+              and r["warm"]["aot"]["misses"] == 0,
+              f"{dtype} warm tagger not replayed: {r['warm']['aot']}")
+    check(counts["forest_traverse"] == 0 and counts["histogram"] == 0,
+          f"the CNTK path launched {counts}")
+    return counts
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3586,6 +3854,9 @@ def main() -> int:
     # -- 27. local explainers over K2 and over ResNet-50 ------------------
     explainer_counts = explainer_phase(smi, reset_counts, read_counts)
 
+    # -- 28. control flow and CNTKModel: Scan, the CNTK 202 tagger -------
+    cntk_counts = cntk_phase(smi, reset_counts, read_counts)
+
     emit({"kernels": [{
         "name": "forest_traverse", "route": "cuda",
         "source": "synapseml_tpu_torch/csrc/forest_traverse.cu",
@@ -3605,6 +3876,7 @@ def main() -> int:
         "launches_image_head": image_counts["head_score"]["forest_traverse"],
         "launches_explainer_path": {
             k: c["forest_traverse"] for k, c in explainer_counts.items()},
+        "launches_cntk_path": cntk_counts["forest_traverse"],
         "max_abs_err": max_err, "bitwise": True,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
@@ -3626,6 +3898,7 @@ def main() -> int:
         "launches_image_head_fit": image_counts["head_fit"]["histogram"],
         "launches_explainer_path": {
             k: c["histogram"] for k, c in explainer_counts.items()},
+        "launches_cntk_path": cntk_counts["histogram"],
         "max_abs_err": k1_max_err,
         "bitwise": True, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],

@@ -33,7 +33,12 @@ Design notes:
   (:func:`_ieee_float32`), so a float32 forward on the card is not a TF32
   one. bf16 (``bind(cast_dtype=torch.bfloat16)``) is the fast path.
 - Recurrent ops run a Python loop over time steps where the reference runs
-  ``lax.scan``.
+  ``lax.scan``; so does ``Scan``, at every length. Control-flow bodies
+  are lowered at import (:class:`_Subgraph`); a bound graph's bodies hold
+  their float constants on the card, so a step of a warm forward copies
+  nothing to the card and reads nothing back. A ``Loop`` whose condition
+  is on the device is the exception: it reads the condition every
+  iteration and cannot be captured into a CUDA graph.
 
 An op outside the registry raises ``NotImplementedError`` when the graph
 is imported; nothing falls back.
@@ -360,6 +365,130 @@ def _sqrt(ctx, x):
 def _gelu(ctx, x):
     approximate = "tanh" if ctx.attr("approximate", "none") == "tanh" else "none"
     return F.gelu(_tensor(x), approximate=approximate)
+
+
+# The activation family. The reference runs each on the device (``jnp``); a
+# float attribute is a weak Python scalar there, rounded to the input's
+# dtype (``_attr_in``) before it is used.
+def _attr_in(ctx, key: str, default: float, x: torch.Tensor):
+    return _scalar(np.float64(ctx.attr(key, default)), x.dtype) \
+        if x.is_floating_point() else ctx.attr(key, default)
+
+
+@op("LeakyRelu")
+def _leaky_relu(ctx, x):
+    x = _tensor(x)
+    return torch.where(x >= 0, x, _attr_in(ctx, "alpha", 0.01, x) * x)
+
+
+@op("PRelu")
+def _prelu(ctx, x, slope):
+    # slope broadcasts from the channel axis (ONNX's unidirectional form)
+    x = _tensor(x)
+    nd = np.ndim(slope)
+    if 1 <= nd < x.ndim:
+        shape = (1, *np.shape(slope)) + (1,) * (x.ndim - nd - 1)
+        slope = (np.reshape(slope, shape) if _is_host(slope)
+                 else slope.reshape(shape))
+    return torch.where(x >= 0, *_operands((x, _bin(operator.mul, slope, x)),
+                                          scalars=False))
+
+
+def _elu_branch(x, a):
+    return a * (torch.exp(x) - 1)
+
+
+@op("Elu")
+def _elu(ctx, x):
+    x = _tensor(x)
+    return torch.where(x >= 0, x, _elu_branch(x, _attr_in(ctx, "alpha", 1.0,
+                                                           x)))
+
+
+@op("Selu")
+def _selu(ctx, x):
+    x = _tensor(x)
+    a = _attr_in(ctx, "alpha", 1.6732632423543772, x)
+    g = _attr_in(ctx, "gamma", 1.0507009873554805, x)
+    return g * torch.where(x >= 0, x, _elu_branch(x, a))
+
+
+@op("HardSigmoid")
+def _hard_sigmoid(ctx, x):
+    x = _tensor(x)
+    a, b = _attr_in(ctx, "alpha", 0.2, x), _attr_in(ctx, "beta", 0.5, x)
+    return torch.clamp(a * x + b, 0, 1)
+
+
+@op("HardSwish")
+def _hard_swish(ctx, x):
+    x = _tensor(x)
+    return x * torch.clamp(x / 6.0 + 0.5, 0, 1)
+
+
+@op("Mish")
+def _mish(ctx, x):
+    x = _tensor(x)
+    return x * torch.tanh(torch.logaddexp(x, torch.zeros_like(x)))
+
+
+@op("Celu")
+def _celu(ctx, x):
+    x = _tensor(x)
+    a = _attr_in(ctx, "alpha", 1.0, x)
+    return (torch.clamp(x, min=0)
+            + torch.clamp(a * (torch.exp(x / a) - 1), max=0.0))
+
+
+@op("Affine")
+def _affine(ctx, x):
+    # legacy experimental op (pre-opset-10 exporters): alpha * x + beta
+    x = _tensor(x)
+    return _attr_in(ctx, "alpha", 1.0, x) * x + _attr_in(ctx, "beta", 0.0, x)
+
+
+@op("ThresholdedRelu")
+def _thresholded_relu(ctx, x):
+    x = _tensor(x)
+    return torch.where(x > _attr_in(ctx, "alpha", 1.0, x), x, 0.0)
+
+
+@op("Shrink")
+def _shrink(ctx, x):
+    x = _tensor(x)
+    lambd = _attr_in(ctx, "lambd", 0.5, x)
+    bias = _attr_in(ctx, "bias", 0.0, x)
+    return torch.where(x < -lambd, x + bias,
+                       torch.where(x > lambd, x - bias, 0.0))
+
+
+# torch shifts no unsigned type wider than 8 bits: those shift as int64
+# (bit for bit) and are masked back to their width
+_SHIFT_BITS = {torch.uint16: 16, torch.uint32: 32, torch.uint64: 64}
+
+
+@op("BitShift")
+def _bit_shift(ctx, x, y):
+    left = ctx.attr("direction", "LEFT") == "LEFT"
+    if _all_host((x, y)):
+        return (np.left_shift if left else np.right_shift)(x, y)
+    x, y = _operands((x, y), scalars=False)
+    bits = _SHIFT_BITS.get(x.dtype)
+    if bits is None:
+        return (torch.bitwise_left_shift if left
+                else torch.bitwise_right_shift)(x, y)
+    xi, yi = x.to(torch.int64), y.to(torch.int64)
+    if left:
+        r = torch.bitwise_left_shift(xi, yi)
+    elif bits < 64:
+        r = torch.bitwise_right_shift(xi, yi)
+    else:   # a logical shift of the 64 bits: clear the sign first
+        r = torch.where(yi == 0, xi, torch.bitwise_right_shift(
+            torch.bitwise_right_shift(xi, 1) & (2**63 - 1),
+            torch.clamp(yi - 1, min=0)))
+    if bits < 64:
+        r = r & ((1 << bits) - 1)
+    return r.to(x.dtype)
 
 
 def _per_axis_qparams(x, axis, scale, zp):
@@ -1812,7 +1941,8 @@ def _embed_layer_norm(ctx, input_ids, segment_ids=None, word_emb=None,
 
 def _lower_nodes(nodes, opset: int):
     """Pre-extract (impl, ctx, inputs, outputs) per node, so apply() does
-    no proto work per call."""
+    no proto work per call. Control-flow bodies are lowered here too, so
+    an op outside the registry inside a branch fails at import."""
     lowered = []
     for node in nodes:
         impl = _REGISTRY.get(node.op_type)
@@ -1828,8 +1958,30 @@ def _lower_nodes(nodes, opset: int):
         ctx = OpContext(node_attrs(node), opset,
                         node.name or (node.output[0] if node.output else ""),
                         node.op_type, arity)
+        if node.op_type == "If":
+            ctx.attrs["__lowered__"] = (
+                _Subgraph(ctx.attr("then_branch"), opset),
+                _Subgraph(ctx.attr("else_branch"), opset))
+        elif node.op_type in ("Loop", "Scan"):
+            ctx.attrs["__lowered_body__"] = _Subgraph(ctx.attr("body"),
+                                                      opset)
         lowered.append((impl, ctx, list(node.input), list(node.output)))
     return lowered
+
+
+def _subgraphs_of(ctx) -> List["_Subgraph"]:
+    body = ctx.attrs.get("__lowered_body__")
+    return [*ctx.attrs.get("__lowered__", ()),
+            *([body] if body is not None else [])]
+
+
+def _reads(ctx, in_names) -> List[str]:
+    """The names a node reads: its inputs and, for control flow, every
+    outer name its bodies capture."""
+    out = [n for n in in_names if n]
+    for sub in _subgraphs_of(ctx):
+        out.extend(sub.captured)
+    return out
 
 
 def _last_uses(lowered, keep: Sequence[str]) -> List[Tuple[str, ...]]:
@@ -1837,10 +1989,11 @@ def _last_uses(lowered, keep: Sequence[str]) -> List[Tuple[str, ...]]:
     in ``keep`` (the graph's outputs): ``_run_nodes`` drops them from the
     environment after the node, so an intermediate lives only until its
     last consumer, and a CUDA graph's capture records the live peak, not
-    every activation of the forward."""
+    every activation of the forward. A value that a control-flow body
+    captures counts as read by the control-flow node."""
     last: Dict[str, int] = {}
-    for i, (_, _, in_names, out_names) in enumerate(lowered):
-        for n in (*in_names, *out_names):
+    for i, (_, ctx, in_names, out_names) in enumerate(lowered):
+        for n in (*_reads(ctx, in_names), *out_names):
             if n:
                 last[n] = i
     keep = set(keep)
@@ -1855,7 +2008,11 @@ def _run_nodes(lowered, env: Dict[str, Any],
                drops: Sequence[Tuple[str, ...]]):
     for (impl, ctx, in_names, out_names), dead in zip(lowered, drops):
         args = [env[n] if n else None for n in in_names]
-        out = impl(ctx, *args)
+        if getattr(impl, "_needs_env", False):
+            # control flow: the bodies read outer names beyond the inputs
+            out = impl(ctx, *args, env=env)
+        else:
+            out = impl(ctx, *args)
         if not isinstance(out, tuple):
             out = (out,)
         for name, val in zip(out_names, out):
@@ -1866,10 +2023,314 @@ def _run_nodes(lowered, env: Dict[str, Any],
             env.pop(name, None)
 
 
+# ---------------------------------------------------------------------------
+# Control flow: If, Loop, Scan
+# ---------------------------------------------------------------------------
+
+class _Subgraph:
+    """A branch or loop body, lowered once at import time.
+
+    ``inits`` are the body's initializers: host numpy as imported; in a
+    bound graph (:meth:`bound`) the float ones that feed no shape slot are
+    tensors on the card, uncast, so a step copies nothing to the card.
+    ``captured`` are the outer names the body reads. A run sees those, the
+    values bound to the body's inputs and the initializers, in that order
+    of precedence, and drops each value after its last use."""
+
+    def __init__(self, graph: Msg, opset: int):
+        self.inits: Dict[str, Any] = {
+            t.name: tensor_to_numpy(t) for t in graph.initializer}
+        self.lowered = _lower_nodes(graph.node, opset)
+        self.input_names = [vi.name for vi in graph.input]
+        self.output_names = [vi.name for vi in graph.output]
+        self.captured = frozenset(self.captured_names())
+        self.drops = _last_uses(self.lowered, self.output_names)
+
+    def captured_names(self) -> set:
+        """Names read from the outer scope: node inputs not produced
+        inside the subgraph (recursively through nested control flow)."""
+        produced = set(self.input_names) | set(self.inits)
+        captured = set()
+        for _, ctx, in_names, out_names in self.lowered:
+            for nm in in_names:
+                if nm and nm not in produced:
+                    captured.add(nm)
+            for sub in _subgraphs_of(ctx):
+                captured |= sub.captured - produced
+            produced.update(n for n in out_names if n)
+        return captured
+
+    def bound(self, dev: torch.device) -> "_Subgraph":
+        """A copy whose float, non-shape initializers live on ``dev`` (not
+        cast: the reference's ``bind`` never casts a body's constants) and
+        whose nested bodies are bound likewise. The original is left as
+        it is, so every bind of a graph gets its own body values."""
+        out = _Subgraph.__new__(_Subgraph)
+        out.__dict__.update(self.__dict__)
+        static = _static_names(
+            [(ctx.op_type, in_names) for _, ctx, in_names, _ in self.lowered],
+            self.inits)
+        out.inits = {k: v if k in static else _tensor(v, dev)
+                     for k, v in self.inits.items()}
+        out.lowered = [_bound_node(node, dev) for node in self.lowered]
+        return out
+
+    def run(self, env: Dict[str, Any], bindings: Dict[str, Any]):
+        sub_env = {n: env[n] for n in self.captured if n in env}
+        sub_env.update(bindings)
+        sub_env.update(self.inits)
+        _run_nodes(self.lowered, sub_env, self.drops)
+        return tuple(sub_env[n] for n in self.output_names)
+
+
+def _bound_node(node, dev: torch.device):
+    """``node`` with its bodies bound to ``dev`` (a new context; the
+    imported one is shared by every bind)."""
+    impl, ctx, in_names, out_names = node
+    if not _subgraphs_of(ctx):
+        return node
+    attrs = dict(ctx.attrs)
+    if "__lowered__" in attrs:
+        attrs["__lowered__"] = tuple(s.bound(dev)
+                                     for s in attrs["__lowered__"])
+    if "__lowered_body__" in attrs:
+        attrs["__lowered_body__"] = attrs["__lowered_body__"].bound(dev)
+    return (impl, OpContext(attrs, ctx.opset, ctx.name, ctx.op_type,
+                            ctx.n_outputs), in_names, out_names)
+
+
+def _single(out: tuple):
+    return out if len(out) != 1 else out[0]
+
+
+def _truth(x) -> bool:
+    """A 0-d or one-element condition read on the host (a sync for a
+    device tensor)."""
+    return bool(np.asarray(x).reshape(()) if _is_host(x) else x.reshape(()))
+
+
+@op("If")
+def _if(ctx, cond, env=None):
+    """then/else subgraphs with outer capture. A host condition picks one
+    branch; a device condition runs both and selects elementwise (no read
+    of the condition on the host, so the op can be captured)."""
+    then_b, else_b = ctx.attrs["__lowered__"]
+    env = env or {}
+    if _is_host(cond):
+        branch = then_b if _truth(cond) else else_b
+        return _single(branch.run(env, {}))
+    t_out = then_b.run(env, {})
+    e_out = else_b.run(env, {})
+    c = _tensor(cond).reshape(())
+    return _single(tuple(torch.where(c, *_operands((t, e), scalars=False))
+                         for t, e in zip(t_out, e_out)))
+
+
+_if._needs_env = True
+
+
+def _stack(values: list, axis: int = 0):
+    """Scan outputs stacked on a new leading axis, then moved to ``axis``:
+    host values stay host; otherwise tensors in their promoted dtype."""
+    if _all_host(values):
+        st = np.stack([np.asarray(v) for v in values])
+        return np.moveaxis(st, 0, axis % st.ndim)
+    st = torch.stack(_operands(values, scalars=False))
+    return torch.movedim(st, 0, axis % st.ndim)
+
+
+@op("Loop")
+def _loop(ctx, max_trip, cond, *v_initial, env=None):
+    """ONNX Loop. A host trip count and condition (the exported for-range
+    pattern) run as a host loop with scan outputs. A device trip count or
+    condition (the scripted-while pattern) runs as a while loop over
+    device carries (:func:`_loop_via_while`)."""
+    body = ctx.attrs["__lowered_body__"]
+    if max_trip is None and cond is None:
+        raise ValueError("Loop needs a trip count or a condition")
+    n_carried = len(v_initial)
+    n_scan = len(body.output_names) - 1 - n_carried
+    if ((max_trip is not None and not _is_host(max_trip))
+            or (cond is not None and not _is_host(cond))):
+        return _loop_via_while(body, env, max_trip, cond, v_initial, n_scan)
+    trips = int(np.asarray(max_trip).reshape(())) \
+        if max_trip is not None else None
+    keep_going = True if cond is None else _truth(cond)
+    carried = list(v_initial)
+    scan_acc: List[List[Any]] = [[] for _ in range(n_scan)]
+    i = 0
+    while keep_going and (trips is None or i < trips):
+        outs = body.run(env, dict(zip(
+            body.input_names, [np.int64(i), np.bool_(True), *carried])))
+        cond_out, outs = outs[0], outs[1:]
+        carried = list(outs[:n_carried])
+        for acc, s in zip(scan_acc, outs[n_carried:]):
+            acc.append(s)
+        if not _is_host(cond_out):
+            # the body decides on the device: start again as a while loop
+            # (the body is functional, the host iterations left no trace)
+            return _loop_via_while(body, env, max_trip, cond, v_initial,
+                                   n_scan)
+        keep_going = _truth(cond_out)
+        i += 1
+    if i == 0 and n_scan > 0:
+        # a zero-trip loop still owes empty scan outputs: one probe run of
+        # the body gives their shapes (its values are discarded)
+        probe = body.run(env, dict(zip(
+            body.input_names, [np.int64(0), np.bool_(True), *v_initial])))
+        stacked = [np.zeros((0,) + np.shape(p), np.asarray(p).dtype)
+                   if _is_host(p) else
+                   torch.zeros((0,) + tuple(p.shape), dtype=p.dtype,
+                               device=p.device)
+                   for p in probe[1 + n_carried:]]
+    else:
+        stacked = [_stack(a) for a in scan_acc]
+    return _single(tuple(carried) + tuple(stacked))
+
+
+_loop._needs_env = True
+
+
+def _loop_via_while(body, env, max_trip, cond, v_initial, n_scan: int):
+    """A device trip count or condition: continue while ``i < M`` and the
+    condition holds, carries on the device, each cast back to its initial
+    dtype. The condition is read on the host every iteration (a sync), so
+    such a graph cannot be captured into a CUDA graph: under capture this
+    raises before the first read, which leaves the capture intact to end,
+    and a warmup reports the bucket ``"error"`` and serves it eagerly.
+    INT64_MAX or a negative device trip count means unbounded."""
+    if n_scan > 0:
+        raise NotImplementedError(
+            "Loop: scan outputs with a data-dependent trip count have a "
+            "data-dependent shape, which the reference's static-shape "
+            "model cannot express; restructure the model to a static trip "
+            "count or carried accumulators")
+    dev = _device_of([max_trip, cond, *v_initial])
+    if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "Loop with a device trip count or condition reads it on the "
+            "host every iteration; it cannot be captured into a CUDA graph "
+            "(this bucket runs eagerly)")
+    trips = None
+    if max_trip is not None:
+        host = _is_host(max_trip)
+        m = int(np.asarray(max_trip).reshape(()) if host
+                else max_trip.reshape(()))
+        # torch exports `while cond:` as M = INT64_MAX, which the
+        # reference reads as unbounded on the host and, narrowed to int32,
+        # as a negative count on the device
+        trips = None if m >= 2**31 - 1 or (m < 0 and not host) else m
+    keep = True if cond is None else _truth(cond)
+    carried0 = [_tensor(v, dev) for v in v_initial]
+    carried = carried0
+    i = 0
+    while keep and (trips is None or i < trips):
+        vals = [torch.full((), i, dtype=torch.int64, device=dev),
+                torch.full((), keep, dtype=torch.bool, device=dev),
+                *carried]
+        outs = body.run(env, dict(zip(body.input_names, vals)))
+        keep = _truth(outs[0])
+        carried = [_tensor(o, dev).to(c.dtype)
+                   for o, c in zip(outs[1:], carried0)]
+        i += 1
+    return _single(tuple(carried))
+
+
+@op("Scan")
+def _scan(ctx, *inputs, env=None):
+    """Scan (opset 9 and later): per-step slices of the scan inputs drive
+    the body, state variables carry across steps, scan outputs stack on
+    ``scan_output_axes``; input and output directions may be reversed.
+    One step loop serves every length (the reference switches to
+    ``lax.scan`` above 16 steps, with the same arithmetic). Host scan
+    inputs stay host. A step of a bound graph issues no host sync and no
+    copy to the card, so a warm bucket is one replay."""
+    if ctx.opset < 9:
+        raise NotImplementedError(
+            "Scan: the opset-8 layout (sequence_lens input, batch axis) "
+            "is not supported; re-export at opset >= 9")
+    body = ctx.attrs["__lowered_body__"]
+    m = int(ctx.attr("num_scan_inputs"))
+    n_state = len(inputs) - m
+    state = list(inputs[:n_state])
+    scans = list(inputs[n_state:])
+    in_axes = list(ctx.attr("scan_input_axes", [0] * m))
+    in_dirs = list(ctx.attr("scan_input_directions", [0] * m))
+    n_scan_out = len(body.output_names) - n_state
+    out_axes = list(ctx.attr("scan_output_axes", [0] * n_scan_out))
+    out_dirs = list(ctx.attr("scan_output_directions", [0] * n_scan_out))
+    if _all_host(scans):
+        scans = [np.moveaxis(np.asarray(s), in_axes[j] % np.ndim(s), 0)
+                 for j, s in enumerate(scans)]
+    else:
+        scans = [torch.movedim(_tensor(s), in_axes[j] % np.ndim(s), 0)
+                 for j, s in enumerate(scans)]
+    length = int(scans[0].shape[0]) if scans else 0
+    acc: List[List[Any]] = [[] for _ in range(n_scan_out)]
+    for i in range(length):
+        vals = state + [s[length - 1 - i] if in_dirs[j] else s[i]
+                        for j, s in enumerate(scans)]
+        outs = body.run(env, dict(zip(body.input_names, vals)))
+        state = list(outs[:n_state])
+        for a, s in zip(acc, outs[n_state:]):
+            a.append(s)
+    stacked = [_stack(a[::-1] if out_dirs[j] else a, out_axes[j])
+               for j, a in enumerate(acc)]
+    return _single(tuple(state) + tuple(stacked))
+
+
+_scan._needs_env = True
+
+
 def _run(lowered, env: Dict[str, Any], dev: torch.device,
          drops: Sequence[Tuple[str, ...]]):
     with _running_on(dev), _ieee_float32():
         _run_nodes(lowered, env, drops)
+
+
+# Shape-consuming initializers (Reshape targets, Slice starts, Resize
+# scales, masks...) must stay STATIC host values: a device tensor cannot
+# give a shape. Static = every non-float initializer, plus any initializer
+# (float included — Resize scales/roi) feeding a shape-position input slot.
+# Float weights are the params, which bind() moves to the device and may
+# cast. The slot table is the reference's, so both packages split a graph
+# alike.
+_SHAPE_SLOTS = {
+    "Reshape": (1,), "Expand": (1,), "Tile": (1,),
+    "Slice": (1, 2, 3, 4), "Resize": (1, 2, 3), "Upsample": (1,),
+    "ConstantOfShape": (0,), "Range": (0, 1, 2), "TopK": (1,),
+    "OneHot": (1,), "Pad": (1, 2, 3), "Unsqueeze": (1,),
+    "Squeeze": (1,), "Split": (1,), "Trilu": (1,),
+    "ReduceSum": (1,), "ReduceMean": (1,), "ReduceMax": (1,),
+    "ReduceMin": (1,), "ReduceProd": (1,), "CenterCropPad": (1,),
+    "ReduceSumSquare": (1,), "ReduceL1": (1,), "ReduceL2": (1,),
+    "ReduceLogSum": (1,), "ReduceLogSumExp": (1,),
+    "MelWeightMatrix": (0, 1, 2, 3, 4), "STFT": (1, 3),
+    "HannWindow": (0,), "HammingWindow": (0,),
+    "BlackmanWindow": (0,), "MaxUnpool": (2,),
+    "NonMaxSuppression": (2, 3, 4),
+    "DFT": (1, 2), "Col2Im": (1, 2), "AffineGrid": (1,),
+    "Unique": (0,), "Compress": (0, 1),
+}
+# ...while packed-integer WEIGHT slots stay params though non-float
+_WEIGHT_SLOTS = {"MatMulNBits": (1, 3)}
+
+
+def _static_names(nodes, inits: Dict[str, np.ndarray]) -> set:
+    """The initializers of ``inits`` that stay host values, given the
+    graph's ``(op_type, input names)`` pairs."""
+    shape_fed = set()
+    weight_fed = set()
+    for op_type, inputs in nodes:
+        for target, slots in ((shape_fed, _SHAPE_SLOTS.get(op_type)),
+                              (weight_fed, _WEIGHT_SLOTS.get(op_type))):
+            for i in slots or ():
+                if i < len(inputs) and inputs[i]:
+                    target.add(inputs[i])
+    weight_fed -= shape_fed  # shape use wins: it needs host values
+    return {k for k, v in inits.items()
+            if (not np.issubdtype(v.dtype, np.floating) or k in shape_fed)
+            and k not in weight_fed}
 
 
 class ImportedGraph:
@@ -1889,48 +2350,11 @@ class ImportedGraph:
         self.graph = graph
         self.opset = opset
         all_inits = {t.name: tensor_to_numpy(t) for t in graph.initializer}
-        # Shape-consuming initializers (Reshape targets, Slice starts,
-        # Resize scales, masks...) must stay STATIC host values: a device
-        # tensor cannot give a shape. Static = every non-float initializer,
-        # plus any initializer (float included — Resize scales/roi) feeding
-        # a shape-position input slot. Float weights are the params, which
-        # bind() moves to the device and may cast. The slot table is the
-        # reference's, so both packages split a graph alike.
-        shape_consumers = {
-            "Reshape": (1,), "Expand": (1,), "Tile": (1,),
-            "Slice": (1, 2, 3, 4), "Resize": (1, 2, 3), "Upsample": (1,),
-            "ConstantOfShape": (0,), "Range": (0, 1, 2), "TopK": (1,),
-            "OneHot": (1,), "Pad": (1, 2, 3), "Unsqueeze": (1,),
-            "Squeeze": (1,), "Split": (1,), "Trilu": (1,),
-            "ReduceSum": (1,), "ReduceMean": (1,), "ReduceMax": (1,),
-            "ReduceMin": (1,), "ReduceProd": (1,), "CenterCropPad": (1,),
-            "ReduceSumSquare": (1,), "ReduceL1": (1,), "ReduceL2": (1,),
-            "ReduceLogSum": (1,), "ReduceLogSumExp": (1,),
-            "MelWeightMatrix": (0, 1, 2, 3, 4), "STFT": (1, 3),
-            "HannWindow": (0,), "HammingWindow": (0,),
-            "BlackmanWindow": (0,), "MaxUnpool": (2,),
-            "NonMaxSuppression": (2, 3, 4),
-            "DFT": (1, 2), "Col2Im": (1, 2), "AffineGrid": (1,),
-            "Unique": (0,), "Compress": (0, 1),
-        }
-        # ...while packed-integer WEIGHT slots stay params though non-float
-        weight_consumers = {"MatMulNBits": (1, 3)}
-        shape_fed = set()
-        weight_fed = set()
-        for node in graph.node:
-            for target, slots in ((shape_fed,
-                                   shape_consumers.get(node.op_type)),
-                                  (weight_fed,
-                                   weight_consumers.get(node.op_type))):
-                for i in slots or ():
-                    if i < len(node.input) and node.input[i]:
-                        target.add(node.input[i])
-        weight_fed -= shape_fed  # shape use wins: it needs host values
+        static = _static_names(
+            [(node.op_type, list(node.input)) for node in graph.node],
+            all_inits)
         self.static_params: Dict[str, np.ndarray] = {
-            k: v for k, v in all_inits.items()
-            if (not np.issubdtype(v.dtype, np.floating) or k in shape_fed)
-            and k not in weight_fed
-        }
+            k: v for k, v in all_inits.items() if k in static}
         self.params: Dict[str, np.ndarray] = {
             k: v for k, v in all_inits.items() if k not in self.static_params
         }
@@ -1987,7 +2411,10 @@ class ImportedGraph:
         The float params go to ``device`` once, here (cast to
         ``cast_dtype``, a torch or numpy dtype, where given), and each
         BatchNormalization whose statistics are params is folded here
-        into a scale and a bias. ``fn`` runs under
+        into a scale and a bias. Control-flow bodies are bound for this
+        call alone: their float initializers go to ``device`` uncast, as
+        the reference never casts them (:meth:`_Subgraph.bound`). ``fn``
+        runs under
         ``torch.inference_mode()``; numpy inputs are copied to the device
         by the first op that needs them there. ``device`` is "cuda" by
         default and raises without CUDA."""
@@ -2015,7 +2442,7 @@ class ImportedGraph:
                                              w32, b32)))
                     node = (_batch_norm_bound, ctx, in_names[:1] + keys,
                             out_names)
-                nodes.append(node)
+                nodes.append(_bound_node(node, dev))
         drops = _last_uses(nodes, self.output_names)
 
         def fn(*inputs):
@@ -2044,8 +2471,10 @@ class ImportedGraph:
         out.input_info = dict(self.input_info)
         out.output_names = [out._nodes[-1][3][0]] if cut_layers else list(self.output_names)
         used = set()
-        for _, _, in_names, _ in out._nodes:
-            used.update(in_names)
+        for _, ctx, in_names, _ in out._nodes:
+            # a body's captured names count: dropping their params would
+            # break the run
+            used.update(_reads(ctx, in_names))
         out.params = {k: v for k, v in self.params.items() if k in used}
         out.static_params = {
             k: v for k, v in self.static_params.items() if k in used

@@ -1326,3 +1326,98 @@ def test_tabular_shap_over_adult_launches_k2_on_the_card(card, monkeypatch):
     tol = 50 * cond * np.finfo(np.float32).eps * np.abs(want).max(-1)
     assert (np.abs(got - want).max(-1) <= tol).all()
     np.testing.assert_allclose(got[:, 1:].sum(1), fx - fnull, atol=1e-4)
+
+
+# -- control flow and CNTKModel --------------------------------------------
+
+def _fixture_module(name):
+    import importlib
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "fixtures"))
+    return importlib.import_module(name)
+
+
+def test_warm_scan_buckets_are_bitwise_eager(card):
+    """The CNTK 202 tagger at a small width over 24 tokens (two Scans of
+    24 steps) through ``CNTKModel``: every bucket of ``warmup()`` is
+    captured (a step copies nothing to the card and reads nothing back),
+    each replayed bucket is bitwise the eager one, and both hold the numpy
+    LSTM loop within rtol=atol=1e-4."""
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.dl import cntk_format
+    from synapseml_tpu_torch.dl.cntk import CNTKModel
+
+    tagger = _fixture_module("make_cntk_tagger_fixture")
+    kw = dict(vocab=50, embed=16, hidden=16, labels=8, seed=1)
+    blob = tagger.build(cntk_format, **kw)
+    ids = tagger.tokens(20, 24, kw["vocab"], seed=5)
+    x = tagger.one_hot(ids, kw["vocab"])
+
+    def model():
+        m = CNTKModel(model_bytes=blob, mini_batch_size=16)
+        m.set(feed_dict={m.graph.input_names[0]: "q"})
+        return m
+
+    eager = model()
+    out = eager.graph.output_names[0]
+    want = eager.transform(Table({"q": x}))[out]
+    warm = model()
+    rep = warm.warmup(example_feeds={warm.graph.input_names[0]: x[:1]})
+    assert rep.errors == []
+    assert [e["status"] for e in rep.entries] == ["compiled", "compiled"]
+    got = warm.transform(Table({"q": x}))[out]
+    assert warm._executor("cuda")._aot_hits == 2
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(
+        got, tagger.reference(ids, tagger.weights(**kw)), rtol=1e-4,
+        atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["if_on_device", "loop_on_host"])
+def test_warm_if_and_host_loop_are_bitwise_eager(card, name):
+    """An ``If`` on a device condition (both branches, a select) and a
+    host-trip ``Loop`` with a scan output capture and replay bitwise."""
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.onnx import ONNXModel
+
+    cfg = _fixture_module("control_flow_graphs")
+    blob = getattr(cfg, name)()
+    x = cfg.rows(20, seed=3)
+    eager = ONNXModel(model_bytes=blob, mini_batch_size=16)
+    warm = ONNXModel(model_bytes=blob, mini_batch_size=16)
+    rep = warm.warmup()
+    assert rep.errors == [] and rep.compiled == 2
+    a = eager.transform(Table({"x": x}))
+    b = warm.transform(Table({"x": x}))
+    for col in eager.graph.output_names:
+        np.testing.assert_array_equal(b[col], a[col])
+
+
+def test_a_failed_loop_capture_leaves_the_executor_usable(card):
+    """Below 16 rows the graph runs a ``Loop`` whose condition the body
+    computes on the card: bucket 8 cannot be captured and its warmup
+    entry says so, while buckets 16 and 32 of the same executor (same
+    graph pool) capture after it; bucket 8 serves eagerly and right, the
+    others replay bitwise a fresh eager model's buckets."""
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.onnx import ONNXModel
+
+    cfg = _fixture_module("control_flow_graphs")
+    blob = cfg.loop_on_device_below(16)
+    m = ONNXModel(model_bytes=blob, mini_batch_size=32)
+    rep = m.warmup()
+    assert [e["status"] for e in rep.entries] == ["error", "compiled",
+                                                  "compiled"]
+    assert len(rep.errors) == 1 and rep.errors[0].startswith("bucket=8")
+    assert "cannot be captured" in rep.errors[0]
+    x8 = cfg.rows(8, seed=1)
+    np.testing.assert_array_equal(m.transform(Table({"x": x8}))["y"],
+                                  cfg.loop_on_device_reference(x8))
+    x = cfg.rows(48, seed=2)      # buckets 32 and 16
+    eager = ONNXModel(model_bytes=blob, mini_batch_size=32)
+    np.testing.assert_array_equal(m.transform(Table({"x": x}))["y"],
+                                  eager.transform(Table({"x": x}))["y"])
+    assert m._executor("cuda")._aot_hits == 2

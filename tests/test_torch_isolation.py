@@ -43,7 +43,10 @@ def test_port_module_imports_no_jax(path):
 def test_scan_sees_the_port_and_catches_imports():
     rel = {os.path.relpath(p, ROOT) for p in _port_sources()}
     assert {"chip_smoke.py", "synapseml_tpu_torch/gbdt/kernels.py",
-            "synapseml_tpu_torch/isolationforest/iforest.py"} <= rel
+            "synapseml_tpu_torch/isolationforest/iforest.py",
+            "synapseml_tpu_torch/onnx/importer.py",
+            "synapseml_tpu_torch/dl/cntk.py",
+            "synapseml_tpu_torch/dl/cntk_format.py"} <= rel
     assert _forbidden_imports(
         "import jax.numpy as jnp\nfrom jaxlib import xla_client\n"
         "from synapseml_tpu.gbdt import boosting\n"

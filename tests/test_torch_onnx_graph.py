@@ -51,7 +51,14 @@ TRANSFORMER_AND_RECURRENT = [
     "SkipLayerNormalization", "EmbedLayerNormalization", "MatMulNBits",
     "RotaryEmbedding", "GroupQueryAttention", "MultiHeadAttention",
     "Attention"]
-PORTED = sorted(RESNET_AND_FIXTURES + TRANSFORMER_AND_RECURRENT)
+# control flow (the CNTK reader's recurrences arrive as Scan) and the
+# activation family (CNTK's Elu among them)
+CONTROL_FLOW_AND_ACTIVATIONS = [
+    "If", "Loop", "Scan", "LeakyRelu", "PRelu", "Elu", "Selu",
+    "HardSigmoid", "HardSwish", "Mish", "Celu", "Affine", "ThresholdedRelu",
+    "Shrink", "BitShift"]
+PORTED = sorted(RESNET_AND_FIXTURES + TRANSFORMER_AND_RECURRENT
+                + CONTROL_FLOW_AND_ACTIVATIONS)
 
 
 def test_registry_is_the_ported_op_set():
