@@ -15,6 +15,11 @@ has the same path:
   onnx/             ONNX import and scoring: protobuf codec, graph
                     builder and zoo, the graph -> torch importer
                     (import_model(...).bind() runs a graph on the card)
+  io/               binary file reader; serving: the HTTP front end,
+                    ContinuousServer and ``python -m
+                    synapseml_tpu_torch.io.serving``
+  runtime/          batched executor with warm CUDA graphs, telemetry,
+                    flight recorder, structured logs, fault injection
   parallel/         collectives over a torch.distributed process group
                     (data-parallel GBDT training), the driver rendezvous
                     and process-group bootstrap (distributed.py), the

@@ -66,6 +66,7 @@ import numpy as np
 import torch
 
 from synapseml_tpu_torch import device as device_policy
+from synapseml_tpu_torch.runtime import blackbox as _bb
 from synapseml_tpu_torch.runtime import compile_cache as _cc
 from synapseml_tpu_torch.runtime import faults as _flt
 from synapseml_tpu_torch.runtime import telemetry as _tm
@@ -624,6 +625,14 @@ def _break_pipeline(state: _PipelineState, exc: BaseException):
         pending = list(state.pending)
         state.pending.clear()
     _M_PIPE_RESTARTS.inc()
+    # incident trigger (runtime/blackbox.py): the break lands in the
+    # flight-recorder ring and — debounced — snapshots ring + gauges +
+    # thread stacks to the dump dir, so "which thread died holding how
+    # much in flight" survives the restart. Runs on the dying thread,
+    # no locks held, and never raises back into supervision.
+    _bb.trigger("pipeline_break",
+                thread=threading.current_thread().name,
+                n_inflight=len(pending), error=repr(exc)[:200])
     for fut in pending:
         try:
             fut.set_exception(err)
@@ -1406,7 +1415,7 @@ class BatchedExecutor:
             else:
                 _M_AOT_MISS.inc()
             if leaves is None:
-                leaves = self._run_cold(sig, padded, retired)
+                leaves = self._run_cold(sig, padded, retired, bucket)
             elif warm.graph is not None:
                 # a caller keeps a device_outputs leaf past the next
                 # replay, which overwrites the static outputs
@@ -1438,7 +1447,7 @@ class BatchedExecutor:
         return _Flight(leaves, event, leases), n, bucket
 
     def _run_cold(self, sig: tuple, padded: List[torch.Tensor],
-                  retired: bool) -> list:
+                  retired: bool, bucket: int) -> list:
         """The eager path of a signature without a warm program. Its
         first run is timed into ``executor_compile_seconds{phase=
         "dispatch"}``; after :meth:`warmup` it is also counted in
@@ -1461,9 +1470,14 @@ class BatchedExecutor:
                     self._lazy_seen.discard(sig)
             raise
         if unseen:
-            _M_COMPILE_DISP_S.observe(time.monotonic() - t0)
+            dt = time.monotonic() - t0
+            _M_COMPILE_DISP_S.observe(dt)
             if reason is not None:
                 _M_RECOMPILE[reason].inc()
+                _bb.record(
+                    "recompile", level="warn", reason=reason,
+                    bucket=bucket, layout="single", device=str(self._device),
+                    seconds=round(dt, 6), signature=repr(sig)[:240])
         return _leaves(out)
 
     def _fetch(self, out: _Flight, n: int, bucket: int):

@@ -2,9 +2,8 @@
 
 The port's copy of the reference package's ``runtime/faults.py``: the same
 points, grammar and errors; its lock is a plain ``threading.Lock`` and its
-``faults_injected_total{point=}`` counter goes through the port's
-telemetry. The reference's structured-log line at a firing waits for the
-port's ``runtime/structlog.py``.
+``faults_injected_total{point=}`` counter and structured-log line go
+through the port's telemetry and ``runtime/structlog.py``.
 
 The reference system gets its fault-tolerance story from Spark — a task
 that dies is replayed by the scheduler, and ``WorkerServer.recover``
@@ -74,6 +73,7 @@ import threading
 import time
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
+from synapseml_tpu_torch.runtime import structlog as _slog
 from synapseml_tpu_torch.runtime import telemetry as _tm
 
 __all__ = [
@@ -187,6 +187,11 @@ class FaultPoint:
                     return
                 spec.remaining -= 1
         _tm.counter("faults_injected_total", point=self.full_name).inc()
+        # structured breadcrumb for chaos-run log correlation (debug:
+        # probabilistic injections under load are high-volume); only
+        # reached when a fault actually fires, so the disarmed hot
+        # path stays a single attribute test
+        _slog.log("debug", "fault_injected", point=self.full_name)
         if spec.latency_s > 0.0:
             time.sleep(spec.latency_s)
             if spec.exc is None:

@@ -1421,3 +1421,249 @@ def test_a_failed_loop_capture_leaves_the_executor_usable(card):
     np.testing.assert_array_equal(m.transform(Table({"x": x}))["y"],
                                   eager.transform(Table({"x": x}))["y"])
     assert m._executor("cuda")._aot_hits == 2
+
+
+# -- serving on the card: the front end over the card's scorers ------------
+
+def _serve(cs, bodies, clients=8):
+    """POST every body to ``cs`` from ``clients`` threads, each on its own
+    keep-alive connection; returns ``[(status, body bytes, digest)]`` in
+    the bodies' order."""
+    import http.client
+    import threading
+
+    out = [None] * len(bodies)
+
+    def client(k):
+        conn = http.client.HTTPConnection("127.0.0.1", cs.server.port,
+                                          timeout=120)
+        for i in range(k, len(bodies), clients):
+            conn.request("POST", "/", bodies[i],
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            out[i] = (resp.status, resp.read(),
+                      resp.getheader("X-Output-Digest"))
+        conn.close()
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    return out
+
+
+def test_served_k2_margins_bitwise_the_cpu(card):
+    """A ``ContinuousServer`` scoring the Adult fixture model on the card:
+    every served margin bitwise the CPU transform's and the fixture's,
+    every digest the sha256 of its body, K2 launched."""
+    import hashlib
+    import json
+    import os
+
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.gbdt.estimators import (
+        LightGBMClassificationModel)
+    from synapseml_tpu_torch.io import serving
+
+    fx = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
+    model = LightGBMClassificationModel.load_native_model(
+        os.path.join(fx, "lgbm_adult_100x31.txt"))
+    io = np.load(os.path.join(fx, "lgbm_adult_100x31_io.npz"))
+    x = io["x"][:256]
+
+    def pipeline(table):
+        feats = np.asarray([v["features"] for v in table["value"]],
+                           np.float32)
+        raw = model.transform(Table({"features": feats}),
+                              device="cuda")["rawPrediction"]
+        replies = np.empty(table.num_rows, dtype=object)
+        for i in range(table.num_rows):
+            replies[i] = serving.make_reply(
+                {"rawPrediction": raw[i].tolist()})
+        return table.with_column("reply", replies)
+
+    before = kernels.forest_traverse.launches
+    cs = serving.ContinuousServer("cuda_k2", pipeline, max_batch=64).start()
+    try:
+        got = _serve(cs, [json.dumps({"features": r.tolist()}).encode()
+                          for r in x])
+    finally:
+        cs.stop()
+    assert kernels.forest_traverse.launches > before
+    cpu = model.transform(Table({"features": x}),
+                          device="cpu")["rawPrediction"][:, 1]
+    for (status, body, digest), want, fixture in zip(got, cpu, io["raw"]):
+        assert status == 200 and digest == hashlib.sha256(body).hexdigest()
+        margin = np.float32(json.loads(body)["rawPrediction"][1])
+        assert margin == want == fixture
+
+
+def test_served_onnx_reply_bitwise_its_transform(card, tmp_path):
+    """The entry's ``_model_pipeline`` on the card: a served reply bitwise
+    the in-process ``ONNXModel.transform`` of the same row (bucket 8)."""
+    import json
+
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.io import serving
+    from synapseml_tpu_torch.onnx import ONNXModel, zoo
+
+    blob = zoo.resnet50(num_classes=1000, image_size=32)
+    path = tmp_path / "r50.onnx"
+    path.write_bytes(blob)
+    pipeline, model = serving._model_pipeline(str(path), device="cuda")
+    assert model.warmup(buckets=[8]).compiled == 1
+    x = np.random.default_rng(3).standard_normal(
+        (6, 3, 32, 32)).astype(np.float32)
+    cs = serving.ContinuousServer("cuda_onnx", pipeline, max_batch=1).start()
+    try:
+        got = _serve(cs, [json.dumps({"features": r.tolist()}).encode()
+                          for r in x], clients=1)
+    finally:
+        cs.stop()
+        serving._release_model(model)
+    direct = ONNXModel(model_bytes=blob)
+    out = direct.graph.output_names[0]
+    for i, (status, body, _) in enumerate(got):
+        assert status == 200
+        want = direct.transform(Table({"data": x[i:i + 1]}))[out][0]
+        np.testing.assert_array_equal(
+            np.asarray(json.loads(body)["output"], np.float32), want)
+
+
+def test_float32_and_bf16_servers_on_two_threads_stay_bitwise(card):
+    """Two ``ContinuousServer``s in one process, over a float32 and a
+    bf16 ``ONNXModel``, served at once with TF32 switched on globally:
+    every reply bitwise its model's ``bind()`` forward of the padded
+    bucket-8 batch."""
+    import json
+    import threading
+
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.io import serving
+    from synapseml_tpu_torch.onnx import ONNXModel, zoo
+
+    blob = zoo.resnet50(num_classes=1000, image_size=32)
+    x = np.random.default_rng(4).standard_normal(
+        (12, 3, 32, 32)).astype(np.float32)
+    bodies = [json.dumps({"features": r.tolist()}).encode() for r in x]
+    want, servers = {}, {}
+    for c in ("float32", "bfloat16"):
+        m = ONNXModel(model_bytes=blob, mini_batch_size=8, compute_dtype=c)
+        cast = torch.bfloat16 if c == "bfloat16" else None
+        fn = m.graph.bind(cast_dtype=cast)
+        pad = np.zeros((8, 3, 32, 32), np.float32)
+        rows = []
+        for r in x:
+            pad[0] = r
+            xd = torch.from_numpy(pad).to(card, cast or torch.float32)
+            rows.append(fn(xd)[0][0].float().cpu().numpy())
+        want[c] = rows
+        out = m.graph.output_names[0]
+
+        def pipeline(table, m=m, out=out):
+            feats = np.stack([np.asarray(v["features"], np.float32)
+                              for v in table["value"]])
+            res = m.transform(Table({"data": feats}))[out]
+            replies = np.empty(table.num_rows, dtype=object)
+            for i in range(table.num_rows):
+                replies[i] = serving.make_reply(
+                    {"output": np.asarray(res[i], np.float32).tolist()})
+            return table.with_column("reply", replies)
+
+        servers[c] = serving.ContinuousServer(f"cuda_two_{c}", pipeline,
+                                              max_batch=1).start()
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    results = {}
+    try:
+        threads = [threading.Thread(
+            target=lambda c=c: results.__setitem__(
+                c, _serve(servers[c], bodies * 2, clients=1)))
+            for c in servers]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+        for cs in servers.values():
+            cs.stop()
+    for c, got in results.items():
+        for i, (status, body, _) in enumerate(got):
+            assert status == 200
+            np.testing.assert_array_equal(
+                np.asarray(json.loads(body)["output"], np.float32),
+                want[c][i % len(x)])
+
+
+def test_drain_on_the_card_replies_to_every_admitted_request(card):
+    """Drain while 16 clients keep sending to a card-scoring server: every
+    request gets a terminal reply (200 before the gate, 503 after), and
+    the server's admitted count equals its replied count."""
+    import http.client
+    import json
+    import threading
+    import time
+
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.io import serving
+    from synapseml_tpu_torch.onnx import ONNXModel, zoo
+    from synapseml_tpu_torch.runtime import telemetry as tm
+
+    m = ONNXModel(model_bytes=zoo.resnet50(num_classes=1000, image_size=32),
+                  mini_batch_size=16)
+    out = m.graph.output_names[0]
+
+    def pipeline(table):
+        feats = np.stack([np.asarray(v["features"], np.float32)
+                          for v in table["value"]])
+        res = m.transform(Table({"data": feats}))[out]
+        replies = np.empty(table.num_rows, dtype=object)
+        for i in range(table.num_rows):
+            replies[i] = serving.make_reply({"argmax": int(res[i].argmax())})
+        return table.with_column("reply", replies)
+
+    body = json.dumps({"features": np.zeros((3, 32, 32)).tolist()}).encode()
+    cs = serving.ContinuousServer("cuda_drain", pipeline).start()
+    statuses, stop = [], threading.Event()
+    lock = threading.Lock()
+
+    def client():
+        conn = http.client.HTTPConnection("127.0.0.1", cs.server.port,
+                                          timeout=120)
+        while not stop.is_set():
+            conn.request("POST", "/", body)
+            resp = conn.getresponse()
+            resp.read()
+            with lock:
+                statuses.append(resp.status)
+            if resp.status != 200:
+                break
+        conn.close()
+
+    threads = [threading.Thread(target=client) for _ in range(16)]
+    try:
+        for t in threads:
+            t.start()
+        time.sleep(2.0)
+        assert cs.drain(timeout_ms=30_000) is True
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        cs.stop()
+    assert statuses.count(200) > 16 and set(statuses) <= {200, 503}
+    counters = tm.snapshot()["counters"]
+    admitted = counters['synapseml_serving_requests_total{server="cuda_drain"}']
+    replied = sum(v for k, v in counters.items()
+                  if k.startswith("synapseml_serving_replies_total")
+                  and 'server="cuda_drain"' in k)
+    assert admitted == replied == len(statuses)

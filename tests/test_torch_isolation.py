@@ -46,7 +46,13 @@ def test_scan_sees_the_port_and_catches_imports():
             "synapseml_tpu_torch/isolationforest/iforest.py",
             "synapseml_tpu_torch/onnx/importer.py",
             "synapseml_tpu_torch/dl/cntk.py",
-            "synapseml_tpu_torch/dl/cntk_format.py"} <= rel
+            "synapseml_tpu_torch/dl/cntk_format.py",
+            "synapseml_tpu_torch/io/serving.py",
+            "synapseml_tpu_torch/io/http.py",
+            "synapseml_tpu_torch/runtime/slo.py",
+            "synapseml_tpu_torch/runtime/structlog.py",
+            "synapseml_tpu_torch/runtime/blackbox.py",
+            "synapseml_tpu_torch/runtime/telemetry.py"} <= rel
     assert _forbidden_imports(
         "import jax.numpy as jnp\nfrom jaxlib import xla_client\n"
         "from synapseml_tpu.gbdt import boosting\n"

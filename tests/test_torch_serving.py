@@ -1,0 +1,809 @@
+"""The port's serving front end, on the CPU: real HTTP through
+``WorkerServer``/``ContinuousServer``, reply routing, epoch replay,
+coalescing, and the container entry ``python -m
+synapseml_tpu_torch.io.serving``.
+
+The single-server tests of the reference's ``tests/test_serving.py``
+are ported one for one (its ``DistributedServer`` tests wait on ROADMAP
+Queue 1 item 3b). Then the cross-package tests: the JAX package's
+``ContinuousServer`` and the port's serve the same request sequence —
+plain rows, malformed JSON, an expired deadline, a ``max_queue`` shed
+and a coalesced batch with a poison row — and must give the same status
+codes, the same reply bytes and ``X-Output-Digest`` (echo and Adult
+margins: exact), replies within 1e-5 (a small zoo MLP, float32), and the
+same ``serving_*`` series and counter values on ``/metrics``. Every
+server binds port 0; every blocking wait has a hard wall (``HARD``).
+"""
+import hashlib
+import http.client
+import json
+import os
+import re
+import signal
+import subprocess
+import sys
+import threading
+import time
+import urllib.error
+import urllib.request
+
+import numpy as np
+import pytest
+import torch
+
+import synapseml_tpu.io.serving as jserving
+from synapseml_tpu.data.table import Table as JTable
+from synapseml_tpu.gbdt.estimators import (
+    LightGBMClassificationModel as JLightGBMClassificationModel)
+from synapseml_tpu.onnx import ONNXModel as JONNXModel
+
+import synapseml_tpu_torch.io.serving as serving_mod
+from synapseml_tpu_torch.data.table import Table
+from synapseml_tpu_torch.gbdt.estimators import LightGBMClassificationModel
+from synapseml_tpu_torch.io.serving import (ContinuousServer,
+                                            HTTPSourceStateHolder,
+                                            WorkerServer, make_reply,
+                                            parse_request, requests_to_table,
+                                            send_replies)
+from synapseml_tpu_torch.onnx import ONNXModel, zoo
+
+HARD = 30.0  # hard wall for any blocking wait: hang -> fast red X
+MLP_TOL = 1e-5  # float32 MLP replies, port against the JAX package
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURES = os.path.join(ROOT, "tests", "fixtures")
+ADULT_MODEL = os.path.join(FIXTURES, "lgbm_adult_100x31.txt")
+ADULT_IO = os.path.join(FIXTURES, "lgbm_adult_100x31_io.npz")
+
+
+def _post(url, obj, timeout=HARD):
+    req = urllib.request.Request(
+        url, data=json.dumps(obj).encode(), method="POST",
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, json.loads(r.read().decode())
+
+
+def test_worker_server_round_trip():
+    srv = WorkerServer("t_rt")
+    try:
+        results = {}
+
+        def client():
+            results["resp"] = _post(srv.url, {"x": 5})
+
+        ct = threading.Thread(target=client)
+        ct.start()
+        batch = srv.get_batch(max_rows=4, timeout=5.0)
+        assert len(batch) == 1
+        table = parse_request(requests_to_table(batch))
+        assert table["value"][0] == {"x": 5}
+        table = table.with_column(
+            "reply", np.array([make_reply({"y": 10})], dtype=object))
+        assert send_replies(srv, table) == 1
+        ct.join(timeout=HARD)
+        assert not ct.is_alive()
+        assert results["resp"] == (200, {"y": 10})
+    finally:
+        srv.stop()
+
+
+def test_get_batch_linger_coalesces_concurrent_requests():
+    """With a linger window, a concurrent burst lands in ONE batch;
+    with linger=0 the drain takes only what is immediately available."""
+    srv = WorkerServer("t_linger")
+    try:
+        n = 8
+        barrier = threading.Barrier(n + 1)
+        results = [None] * n
+
+        def client(i):
+            barrier.wait(timeout=HARD)
+            time.sleep(0.002 * i)  # stagger arrivals across a few ms
+            results[i] = _post(srv.url, {"i": i})
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(n)]
+        for t in threads:
+            t.start()
+        barrier.wait(timeout=HARD)
+        batch = srv.get_batch(max_rows=64, timeout=5.0, linger=0.5)
+        assert len(batch) == n, f"linger should coalesce all {n}, got {len(batch)}"
+        table = requests_to_table(batch)
+        replies = np.array([make_reply({"ok": True})] * n, dtype=object)
+        send_replies(srv, table.with_column("reply", replies))
+        for t in threads:
+            t.join(timeout=HARD)
+        assert all(r == (200, {"ok": True}) for r in results)
+    finally:
+        srv.stop()
+
+
+def test_continuous_server_pipeline_with_model_scorer():
+    """End-to-end: real HTTP requests -> a pipeline scoring the port's
+    ``ONNXModel`` (on the CPU) -> replies equal to direct scoring."""
+    model = ONNXModel(model_bytes=zoo.mlp([4, 8], num_classes=3, seed=3),
+                      argmax_output_col="pred")
+
+    def pipeline(table: Table) -> Table:
+        feats = np.stack([np.asarray(v["features"], np.float32)
+                          for v in table["value"]])
+        scored = model.transform(Table({"input": feats}), device="cpu")
+        replies = np.empty(table.num_rows, dtype=object)
+        for i in range(table.num_rows):
+            replies[i] = make_reply({"pred": int(scored["pred"][i])})
+        return table.with_column("reply", replies)
+
+    cs = ContinuousServer("t_model", pipeline, max_batch=16).start()
+    try:
+        rng = np.random.default_rng(0)
+        feats = rng.normal(size=(12, 4)).astype(np.float32)
+        statuses, preds = [], []
+        lock = threading.Lock()
+
+        def client(i):
+            st, body = _post(cs.url, {"features": feats[i].tolist()})
+            with lock:
+                statuses.append(st)
+                preds.append((i, body["pred"]))
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(12)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=HARD)
+        assert cs.errors == []
+        assert statuses == [200] * 12
+        direct = model.transform(Table({"input": feats}), device="cpu")["pred"]
+        for i, p in preds:
+            assert p == int(direct[i])
+    finally:
+        cs.stop()
+
+
+def test_serving_latency_single_row():
+    """Round trip through a trivial pipeline: a loose bound that catches
+    structural regressions (polling, lock convoys)."""
+    def pipeline(table: Table) -> Table:
+        replies = np.empty(table.num_rows, dtype=object)
+        for i, v in enumerate(table["value"]):
+            replies[i] = make_reply({"ok": v["n"]})
+        return table.with_column("reply", replies)
+
+    cs = ContinuousServer("t_lat", pipeline, max_batch=1).start()
+    try:
+        _post(cs.url, {"n": 0})  # warm
+        lat = []
+        for i in range(20):
+            t0 = time.perf_counter()
+            st, body = _post(cs.url, {"n": i})
+            lat.append(time.perf_counter() - t0)
+            assert st == 200 and body["ok"] == i
+        p50 = sorted(lat)[len(lat) // 2]
+        assert p50 < 0.25, f"p50 serving latency {p50 * 1000:.1f}ms"
+    finally:
+        cs.stop()
+
+
+def test_epoch_replay_on_worker_restart():
+    """Uncommitted requests are replayed after a simulated task retry
+    (ref: HTTPSourceV2.scala:488-505 recoveredPartitions)."""
+    srv = WorkerServer("t_replay", reply_timeout=HARD)
+    try:
+        results = {}
+
+        def client():
+            results["resp"] = _post(srv.url, {"job": 1})
+
+        ct = threading.Thread(target=client)
+        ct.start()
+        batch = srv.get_batch(timeout=5.0)
+        assert len(batch) == 1
+        # worker "dies" before replying or committing; retry recovers
+        assert srv.recover() == 1
+        batch2 = srv.get_batch(timeout=5.0)
+        assert len(batch2) == 1
+        assert batch2[0].rid == batch[0].rid
+        table = requests_to_table(batch2).with_column(
+            "reply", np.array([make_reply({"done": True})], dtype=object))
+        send_replies(srv, table)
+        srv.commit(batch2[0].epoch)
+        ct.join(timeout=HARD)
+        assert results["resp"] == (200, {"done": True})
+        assert srv.recover() == 0  # committed epochs do not replay
+    finally:
+        srv.stop()
+
+
+def test_pipeline_error_returns_500_and_keeps_serving():
+    calls = {"n": 0}
+
+    def pipeline(table: Table) -> Table:
+        calls["n"] += 1
+        if calls["n"] == 1:
+            raise RuntimeError("transient scorer failure")
+        replies = np.empty(table.num_rows, dtype=object)
+        for i in range(table.num_rows):
+            replies[i] = make_reply({"ok": True})
+        return table.with_column("reply", replies)
+
+    cs = ContinuousServer("t_err", pipeline, max_batch=1).start()
+    try:
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            _post(cs.url, {"a": 1})
+        assert ei.value.code == 500
+        st, body = _post(cs.url, {"a": 2})
+        assert st == 200 and body["ok"] is True
+    finally:
+        cs.stop()
+
+
+def test_registry_shared_server():
+    s1 = HTTPSourceStateHolder.get_or_create_server("t_reg")
+    s2 = HTTPSourceStateHolder.get_or_create_server("t_reg")
+    assert s1 is s2
+    HTTPSourceStateHolder.remove("t_reg")
+
+
+def test_keepalive_roundtrip_is_submillisecond():
+    """Persistent-connection replies must not hit the Nagle/delayed-ACK
+    stall (~40ms a request without buffered writes + TCP_NODELAY). The
+    client loop is the test's own: 20 warm-up and 100 timed echoes on
+    one keep-alive ``http.client`` connection."""
+    cs = ContinuousServer("t_keepalive", serving_mod._echo_pipeline,
+                          max_batch=1).start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", cs.server.port,
+                                          timeout=HARD)
+        lat = []
+        for i in range(120):
+            body = json.dumps({"i": i}).encode()
+            t0 = time.perf_counter()
+            conn.request("POST", "/", body,
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            data = resp.read()
+            dt = time.perf_counter() - t0
+            assert resp.status == 200 and json.loads(data) == {"i": i}
+            if i >= 20:
+                lat.append(dt)
+        conn.close()
+        p50 = sorted(lat)[50]
+        # the stall this guards against is ~40ms a request; the median of
+        # 100 samples clears 25ms even on an oversubscribed box
+        assert p50 < 0.025, f"keep-alive p50 {p50*1e3:.1f}ms — Nagle stall?"
+    finally:
+        cs.stop()
+
+
+def test_pipelined_scoring_overlaps_device_time():
+    """The collector + N scoring workers overlap: the pipelined leg must
+    reach >=2 concurrent pipeline_fn calls inside a 250 ms "device"
+    window, the serial leg never more than 1. Every drained epoch is
+    committed (nothing replayable after its reply)."""
+    state = {"active": 0, "max_active": 0}
+    state_lock = threading.Lock()
+
+    def slow_pipeline(table: Table) -> Table:
+        with state_lock:
+            state["active"] += 1
+            state["max_active"] = max(state["max_active"],
+                                      state["active"])
+        time.sleep(0.25)
+        with state_lock:
+            state["active"] -= 1
+        replies = np.empty(table.num_rows, dtype=object)
+        for i in range(table.num_rows):
+            replies[i] = make_reply({"ok": True})
+        return table.with_column("reply", replies)
+
+    def run(pipelined):
+        with state_lock:
+            state["active"] = 0
+            state["max_active"] = 0
+        cs = ContinuousServer(f"t_overlap_{pipelined}", slow_pipeline,
+                              max_batch=4, batch_linger=0.02,
+                              pipelined=pipelined,
+                              scoring_workers=2).start()
+        try:
+            _post(cs.url, {"warm": 1})
+            results = [None] * 8
+            barrier = threading.Barrier(8)
+
+            def client(i):
+                barrier.wait(timeout=HARD)
+                results[i] = _post(cs.url, {"i": i})
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=HARD)
+            assert all(r is not None and r[0] == 200 for r in results)
+            assert cs.server.recover() == 0
+            with state_lock:
+                return state["max_active"]
+        finally:
+            cs.stop()
+
+    assert run(False) == 1
+    assert run(True) >= 2
+
+
+def test_reply_send_runs_off_the_scoring_thread():
+    """Pipelined mode is a 3-stage pipeline: ``pipeline_fn`` and
+    ``send_replies`` execute on DIFFERENT threads."""
+    score_threads, reply_threads = set(), set()
+    orig_send = serving_mod.send_replies
+
+    def recording_send(server, table, reply_col="reply", id_col="id"):
+        reply_threads.add(threading.get_ident())
+        return orig_send(server, table, reply_col, id_col)
+
+    def pipeline(table: Table) -> Table:
+        score_threads.add(threading.get_ident())
+        replies = np.empty(table.num_rows, dtype=object)
+        for i, v in enumerate(table["value"]):
+            replies[i] = make_reply({"ok": v["n"]})
+        return table.with_column("reply", replies)
+
+    serving_mod.send_replies = recording_send
+    cs = ContinuousServer("t_reply_thread", pipeline, max_batch=4).start()
+    try:
+        for i in range(6):
+            st, body = _post(cs.url, {"n": i})
+            assert st == 200 and body["ok"] == i
+        assert cs.errors == []
+        assert score_threads and reply_threads
+        assert score_threads.isdisjoint(reply_threads), (
+            score_threads, reply_threads)
+        assert cs.server.recover() == 0
+    finally:
+        cs.stop()
+        serving_mod.send_replies = orig_send
+
+
+def test_scored_batches_flush_real_replies_on_stop():
+    """stop() delivers REAL replies for batches already scored but still
+    parked in the reply queue."""
+    gate = threading.Event()
+
+    def pipeline(table: Table) -> Table:
+        replies = np.empty(table.num_rows, dtype=object)
+        for i, v in enumerate(table["value"]):
+            replies[i] = make_reply({"ok": v["n"]})
+        out = table.with_column("reply", replies)
+        gate.set()  # scored: from here the reply stage owns the batch
+        return out
+
+    cs = ContinuousServer("t_flush_stop", pipeline, max_batch=4).start()
+    try:
+        results = {}
+
+        def client():
+            results["r"] = _post(cs.url, {"n": 42})
+
+        th = threading.Thread(target=client)
+        th.start()
+        assert gate.wait(HARD)
+        cs.stop()
+        th.join(timeout=HARD)
+        assert results["r"] == (200, {"ok": 42})
+    finally:
+        HTTPSourceStateHolder.remove("t_flush_stop")
+
+
+def test_exact_commit_preserves_earlier_inflight_epochs():
+    """Committing epoch N+1 exactly must NOT prune epoch N's replay
+    history: recover() still replays epoch N."""
+    ws = WorkerServer("t_exact_commit")
+    try:
+        results = {}
+
+        def client(i):
+            results[i] = _post(ws.url, {"i": i})
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        b3 = ws.get_batch(max_rows=1, timeout=5.0)
+        b4 = ws.get_batch(max_rows=1, timeout=5.0)
+        assert len(b3) == 1 and len(b4) == 1
+        ws.reply_to(b4[0].rid, make_reply({"ok": 4}))
+        ws.commit(b4[0].epoch, exact=True)
+        assert ws.recover() == 1
+        b3r = ws.get_batch(max_rows=1, timeout=5.0)
+        assert b3r and b3r[0].rid == b3[0].rid
+        ws.reply_to(b3r[0].rid, make_reply({"ok": 3}))
+        ws.commit(b3r[0].epoch, exact=True)
+        for t in threads:
+            t.join(timeout=HARD)
+        assert sorted(r[0] for r in results.values()) == [200, 200]
+    finally:
+        ws.stop()
+
+
+def _cr(rid, entity=b"1"):
+    from synapseml_tpu_torch.io.http import HTTPRequestData
+    from synapseml_tpu_torch.io.serving import CachedRequest
+
+    return CachedRequest(rid, HTTPRequestData(
+        url="/", method="POST", headers={}, entity=entity))
+
+
+def test_drain_queue_coalesce_window_batches_staggered_arrivals():
+    """Requests arriving WITHIN the window of the first request's arrival
+    ride the same batch."""
+    import queue as _q
+
+    from synapseml_tpu_torch.io.serving import _drain_queue
+
+    q: "_q.Queue" = _q.Queue()
+    q.put(_cr("a"))
+
+    def late():
+        time.sleep(0.05)
+        q.put(_cr("b", b"2"))
+
+    t = threading.Thread(target=late)
+    t.start()
+    out = _drain_queue(q, max_rows=8, timeout=0.5, coalesce=0.3)
+    t.join(timeout=HARD)
+    assert [cr.rid for cr in out] == ["a", "b"]
+    q2: "_q.Queue" = _q.Queue()
+    q2.put(_cr("a"))
+    out2 = _drain_queue(q2, max_rows=8, timeout=0.5)
+    assert [cr.rid for cr in out2] == ["a"]
+
+
+def test_drain_queue_coalesce_deadline_is_arrival_anchored():
+    """A request that already sat longer than the window pays ZERO extra
+    delay — the deadline anchors at arrival."""
+    import queue as _q
+
+    from synapseml_tpu_torch.io.serving import _drain_queue
+
+    q: "_q.Queue" = _q.Queue()
+    q.put(_cr("old"))
+    time.sleep(0.25)  # request ages past the window
+    t0 = time.monotonic()
+    out = _drain_queue(q, max_rows=8, timeout=0.5, coalesce=0.2)
+    elapsed = time.monotonic() - t0
+    assert [cr.rid for cr in out] == ["old"]
+    assert elapsed < 0.15, f"aged request paid {elapsed:.3f}s extra wait"
+
+
+def test_continuous_server_batch_coalesce_amortizes_concurrent_clients():
+    """With batch_coalesce on, N near-simultaneous clients score as FEWER
+    pipeline_fn calls than requests, and every client gets its reply."""
+    calls = []
+
+    def pipeline(table):
+        calls.append(table.num_rows)
+        replies = np.empty(table.num_rows, dtype=object)
+        for i, v in enumerate(table["value"]):
+            replies[i] = make_reply({"echo": v})
+        return table.with_column("reply", replies)
+
+    cs = ContinuousServer("t_coalesce", pipeline, max_batch=16,
+                          batch_coalesce=0.15, pipelined=False).start()
+    try:
+        assert cs.batch_coalesce == 0.15
+        n_clients = 6
+        results = {}
+        barrier = threading.Barrier(n_clients)
+
+        def client(i):
+            barrier.wait(timeout=HARD)
+            results[i] = _post(cs.url, {"i": i})
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(n_clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=HARD)
+        assert len(results) == n_clients
+        assert all(r[0] == 200 and r[1]["echo"]["i"] == i
+                   for i, r in results.items())
+        assert sum(calls) == n_clients
+        assert len(calls) < n_clients, f"coalescing never batched: {calls}"
+    finally:
+        cs.stop()
+
+
+def test_drain_queue_coalesce_backlog_still_sweeps():
+    """An EXPIRED window still sweeps everything instantly available."""
+    import queue as _q
+
+    from synapseml_tpu_torch.io.serving import _drain_queue
+
+    q: "_q.Queue" = _q.Queue()
+    for i in range(10):
+        q.put(_cr(str(i), b"x"))
+    time.sleep(0.25)  # head ages past the window
+    t0 = time.monotonic()
+    out = _drain_queue(q, max_rows=64, timeout=0.5, coalesce=0.2)
+    elapsed = time.monotonic() - t0
+    assert [cr.rid for cr in out] == [str(i) for i in range(10)]
+    assert elapsed < 0.15, f"expired-window sweep waited {elapsed:.3f}s"
+
+
+# -- the JAX package's ContinuousServer beside the port's ----------------------
+
+def _echo_or_poison(mod):
+    def pipeline(table):
+        vals = list(table["value"])
+        if any(isinstance(v, dict) and v.get("poison") for v in vals):
+            raise ValueError("poison row")
+        replies = np.empty(table.num_rows, dtype=object)
+        for i, v in enumerate(vals):
+            replies[i] = mod.make_reply(v)
+        return table.with_column("reply", replies)
+    return pipeline
+
+
+def _adult_pipeline(mod, table_cls, model, **transform_kw):
+    def pipeline(table):
+        vals = list(table["value"])
+        for v in vals:
+            if not isinstance(v, dict) or len(v.get("features") or ()) != 14:
+                raise ValueError('expected {"features": [14 numbers]}')
+        x = np.asarray([v["features"] for v in vals], np.float32)
+        raw = model.transform(table_cls({"features": x}),
+                              **transform_kw)["rawPrediction"]
+        replies = np.empty(table.num_rows, dtype=object)
+        for i in range(table.num_rows):
+            replies[i] = mod.make_reply({"rawPrediction": raw[i].tolist()})
+        return table.with_column("reply", replies)
+    return pipeline
+
+
+def _mlp_pipeline(mod, table_cls, model, **transform_kw):
+    out_name = model.graph.output_names[0]
+
+    def pipeline(table):
+        feats = np.stack([np.asarray(v["features"], np.float32)
+                          for v in table["value"]])
+        out = np.asarray(model.transform(table_cls({"input": feats}),
+                                         **transform_kw)[out_name])
+        replies = np.empty(table.num_rows, dtype=object)
+        for i in range(table.num_rows):
+            replies[i] = mod.make_reply({"probs": out[i].tolist()})
+        return table.with_column("reply", replies)
+    return pipeline
+
+
+def _send(port, body: bytes, headers=None):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HARD)
+    try:
+        conn.request("POST", "/", body,
+                     {"Content-Type": "application/json",
+                      **(headers or {})})
+        resp = conn.getresponse()
+        data = resp.read()
+        return (resp.status, data, resp.getheader("X-Output-Digest"),
+                resp.getheader("Retry-After"))
+    finally:
+        conn.close()
+
+
+def _serving_series(port, name):
+    """``{series: value}`` of every ``serving_*`` sample of server
+    ``name`` on ``/metrics``: counters with their values, the other
+    families by name and labels only (their values are timings)."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=HARD) as r:
+        text = r.read().decode()
+    kinds, out = {}, {}
+    for line in text.splitlines():
+        m = re.match(r"# TYPE (\S+) (\S+)", line)
+        if m:
+            kinds[m.group(1)] = m.group(2)
+            continue
+        if not line.startswith("synapseml_serving_") \
+                or f'server="{name}"' not in line:
+            continue
+        series, value = line.rsplit(" ", 1)
+        family = series.split("{", 1)[0]
+        if kinds.get(family) == "counter":
+            out[series] = float(value)
+        else:
+            out[re.sub(r',?le="[^"]*"', "", series)] = None
+    return out
+
+
+def _serve_sequence(mod, pipeline, bodies, name):
+    """One server of ``mod`` over ``pipeline``: the plain rows one at a
+    time, malformed JSON, an expired deadline, a ``max_queue`` shed, then
+    ``bodies[-4:]`` (one a poison row) coalesced into one batch. Returns
+    the replies in order and the ``serving_*`` series."""
+    cs = mod.ContinuousServer(name, pipeline, max_batch=8).start()
+    port = cs.server.port
+    try:
+        replies = [_send(port, b) for b in bodies[:-4]]
+        replies.append(_send(port, b'{"features": [1, 2'))
+        replies.append(_send(port, bodies[0], {"X-Deadline-Ms": "0.001"}))
+        cs.server.max_queue = 0
+        replies.append(_send(port, bodies[0]))
+        cs.server.max_queue = None
+        # a linger window for the group; the collector's next drain (at
+        # most 0.05 s away) reads it
+        cs.batch_linger = 0.5
+        time.sleep(0.2)
+        group = [None] * 4
+        barrier = threading.Barrier(4)
+
+        def client(i):
+            barrier.wait(timeout=HARD)
+            group[i] = _send(port, bodies[-4 + i])
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=HARD)
+            assert not t.is_alive(), "client hung"
+        cs.batch_linger = 0.0
+        replies += group
+        return replies, _serving_series(port, name)
+    finally:
+        cs.stop()
+
+
+def _assert_same_replies(port_replies, ref_replies):
+    assert len(port_replies) == len(ref_replies)
+    for got, want in zip(port_replies, ref_replies):
+        assert got == want
+        status, body, digest, _ = got
+        if status != 429:  # a shed at enqueue carries no digest
+            assert digest == hashlib.sha256(body).hexdigest()
+
+
+def test_echo_replies_byte_identical_to_the_jax_server():
+    bodies = [json.dumps({"x": i, "s": "é" * i}).encode() for i in range(3)]
+    bodies += [json.dumps({"x": 10 + i, "poison": i == 2}).encode()
+               for i in range(4)]
+    want, want_series = _serve_sequence(
+        jserving, _echo_or_poison(jserving), bodies, "xpkg_echo")
+    got, got_series = _serve_sequence(
+        serving_mod, _echo_or_poison(serving_mod), bodies, "xpkg_echo")
+    _assert_same_replies(got, want)
+    assert [r[0] for r in got] == [200, 200, 200, 200, 504, 429,
+                                   200, 200, 400, 200]
+    assert got[3][1] == b"null"  # malformed JSON parses to None
+    assert got[5][3] == "1" and got[4][3] == "1"  # Retry-After on sheds
+    assert got_series == want_series
+    assert got_series['synapseml_serving_poison_requests_total'
+                      '{server="xpkg_echo"}'] == 1.0
+
+
+def test_adult_margin_replies_byte_identical_to_the_jax_server():
+    io = np.load(ADULT_IO)
+    x = io["x"][:7]
+    bodies = [json.dumps({"features": row.tolist()}).encode() for row in x]
+    bodies[-2] = json.dumps({"features": x[5, :13].tolist()}).encode()
+    jmodel = JLightGBMClassificationModel.load_native_model(ADULT_MODEL)
+    pmodel = LightGBMClassificationModel.load_native_model(ADULT_MODEL)
+    want, want_series = _serve_sequence(
+        jserving, _adult_pipeline(jserving, JTable, jmodel), bodies,
+        "xpkg_adult")
+    got, got_series = _serve_sequence(
+        serving_mod, _adult_pipeline(serving_mod, Table, pmodel,
+                                     device="cpu"), bodies, "xpkg_adult")
+    _assert_same_replies(got, want)
+    assert [r[0] for r in got] == [200, 200, 200, 500, 504, 429,
+                                   200, 200, 400, 200]
+    assert got_series == want_series
+    # the served margins are the fixture's, bitwise (reply -> row)
+    for i, row in {0: 0, 1: 1, 2: 2, 6: 3, 7: 4, 9: 6}.items():
+        margin = np.float32(json.loads(got[i][1])["rawPrediction"][1])
+        assert margin == io["raw"][row]
+
+
+def test_mlp_replies_within_tolerance_of_the_jax_server():
+    blob = zoo.mlp([6, 16], num_classes=4, seed=5)
+    rng = np.random.default_rng(0)
+    feats = rng.normal(size=(7, 6)).astype(np.float32)
+    bodies = [json.dumps({"features": f.tolist()}).encode() for f in feats]
+    bodies[-2] = json.dumps({"features": [0.0] * 5}).encode()  # poison
+    jmodel = JONNXModel(model_bytes=blob)
+    pmodel = ONNXModel(model_bytes=blob)
+    want, _ = _serve_sequence(
+        jserving, _mlp_pipeline(jserving, JTable, jmodel), bodies, "xpkg_mlp")
+    got, _ = _serve_sequence(
+        serving_mod, _mlp_pipeline(serving_mod, Table, pmodel,
+                                   device="cpu"), bodies, "xpkg_mlp")
+    assert [r[0] for r in got] == [r[0] for r in want]
+    for g, w in zip(got, want):
+        if g[0] == 200:
+            np.testing.assert_allclose(json.loads(g[1])["probs"],
+                                       json.loads(w[1])["probs"],
+                                       rtol=MLP_TOL, atol=MLP_TOL)
+
+
+# -- the container entry ---------------------------------------------------------
+
+def _read_until(proc, pattern, lines, deadline):
+    while time.monotonic() < deadline:
+        line = proc.stdout.readline()
+        if not line:
+            break
+        lines.append(line.rstrip("\n"))
+        m = re.search(pattern, line)
+        if m:
+            return m
+    raise AssertionError(f"no {pattern!r} in the entry's output: {lines}")
+
+
+def test_entry_serves_on_the_cpu_and_drains_on_sigterm(tmp_path):
+    """``python -m synapseml_tpu_torch.io.serving --device cpu`` with a
+    model: announce, warmup, one POST, SIGTERM, exit 0 with admitted =
+    replied."""
+    blob = zoo.mlp([4, 8], num_classes=3, seed=1)
+    path = tmp_path / "mlp.onnx"
+    path.write_bytes(blob)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "synapseml_tpu_torch.io.serving",
+         "--port", "0", "--host", "127.0.0.1", "--model", str(path),
+         "--device", "cpu", "--warmup", "auto",
+         "--dump-dir", str(tmp_path / "flight")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=str(tmp_path), env=env)
+    lines = []
+    try:
+        deadline = time.monotonic() + 120
+        warm = _read_until(proc, r"warmup done: .*compiled=(\d+).*"
+                                 r"errors=(\d+)", lines, deadline)
+        assert int(warm.group(1)) > 0 and warm.group(2) == "0"
+        m = _read_until(proc, r"serving \[.*\] on http://127\.0\.0\.1:(\d+)/",
+                        lines, deadline)
+        port = int(m.group(1))
+        x = np.random.default_rng(2).normal(size=(1, 4)).astype(np.float32)
+        status, body, digest, _ = _send(
+            port, json.dumps({"features": x[0].tolist()}).encode())
+        assert status == 200
+        assert digest == hashlib.sha256(body).hexdigest()
+        direct = ONNXModel(model_bytes=blob)
+        want = direct.transform(Table({"input": x}), device="cpu")[
+            direct.graph.output_names[0]]
+        np.testing.assert_array_equal(
+            np.asarray(json.loads(body)["output"], np.float32), want[0])
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+        lines += out.splitlines()
+        assert proc.returncode == 0, lines
+        assert "exit accounting: admitted=1 replied=1" in lines, lines
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=HARD)
+
+
+@pytest.mark.parametrize("argv, item", [
+    (["--devices", "2"], "1e"),
+    (["--tensor-parallel", "2"], "item 4"),
+    (["--partition-rules", "megatron"], "item 4"),
+    (["--decode"], "3c"),
+])
+def test_entry_refuses_unported_options(argv, item, capsys):
+    assert serving_mod.main(["--port", "0"] + argv) == 2
+    out = capsys.readouterr().out
+    assert out.startswith("error: ") and item in out and "ROADMAP" in out
+
+
+def test_entry_without_cuda_refuses_the_card_default(tmp_path, capsys):
+    """A model and no ``--device``: the card is the default, and without
+    CUDA the entry exits 2 with the port's device error — it never falls
+    back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    path = tmp_path / "mlp.onnx"
+    path.write_bytes(zoo.mlp([4, 8], num_classes=3, seed=1))
+    assert serving_mod.main(["--port", "0", "--model", str(path)]) == 2
+    out = capsys.readouterr().out
+    assert out.startswith("error: --device 'cuda'") and "device='cpu'" in out
