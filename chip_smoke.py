@@ -244,6 +244,25 @@ before the last line:
    reply JSON (``request_parse_seconds``, ``model_pipeline_seconds``),
    and each part's wall time.
 
+30. converted_lgbm — step 0 first (``resnet50_bucket_gap``):
+   ``entry()``'s 8 images through ``bind()`` at batch 8 and padded to 16
+   and through ``ONNXModel(mini_batch_size=16)`` eager and warm, each
+   route against the others and the JAX fixture, with a TF32 forward and
+   the kernels run at each batch beside them. Then a LightGBM model
+   exported with ``convert_lightgbm`` and scored through the
+   ``ai.onnx.ml`` ops: the Adult fixture model's 1,024 rows within 1e-5
+   of the JAX package's ONNX path (``lgbm_adult_100x31_onnx.npz``) and of
+   ``Booster.predict`` (K2), labels equal; 65,536 rows eager and warm
+   (every bucket compiled without a host copy, replays bitwise eager, 0
+   recompiles), rows/s, warmup, the bound tables' bytes, one bucket's
+   launches; ``examples/lightgbm_overview.py`` steps 1-7 and
+   ``examples/interpretability.py``'s KernelSHAP step with the port's
+   modules (80-iteration fit, AUC above 0.85, native round trip, ONNX
+   parity, over the wire, f0's attribution over 3x f2's); the serving
+   entry over the converted file: 1,024 one-row requests from 16
+   clients, every label ``Booster.predict > 0.5``. K1 and K2 launch 0
+   times inside the converted ``transform``.
+
 Between phases 3 and 4: prng_card_vs_cpu (the threefry key stream on the
 card equal to the CPU's, bitwise) and masked_index (K1 on a
 feature_fraction index equal to K1 on a fresh index of the moved bins and
@@ -254,6 +273,7 @@ last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -3007,6 +3027,103 @@ def replies_ok(replies) -> bool:
                and r[2] == hashlib.sha256(r[1]).hexdigest() for r in replies)
 
 
+def launch_entry(path: str, name: str, tmp: str) -> dict:
+    """``python -m synapseml_tpu_torch.io.serving --port 0 --model <path>
+    --warmup auto`` as a child process on the card: its warmup line must
+    show every bucket ``compiled`` and no error (``warmup skipped`` fails),
+    then its announce line within ``ANNOUNCE_TIMEOUT_S``. Returns the
+    child, the thread reading its output, the lines read, its port, its
+    warmup report and the seconds to the announce; on a failed check the
+    child is killed first."""
+    import threading
+
+    start = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "synapseml_tpu_torch.io.serving",
+         "--port", "0", "--host", "127.0.0.1", "--model", path,
+         "--warmup", "auto", "--name", name,
+         "--dump-dir", os.path.join(tmp, f"flight_{name}")],
+        cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines, announced = [], threading.Event()
+
+    def pump():
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if line.startswith("serving ["):
+                announced.set()
+        announced.set()  # the child exited: stop waiting
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    entry = {"proc": proc, "reader": reader, "lines": lines}
+    try:
+        announced.wait(ANNOUNCE_TIMEOUT_S)
+        announce = [ln for ln in lines if ln.startswith("serving [")]
+        check(bool(announce) and proc.poll() is None,
+              f"the serving entry never announced: {lines[-20:]}")
+        entry["announce_s"] = time.perf_counter() - start
+        check(not any("warmup skipped" in ln for ln in lines),
+              f"the entry skipped warmup: {lines}")
+        warm = [re.search(r"signatures=(\d+), compiled=(\d+), loaded=(\d+),"
+                          r" errors=(\d+)", ln) for ln in lines
+                if ln.startswith("warmup done")]
+        check(len(warm) == 1 and warm[0] is not None,
+              f"no warmup report: {lines}")
+        sigs, compiled, _loaded, werrs = (int(g) for g in warm[0].groups())
+        check(sigs > 0 and compiled == sigs and werrs == 0,
+              f"warmup compiled {compiled} of {sigs} buckets, "
+              f"{werrs} errors")
+    except BaseException:
+        kill_entry(entry)
+        raise
+    entry["warmup"] = warm[0].group(0)
+    entry["port"] = int(re.search(r":(\d+)/", announce[0]).group(1))
+    return entry
+
+
+def stop_entry(entry: dict, requests: int) -> dict:
+    """SIGTERM to the child of :func:`launch_entry`: it must exit 0
+    within ``EXIT_TIMEOUT_S``, print no traceback, and account every
+    request (``admitted == replied == requests``)."""
+    import signal
+
+    proc, lines = entry["proc"], entry["lines"]
+    start = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=EXIT_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    entry["reader"].join(timeout=30)
+    stop_s = time.perf_counter() - start
+    acct = [re.search(r"admitted=(\d+) replied=(\d+)", ln)
+            for ln in lines if ln.startswith("exit accounting")]
+    check(rc == 0, f"the entry exited {rc} after SIGTERM: {lines[-20:]}")
+    check(not any("Traceback" in ln for ln in lines),
+          f"the entry printed a traceback: {lines[-30:]}")
+    check(len(acct) == 1 and acct[0].group(1) == acct[0].group(2)
+          == str(requests),
+          f"exit accounting: {[ln for ln in lines if 'exit' in ln]}")
+    return {"exit_code": rc, "exit_accounting": acct[0].group(0),
+            "sigterm_to_exit_s": stop_s}
+
+
+def kill_entry(entry: dict) -> None:
+    proc = entry["proc"]
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait(timeout=60)
+
+
+def entry_metrics(port: int) -> list:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=60) as r:
+        return prom_samples(r.read().decode())
+
+
 def serving_phase(smi, reset_counts, read_counts) -> dict:
     """Phase 29: the serving entry on the card.
 
@@ -3029,9 +3146,6 @@ def serving_phase(smi, reset_counts, read_counts) -> dict:
     seconds a batch in JSON decode, feature arrays, ``transform`` and
     reply JSON, and each part's wall time. Returns the Adult leg's
     launch counts."""
-    import signal
-    import threading
-
     sys.path.insert(0, FIXTURES)
     import make_resnet50_fixture as resnet_fx
     from synapseml_tpu_torch.data.table import Table
@@ -3057,43 +3171,11 @@ def serving_phase(smi, reset_counts, read_counts) -> dict:
     walls["model_and_bodies_s"] = time.perf_counter() - start
 
     # -- the entry, a child process ---------------------------------------
-    start = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "synapseml_tpu_torch.io.serving",
-         "--port", "0", "--host", "127.0.0.1", "--model", path,
-         "--warmup", "auto", "--name", "resnet50",
-         "--dump-dir", os.path.join(tmp, "flight")],
-        cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    lines, announced = [], threading.Event()
-
-    def pump():
-        for line in proc.stdout:
-            lines.append(line.rstrip("\n"))
-            if line.startswith("serving ["):
-                announced.set()
-        announced.set()  # the child exited: stop waiting
-
-    reader = threading.Thread(target=pump, daemon=True)
-    reader.start()
+    entry = None
     try:
-        announced.wait(ANNOUNCE_TIMEOUT_S)
-        announce = [ln for ln in lines if ln.startswith("serving [")]
-        check(bool(announce) and proc.poll() is None,
-              f"the serving entry never announced: {lines[-20:]}")
-        walls["entry_start_to_announce_s"] = time.perf_counter() - start
-        check(not any("warmup skipped" in ln for ln in lines),
-              f"the entry skipped warmup: {lines}")
-        warm = [re.search(r"signatures=(\d+), compiled=(\d+), loaded=(\d+),"
-                          r" errors=(\d+)", ln) for ln in lines
-                if ln.startswith("warmup done")]
-        check(len(warm) == 1 and warm[0] is not None,
-              f"no warmup report: {lines}")
-        sigs, compiled, _loaded, werrs = (int(g) for g in warm[0].groups())
-        check(sigs > 0 and compiled == sigs and werrs == 0,
-              f"warmup compiled {compiled} of {sigs} buckets, "
-              f"{werrs} errors")
-        port = int(re.search(r":(\d+)/", announce[0]).group(1))
+        entry = launch_entry(path, "resnet50", tmp)
+        walls["entry_start_to_announce_s"] = entry["announce_s"]
+        port = entry["port"]
 
         start = time.perf_counter()
         load = serve_bodies(port, [distinct[i % SERVE_DISTINCT]
@@ -3113,10 +3195,7 @@ def serving_phase(smi, reset_counts, read_counts) -> dict:
         same = all(load[i][1] == load[i % SERVE_DISTINCT][1]
                    for i in range(SERVE_IMAGES))
 
-        import urllib.request
-        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
-                                    timeout=60) as r:
-            metrics = prom_samples(r.read().decode())
+        metrics = entry_metrics(port)
         recompiles = prom_total(metrics, "synapseml_executor_recompiles_total")
         aot_hits = prom_total(metrics, "synapseml_executor_aot_hits_total")
         check(recompiles == 0 and aot_hits > 0,
@@ -3150,30 +3229,14 @@ def serving_phase(smi, reset_counts, read_counts) -> dict:
         score_sum = hist["serving_score_seconds"]["sum"]
         wire = sum(scorer[p]["sum"] for p in
                    ("json_decode", "features", "replies"))
-
-        start = time.perf_counter()
-        proc.send_signal(signal.SIGTERM)
-        try:
-            rc = proc.wait(timeout=EXIT_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            rc = None
-        reader.join(timeout=30)
-        walls["sigterm_to_exit_s"] = time.perf_counter() - start
-        acct = [re.search(r"admitted=(\d+) replied=(\d+)", ln)
-                for ln in lines if ln.startswith("exit accounting")]
-        check(rc == 0, f"the entry exited {rc} after SIGTERM: {lines[-20:]}")
-        check(not any("Traceback" in ln for ln in lines),
-              f"the entry printed a traceback: {lines[-30:]}")
-        check(len(acct) == 1 and acct[0].group(1) == acct[0].group(2)
-              == str(SERVE_IMAGES + LATENCY_REQUESTS),
-              f"exit accounting: {[ln for ln in lines if 'exit' in ln]}")
+        exit_ = stop_entry(entry, SERVE_IMAGES + LATENCY_REQUESTS)
+        walls["sigterm_to_exit_s"] = exit_["sigterm_to_exit_s"]
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait(timeout=60)
+        if entry is not None:
+            kill_entry(entry)
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "serving_resnet50_entry", "model": "zoo.resnet50 seed 0, "
-          "224x224, 1,000 classes, float32", "warmup": warm[0].group(0),
+          "224x224, 1,000 classes, float32", "warmup": entry["warmup"],
           "requests": SERVE_IMAGES, "clients": SERVE_CLIENTS,
           "distinct_images": SERVE_DISTINCT,
           "request_bytes": int(np.mean([len(b) for b in distinct])),
@@ -3188,7 +3251,8 @@ def serving_phase(smi, reset_counts, read_counts) -> dict:
           "metrics_after_load": hist,
           "scorer_seconds_by_part": scorer,
           "scorer_json_share_of_score": wire / score_sum if score_sum else None,
-          "exit_accounting": acct[0].group(0), "exit_code": rc,
+          "exit_accounting": exit_["exit_accounting"],
+          "exit_code": exit_["exit_code"],
           "walls_s": dict(walls), "nvidia_smi": smi})
 
     # -- K2 served in process: the Adult model on the card ----------------
@@ -3260,6 +3324,469 @@ def serving_phase(smi, reset_counts, read_counts) -> dict:
           "echo_requests": ECHO_REQUESTS,
           "echo_requests_per_s": ECHO_REQUESTS / walls["echo_s"],
           "echo_latency": latency_ms([r[3] for r in echoed]),
+          "walls_s": walls, "nvidia_smi": smi})
+    return counts
+
+
+def close_models(*models) -> None:
+    """Close the executors of ``models`` (their threads, pinned buffers and
+    warm graphs)."""
+    for m in models:
+        for executor in m._executor_cache.values():
+            executor.close()
+
+
+BUCKET_GAP_ROUTES = ("bind8", "bind16", "eager8", "eager16", "warm8",
+                     "warm16")
+
+
+def conv_kernels(fn, x) -> set:
+    """The names of the card's kernels in one call of ``fn(x)``
+    (``torch.profiler``, CUDA activity), elementwise ones left out. A
+    profiler failure propagates: the caller reports it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(x)
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "elementwise" not in e.name and "Memcpy" not in e.name
+            and "Memset" not in e.name}
+
+
+def resnet_bucket_phase(smi) -> dict:
+    """Phase 30, step 0: why served ResNet-50 rows sit 1.16e-3 from the JAX
+    fixture when ``bind()`` at batch 8 gave 7.9e-4. ``entry()``'s 8 images
+    through ``bind()`` at batch 8 and padded with zero images to 16, and
+    through ``ONNXModel(mini_batch_size=16)`` in buckets 8 and 16, eager
+    and warm: each route's largest difference from every other and from
+    ``resnet50_224_logits.npz``, and its worst use of the float32 gate
+    (max of |a - b| - rtol·|b|, at most atol to pass). Replays must be
+    bitwise their eager buckets and every route inside the gate. Beside
+    them: the same batch-8 forward with TF32 allowed (what a leak past
+    ``_ieee_float32`` would look like), and the matmul and convolution
+    kernels the card ran at batch 8 and at 16."""
+    sys.path.insert(0, FIXTURES)
+    import make_resnet50_fixture as resnet_fx
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.onnx import ONNXModel, importer, zoo
+
+    start = time.perf_counter()
+    blob = zoo.resnet50(num_classes=1000, image_size=SERVE_IMAGE, seed=0)
+    imgs = resnet_fx.images()
+    want = np.load(RESNET_FIXTURE)["logits_f32"]
+    fn = importer.import_model(blob).bind()
+    x8 = torch.from_numpy(imgs).cuda()
+    x16 = torch.cat([x8, torch.zeros_like(x8)])
+    routes = {"bind8": fn(x8)[0].cpu().numpy(),
+              "bind16": fn(x16)[0][:8].cpu().numpy()}
+    padded = np.concatenate([imgs, np.zeros_like(imgs)])
+    eager = ONNXModel(model_bytes=blob, mini_batch_size=16)
+    warm = ONNXModel(model_bytes=blob, mini_batch_size=16)
+    rep = warm.warmup()
+    check(rep.errors == [] and rep.compiled == 2,
+          f"ResNet-50 buckets 8 and 16: {rep.entries}")
+    name, out = eager.graph.input_names[0], eager.graph.output_names[0]
+    for label, m in (("eager", eager), ("warm", warm)):
+        routes[f"{label}8"] = m.transform(Table({name: imgs}))[out]
+        routes[f"{label}16"] = m.transform(Table({name: padded}))[out][:8]
+
+    saved = importer._ieee_float32
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    importer._ieee_float32 = contextlib.nullcontext
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = fn(x8)[0].cpu().numpy()
+    finally:
+        importer._ieee_float32 = saved
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    try:
+        k8, k16 = conv_kernels(fn, x8), conv_kernels(fn, x16)
+        kernels = {"batch8_only": sorted(n[:100] for n in k8 - k16),
+                   "batch16_only": sorted(n[:100] for n in k16 - k8),
+                   "both": len(k8 & k16)}
+    except Exception as exc:  # noqa: BLE001 - evidence, not a check
+        kernels = {"error": f"{type(exc).__name__}: {exc}"}
+
+    def gate_use(a, b):
+        return float((np.abs(a - b) - LOGITS_TOL * np.abs(b)).max())
+
+    gaps = {a: {b: float(np.abs(routes[a] - routes[b]).max())
+                for b in BUCKET_GAP_ROUTES if b != a}
+            for a in BUCKET_GAP_ROUTES}
+    vs_jax = {a: float(np.abs(r - want).max()) for a, r in routes.items()}
+    result = {
+        "phase": "resnet50_bucket_gap", "images": 8,
+        "max_abs_vs_jax": vs_jax,
+        "gate_use_vs_jax": {a: gate_use(r, want) for a, r in routes.items()},
+        "max_abs_between_routes": gaps,
+        "warm8_bitwise_eager8": bool(np.array_equal(routes["warm8"],
+                                                    routes["eager8"])),
+        "warm16_bitwise_eager16": bool(np.array_equal(routes["warm16"],
+                                                      routes["eager16"])),
+        "bind8_bitwise_eager8": bool(np.array_equal(routes["bind8"],
+                                                    routes["eager8"])),
+        "bind16_bitwise_eager16": bool(np.array_equal(routes["bind16"],
+                                                      routes["eager16"])),
+        "tf32_max_abs_vs_jax": float(np.abs(tf32 - want).max()),
+        "tf32_max_abs_vs_bind8": float(np.abs(tf32 - routes["bind8"]).max()),
+        "kernels_by_batch": kernels,
+        "logits_max_abs": float(np.abs(want).max()),
+        "wall_s": time.perf_counter() - start, "nvidia_smi": smi}
+    emit(result)
+    check(result["warm8_bitwise_eager8"] and result["warm16_bitwise_eager16"],
+          "a ResNet-50 replay differs from its eager bucket")
+    check(all(np.allclose(r, want, rtol=LOGITS_TOL, atol=LOGITS_TOL)
+              for r in routes.values()),
+          f"a ResNet-50 route is outside the float32 gate: {vs_jax}")
+    close_models(eager, warm)
+    del fn, eager, warm
+    torch.cuda.empty_cache()
+    return result
+
+
+ONNX_LGBM_FIXTURE = os.path.join(FIXTURES, "lgbm_adult_100x31_onnx.npz")
+CONVERTED_TOL = 1e-5          # the reference's own bound (test_onnx_ml.py)
+CONVERTED_BATCH = 128
+OVERVIEW_ROWS, OVERVIEW_CUT = 4000, 3000
+OVERVIEW_ITERATIONS = 80
+AUC_BAR = 0.85                # examples/lightgbm_overview.py's gate
+ATTRIBUTION_RATIO = 3.0       # examples/interpretability.py's gate
+CONVERTED_REQUESTS = 1024
+ROUND_TRIP_TOL = 1e-6         # the examples' round trips
+
+
+def adult_census_shaped(n: int = OVERVIEW_ROWS, seed: int = 0):
+    """``examples/lightgbm_overview.py``'s synthetic Adult Census (14
+    features, income > 50k), the same draws."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, 14)).astype(np.float32)
+    x[:, 0] = rng.integers(17, 80, n)                  # age
+    x[:, 4] = np.abs(rng.normal(40, 12, n))            # hours/week
+    logits = (0.04 * (x[:, 0] - 38) + 0.05 * (x[:, 4] - 40)
+              + x[:, 1] - 0.5 * x[:, 2] + 0.3 * x[:, 3] * x[:, 5])
+    y = (logits + rng.logistic(scale=0.7, size=n) > 0).astype(np.float64)
+    return x, y
+
+
+def rank_auc(y: np.ndarray, p: np.ndarray) -> float:
+    """ROC AUC by the rank formula (ties take their average rank)."""
+    _, inv, counts = np.unique(p, return_inverse=True, return_counts=True)
+    ranks = (np.cumsum(counts) - (counts - 1) / 2.0)[inv]
+    pos = y == 1
+    n1, n0 = int(pos.sum()), int((~pos).sum())
+    return float((ranks[pos].sum() - n1 * (n1 + 1) / 2.0) / (n1 * n0))
+
+
+def converted_lgbm_phase(smi, reset_counts, read_counts) -> dict:
+    """Phase 30: a LightGBM model exported with ``convert_lightgbm`` and
+    scored through the ``ai.onnx.ml`` ops (``TreeEnsembleClassifier``: two
+    float32 GEMMs, no kernel of the port), on the card.
+
+    a. The Adult fixture model (100 trees, 31 leaves, 14 features) loaded
+       with ``Booster.load_string``, converted, and scored by
+       ``ONNXModel(mini_batch_size=128)`` in float32: the 1,024 fixture
+       rows within 1e-5 of the JAX package's ONNX path
+       (``lgbm_adult_100x31_onnx.npz``) and of ``Booster.predict`` (K2),
+       labels equal to both; 65,536 rows (the scoring cell) eager and warm
+       (every bucket ``compiled`` with no host-to-card copy, replays
+       bitwise eager, 0 recompiles), rows/s, warmup's seconds and memory,
+       the bound tables' bytes, one bucket's launches, copies and card
+       time; K1 and K2 launch 0 times inside ``transform``.
+    b. ``examples/lightgbm_overview.py`` steps 1-7 and
+       ``examples/interpretability.py``'s KernelSHAP step with the port's
+       modules: an 80-iteration fit (K1), holdout AUC above 0.85 (numpy's
+       rank formula), the native text round trip, ONNX rescoring within
+       1e-5 of ``Booster.predict``, 8 requests over the wire through
+       ``ContinuousServer`` (K2), and f0's mean |phi| over 3x f2's.
+    c. The serving entry with ``--model`` the converted Adult file: 1,024
+       one-row requests from 16 clients, every reply 200 with its digest
+       and its label ``Booster.predict > 0.5``; requests/s, p50, p99;
+       SIGTERM exit 0 with every request accounted.
+
+    Returns the launch counts of each part."""
+    import threading
+    import urllib.request
+
+    from synapseml_tpu_torch.core.pipeline import Transformer
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.explainers.local import TabularSHAP
+    from synapseml_tpu_torch.gbdt.boosting import Booster
+    from synapseml_tpu_torch.gbdt.estimators import LightGBMClassifier
+    from synapseml_tpu_torch.io import serving
+    from synapseml_tpu_torch.onnx import (ONNXModel, convert_lightgbm,
+                                          import_model, ml_ops)
+    from synapseml_tpu_torch.runtime import telemetry as tm
+
+    walls, counts = {}, {}
+    phase_start = start = time.perf_counter()
+    with open(FIXTURE) as fh:
+        booster = Booster.load_string(fh.read())
+    blob = convert_lightgbm(booster)
+    walls["load_and_convert_s"] = time.perf_counter() - start
+
+    # -- a. the Adult fixture model, converted ------------------------------
+    x = np.load(FIXTURE_IO)["x"]
+    fx = np.load(ONNX_LGBM_FIXTURE)
+    kw = dict(feed_dict={"input": "features"},
+              mini_batch_size=CONVERTED_BATCH)
+    eager = ONNXModel(model_bytes=blob, **kw)
+    reset_counts()
+    out = eager.transform(Table({"features": x}), device="cuda")
+    counts["fixture_transform"] = read_counts()
+    probs, label = out["probabilities"], out["label"]
+    reset_counts()
+    k2 = booster.predict(x, device="cuda")
+    counts["fixture_booster_predict"] = read_counts()
+    jax_err = float(np.abs(probs - fx["probabilities"]).max())
+    k2_err = float(np.abs(probs[:, 1] - k2).max())
+    check(label.dtype == np.int64 and probs.dtype == np.float32
+          and probs.shape == (len(x), 2), f"outputs {label.dtype}, "
+          f"{probs.dtype} {probs.shape}")
+    check(jax_err <= CONVERTED_TOL and np.array_equal(label, fx["label"]),
+          f"converted Adult rows {jax_err} from the JAX fixture, "
+          f"{int((label != fx['label']).sum())} labels differ")
+    check(k2_err <= CONVERTED_TOL
+          and np.array_equal(label, (k2 > 0.5).astype(np.int64)),
+          f"converted Adult rows {k2_err} from Booster.predict")
+
+    # the scoring cell's 65,536 rows, eager and warm
+    xq = query_rows(N_MAIN)
+    table = Table({"features": xq})
+    eager_s, eager_q = wall_median(
+        lambda: eager.transform(table, device="cuda"))
+    reset_counts()
+    eager.transform(table, device="cuda")
+    counts["transform_eager"] = read_counts()
+    warm = ONNXModel(model_bytes=blob, **kw)
+    transfers = TransferCount()
+    tm.reset()
+    warm_rep = warm_model(warm, transfers)
+    check(not warm_rep["errors"] and all(
+        s == "compiled" for s in warm_rep["status"]),
+        f"converted-model warmup: {warm_rep}")
+    check(transfers.counts["h2d"] == 0,
+          f"the captures copied {transfers.counts} between host and card")
+    warm_s, warm_q = wall_median(lambda: warm.transform(table, device="cuda"))
+    reset_counts()
+    busy = device_busy(lambda: warm.transform(table, device="cuda"))
+    counts["transform_warm"] = read_counts()
+    rec = recompiles(tm)
+    aot = aot_counts(tm)
+    same = all(np.array_equal(warm_q[c], eager_q[c])
+               for c in ("label", "probabilities"))
+    check(same, "a warm converted bucket differs from its eager bucket")
+    check(sum(rec.values()) == 0 and aot["misses"] == 0,
+          f"after warmup: recompiles {rec}, AOT {aot}")
+    for part in ("fixture_transform", "transform_eager", "transform_warm"):
+        check(counts[part]["forest_traverse"] == 0
+              and counts[part]["histogram"] == 0,
+              f"the converted {part} launched {counts[part]}")
+    check(counts["fixture_booster_predict"]["forest_traverse"] == 1,
+          f"Booster.predict launched {counts['fixture_booster_predict']}")
+
+    g = import_model(blob)
+    fn = g.bind()
+    ctx = g._nodes[0][1]
+    tables = ml_ops.tree_tables(ctx)
+    xb = torch.from_numpy(xq[:CONVERTED_BATCH]).cuda()
+    bucket = copies_and_syncs(fn, xb)
+    check(bucket["h2d_copies"] == 0 and bucket["syncs"] == 0,
+          f"a bound bucket copied or synchronised: {bucket}")
+    bucket_ms = cuda_ms(lambda: fn(xb))
+    emit({"phase": "converted_lgbm_adult", "model": "lgbm_adult_100x31.txt "
+          "(100 trees, 31 leaves, 14 features), float32",
+          "onnx_bytes": len(blob), "batch": CONVERTED_BATCH,
+          "fixture_rows": len(x), "max_abs_err_vs_jax_onnx": jax_err,
+          "max_abs_err_vs_booster_predict_k2": k2_err,
+          "tolerance": CONVERTED_TOL, "labels_equal": True,
+          "closest_probability_to_half": float(np.abs(k2 - 0.5).min()),
+          "rows": N_MAIN, "eager_rows_per_s": N_MAIN / eager_s,
+          "warm_rows_per_s": N_MAIN / warm_s,
+          "warm_over_eager": eager_s / warm_s,
+          "warmup": warm_rep, "capture_h2d_copies": transfers.counts["h2d"],
+          "warm_bitwise_eager": same, "recompiles": rec, "aot": aot,
+          "warm_transform_busy": busy,
+          "tables": {"trees": tables.n_trees, "nodes": tables.m,
+                     "leaves": int(tables.path.shape[-1]),
+                     "path_bytes": int(tables.path.nbytes),
+                     "bound_bytes": tables.nbytes()},
+          "bucket128": {**bucket, "card_ms": bucket_ms},
+          "launches": counts, "walls_s": dict(walls), "nvidia_smi": smi})
+    close_models(eager, warm)
+    del eager, warm, fn, g, eager_q, warm_q
+
+    # -- b. the two examples' flows ------------------------------------------
+    start = time.perf_counter()
+    xo, yo = adult_census_shaped()
+    cut = OVERVIEW_CUT
+    reset_counts()
+    fit_start = time.perf_counter()
+    model = LightGBMClassifier(
+        num_iterations=OVERVIEW_ITERATIONS, num_leaves=31,
+        learning_rate=0.1).fit(Table({"features": xo[:cut],
+                                      "label": yo[:cut]}), device="cuda")
+    fit_s = time.perf_counter() - fit_start
+    counts["overview_fit"] = read_counts()
+    held = model.booster.predict(xo[cut:], device="cuda")
+    auc = rank_auc(yo[cut:], held)
+    check(auc > AUC_BAR, f"holdout AUC {auc}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_converted_")
+    native = os.path.join(tmp, "model.txt")
+    with open(native, "w") as fh:
+        fh.write(model.booster.save_string())
+    with open(native) as fh:
+        reloaded = Booster.load_string(fh.read())
+    native_err = float(np.abs(reloaded.predict(xo[cut:], device="cuda")
+                              - held).max())
+    check(native_err <= ROUND_TRIP_TOL, f"native round trip {native_err}")
+    scorer = ONNXModel(model_bytes=convert_lightgbm(model),
+                       feed_dict={"input": "features"})
+    reset_counts()
+    onnx_probs = scorer.transform(Table({"features": xo[cut:]}),
+                                  device="cuda")["probabilities"]
+    counts["overview_onnx_transform"] = read_counts()
+    onnx_err = float(np.abs(onnx_probs[:, 1] - held).max())
+    check(onnx_err <= CONVERTED_TOL, f"ONNX rescoring {onnx_err}")
+
+    def pipeline(t):
+        feats = np.stack([np.asarray(v["features"], np.float32)
+                          for v in t["value"]])
+        p = model.booster.predict(feats, device="cuda")
+        replies = np.empty(t.num_rows, dtype=object)
+        for i in range(t.num_rows):
+            replies[i] = serving.make_reply({"p": float(p[i])})
+        return t.with_column("reply", replies)
+
+    cs = serving.ContinuousServer("e2e_lgbm", pipeline, max_batch=32).start()
+    got = {}
+    try:
+        reset_counts()
+
+        def client(i):
+            req = urllib.request.Request(
+                cs.url, json.dumps({"features": xo[cut + i].tolist()}
+                                   ).encode(),
+                {"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                got[i] = json.loads(resp.read())["p"]
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        counts["overview_serving"] = read_counts()
+    finally:
+        cs.stop()
+    direct = model.booster.predict(xo[cut:cut + 8], device="cuda")
+    wire_err = float(max(abs(got[i] - direct[i]) for i in range(8))) \
+        if len(got) == 8 else None
+    check(wire_err is not None and wire_err < ROUND_TRIP_TOL,
+          f"over the wire: {len(got)} replies, error {wire_err}")
+
+    rng = np.random.default_rng(0)
+    xs = rng.normal(size=(600, 3)).astype(np.float32)
+    ys = (2.0 * xs[:, 0] - 1.0 * xs[:, 1] > 0).astype(np.float64)
+    smodel = LightGBMClassifier(num_iterations=30, num_leaves=15).fit(
+        Table({"features": xs, "label": ys}), device="cuda")
+    sscorer = ONNXModel(model_bytes=convert_lightgbm(smodel),
+                        feed_dict={"input": "features"})
+
+    class OnnxScorer(Transformer):
+        def _transform(self, t, device):
+            feats = np.column_stack([t["f0"], t["f1"], t["f2"]]).astype(
+                np.float32)
+            return t.with_column("probability", sscorer.transform(
+                Table({"features": feats}), device=device)["probabilities"])
+
+    shap = TabularSHAP(model=OnnxScorer(), input_cols=["f0", "f1", "f2"],
+                       target_col="probability", target_classes=(1,),
+                       num_samples=64, seed=0)
+    reset_counts()
+    phis = np.asarray(shap.transform(
+        Table({"f0": xs[:16, 0], "f1": xs[:16, 1], "f2": xs[:16, 2]}),
+        "cuda")["output"])[:, 0, :]
+    counts["interpretability_shap"] = read_counts()
+    mean_abs = np.abs(phis[:, 1:]).mean(axis=0)
+    check(mean_abs[0] > ATTRIBUTION_RATIO * mean_abs[2],
+          f"mean |phi| {mean_abs.tolist()}")
+    check(counts["overview_fit"]["histogram"] > 0
+          and counts["overview_onnx_transform"]["forest_traverse"] == 0
+          and counts["overview_onnx_transform"]["histogram"] == 0
+          and counts["interpretability_shap"]["forest_traverse"] == 0
+          and counts["overview_serving"]["forest_traverse"] > 0,
+          f"the examples' launches: {counts}")
+    close_models(scorer, sscorer)
+    walls["examples_s"] = time.perf_counter() - start
+    emit({"phase": "converted_lgbm_examples",
+          "overview": {"rows": OVERVIEW_ROWS, "train_rows": cut,
+                       "iterations": OVERVIEW_ITERATIONS, "fit_s": fit_s,
+                       "holdout_auc": auc, "auc_bar": AUC_BAR,
+                       "native_round_trip_max_abs": native_err,
+                       "onnx_rescoring_max_abs": onnx_err,
+                       "wire_max_abs": wire_err},
+          "interpretability": {"mean_abs_phi": mean_abs.tolist(),
+                               "f0_over_f2": float(mean_abs[0]
+                                                   / mean_abs[2])},
+          "launches": {k: counts[k] for k in (
+              "overview_fit", "overview_onnx_transform", "overview_serving",
+              "interpretability_shap")},
+          "walls_s": dict(walls), "nvidia_smi": smi})
+
+    # -- c. the serving entry over the converted Adult file -----------------
+    start = time.perf_counter()
+    path = os.path.join(tmp, "adult.onnx")
+    with open(path, "wb") as fh:
+        fh.write(blob)
+    bodies = [json.dumps({"features": row.tolist()}).encode()
+              for row in x[:CONVERTED_REQUESTS]]
+    entry = None
+    try:
+        entry = launch_entry(path, "adult_onnx", tmp)
+        t_load = time.perf_counter()
+        load = serve_bodies(entry["port"], bodies, SERVE_CLIENTS)
+        load_s = time.perf_counter() - t_load
+        check(replies_ok(load), "a converted-Adult reply was not 200 with "
+                                "its body's digest")
+        served = np.asarray([json.loads(r[1])["output"] for r in load])
+        want = (k2[:CONVERTED_REQUESTS] > 0.5).astype(np.int64)
+        check(np.array_equal(served, want),
+              f"{int((served != want).sum())} served labels differ from "
+              "Booster.predict > 0.5")
+        metrics = entry_metrics(entry["port"])
+        recompiles_served = prom_total(
+            metrics, "synapseml_executor_recompiles_total")
+        check(recompiles_served == 0,
+              f"{recompiles_served} recompiles while serving")
+        batch_sizes = prom_histogram(metrics, "synapseml_serving_batch_size",
+                                     server="adult_onnx")
+        transform_part = prom_histogram(
+            metrics, "synapseml_model_pipeline_seconds", part="transform")
+        exit_ = stop_entry(entry, CONVERTED_REQUESTS)
+    finally:
+        if entry is not None:
+            kill_entry(entry)
+        shutil.rmtree(tmp, ignore_errors=True)
+    walls["entry_s"] = time.perf_counter() - start
+    walls["phase_s"] = time.perf_counter() - phase_start
+    emit({"phase": "converted_lgbm_serving", "model": "adult.onnx "
+          "(convert_lightgbm of lgbm_adult_100x31.txt)",
+          "warmup": entry["warmup"], "announce_s": entry["announce_s"],
+          "requests": CONVERTED_REQUESTS, "clients": SERVE_CLIENTS,
+          "all_200_with_digest": True, "labels_equal_booster": True,
+          "requests_per_s": CONVERTED_REQUESTS / load_s,
+          "latency": latency_ms([r[3] for r in load]),
+          "serving_batch_size": batch_sizes,
+          "model_pipeline_transform_seconds": transform_part,
+          "recompiles": recompiles_served, **exit_,
           "walls_s": walls, "nvidia_smi": smi})
     return counts
 
@@ -4233,6 +4760,10 @@ def main() -> int:
     # -- 29. the serving entry: ResNet-50 from warm graphs, K2 served -----
     serving_counts = serving_phase(smi, reset_counts, read_counts)
 
+    # -- 30. converted LightGBM: the ai.onnx.ml ops, the examples, served -
+    resnet_bucket_phase(smi)
+    converted = converted_lgbm_phase(smi, reset_counts, read_counts)
+
     emit({"kernels": [{
         "name": "forest_traverse", "route": "cuda",
         "source": "synapseml_tpu_torch/csrc/forest_traverse.cu",
@@ -4254,6 +4785,8 @@ def main() -> int:
             k: c["forest_traverse"] for k, c in explainer_counts.items()},
         "launches_cntk_path": cntk_counts["forest_traverse"],
         "launches_serving_path": serving_counts["forest_traverse"],
+        "launches_converted_path": {
+            k: c["forest_traverse"] for k, c in converted.items()},
         "max_abs_err": max_err, "bitwise": True,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
@@ -4277,6 +4810,8 @@ def main() -> int:
             k: c["histogram"] for k, c in explainer_counts.items()},
         "launches_cntk_path": cntk_counts["histogram"],
         "launches_serving_path": serving_counts["histogram"],
+        "launches_converted_path": {
+            k: c["histogram"] for k, c in converted.items()},
         "max_abs_err": k1_max_err,
         "bitwise": True, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],

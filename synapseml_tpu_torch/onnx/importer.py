@@ -2084,12 +2084,22 @@ class _Subgraph:
 
 
 def _bound_node(node, dev: torch.device):
-    """``node`` with its bodies bound to ``dev`` (a new context; the
-    imported one is shared by every bind)."""
+    """``node`` with its bodies and its device constants bound to ``dev``
+    (a new context; the imported one is shared by every bind). An op with
+    ``_constants`` (the ``ai.onnx.ml`` ops: tree tables, support vectors,
+    weights) gets their copies on ``dev`` under ``__bound__``, made once
+    here, so a bound forward copies nothing to the card."""
     impl, ctx, in_names, out_names = node
-    if not _subgraphs_of(ctx):
+    constants = getattr(impl, "_constants", None)
+    if not _subgraphs_of(ctx) and constants is None:
         return node
+    # the host constants first: they are cached on the imported context,
+    # which the bound one copies
+    bound = None if constants is None else {
+        k: _tensor(v, dev) for k, v in constants(ctx).items()}
     attrs = dict(ctx.attrs)
+    if bound is not None:
+        attrs["__bound__"] = bound
     if "__lowered__" in attrs:
         attrs["__lowered__"] = tuple(s.bound(dev)
                                      for s in attrs["__lowered__"])
@@ -2509,3 +2519,8 @@ def import_model(path_or_bytes, optimize: bool = False,
 
 def supported_ops() -> List[str]:
     return sorted(_REGISTRY)
+
+
+# ai.onnx.ml domain ops register themselves on import (bottom import keeps
+# the circular edge harmless: everything ml_ops needs is defined above)
+from synapseml_tpu_torch.onnx import ml_ops  # noqa: E402,F401

@@ -1667,3 +1667,130 @@ def test_drain_on_the_card_replies_to_every_admitted_request(card):
                   if k.startswith("synapseml_serving_replies_total")
                   and 'server="cuda_drain"' in k)
     assert admitted == replied == len(statuses)
+
+
+# -- the ai.onnx.ml ops: a converted LightGBM model on the card -------------
+
+def _adult_converted():
+    import os
+
+    from synapseml_tpu_torch.gbdt.boosting import Booster
+    from synapseml_tpu_torch.onnx import convert_lightgbm
+
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "fixtures")
+    with open(os.path.join(here, "lgbm_adult_100x31.txt")) as fh:
+        booster = Booster.load_string(fh.read())
+    io = np.load(os.path.join(here, "lgbm_adult_100x31_io.npz"))
+    fx = np.load(os.path.join(here, "lgbm_adult_100x31_onnx.npz"))
+    return booster, convert_lightgbm(booster), io["x"], fx
+
+
+def test_warm_tree_ensemble_buckets_are_bitwise_eager_with_no_host_copy(
+        card):
+    """The converted Adult model (100 trees, 31 leaves) through
+    ``ONNXModel(mini_batch_size=32)``: every bucket of ``warmup()`` is
+    captured with no host-to-card copy (the tree tables were bound at
+    ``bind``), each replayed bucket bitwise the eager one."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.onnx import ONNXModel
+
+    class H2D(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket.__name__ in ("to", "_to_copy", "copy_",
+                                                "_copy_from"):
+                src = args[1] if func.overloadpacket.__name__ == "copy_" \
+                    else args[0]
+                dst = out if isinstance(out, torch.Tensor) else args[0]
+                if (src.device.type, dst.device.type) == ("cpu", "cuda"):
+                    H2D.n += 1
+            return out
+
+    _, blob, x, _ = _adult_converted()
+    kw = dict(feed_dict={"input": "features"}, mini_batch_size=32)
+    eager = ONNXModel(model_bytes=blob, **kw)
+    want = eager.transform(Table({"features": x[:100]}))
+    warm = ONNXModel(model_bytes=blob, **kw)
+    ex = warm._executor("cuda")
+    capture = ex._capture
+
+    def counted(sig):
+        with H2D():
+            return capture(sig)
+    ex._capture = counted
+    rep = warm.warmup()
+    assert rep.errors == [] and rep.compiled == len(rep.entries) == 3
+    assert H2D.n == 0
+    got = warm.transform(Table({"features": x[:100]}))
+    assert ex._aot_hits == 4                      # 3 x 32 + 4 (bucket 8)
+    for col in ("label", "probabilities"):
+        np.testing.assert_array_equal(got[col], want[col])
+
+
+def test_converted_probabilities_within_1e5_of_booster_predict(card):
+    """The 1,024 Adult fixture rows: probabilities within 1e-5 of the
+    port's ``Booster.predict`` on the card (K2) and of the JAX package's
+    ONNX path (``lgbm_adult_100x31_onnx.npz``), labels equal to both; no
+    kernel of the port runs inside the ONNX ``transform``."""
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.onnx import ONNXModel
+
+    booster, blob, x, fx = _adult_converted()
+    kernels.forest_traverse.launches = kernels.histogram.launches = 0
+    out = ONNXModel(model_bytes=blob, feed_dict={"input": "features"}
+                    ).transform(Table({"features": x}))
+    assert kernels.forest_traverse.launches == kernels.histogram.launches \
+        == 0
+    want = booster.predict(x)
+    assert kernels.forest_traverse.launches == 1
+    probs = out["probabilities"]
+    assert out["label"].dtype == np.int64 and probs.dtype == np.float32
+    np.testing.assert_allclose(probs[:, 1], want, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(probs, fx["probabilities"], rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(out["label"], (want > 0.5).astype(int))
+    np.testing.assert_array_equal(out["label"], fx["label"])
+
+
+def test_resnet50_padded_bucket_matches_unpadded(card):
+    """``entry()``'s 8 images at batch 8 and padded into bucket 16, through
+    ``bind()`` and ``ONNXModel(mini_batch_size=16)`` eager and warm: each
+    replay bitwise its eager bucket, and every route within the float32
+    gate (rtol=atol=1e-3) of the JAX fixture. The gap between the batch-8
+    and the padded batch-16 forwards is what served rows see when they
+    share a bucket with other requests."""
+    import os
+
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.onnx import ONNXModel, import_model, zoo
+
+    resnet_fx = _fixture_module("make_resnet50_fixture")
+    blob = zoo.resnet50(num_classes=1000, image_size=224, seed=0)
+    imgs = resnet_fx.images()
+    want = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "fixtures", "resnet50_224_logits.npz"))[
+        "logits_f32"]
+    fn = import_model(blob).bind()
+    x8 = torch.from_numpy(imgs).to(card)
+    bind8 = fn(x8)[0].cpu().numpy()
+    bind16 = fn(torch.cat([x8, torch.zeros_like(x8)]))[0][:8].cpu().numpy()
+    eager = ONNXModel(model_bytes=blob, mini_batch_size=16)
+    warm = ONNXModel(model_bytes=blob, mini_batch_size=16)
+    rep = warm.warmup()
+    assert rep.errors == [] and rep.compiled == 2
+    name = eager.graph.input_names[0]
+    out = eager.graph.output_names[0]
+    padded = np.concatenate([imgs, np.zeros_like(imgs)])
+    routes = {"bind8": bind8, "bind16": bind16}
+    for label, m in (("eager", eager), ("warm", warm)):
+        routes[f"{label}8"] = m.transform(Table({name: imgs}))[out]
+        routes[f"{label}16"] = m.transform(Table({name: padded}))[out][:8]
+    np.testing.assert_array_equal(routes["warm8"], routes["eager8"])
+    np.testing.assert_array_equal(routes["warm16"], routes["eager16"])
+    for label, got in routes.items():
+        np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3,
+                                   err_msg=label)

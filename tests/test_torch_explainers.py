@@ -565,3 +565,65 @@ def test_tabular_shap_over_adult_matches_the_fixture_rows():
     z, w = samplers.kernel_shap_samples(np.random.default_rng(0), 16, 100,
                                         14)
     _close_under_cond(got[:, 0], want[:, 0], _shap_system(z, w), 100)
+
+
+def test_tabular_shap_over_onnx_scorer(monkeypatch):
+    """``test_tabular_shap_over_onnx_scorer`` of ``tests/test_explainers.py``
+    (BASELINE config 4): KernelSHAP over a LightGBM model converted to ONNX
+    and scored through ``ONNXModel``, the same trees in both packages (the
+    JAX fit carried over by ``Booster.to_dict``). The same states and
+    weights bitwise, the ONNX scores within 1e-6 (the tree-sum rounding of
+    ``tests/test_torch_onnx_ml.py``), the attributions within S · cond(A) ·
+    eps32 · max|coef| a row, and f0's mean |phi| over 3x the others'."""
+    from synapseml_tpu.gbdt.estimators import LightGBMClassifier as JFit
+    from synapseml_tpu.onnx import ONNXModel as JONNXModel
+    from synapseml_tpu.onnx import convert_lightgbm as jconvert
+    from synapseml_tpu_torch.convert import booster_from_arrays
+    from synapseml_tpu_torch.onnx import ONNXModel, convert_lightgbm
+
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(300, 3)).astype(np.float32)
+    y = (x[:, 0] > 0).astype(np.float64)
+    jlgbm = JFit(num_iterations=15, num_leaves=7).fit(
+        JaxTable({"features": x, "label": y}))
+    booster = booster_from_arrays(jlgbm.booster.to_dict())
+    kw = dict(feed_dict={"input": "features"})
+    jscorer = JONNXModel(model_bytes=jconvert(jlgbm), **kw)
+    pscorer = ONNXModel(model_bytes=convert_lightgbm(booster), **kw)
+    cols = ("f0", "f1", "f2")
+
+    def feats(table):
+        return np.column_stack([np.asarray(table[c], np.float32)
+                                for c in cols])
+
+    class JaxScorer(JaxTransformer):
+        def _transform(self, table):
+            scored = jscorer.transform(JaxTable({"features": feats(table)}))
+            return table.with_column("probability",
+                                     np.asarray(scored["probabilities"]))
+
+    class PortScorer(Transformer):
+        def _transform(self, table, device):
+            scored = pscorer.transform(Table({"features": feats(table)}),
+                                       device=device)
+            return table.with_column("probability", scored["probabilities"])
+
+    common = dict(input_cols=list(cols), target_col="probability",
+                  target_classes=(1,), num_samples=32, seed=0)
+    data = {c: x[:24, j].astype(np.float64) for j, c in enumerate(cols)}
+    cap = _Captured(monkeypatch)
+    want = np.asarray(jlocal.TabularSHAP(model=JaxScorer(), **common)
+                      .transform(JaxTable(dict(data)))["output"])
+    got = np.asarray(local.TabularSHAP(model=PortScorer(), **common)
+                     .transform(Table(dict(data)), "cpu")["output"])
+    (_, pargs), = cap.port
+    (_, jargs), = cap.jax
+    np.testing.assert_array_equal(pargs[0], jargs[0])
+    np.testing.assert_array_equal(pargs[2], jargs[2])
+    np.testing.assert_allclose(pargs[1], jargs[1], rtol=0, atol=1e-6)
+    z, _, w, fnull, fx = jargs
+    _close_under_cond(got[:, 0], want[:, 0], _shap_system(z, w), 32)
+    np.testing.assert_allclose(got[:, 0, 1:].sum(1), fx - fnull,
+                               atol=EFFICIENCY_TOL)
+    mag = np.abs(got[:, 0, 1:]).mean(axis=0)
+    assert mag[0] > 3 * max(mag[1], mag[2]), mag

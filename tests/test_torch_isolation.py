@@ -45,6 +45,8 @@ def test_scan_sees_the_port_and_catches_imports():
     assert {"chip_smoke.py", "synapseml_tpu_torch/gbdt/kernels.py",
             "synapseml_tpu_torch/isolationforest/iforest.py",
             "synapseml_tpu_torch/onnx/importer.py",
+            "synapseml_tpu_torch/onnx/ml_ops.py",
+            "synapseml_tpu_torch/onnx/convert.py",
             "synapseml_tpu_torch/dl/cntk.py",
             "synapseml_tpu_torch/dl/cntk_format.py",
             "synapseml_tpu_torch/io/serving.py",

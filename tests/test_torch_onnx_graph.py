@@ -57,12 +57,20 @@ CONTROL_FLOW_AND_ACTIVATIONS = [
     "If", "Loop", "Scan", "LeakyRelu", "PRelu", "Elu", "Selu",
     "HardSigmoid", "HardSwish", "Mish", "Celu", "Affine", "ThresholdedRelu",
     "Shrink", "BitShift"]
+# the ai.onnx.ml domain (converted LightGBM and scikit-learn graphs)
+ONNX_ML = [
+    "TreeEnsembleClassifier", "TreeEnsembleRegressor", "TreeEnsemble",
+    "ZipMap", "CastMap", "Scaler", "Normalizer", "LinearClassifier",
+    "LinearRegressor", "Imputer", "Binarizer", "ArrayFeatureExtractor",
+    "FeatureVectorizer", "LabelEncoder", "CategoryMapper", "OneHotEncoder",
+    "SVMClassifier", "SVMRegressor", "DictVectorizer"]
 PORTED = sorted(RESNET_AND_FIXTURES + TRANSFORMER_AND_RECURRENT
-                + CONTROL_FLOW_AND_ACTIVATIONS)
+                + CONTROL_FLOW_AND_ACTIVATIONS + ONNX_ML)
 
 
 def test_registry_is_the_ported_op_set():
     assert supported_ops() == PORTED
+    assert len(PORTED) == 151 and len(ONNX_ML) == 19
     assert set(PORTED) <= set(jax_supported_ops())
 
 

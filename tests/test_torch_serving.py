@@ -725,6 +725,43 @@ def test_mlp_replies_within_tolerance_of_the_jax_server():
                                        rtol=MLP_TOL, atol=MLP_TOL)
 
 
+def test_converted_lightgbm_file_replies_byte_identical_to_the_jax_server(
+        tmp_path):
+    """The entry's default pipeline (``_model_pipeline``) over a file that
+    ``convert_lightgbm`` wrote for the Adult fixture model, in both
+    packages (each its own converter's file): the same statuses, reply
+    bytes and digests, and ``serving_*`` series on one request sequence.
+    A reply is the graph's first output, ``label``, which equals
+    ``Booster.predict > 0.5``."""
+    from synapseml_tpu.gbdt.boosting import Booster as JBooster
+    from synapseml_tpu.onnx import convert_lightgbm as jconvert
+    from synapseml_tpu_torch.gbdt.boosting import Booster
+    from synapseml_tpu_torch.onnx import convert_lightgbm
+
+    text = open(ADULT_MODEL).read()
+    booster = Booster.load_string(text)
+    port_path, ref_path = tmp_path / "port.onnx", tmp_path / "ref.onnx"
+    port_path.write_bytes(convert_lightgbm(booster))
+    ref_path.write_bytes(jconvert(JBooster.load_string(text)))
+    x = np.load(ADULT_IO)["x"][:7]
+    bodies = [json.dumps({"features": row.tolist()}).encode() for row in x]
+    bodies[-2] = json.dumps({"features": "not numbers"}).encode()  # poison
+    want, want_series = _serve_sequence(
+        jserving, jserving._model_pipeline(str(ref_path))[0], bodies,
+        "xpkg_onnx_lgbm")
+    got, got_series = _serve_sequence(
+        serving_mod, serving_mod._model_pipeline(str(port_path),
+                                                 device="cpu")[0],
+        bodies, "xpkg_onnx_lgbm")
+    _assert_same_replies(got, want)
+    assert [r[0] for r in got] == [200, 200, 200, 500, 504, 429,
+                                   200, 200, 400, 200]
+    assert got_series == want_series
+    labels = (booster.predict(x, device="cpu") > 0.5).astype(np.int64)
+    for i, row in {0: 0, 1: 1, 2: 2, 6: 3, 7: 4, 9: 6}.items():
+        assert json.loads(got[i][1]) == {"output": int(labels[row])}
+
+
 # -- the container entry ---------------------------------------------------------
 
 def _read_until(proc, pattern, lines, deadline):
