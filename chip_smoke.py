@@ -262,6 +262,17 @@ before the last line:
    entry over the converted file: 1,024 one-row requests from 16
    clients, every label ``Booster.predict > 0.5``. K1 and K2 launch 0
    times inside the converted ``transform``.
+31. sequence_tagger — the MoE sequence tagger (``dl/tagger.py``):
+   ``examples/bilstm_entity_extraction.py``'s training flow at its own
+   width on the world-of-one mesh (200 AdamW steps at 16 x 16, lr 3e-3;
+   the last loss below 0.6 of the first, held-out token accuracy above
+   0.8); ``TaggerConfig()`` (427,840 parameters) in float32 and bf16,
+   dense and ring: a 32 x 512 forward held to the port's CPU run and the
+   fixture's 2 x 512 tokens to the JAX package's
+   (``tests/fixtures/tagger_io.npz``), three AdamW steps held to both,
+   run twice (bitwise or not); forward tokens/s, train-step ms and
+   tokens/s, a step's launches, busy share and peak memory. K1 and K2
+   launch 0 times.
 
 Between phases 3 and 4: prng_card_vs_cpu (the threefry key stream on the
 card equal to the CPU's, bitwise) and masked_index (K1 on a
@@ -3791,6 +3802,363 @@ def converted_lgbm_phase(smi, reset_counts, read_counts) -> dict:
     return counts
 
 
+TAGGER_FIXTURE = os.path.join(FIXTURES, "tagger_io.npz")
+TAGGER_EXAMPLE = dict(vocab_size=64, num_tags=4, d_model=32, head_dim=8,
+                      ffn_dim=64, max_seq_len=16)
+EXAMPLE_STEPS = 200           # examples/bilstm_entity_extraction.py
+SEQ_BATCH, SEQ_LEN = 32, 512  # the default width's forward and steps
+SEQ_F32_CPU_TOL = 1e-4        # float32 logits vs the port's CPU run, of
+                              # the largest |logit|
+SEQ_F32_JAX_TOL = 1e-3        # float32 logits vs the JAX fixture (§2's gate)
+SEQ_BF16_RMS = 0.05           # bf16: RMS of the gap over RMS of the logits
+SEQ_GRAD_TOL = 1e-4           # float32 gradients, of each leaf's largest
+SEQ_UPDATE_L2 = 1e-2          # float32 updates after 3 steps: L2 of the gap
+                              # over L2 of the update, the whole model (the
+                              # port's CPU run and JAX's: 4.5% at 32 x 512)
+SEQ_UPDATE_LR = 1e-3          # float32 update sums vs JAX, in lr a parameter
+SEQ_BF16_TRAIN = 0.05         # bf16 losses (of the first) and gradient norms
+
+
+def entity_batches(rng, vocab, n_tags, b, s):
+    """Tokens 0..9 are 'entity' words tagged 1, the rest tagged 0;
+    tag 2 marks the token after an entity (a BIO-ish structure).
+    (``examples/bilstm_entity_extraction.py``'s, copied: the examples
+    import JAX.)"""
+    tokens = rng.integers(10, vocab, (b, s)).astype(np.int32)
+    ent = rng.random((b, s)) < 0.2
+    tokens[ent] = rng.integers(0, 10, ent.sum())
+    labels = np.zeros((b, s), np.int32)
+    labels[ent] = 1
+    after = np.roll(ent, 1, axis=1)
+    after[:, 0] = False
+    labels[after & ~ent] = 2
+    return tokens, labels
+
+
+@contextlib.contextmanager
+def routes_of(moe_module):
+    """The experts each token went to, a ``[B, S, E]`` boolean array a
+    layer, read around ``moe_module.topk_gating``."""
+    seen = []
+    inner = moe_module.topk_gating
+
+    def record(gate_logits, top_k):
+        gates = inner(gate_logits, top_k)
+        seen.append((gates > 0).cpu().numpy())
+        return gates
+
+    moe_module.topk_gating = record
+    try:
+        yield seen
+    finally:
+        moe_module.topk_gating = inner
+
+
+def logit_gaps(got, want, got_routes, want_routes) -> dict:
+    """How far ``got`` logits lie from ``want``: the largest gap, the
+    per-token largest gap's p99 and maximum over the largest |logit|, the
+    RMS gap over the RMS logit, the share of equal tags, and the tokens
+    routed to other experts in some layer."""
+    gap = np.abs(got - want)
+    tok = gap.max(-1)
+    top = float(np.abs(want).max())
+    apart = ~np.all([(g == w).all(-1) for g, w in zip(got_routes,
+                                                      want_routes)], axis=0)
+    rms = np.sqrt((gap ** 2).mean() / (want ** 2).mean())
+    return {"max_abs": float(gap.max()),
+            "max_of_largest": float(tok.max()) / top,
+            "p99_of_largest": float(np.percentile(tok, 99)) / top,
+            "rms_of_rms": float(rms),
+            "tags_equal": float((got.argmax(-1) == want.argmax(-1)).mean()),
+            "tokens_routed_apart": int(apart.sum()), "tokens": int(apart.size)}
+
+
+def tagger_steps(tagger, cfg, dev, batch) -> dict:
+    """Three AdamW steps of ``make_train_step(cfg)`` from
+    ``init_params(cfg, 0)`` on ``dev``: the losses, the first step's
+    gradients and their L2 norm a leaf, the parameters after."""
+    step, init_state, place = tagger.make_train_step(cfg, device=dev)
+    params, opt = init_state(0)
+    before = {n: p.detach().cpu().numpy().copy()
+              for n, p in params.named_parameters()}
+    placed = [place(a) for a in batch]
+    losses, grads = [], None
+    for _ in range(3):
+        params, opt, loss = step(params, opt, *placed)
+        losses.append(float(loss))
+        if grads is None:
+            grads = {n: p.grad.detach().cpu().numpy().copy()
+                     for n, p in params.named_parameters()}
+    after = {n: p.detach().cpu().numpy()
+             for n, p in params.named_parameters()}
+    return {"losses": losses, "grads": grads, "after": after,
+            "update": {n: a.astype(np.float64) - before[n]
+                       for n, a in after.items()},
+            "grad_norm": {n: float(np.linalg.norm(g.astype(np.float64)))
+                          for n, g in grads.items()}}
+
+
+def held_steps(card, other, dname, lr) -> dict:
+    """Card steps against another run of the same port code (CPU): float32
+    losses within rtol 1e-4, each gradient within SEQ_GRAD_TOL of its leaf's
+    largest, the whole model's update within SEQ_UPDATE_L2 (L2 of the gap
+    over L2 of the update); bf16 losses within 5% of the first and gradient
+    norms within 5%. The largest gap of one parameter, in lr, is reported:
+    Adam moves a parameter whose gradient is within rounding of 0 by up
+    to lr a step in either direction."""
+    loss_gap = max(abs(a - b) for a, b in zip(card["losses"], other["losses"]))
+    grad_gap = max(float(np.abs(card["grads"][n] - g).max() / np.abs(g).max())
+                   for n, g in other["grads"].items())
+    norm_gap = max(abs(card["grad_norm"][n] - v) / v
+                   for n, v in other["grad_norm"].items())
+    param_gap = max(float(np.abs(card["after"][n] - a).max()) / lr
+                    for n, a in other["after"].items())
+    update_gap = np.sqrt(
+        sum(((card["update"][n] - u) ** 2).sum()
+            for n, u in other["update"].items())
+        / sum((u ** 2).sum() for u in other["update"].values()))
+    if dname == "float32":
+        ok = (loss_gap <= 1e-4 * max(map(abs, other["losses"]))
+              and grad_gap <= SEQ_GRAD_TOL and update_gap <= SEQ_UPDATE_L2)
+    else:
+        ok = (loss_gap <= SEQ_BF16_TRAIN * abs(other["losses"][0])
+              and norm_gap <= SEQ_BF16_TRAIN)
+    return {"losses": card["losses"], "other_losses": other["losses"],
+            "loss_gap": loss_gap, "grad_gap_of_leaf_max": grad_gap,
+            "grad_norm_rel_gap": norm_gap, "param_gap_in_lr": param_gap,
+            "update_l2_gap": float(update_gap), "within_tol": bool(ok)}
+
+
+def tagger_phase(smi, reset_counts, read_counts) -> dict:
+    """Phase 31: the MoE sequence tagger (``dl/tagger.py``) on the card.
+
+    a. ``examples/bilstm_entity_extraction.py``'s training flow with the
+       port's modules: ``TaggerConfig.for_mesh`` on the world-of-one mesh
+       at the example's width, 200 AdamW steps at batch 16 x 16 (lr 3e-3,
+       ``default_rng(0)``), the example's checks (last loss below 0.6 of
+       the first, held-out token accuracy above 0.8).
+    b. The default width (``TaggerConfig()``, 427,840 parameters) in
+       float32 and bf16, dense and ring: a forward of 32 x 512 tokens held
+       to the port's CPU run of the same inputs, and one of the fixture's
+       2 x 512 tokens held to the JAX package's (``tagger_io.npz``);
+       float32 within 1e-4 of the largest |logit| of the CPU's and
+       rtol=atol=1e-3 of JAX's with every token routed alike, bf16 within
+       an RMS gap of 5% of the RMS logit
+       (at this width the reference's own bf16 dense and ring paths differ
+       by up to 11.5% of the largest |logit| at one token, RMS 3.2%).
+    c. Three train steps of the fixture's 2 x 128 batch, held to the CPU
+       (:func:`held_steps`: float32 gradients within 1e-4 of each leaf's
+       largest, the model's update within an L2 gap of 1%) and to the
+       JAX fixture (float32: losses rtol
+       1e-4, gradient norms rtol 1e-4, each leaf's update sums within
+       1e-3·lr a parameter; bf16: losses and gradient norms within 5%),
+       run twice on the card (bitwise or not); three steps of 32 x 512 held
+       to the CPU the same way.
+    d. Tokens/s of the 32 x 512 forward, train-step ms and tokens/s
+       (median of 3 after a warm call), a step's launches and busy share
+       (``torch.profiler``), its peak allocation above what was allocated
+       before it. K1 and K2 launch 0 times."""
+    import make_tagger_fixture as tfx
+    from synapseml_tpu_torch.dl import tagger
+    from synapseml_tpu_torch.parallel import moe
+    from synapseml_tpu_torch.parallel.mesh import (build_mesh,
+                                                   single_device_mesh)
+
+    phase_start = time.perf_counter()
+    fx = np.load(TAGGER_FIXTURE)
+    lr = float(fx["lr"])
+    tf32 = bool(torch.backends.cuda.matmul.allow_tf32)
+    reset_counts()
+
+    # -- a. the example's flow ------------------------------------------
+    mesh = build_mesh()
+    cfg = tagger.TaggerConfig.for_mesh(mesh, **TAGGER_EXAMPLE)
+    step, init_state, place = tagger.make_train_step(cfg, mesh,
+                                                     learning_rate=3e-3)
+    params, opt = init_state()
+    rng = np.random.default_rng(0)
+    losses = []
+    start = time.perf_counter()
+    for _ in range(EXAMPLE_STEPS):
+        tokens, labels = entity_batches(rng, cfg.vocab_size, cfg.num_tags,
+                                        16, 16)
+        params, opt, loss = step(params, opt, place(tokens), place(labels),
+                                 place(np.ones((16, 16), np.bool_)))
+        losses.append(float(loss))
+    example_s = time.perf_counter() - start
+    tokens, labels = entity_batches(rng, cfg.vocab_size, cfg.num_tags, 16, 16)
+    with torch.no_grad():
+        logits, _ = tagger.make_apply(cfg, mesh)(params, place(tokens))
+    accuracy = float((logits.argmax(-1).cpu().numpy() == labels).mean())
+    example = {"config": {k: v for k, v in vars(cfg).items() if k != "dtype"},
+               "steps": EXAMPLE_STEPS, "first_loss": losses[0],
+               "last_loss": losses[-1],
+               "s_per_step": example_s / EXAMPLE_STEPS,
+               "held_out_accuracy": accuracy}
+    emit({"phase": "sequence_tagger", "part": "example_flow", **example,
+          "device": smi})
+    check(losses[-1] < 0.6 * losses[0],
+          f"the tagger did not learn: loss {losses[0]} -> {losses[-1]}")
+    check(accuracy > 0.8, f"held-out token accuracy {accuracy} <= 0.8")
+
+    # -- b. the default width's forward ---------------------------------
+    p0 = tagger.init_params(tagger.TaggerConfig(), 0)
+    rng = np.random.default_rng(31)
+    big = rng.integers(0, 4096, (SEQ_BATCH, SEQ_LEN)).astype(np.int32)
+    big_labels = rng.integers(0, 16, (SEQ_BATCH, SEQ_LEN)).astype(np.int32)
+    big_mask = rng.random((SEQ_BATCH, SEQ_LEN)) < 0.9
+    forward, failed = {}, []
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        cfg = tagger.TaggerConfig(dtype=dtype)
+        card_params = tagger.params_from_numpy(p0)
+        cpu_params = tagger.params_from_numpy(p0, "cpu")
+        for path, m in (("dense", None), ("ring", single_device_mesh())):
+            card_apply = tagger.make_apply(cfg, m)
+            cpu_apply = tagger.make_apply(cfg, m, device="cpu")
+            res = {}
+            for name, toks in (("cpu", big), ("jax", fx["tokens"])):
+                toks_card = torch.as_tensor(toks, device="cuda")
+                with torch.no_grad(), routes_of(moe) as card_routes:
+                    got, aux = card_apply(card_params, toks_card)
+                    got, aux = got.cpu().numpy(), float(aux)
+                if name == "cpu":
+                    with torch.no_grad(), routes_of(moe) as want_routes:
+                        want, want_aux = cpu_apply(cpu_params, toks)
+                        want, want_aux = want.numpy(), float(want_aux)
+                    tol = SEQ_F32_CPU_TOL
+                else:
+                    want = fx[f"logits_{dname}_{path}"]
+                    want_aux = float(fx[f"aux_{dname}_{path}"])
+                    want_routes = list(fx[f"routes_{dname}_{path}"])
+                    tol = SEQ_F32_JAX_TOL
+                gaps = logit_gaps(got, want, card_routes, want_routes)
+                gaps["aux"], gaps["other_aux"] = aux, want_aux
+                if dname == "float32" and name == "cpu":
+                    close = gaps["max_of_largest"] <= tol
+                else:
+                    close = np.allclose(got, want, rtol=tol, atol=tol)
+                if dname == "float32":
+                    ok = (close and gaps["tokens_routed_apart"] == 0
+                          and abs(aux - want_aux) <= 1e-4 * abs(want_aux))
+                else:
+                    ok = (gaps["rms_of_rms"] <= SEQ_BF16_RMS
+                          and abs(aux - want_aux) <= 0.05 * abs(want_aux))
+                gaps["within_tol"] = bool(ok)
+                if not ok:
+                    failed.append(f"{dname} {path} vs {name}")
+                res[f"vs_{name}"] = gaps
+            toks_card = torch.as_tensor(big, device="cuda")
+
+            def fwd():
+                with torch.no_grad():
+                    out = card_apply(card_params, toks_card)
+                torch.cuda.synchronize()
+                return out
+
+            fwd_s, _ = wall_median(fwd)
+            res["tokens_per_s"] = SEQ_BATCH * SEQ_LEN / fwd_s
+            res["ms"] = fwd_s * 1e3
+            forward[f"{dname}_{path}"] = res
+    emit({"phase": "sequence_tagger", "part": "default_width_forward",
+          "batch": [SEQ_BATCH, SEQ_LEN], "fixture_batch": list(
+              fx["tokens"].shape), "tf32": tf32, "forward": forward,
+          "device": smi})
+    check(not failed, f"tagger forwards outside their tolerance: {failed}")
+
+    # -- c. three train steps, against the CPU and the JAX fixture -------
+    names = [str(n) for n in fx["leaf_names"]]
+    small = (fx["train_tokens"], fx["train_labels"], fx["train_mask"])
+    train, failed = {}, []
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        cfg = tagger.TaggerConfig(dtype=dtype)
+        card = tagger_steps(tagger, cfg, "cuda", small)
+        again = tagger_steps(tagger, cfg, "cuda", small)
+        cpu = tagger_steps(tagger, cfg, "cpu", small)
+        res = {"vs_cpu": held_steps(card, cpu, dname, lr)}
+        res["repeat_bitwise"] = {
+            "losses": card["losses"] == again["losses"],
+            "grads": all(np.array_equal(card["grads"][n], again["grads"][n])
+                         for n in names),
+            "params": all(np.array_equal(card["after"][n], again["after"][n])
+                          for n in names)}
+        jl = [float(v) for v in fx[f"losses_{dname}"]]
+        jn = dict(zip(names, map(float, fx[f"grad_norm_{dname}"])))
+        loss_gap = max(abs(a - b) for a, b in zip(card["losses"], jl))
+        norm_gap = max(abs(card["grad_norm"][n] - v) / v
+                       for n, v in jn.items())
+        upd = {}
+        for key in ("update_sum", "update_abs_sum"):
+            for i, n in enumerate(names):
+                d = (card["after"][n] - tfx.leaf(p0, n)).astype(np.float64)
+                mine = float(np.abs(d).sum() if key == "update_abs_sum"
+                             else d.sum())
+                recorded = float(fx[f"{key}_{dname}"][i])
+                upd[f"{key}.{n}"] = abs(mine - recorded) / (d.size * lr)
+        vs_jax = {"losses": jl, "loss_gap": loss_gap,
+                  "grad_norm_rel_gap": norm_gap,
+                  "update_gap_in_lr_a_param": max(upd.values())}
+        if dname == "float32":
+            ok = (loss_gap <= 1e-4 * max(map(abs, jl)) and norm_gap <= 1e-4
+                  and max(upd.values()) <= SEQ_UPDATE_LR)
+        else:
+            ok = (loss_gap <= SEQ_BF16_TRAIN * abs(jl[0])
+                  and norm_gap <= SEQ_BF16_TRAIN)
+        vs_jax["within_tol"] = bool(ok)
+        res["vs_jax"] = vs_jax
+        big_batch = (big, big_labels, big_mask)
+        big_card = tagger_steps(tagger, cfg, "cuda", big_batch)
+        big_again = tagger_steps(tagger, cfg, "cuda", big_batch)
+        big_cpu = tagger_steps(tagger, cfg, "cpu", big_batch)
+        res["batch_32x512_vs_cpu"] = held_steps(big_card, big_cpu, dname, lr)
+        res["batch_32x512_repeat_bitwise"] = all(
+            np.array_equal(big_card["after"][n], big_again["after"][n])
+            for n in names) and big_card["losses"] == big_again["losses"]
+        for key in ("vs_cpu", "vs_jax", "batch_32x512_vs_cpu"):
+            if not res[key]["within_tol"]:
+                failed.append(f"{dname} steps {key}")
+        train[dname] = res
+    emit({"phase": "sequence_tagger", "part": "train_steps",
+          "batch": list(small[0].shape), "lr": lr, "train": train,
+          "device": smi})
+    check(not failed, f"tagger train steps outside their tolerance: {failed}")
+
+    # -- d. times: forward above; train steps at 32 x 512 ----------------
+    times = {}
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        cfg = tagger.TaggerConfig(dtype=dtype)
+        step, init_state, place = tagger.make_train_step(cfg)
+        params, opt = init_state(0)
+        batch = [place(a) for a in (big, big_labels, big_mask)]
+
+        def one_step():
+            step(params, opt, *batch)
+            torch.cuda.synchronize()
+
+        step_s, _ = wall_median(one_step)
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        one_step()
+        peak = torch.cuda.max_memory_allocated() - resident
+        busy = device_busy(one_step)
+        times[dname] = {"step_ms": step_s * 1e3,
+                        "tokens_per_s": SEQ_BATCH * SEQ_LEN / step_s,
+                        "launches_a_step": busy.get("kernels"),
+                        "busy": busy, "step_peak_bytes": peak}
+    counts = read_counts()
+    emit({"phase": "sequence_tagger", "part": "times", "device": smi,
+          "batch": [SEQ_BATCH, SEQ_LEN],
+          "forward_tokens_per_s": {k: v["tokens_per_s"]
+                                   for k, v in forward.items()},
+          "train": times, "launches": counts,
+          "seconds": time.perf_counter() - phase_start})
+    check(counts["forest_traverse"] == 0 and counts["histogram"] == 0,
+          f"the tagger path launched K1/K2: {counts}")
+    return counts
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -4764,6 +5132,9 @@ def main() -> int:
     resnet_bucket_phase(smi)
     converted = converted_lgbm_phase(smi, reset_counts, read_counts)
 
+    # -- 31. the MoE sequence tagger: the example's flow, default width ---
+    tagger_counts = tagger_phase(smi, reset_counts, read_counts)
+
     emit({"kernels": [{
         "name": "forest_traverse", "route": "cuda",
         "source": "synapseml_tpu_torch/csrc/forest_traverse.cu",
@@ -4787,6 +5158,7 @@ def main() -> int:
         "launches_serving_path": serving_counts["forest_traverse"],
         "launches_converted_path": {
             k: c["forest_traverse"] for k, c in converted.items()},
+        "launches_tagger_path": tagger_counts["forest_traverse"],
         "max_abs_err": max_err, "bitwise": True,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
@@ -4812,6 +5184,7 @@ def main() -> int:
         "launches_serving_path": serving_counts["histogram"],
         "launches_converted_path": {
             k: c["histogram"] for k, c in converted.items()},
+        "launches_tagger_path": tagger_counts["histogram"],
         "max_abs_err": k1_max_err,
         "bitwise": True, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],

@@ -1794,3 +1794,57 @@ def test_resnet50_padded_bucket_matches_unpadded(card):
     for label, got in routes.items():
         np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3,
                                    err_msg=label)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tagger_on_the_card_holds_to_the_jax_fixture(card, dtype):
+    """The sequence tagger at its default width on the card against
+    ``tests/fixtures/tagger_io.npz`` (the JAX package on the CPU): the
+    dense and ring forwards of 2 x 512 tokens (float32 within
+    rtol=atol=1e-3, bf16 within an RMS gap of 5% of the RMS logit: the
+    reference's own bf16 paths differ by up to 11.5% of the largest
+    |logit| at one token), then three AdamW steps of its 2 x 128 batch
+    (float32 losses and first-step gradient norms within rtol 1e-4; bf16
+    within 5%)."""
+    import os
+
+    from synapseml_tpu_torch.dl import tagger
+    from synapseml_tpu_torch.parallel.mesh import single_device_mesh
+
+    fx = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "fixtures", "tagger_io.npz"))
+    cfg = tagger.TaggerConfig(dtype=getattr(torch, dtype))
+    p0 = tagger.init_params(cfg, int(fx["seed"]))
+    params = tagger.params_from_numpy(p0, card)
+    for path, mesh in (("dense", None), ("ring", single_device_mesh())):
+        with torch.no_grad():
+            logits, aux = tagger.make_apply(cfg, mesh, card)(params,
+                                                             fx["tokens"])
+        got = logits.cpu().numpy()
+        want = fx[f"logits_{dtype}_{path}"]
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+            np.testing.assert_allclose(float(aux), fx[f"aux_{dtype}_{path}"],
+                                       rtol=1e-4)
+        else:
+            rms = np.sqrt(((got - want) ** 2).mean() / (want ** 2).mean())
+            assert rms <= 0.05, rms
+            np.testing.assert_allclose(float(aux), fx[f"aux_{dtype}_{path}"],
+                                       rtol=0.05)
+    step, init_state, place = tagger.make_train_step(
+        cfg, learning_rate=float(fx["lr"]), device=card)
+    params, opt = init_state(int(fx["seed"]))
+    batch = [place(fx[k]) for k in ("train_tokens", "train_labels",
+                                    "train_mask")]
+    losses, norms = [], None
+    for _ in range(3):
+        params, opt, loss = step(params, opt, *batch)
+        losses.append(float(loss))
+        if norms is None:
+            named = dict(params.named_parameters())
+            norms = [float(torch.linalg.vector_norm(named[str(n)].grad
+                                                    .double()))
+                     for n in fx["leaf_names"]]
+    tol = 1e-4 if dtype == "float32" else 0.05
+    np.testing.assert_allclose(losses, fx[f"losses_{dtype}"], rtol=tol)
+    np.testing.assert_allclose(norms, fx[f"grad_norm_{dtype}"], rtol=tol)

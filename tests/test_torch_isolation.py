@@ -49,6 +49,10 @@ def test_scan_sees_the_port_and_catches_imports():
             "synapseml_tpu_torch/onnx/convert.py",
             "synapseml_tpu_torch/dl/cntk.py",
             "synapseml_tpu_torch/dl/cntk_format.py",
+            "synapseml_tpu_torch/dl/tagger.py",
+            "synapseml_tpu_torch/parallel/mesh.py",
+            "synapseml_tpu_torch/parallel/moe.py",
+            "synapseml_tpu_torch/parallel/ring_attention.py",
             "synapseml_tpu_torch/io/serving.py",
             "synapseml_tpu_torch/io/http.py",
             "synapseml_tpu_torch/runtime/slo.py",
