@@ -38,14 +38,14 @@ before the last line:
    the JAX-trained sampled fixture at the tolerances of phase 6;
 8. train_modes_card_vs_cpu — goss (binary, L2 regression, 3 classes), rf,
    dart (uniform, weighted, xgboost_dart_mode, 3 classes) and pos/neg
-   bagging, 20 iterations each, fitted on the card and on the CPU by the
+   bagging, 10 iterations each, fitted on the card and on the CPU by the
    same port code: bitwise, GOSS binary and 3-class within the margin
    tolerance (a GOSS near-tie may flip a split);
 9. train_categorical_adult — LightGBMClassifier(100 iterations, 31
    leaves, 8 categorical columns) on the categorical Adult rows (32,561 x
    14, UCI Adult's layout and category counts, 2% NaN occupation) on the
    card, held to the JAX-trained fixture at phase 6's tolerances; its
-   first 30 iterations fitted on the card and on the CPU, bitwise;
+   first 15 iterations fitted on the card and on the CPU, bitwise;
 10. train_ranker — LightGBMRanker(100 iterations, 31 leaves) on rows
    at MSLR-WEB10K's width (300 queries, 36,666 x 136, labels 0-4) on the
    card, held to the JAX-trained fixture (mean margin gap on its query
@@ -273,6 +273,27 @@ before the last line:
    run twice (bitwise or not); forward tokens/s, train-step ms and
    tokens/s, a step's launches, busy share and peak memory. K1 and K2
    launch 0 times.
+32. decode_serving — ``runtime/decode.py``'s ``DecodeScheduler``: the
+   default ``zoo.tiny_decoder`` scheduler's continuous, static and
+   evicting streams equal to the JAX fixture
+   (``tests/fixtures/decode_streams.npz``); the decoder at BERT-base
+   width (phase 23's) through ``DecodeScheduler(max_batch=8,
+   prefill_chunk=64, page_size=64, max_seq=1024)``: 10 signatures
+   captured as CUDA graphs (all ``compiled``) and the memory warmup
+   reserves; 32 sequences of ``bench.py``'s heavy-tailed shape (prompts
+   16-384 tokens, outputs 8-32 or, every fourth, 192-256), each token the
+   argmax of one full float32 ``bind()`` forward over its sequence so far
+   or a counted near-tie (top-2 gap below 1e-4 of the largest |logit|),
+   a repeat run equal; static batching and a 16-page eviction run
+   (evictions and recomputes counted) equal but at near-ties;
+   tokens/s continuous and static, TTFT and inter-token p50/p95, 0
+   recompiles; a warm decode step and a warm prefill at T=1,024 bitwise
+   their eager steps, with wall, dispatch, card time, launches and busy
+   share beside the eager step's; the merge and the prefill logits' copy;
+   the entry ``--decode`` over the wide decoder as a child process: 16
+   prompts non-streamed and streamed from 8 clients, digests, an
+   out-of-range token 400, SIGTERM exit 0 with admitted = replied;
+   requests/s and p50/p99. K1 and K2 launch 0 times.
 
 Between phases 3 and 4: prng_card_vs_cpu (the threefry key stream on the
 card equal to the CPU's, bitwise) and masked_index (K1 on a
@@ -319,7 +340,7 @@ LOGLOSS_TOL = 1e-4            # training logloss, port fit vs JAX fixture
 MARGIN_TOL_FIXTURE = 1e-3     # mean |margin| gap on the fixture's rows
 MARGIN_TOL_CPU = 1e-4         # card fit vs CPU fit of the same port code
 NDCG_TOL = 1e-3               # training NDCG@30, port ranker vs JAX fixture
-CAT_CPU_ITERATIONS = 30       # the categorical fit held card against CPU
+CAT_CPU_ITERATIONS = 15       # the categorical fit held card against CPU
 
 
 T0 = time.perf_counter()
@@ -525,6 +546,18 @@ def host_ms(fn, calls: int = 100) -> float:
     return host / calls * 1e3
 
 
+def card_event_times(prof) -> list:
+    """``[(name, seconds)]`` of the card's events in a stopped
+    ``torch.profiler`` profile, read from its raw kineto events: building
+    ``prof.events()``'s tree of ``FunctionEvent`` objects costs tens of
+    seconds of host time for a whole fit's events, the raw walk a small
+    fraction of it. A profiler without them fails here, loudly."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.duration_ns() * 1e-9)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
+
+
 def device_busy(fn) -> dict:
     """Wall seconds of ``fn()`` under ``torch.profiler`` (CUDA activity
     only) and the seconds the card spent in kernels meanwhile, with the
@@ -548,10 +581,9 @@ def device_busy(fn) -> dict:
     try:
         prof.stop()
         by_name = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                s, c = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (s + e.time_range.elapsed_us() * 1e-6, c + 1)
+        for name, sec in card_event_times(prof):
+            s, c = by_name.get(name, (0.0, 0))
+            by_name[name] = (s + sec, c + 1)
     except Exception as exc:
         return {"wall_s": wall, "error": f"{type(exc).__name__}: {exc}"}
     busy = sum(s for s, _ in by_name.values())
@@ -3038,23 +3070,25 @@ def replies_ok(replies) -> bool:
                and r[2] == hashlib.sha256(r[1]).hexdigest() for r in replies)
 
 
-def launch_entry(path: str, name: str, tmp: str) -> dict:
+def launch_entry(path: str, name: str, tmp: str,
+                 mode=("--warmup", "auto"), env=None) -> dict:
     """``python -m synapseml_tpu_torch.io.serving --port 0 --model <path>
-    --warmup auto`` as a child process on the card: its warmup line must
-    show every bucket ``compiled`` and no error (``warmup skipped`` fails),
-    then its announce line within ``ANNOUNCE_TIMEOUT_S``. Returns the
-    child, the thread reading its output, the lines read, its port, its
-    warmup report and the seconds to the announce; on a failed check the
-    child is killed first."""
+    --warmup auto`` (or ``mode`` in place of ``--warmup auto``, with
+    ``env`` added to the environment) as a child process on the card: its
+    warmup line must show every bucket (or decode signature) ``compiled``
+    and no error (``warmup skipped`` fails), then its announce line within
+    ``ANNOUNCE_TIMEOUT_S``. Returns the child, the thread reading its
+    output, the lines read, its port, its warmup report and the seconds to
+    the announce; on a failed check the child is killed first."""
     import threading
 
     start = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "synapseml_tpu_torch.io.serving",
          "--port", "0", "--host", "127.0.0.1", "--model", path,
-         "--warmup", "auto", "--name", name,
+         *mode, "--name", name,
          "--dump-dir", os.path.join(tmp, f"flight_{name}")],
-        cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+        cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE, **(env or {})),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     lines, announced = [], threading.Event()
 
@@ -4159,6 +4193,496 @@ def tagger_phase(smi, reset_counts, read_counts) -> dict:
     return counts
 
 
+DECODE_GEOMETRY = dict(max_batch=8, prefill_chunk=64, page_size=64,
+                       max_seq=1024)
+DECODE_SEQS = 32              # bench.py's heavy-tailed workload, wide width
+NEAR_TIE = 1e-4               # top-2 gap below this share of the max |logit|
+EVICT_SEQS, EVICT_PAGES = 16, 16  # the eviction run and its KV budget
+SERVE_PROMPTS, SERVE_NEW, DECODE_CLIENTS = 16, 16, 8
+
+
+def decode_work(n: int, vocab: int, seed: int = 0, new=None) -> list:
+    """``bench.py``'s decode workload (``bench_decode_serving``) at the
+    wide width: prompts of 16-384 tokens, so long prompts prefill in
+    several chunks with a left-overlapped last one; every fourth sequence
+    generates 192-256 tokens, the rest 8-32 (``new`` overrides)."""
+    rng = np.random.default_rng(seed)
+    work = []
+    for i in range(n):
+        plen = int(rng.integers(16, 385))
+        nout = (int(rng.integers(192, 257)) if i % 4 == 0
+                else int(rng.integers(8, 33)))
+        work.append(([int(x) for x in rng.integers(1, vocab, plen)],
+                     nout if new is None else new))
+    return work
+
+
+def decode_steps(tm, server: str) -> dict:
+    """``{phase: [steps, seconds]}`` of the scheduler's
+    ``decode_step_seconds`` histograms (submit to merged buffers)."""
+    return {labels["phase"]: [m.count, m.sum]
+            for labels, m in tm.series("decode_step_seconds")
+            if labels.get("server") == server}
+
+
+def run_decode(sched, work) -> dict:
+    """Submit every sequence of ``work`` while holding the scheduler's
+    lock (so the first admission sees them all and the schedule is the
+    same from run to run), consume each stream on its own thread with
+    timestamps; the streams, finish reasons, tokens/s, time to first
+    token and inter-token latency, and the run's prefill and decode
+    steps (count, mean ms, rows a decode step)."""
+    import threading
+
+    from synapseml_tpu_torch.runtime import telemetry as tm
+
+    before = decode_steps(tm, sched.name)
+    lock = threading.Lock()
+    ttft, itl = [], []
+    results = [None] * len(work)
+
+    def consume(k, handle, t_sub):
+        last, toks = None, []
+        try:
+            for tok in handle:
+                now = time.perf_counter()
+                with lock:
+                    if last is None:
+                        ttft.append(now - t_sub)
+                    else:
+                        itl.append(now - last)
+                last = now
+                toks.append(tok)
+            results[k] = (toks, handle.finish_reason)
+        except Exception as e:  # noqa: BLE001 - reported by the check below
+            results[k] = (toks, f"error: {e!r}")
+
+    threads = []
+    start = time.perf_counter()
+    with sched._cv:
+        for k, (prompt, nout) in enumerate(work):
+            handle = sched.submit(prompt, nout)
+            th = threading.Thread(target=consume,
+                                  args=(k, handle, time.perf_counter()),
+                                  daemon=True)
+            th.start()
+            threads.append(th)
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - start
+    check(all(r is not None for r in results)
+          and not any(th.is_alive() for th in threads),
+          "a decode stream did not finish")
+    streams = [r[0] for r in results]
+    reasons = [r[1] for r in results]
+    check(reasons == ["completed"] * len(work)
+          and [len(t) for t in streams] == [n for _, n in work],
+          f"decode streams did not complete: {sorted(set(reasons))}")
+    tokens = sum(len(t) for t in streams)
+    steps = {}
+    for phase, (n, sec) in decode_steps(tm, sched.name).items():
+        n0, s0 = before.get(phase, [0, 0.0])
+        steps[phase] = {"steps": n - n0,
+                        "mean_ms": (sec - s0) / max(n - n0, 1) * 1e3,
+                        "share_of_wall": (sec - s0) / wall}
+    if "decode" in steps:
+        # a sequence's first token comes from its last prefill chunk
+        steps["decode"]["rows_a_step"] = (tokens - len(work)) / max(
+            steps["decode"]["steps"], 1)
+    return {"streams": streams, "wall_s": wall, "tokens": tokens,
+            "tokens_per_s": tokens / wall, "steps": steps,
+            "ttft_ms": {q: float(np.percentile(ttft, p) * 1e3)
+                        for q, p in (("p50", 50), ("p95", 95))},
+            "itl_ms": {q: float(np.percentile(itl, p) * 1e3)
+                       for q, p in (("p50", 50), ("p95", 95))}}
+
+
+def greedy_check(fn, work, streams, n_kv, kv, head, t_buf) -> dict:
+    """Each generated token against the argmax of one full float32
+    forward of ``fn`` (the port's ``bind()``) over that sequence's
+    tokens so far: one forward a sequence gives every position's
+    logits, right-padded in groups of 8 with ``seqlens_k`` = the group's
+    length - 1. A token that differs where the forward's top-2 gap is
+    below ``NEAR_TIE`` of its largest |logit| is a near-tie, counted;
+    any other difference is a mismatch. ``n_kv`` zeroed ``[rows, kv,
+    t_buf, head]`` buffers feed the forward. Returns the counts and, a
+    sequence, which generated positions are near-ties."""
+    ties = [None] * len(work)
+    near = checked = 0
+    bad = []
+    order = sorted(range(len(work)),
+                   key=lambda k: len(work[k][0]) + len(streams[k]))
+    for g0 in range(0, len(order), 8):
+        group = order[g0:g0 + 8]
+        seqs = [work[k][0] + streams[k] for k in group]
+        n = max(len(q) for q in seqs)
+        ids = np.zeros((len(group), n), np.int64)
+        for r, q in enumerate(seqs):
+            ids[r, :len(q)] = q
+        with torch.inference_mode():
+            empty = [torch.zeros((len(group), kv, t_buf, head),
+                                 device="cuda") for _ in range(n_kv)]
+            logits = fn(torch.from_numpy(ids).cuda(),
+                        torch.full((len(group),), n - 1, dtype=torch.int32,
+                                   device="cuda"), *empty)[0]
+            arg = logits.argmax(-1).cpu().numpy()
+            top = logits.topk(2, dim=-1).values
+            tie = ((top[..., 0] - top[..., 1])
+                   < NEAR_TIE * logits.abs().amax(-1)).cpu().numpy()
+            del logits, top, empty
+        for r, k in enumerate(group):
+            p0 = len(work[k][0]) - 1
+            ties[k] = [bool(tie[r, p0 + j]) for j in range(len(streams[k]))]
+            for j, tok in enumerate(streams[k]):
+                checked += 1
+                if tok != arg[r, p0 + j]:
+                    if tie[r, p0 + j]:
+                        near += 1
+                    else:
+                        bad.append([k, j, tok, int(arg[r, p0 + j])])
+    torch.cuda.empty_cache()
+    return {"tokens_checked": checked,
+            "near_tie_positions": sum(map(sum, ties)),
+            "near_ties_flipped": near, "mismatches": len(bad),
+            "first_mismatches": bad[:8], "ties": ties}
+
+
+def diverge_at_ties(got, want, ties) -> dict:
+    """Streams of one workload from two runs: equal, or each first
+    differing at a position the full forward marks a near-tie (the runs
+    share every token before it, so they share that forward)."""
+    equal = at_tie = 0
+    off = []
+    for k, (a, b) in enumerate(zip(got, want)):
+        d = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                 None if len(a) == len(b) else min(len(a), len(b)))
+        if d is None:
+            equal += 1
+        elif d < len(ties[k]) and ties[k][d]:
+            at_tie += 1
+        else:
+            off.append([k, d])
+    return {"equal": equal, "first_difference_at_near_tie": at_tie,
+            "differ_elsewhere": off}
+
+
+def generate_bodies(port: int, bodies: list, clients: int) -> list:
+    """POST ``bodies`` to ``/generate`` from ``clients`` threads, each on
+    one keep-alive connection; ``[(status, body, digest, seconds)]`` in
+    the bodies' order (a streamed reply's body is its NDJSON lines)."""
+    import http.client
+    import threading
+
+    out = [None] * len(bodies)
+    errors = []
+
+    def client(c):
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+            for i in range(c, len(bodies), clients):
+                start = time.perf_counter()
+                conn.request("POST", "/generate", bodies[i],
+                             {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                data = resp.read()
+                out[i] = (resp.status, data,
+                          resp.getheader("X-Output-Digest"),
+                          time.perf_counter() - start)
+            conn.close()
+        except Exception as e:  # noqa: BLE001 - reported by the check below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"/generate clients failed: {errors[:3]}")
+    return out
+
+
+def decode_phase(smi, reset_counts, read_counts) -> dict:
+    """Phase 32: decode serving on the card.
+
+    1. The default ``zoo.tiny_decoder`` scheduler (``max_batch=4,
+       prefill_chunk=8, page_size=8, max_seq=64``) runs
+       ``tests/fixtures/decode_streams.py``'s sequences: continuous,
+       static and evicting streams equal to the JAX fixture
+       (``decode_streams.npz``).
+    2. ``zoo.tiny_decoder`` at BERT-base width through
+       ``DecodeScheduler(max_batch=8, prefill_chunk=64, page_size=64,
+       max_seq=1024)``: ``warmup()`` captures 10 signatures (prefill S=64
+       and decode S=1 at T = 64 ... 1,024), each ``compiled``, with the
+       memory it reserves; 32 sequences of ``decode_work`` (seed 0), every
+       generated token the argmax of one full float32 ``bind()`` forward
+       over its sequence so far or a counted near-tie; a repeat run equal
+       stream for stream.
+    3. The first 16 sequences with the cache cut to 16 pages: evictions
+       and recomputes counted, the streams equal to the continuous run's
+       but at near-ties; the static-batching run likewise.
+    4. Tokens/s continuous and static, TTFT and inter-token p50/p95, 0
+       recompiles after warmup; one warm decode step (T=1,024) and one
+       warm prefill: wall, the executor's dispatch, card time, launches
+       and busy share (``torch.profiler``), each bitwise its eager step,
+       beside the eager step's wall, issue and card time; the merge and
+       the prefill logits' copy to the host.
+    5. The entry ``--decode --model <the wide decoder>`` as a child
+       process (geometry through ``SYNAPSEML_DECODE_*``): 16 prompts
+       non-streamed and streamed from 8 clients, digests checked, the
+       streamed final digest equal to the non-streamed reply's; an
+       out-of-range token 400 and a request after it 200; SIGTERM, exit
+       0, admitted = replied; requests/s and p50/p99.
+    K1 and K2 launch 0 times."""
+    sys.path.insert(0, FIXTURES)
+    import decode_streams as decode_fx
+    from synapseml_tpu_torch.onnx import import_model, zoo
+    from synapseml_tpu_torch.runtime import telemetry as tm
+    from synapseml_tpu_torch.runtime.decode import DecodeScheduler
+    from synapseml_tpu_torch.runtime.kvcache import PagedKVCache
+
+    phase_start = time.perf_counter()
+    reset_counts()
+    # -- 1. the default width against the JAX fixture ---------------------
+    fixture = np.load(os.path.join(FIXTURES, "decode_streams.npz"))
+    small = decode_fx.record(
+        decode_fx.maker(DecodeScheduler, PagedKVCache,
+                        import_model(zoo.tiny_decoder())), tm, tag="_card")
+    small_equal = {k: bool(np.array_equal(small[k], fixture[k]))
+                   for k in small}
+    emit({"phase": "decode_serving", "part": "default_width_vs_jax",
+          "equal": small_equal, "evictions": int(small["evictions"]),
+          "recomputes": int(small["recomputes"])})
+    check(all(small_equal.values()),
+          f"default-width streams differ from the JAX fixture: "
+          f"{small_equal}")
+
+    # -- 2. the wide decoder ---------------------------------------------
+    start = time.perf_counter()
+    blob = zoo.tiny_decoder(**DECODER_WIDE)
+    graph = import_model(blob)
+    vocab = DECODER_WIDE["vocab"]
+    build_s = time.perf_counter() - start
+    torch.cuda.synchronize()
+    sched = DecodeScheduler(graph, name="decode_wide", **DECODE_GEOMETRY)
+    n_kv, kv, head = len(sched._kv_names), sched.kv_heads, sched.head_dim
+    t_top = DECODE_GEOMETRY["max_seq"]
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved()
+    start = time.perf_counter()
+    rep = sched.warmup()
+    warmup_s = time.perf_counter() - start
+    reserved = torch.cuda.memory_reserved() - reserved0
+    statuses = [(sig["phase"], sig["T"], sig["entries"])
+                for sig in rep["signatures"]]
+    check(len(statuses) == 10
+          and all(e == ["compiled"] for _, _, e in statuses),
+          f"decode warmup did not capture every signature: {statuses}")
+    recompiles_before = sum(recompiles(tm).values())
+    sched.start()
+    work = decode_work(DECODE_SEQS, vocab)
+    cont = run_decode(sched, work)
+    again = run_decode(sched, work)
+    greedy = greedy_check(sched._fn, work, cont["streams"], n_kv, kv, head,
+                          t_top)
+    ties = greedy.pop("ties")
+    repeat_equal = again["streams"] == cont["streams"]
+
+    # -- 3. static batching and eviction on the same warmed scheduler -----
+    sched.static_batching = True
+    static = run_decode(sched, work)
+    sched.static_batching = False
+    static_vs = diverge_at_ties(static["streams"], cont["streams"], ties)
+    full_kv = sched.kv
+    bpt = full_kv.bytes_per_token
+    sched.kv = PagedKVCache(sched.page, bpt, name="decode_wide_evict",
+                            capacity_bytes=EVICT_PAGES * sched.page * bpt)
+    evict_work = work[:EVICT_SEQS]
+    evict = run_decode(sched, evict_work)
+    evictions = sum(m.value for labels, m in tm.series("kv_evictions_total")
+                    if labels.get("cache") == "decode_wide_evict")
+    recomputes_ = tm.counter("kv_recomputes_total",
+                             cache="decode_wide_evict").value
+    sched.kv.close()
+    sched.kv = full_kv
+    evict_vs = diverge_at_ties(evict["streams"],
+                               cont["streams"][:EVICT_SEQS], ties)
+    evict_greedy = greedy_check(sched._fn, evict_work, evict["streams"],
+                                n_kv, kv, head, t_top)
+    evict_greedy.pop("ties")
+    recompiles_after = sum(recompiles(tm).values())
+
+    # -- 4. one warm step against its eager step ---------------------------
+    rng = np.random.default_rng(5)
+    steps = {}
+    for name, s_len, lens in (("decode", 1, t_top - 24),
+                              ("prefill", sched.S_pre, t_top - 1)):
+        ids = rng.integers(1, vocab, (sched.B, s_len)).astype(np.int64)
+        seqlens = np.full((sched.B,), lens, np.int32)
+        bufs = [torch.randn((sched.B, kv, t_top, head), device="cuda")
+                for _ in range(n_kv)]
+        ids_t = torch.from_numpy(ids.astype(np.int32)).cuda()
+        lens_t = torch.from_numpy(seqlens).cuda()
+
+        def warm():
+            return sched._ex.submit(ids, seqlens, *bufs).result()
+
+        def eager():
+            return sched._fn(ids_t, lens_t, *bufs)
+
+        got, want = warm(), eager()
+        bitwise = bool(np.array_equal(got[0], want[0].cpu().numpy())
+                       and all(torch.equal(a, b)
+                               for a, b in zip(got[1:], want[1:])))
+        disp = tm.histogram("executor_dispatch_seconds")
+        n0, s0 = disp.count, disp.sum
+        warm_wall = synced_wall_ms(warm)
+        dispatch_ms = (disp.sum - s0) / max(disp.count - n0, 1) * 1e3
+        steps[name] = {
+            "S": s_len, "T": t_top, "bitwise_eager": bitwise,
+            "warm_wall_ms": warm_wall, "warm_dispatch_ms": dispatch_ms,
+            "warm_busy": device_busy(warm),
+            "eager_wall_ms": synced_wall_ms(eager),
+            "eager_issue_ms": issue_ms(eager),
+            "eager_busy": device_busy(eager)}
+        del bufs, got, want
+    mask = np.arange(sched.B) % 2 == 0
+    bufs = sched._zeros(t_top)
+    merge_ms = synced_wall_ms(lambda: sched._merge(mask, bufs, bufs))
+    del bufs
+    logits = torch.zeros((sched.B, sched.S_pre, vocab), device="cuda")
+    host = torch.empty(logits.shape, pin_memory=True)
+    copy_ms = event_ms(lambda: host.copy_(logits, non_blocking=True), 10)
+    del logits, host
+
+    # the served prompts in process, for the served replies below
+    serve_work = decode_work(SERVE_PROMPTS, vocab, seed=1, new=SERVE_NEW)
+    in_process = run_decode(sched, serve_work)["streams"]
+    counts = read_counts()
+    sched.close()
+    del sched, graph
+    torch.cuda.empty_cache()
+    wide = {"steps": steps, "merge_ms_t1024": merge_ms,
+            "prefill_logits_copy_ms": copy_ms,
+            "prefill_logits_bytes": DECODE_GEOMETRY["max_batch"]
+            * DECODE_GEOMETRY["prefill_chunk"] * vocab * 4}
+    for run in (cont, again, static, evict):
+        run.pop("streams")
+    emit({"phase": "decode_serving", "part": "wide", "device": smi,
+          "model": "zoo.tiny_decoder(" + ", ".join(
+              f"{k}={v}" for k, v in DECODER_WIDE.items()) + ")",
+          "geometry": DECODE_GEOMETRY, "build_s": build_s,
+          "warmup_s": warmup_s, "warmup_reserved_bytes": reserved,
+          "signatures": statuses, "continuous": cont, "repeat": again,
+          "repeat_equal": repeat_equal, "static": static,
+          "static_vs_continuous": static_vs,
+          "continuous_over_static": cont["tokens_per_s"]
+          / static["tokens_per_s"],
+          "greedy_vs_full_forward": greedy,
+          "near_tie_share": NEAR_TIE,
+          "evict": evict, "evict_pages": EVICT_PAGES,
+          "evictions": evictions, "recomputes": recomputes_,
+          "evict_vs_continuous": evict_vs,
+          "evict_greedy_vs_full_forward": evict_greedy,
+          "recompiles_after_warmup": recompiles_after - recompiles_before,
+          **wide, "launches": counts})
+    check(greedy["mismatches"] == 0,
+          f"decode tokens off the full forward's argmax: {greedy}")
+    check(repeat_equal, "a repeat decode run gave other streams")
+    check(not static_vs["differ_elsewhere"],
+          f"static streams differ from continuous: {static_vs}")
+    check(evictions > 0 and recomputes_ > 0,
+          f"the eviction run did not evict: {evictions}, {recomputes_}")
+    check(not evict_vs["differ_elsewhere"]
+          and evict_greedy["mismatches"] == 0,
+          f"evicted streams differ: {evict_vs}, {evict_greedy}")
+    check(recompiles_after == recompiles_before,
+          "the decode loop ran a cold signature after warmup")
+    for name, st in steps.items():
+        check(st["bitwise_eager"], f"a warm {name} step is not bitwise "
+                                   "its eager step")
+    check(counts["forest_traverse"] == 0 and counts["histogram"] == 0,
+          f"the decode path launched K1/K2: {counts}")
+
+    # -- 5. the entry: --decode over the wide decoder ----------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_decode_")
+    path = os.path.join(tmp, "decoder_wide.onnx")
+    with open(path, "wb") as fh:
+        fh.write(blob)
+    del blob
+    env = {"SYNAPSEML_DECODE_MAX_BATCH": str(DECODE_GEOMETRY["max_batch"]),
+           "SYNAPSEML_DECODE_PREFILL_CHUNK":
+               str(DECODE_GEOMETRY["prefill_chunk"]),
+           "SYNAPSEML_KV_PAGE": str(DECODE_GEOMETRY["page_size"]),
+           "SYNAPSEML_DECODE_MAX_SEQ": str(DECODE_GEOMETRY["max_seq"])}
+    entry = None
+    try:
+        entry = launch_entry(path, "decode", tmp, mode=("--decode",),
+                             env=env)
+        bodies = []
+        for prompt, nout in serve_work:
+            for stream in (False, True):
+                bodies.append(json.dumps(
+                    {"tokens": prompt, "max_new_tokens": nout,
+                     "stream": stream}).encode())
+        start = time.perf_counter()
+        replies = generate_bodies(entry["port"], bodies, DECODE_CLIENTS)
+        load_s = time.perf_counter() - start
+        bad = generate_bodies(entry["port"], [json.dumps(
+            {"tokens": [1, vocab], "max_new_tokens": 4}).encode()], 1)[0]
+        after = generate_bodies(entry["port"], [bodies[0]], 1)[0]
+        served = {"after_bad": after[0] == 200
+                  and after[2] == hashlib.sha256(after[1]).hexdigest()}
+        plain = replies[0::2]
+        streamed = replies[1::2]
+        served["plain_ok"] = replies_ok(plain)
+        digests_equal = tokens_equal = 0
+        served_tokens = []
+        for p, q in zip(plain, streamed):
+            lines = q[1].decode().strip().split("\n")
+            final = json.loads(lines[-1])
+            toks = [json.loads(ln)["t"] for ln in lines[:-1]]
+            ref = json.loads(p[1])
+            served_tokens.append(ref["tokens"])
+            digests_equal += int(q[0] == 200 and final.get("digest") == p[2])
+            tokens_equal += int(toks == ref["tokens"])
+        served["streamed_digest_equal"] = digests_equal
+        served["streamed_tokens_equal"] = tokens_equal
+        served["bad_token_status"] = bad[0]
+        served["equal_in_process"] = sum(
+            int(a == b) for a, b in zip(served_tokens, in_process))
+        metrics = entry_metrics(entry["port"])
+        served["recompiles"] = prom_total(metrics,
+                                          "synapseml_executor_recompiles_total")
+        served["warmup"] = entry["warmup"]
+        served["start_to_announce_s"] = entry["announce_s"]
+        stop = stop_entry(entry, len(bodies) + 2)
+        entry = None
+    finally:
+        if entry is not None:
+            kill_entry(entry)
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "decode_serving", "part": "entry", "device": smi,
+          "requests": len(bodies), "clients": DECODE_CLIENTS,
+          "requests_per_s": len(bodies) / load_s,
+          "latency": latency_ms([r[3] for r in replies]),
+          "plain_latency": latency_ms([r[3] for r in plain]),
+          "streamed_latency": latency_ms([r[3] for r in streamed]),
+          **served, **stop,
+          "seconds": time.perf_counter() - phase_start})
+    check(served["plain_ok"], "a /generate reply was not 200 with its "
+                              "body's digest")
+    check(served["streamed_digest_equal"] == SERVE_PROMPTS
+          and served["streamed_tokens_equal"] == SERVE_PROMPTS,
+          f"streamed replies differ from the plain ones: {served}")
+    check(served["bad_token_status"] == 400 and served["after_bad"],
+          f"an out-of-range token was not a 400 the entry survived: "
+          f"{served}")
+    check(served["recompiles"] == 0, "the entry recompiled after warmup")
+    return counts
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -4620,10 +5144,10 @@ def main() -> int:
     valid[15_000:] = True
     versus_cpu = [
         card_and_cpu("multiclass_3", lambda: LightGBMClassifier(
-            num_iterations=20, num_leaves=31),
+            num_iterations=10, num_leaves=31),
             Table({"features": x3, "label": y3}), x3[:2000]),
         card_and_cpu("regression_l2", lambda: LightGBMRegressor(
-            num_iterations=30, num_leaves=31),
+            num_iterations=15, num_leaves=31),
             Table({"features": xr, "label": yr}), xr[:2000]),
         card_and_cpu("binary_early_stopping", lambda: LightGBMClassifier(
             num_iterations=200, num_leaves=31, learning_rate=0.3,
@@ -4644,7 +5168,7 @@ def main() -> int:
     three_t = Table({"features": x3, "label": y3})
 
     def clf(**kw):
-        return lambda: LightGBMClassifier(num_leaves=31, num_iterations=20,
+        return lambda: LightGBMClassifier(num_leaves=31, num_iterations=10,
                                           **kw)
 
     dart = dict(boosting_type="dart", drop_rate=0.2, skip_drop=0.3)
@@ -4654,7 +5178,7 @@ def main() -> int:
         ("goss_binary", clf(boosting_type="goss"), binary_t, xb[:2000],
          False),
         ("goss_l2", lambda: LightGBMRegressor(
-            num_iterations=20, num_leaves=31, boosting_type="goss"),
+            num_iterations=10, num_leaves=31, boosting_type="goss"),
          regression_t, xr[:2000], True),
         ("goss_multiclass_3", clf(boosting_type="goss"), three_t, x3[:2000],
          False),
@@ -4705,7 +5229,7 @@ def main() -> int:
                              y_cat)
     raw_cat = out_cat["rawPrediction"]
     cat_gap = np.abs(raw_cat[:, 1] - cat_io["raw"])
-    # card against CPU at 30 of the 100 iterations (the CPU fit's time)
+    # card against CPU at 15 of the 100 iterations (the CPU fit's time)
     cat_card = cat_fit("cuda", CAT_CPU_ITERATIONS).booster
     cat_cpu = cat_fit("cpu", CAT_CPU_ITERATIONS).booster
     same_cat_cpu = same_trees(cat_card, cat_cpu)
@@ -4822,7 +5346,7 @@ def main() -> int:
         """rank_xendcg through ``boosting.train``: ``LightGBMRanker``, as
         the reference's, always trains lambdarank."""
         return types.SimpleNamespace(booster=boosting.train(
-            boosting.BoostParams(objective="rank_xendcg", num_iterations=15,
+            boosting.BoostParams(objective="rank_xendcg", num_iterations=8,
                                  num_leaves=31),
             table["features"], table["label"], None, table["query"],
             device=device))
@@ -4852,18 +5376,18 @@ def main() -> int:
         return lambda: LightGBMRanker(num_leaves=31, **kw)
 
     rank_modes = [
-        ("lambdarank_blocked", rank_est(num_iterations=15), rank_small,
+        ("lambdarank_blocked", rank_est(num_iterations=8), rank_small,
          xr1[:2000]),
         ("lambdarank_dense_skewed", rank_est(num_iterations=10), dense_table,
          x_dense[:2000]),
         ("rank_xendcg", lambda: types.SimpleNamespace(fit=fit_xendcg),
          rank_small, xr1[:2000]),
-        ("weighted", rank_est(num_iterations=15, weight_col="w"),
+        ("weighted", rank_est(num_iterations=8, weight_col="w"),
          weighted_small, xr1[:2000]),
-        ("goss", rank_est(num_iterations=15, boosting_type="goss"),
+        ("goss", rank_est(num_iterations=8, boosting_type="goss"),
          rank_small, xr1[:2000]),
         ("bagging_feature_fraction", rank_est(
-            num_iterations=15, bagging_fraction=0.8, bagging_freq=1,
+            num_iterations=8, bagging_fraction=0.8, bagging_freq=1,
             feature_fraction=0.8), rank_small, xr1[:2000]),
         ("early_stopping_grouped_valid", rank_est(
             num_iterations=200, learning_rate=0.3, early_stopping_round=10,
@@ -5135,6 +5659,9 @@ def main() -> int:
     # -- 31. the MoE sequence tagger: the example's flow, default width ---
     tagger_counts = tagger_phase(smi, reset_counts, read_counts)
 
+    # -- 32. decode serving: the wide GQA decoder from warm CUDA graphs ---
+    decode_counts = decode_phase(smi, reset_counts, read_counts)
+
     emit({"kernels": [{
         "name": "forest_traverse", "route": "cuda",
         "source": "synapseml_tpu_torch/csrc/forest_traverse.cu",
@@ -5159,6 +5686,7 @@ def main() -> int:
         "launches_converted_path": {
             k: c["forest_traverse"] for k, c in converted.items()},
         "launches_tagger_path": tagger_counts["forest_traverse"],
+        "launches_decode_path": decode_counts["forest_traverse"],
         "max_abs_err": max_err, "bitwise": True,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
@@ -5185,6 +5713,7 @@ def main() -> int:
         "launches_converted_path": {
             k: c["histogram"] for k, c in converted.items()},
         "launches_tagger_path": tagger_counts["histogram"],
+        "launches_decode_path": decode_counts["histogram"],
         "max_abs_err": k1_max_err,
         "bitwise": True, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],

@@ -9,10 +9,12 @@ digest, the epoch commit/recover/replay contract, the health, metrics,
 span, trace and ``/debug`` routes), :class:`HTTPSourceStateHolder`,
 :class:`ContinuousServer` (collector, scorers and reply thread, each
 supervised; coalescing, the deadline shed, transient retry and poison
-bisection) and the container entry ``python -m
-synapseml_tpu_torch.io.serving``. Not ported yet: ``DistributedServer``
-and its channels (ROADMAP Queue 1 item 3b), ``POST /generate`` and
-``--decode`` (item 3c), incident capture, the trace archive and the
+bisection), ``POST /generate`` over a
+:class:`~synapseml_tpu_torch.runtime.decode.DecodeScheduler` and the
+container entry ``python -m synapseml_tpu_torch.io.serving`` (``--decode``
+serves a share-buffer decoder graph). Not ported yet:
+``DistributedServer`` and its channels (ROADMAP Queue 1 item 3b),
+incident capture, the trace archive and the
 ``/debug/capture``, ``/debug/cost``, ``/debug/memory`` and
 ``/debug/profile`` routes (item 6) — those paths answer as unknown
 routes do.
@@ -357,6 +359,10 @@ class WorkerServer:
         self.default_deadline_ms = default_deadline_ms
         self.max_queue = max_queue
         self.retry_after_s = retry_after_s
+        # decode mode (runtime/decode.py): when a DecodeScheduler is
+        # attached here, POST /generate admits autoregressive sequences
+        # instead of riding the scoring queue — see Handler._generate
+        self.decode = None
         # readiness gate: /health answers 503 until set_ready(True) —
         # a k8s replica that is still AOT-warming its compile cache must
         # not receive traffic (the serving entry's --warmup flow)
@@ -496,6 +502,15 @@ class WorkerServer:
                                trace=trace_id, server=outer.name)
                     self._send_plain(503, b"draining", headers=retry_hdr)
                     return
+                if (outer.decode is not None
+                        and self.path.split("?", 1)[0].rstrip("/")
+                        == "/generate"):
+                    # decode mode: sequences go to the continuous-
+                    # batching scheduler, not the scoring queue — its
+                    # admission control (max_waiting) replaces the
+                    # queue-depth shed below
+                    self._generate(req, rid, trace_id, tp_echo, retry_hdr)
+                    return
                 if (outer.max_queue is not None
                         and outer.requests.qsize() >= outer.max_queue):
                     # admission control: shed at enqueue with 429 — a
@@ -624,6 +639,147 @@ class WorkerServer:
                         self.wfile.flush()
                     except OSError:
                         pass  # client hung up
+
+            def _generate(self, req, rid, trace_id, tp_echo, retry_hdr):
+                """POST /generate — decode-mode sequence admission.
+
+                Body: ``{"tokens": [...], "max_new_tokens": N,
+                "stream": bool}``. Non-streamed replies are one JSON
+                body (``{"prompt_len", "tokens", "finish_reason"}``)
+                with X-Output-Digest, the sha256 over the exact reply
+                bytes. Streamed replies are chunked NDJSON: rid +
+                traceparent ride the response headers (sent before the
+                first token), one ``{"i", "t"}`` line per token as it
+                decodes, and the final line carries ``finish_reason``
+                plus ``digest`` — sha256 of the CANONICAL (non-streamed)
+                reply body for the same result, so a streamed client can
+                assert the same fingerprint a replay recomputes. A token
+                outside the model's vocabulary, like any prompt the
+                geometry cannot hold, is a 400."""
+                t0 = time.monotonic()
+                try:
+                    payload = json.loads(req.entity or b"{}")
+                    tokens = [int(t) for t in payload["tokens"]]
+                    max_new = int(payload.get("max_new_tokens", 16))
+                    stream = bool(payload.get("stream", False))
+                except (ValueError, KeyError, TypeError) as e:
+                    outer._reply_counter(400).inc()
+                    self._send_plain(
+                        400, f"bad decode request: {e!r}".encode(),
+                        headers=retry_hdr[1:])
+                    return
+                deadline_ms = outer.default_deadline_ms
+                hdr = self.headers.get("X-Deadline-Ms")
+                if hdr:
+                    try:
+                        deadline_ms = float(hdr)
+                    except ValueError:
+                        pass
+                try:
+                    handle = outer.decode.submit(
+                        tokens, max_new,
+                        deadline_s=(deadline_ms / 1e3
+                                    if deadline_ms else None))
+                except ValueError as e:
+                    outer._reply_counter(400).inc()
+                    self._send_plain(400, repr(e).encode(),
+                                     headers=retry_hdr[1:])
+                    return
+                except RuntimeError:
+                    # admission queue full (or scheduler stopping):
+                    # same shed contract as the scoring queue
+                    outer._m_queue_shed.inc()
+                    outer._reply_counter(429).inc()
+                    _bb.record("shed_queue", rid=rid, level="warn",
+                               trace=trace_id, server=outer.name,
+                               path="/generate")
+                    self._send_plain(429, b"decode queue full",
+                                     headers=retry_hdr)
+                    return
+
+                def canonical_body(toks, reason):
+                    return json.dumps(
+                        {"prompt_len": len(tokens), "tokens": toks,
+                         "finish_reason": reason}).encode()
+
+                if not stream:
+                    try:
+                        toks, reason = handle.result(
+                            timeout=outer.reply_timeout)
+                    except TimeoutError:
+                        outer._m_reply_timeout.inc()
+                        outer._reply_counter(504).inc()
+                        self._send_plain(504, b"", headers=retry_hdr)
+                        return
+                    except Exception as e:  # noqa: BLE001 - loop fault
+                        outer._reply_counter(500).inc()
+                        self._send_plain(500, repr(e).encode(),
+                                         headers=retry_hdr[1:])
+                        return
+                    body = canonical_body(toks, reason)
+                    digest = hashlib.sha256(body).hexdigest()
+                    outer._reply_counter(200).inc()
+                    outer._m_roundtrip.observe(time.monotonic() - t0,
+                                               exemplar=trace_id)
+                    self._send_plain(
+                        200, body, content_type="application/json",
+                        headers=(("X-Request-Id", rid),
+                                 ("traceparent", tp_echo),
+                                 ("X-Output-Digest", digest)))
+                    return
+                # streamed: headers (rid + traceparent) leave before
+                # the first token; tokens flush per decode step so the
+                # client's inter-token latency measures the scheduler,
+                # not this buffer
+                self.send_response(200)
+                self.send_header("X-Request-Id", rid)
+                self.send_header("traceparent", tp_echo)
+                self.send_header("Content-Type", "application/x-ndjson")
+                self.send_header("Transfer-Encoding", "chunked")
+                self.end_headers()
+
+                def chunk(b: bytes):
+                    self.wfile.write(f"{len(b):x}\r\n".encode()
+                                     + b + b"\r\n")
+
+                toks = []
+                status = 200
+                try:
+                    for tok in handle:
+                        line = json.dumps(
+                            {"i": len(toks), "t": tok}).encode()
+                        toks.append(tok)
+                        chunk(line + b"\n")
+                        self.wfile.flush()
+                    reason = handle.finish_reason or "completed"
+                    digest = hashlib.sha256(
+                        canonical_body(toks, reason)).hexdigest()
+                    final = json.dumps(
+                        {"done": True, "n": len(toks),
+                         "finish_reason": reason,
+                         "digest": digest}).encode()
+                    chunk(final + b"\n")
+                    chunk(b"")  # 0\r\n\r\n terminator
+                    self.wfile.flush()
+                except OSError:
+                    # client hung up mid-stream: the scheduler-side
+                    # finish already happened or will via deadline
+                    status = 499
+                except Exception as e:  # noqa: BLE001 - loop fault
+                    # headers are gone — terminate the chunk stream
+                    # with an error line instead of a silent cut
+                    status = 500
+                    try:
+                        chunk(json.dumps(
+                            {"done": True, "error": repr(e)}).encode()
+                            + b"\n")
+                        chunk(b"")
+                        self.wfile.flush()
+                    except OSError:
+                        pass
+                outer._reply_counter(status).inc()
+                outer._m_roundtrip.observe(time.monotonic() - t0,
+                                           exemplar=trace_id)
 
             def _send_plain(self, status: int, body: bytes,
                             content_type: str = "text/plain",
@@ -1754,10 +1910,13 @@ def _echo_pipeline(table: Table) -> Table:
 def _release_model(model) -> None:
     """Close the model's executors and free what they hold on the card
     (pinned buffers, weights, CUDA graphs and their pool) while the
-    interpreter still runs — their threads joined before teardown."""
+    interpreter still runs — their threads joined before teardown.
+    ``model`` None frees what an already closed decode scheduler
+    left."""
     import gc
 
-    cache = model.__dict__.get("_executor_cache") or {}
+    cache = (model.__dict__.get("_executor_cache") or {}
+             if model is not None else {})
     for ex in list(cache.values()):
         ex.close(wait=True)
     cache.clear()
@@ -1801,8 +1960,16 @@ def main(argv=None):
              "ported yet (ROADMAP Queue 1 item 4): any value exits 2")
     ap.add_argument("--decode", action="store_true",
                     default=bool(os.environ.get("SYNAPSEML_DECODE", "")),
-        help="decode serving mode (POST /generate); not ported yet "
-             "(ROADMAP Queue 1 item 3c): exits 2")
+        help="decode serving mode: POST /generate admits autoregressive "
+             "sequences into the continuous-batching scheduler "
+             "(runtime/decode.py) with a paged device-resident KV cache "
+             "— requires --model pointing at a share-buffer decoder "
+             "graph (past_key/past_value + seqlens_k inputs). Geometry "
+             "and capacity ride the SYNAPSEML_DECODE_*/SYNAPSEML_KV_* "
+             "env knobs; per-request max_new_tokens in the body, "
+             "deadline via X-Deadline-Ms. Every (phase, KV bucket) "
+             "signature is captured as a CUDA graph before /health "
+             "goes ready")
     ap.add_argument("--coalesce-ms", type=float, default=float(os.environ.get(
         "SYNAPSEML_COALESCE_MS", "0")),
         help="deadline-based batching window in ms (0 = off)")
@@ -1864,10 +2031,6 @@ def main(argv=None):
               "partition rules are not ported yet (ROADMAP Queue 1 item "
               "4)", flush=True)
         return 2
-    if args.decode:
-        print("error: --decode: decode serving is not ported yet "
-              "(ROADMAP Queue 1 item 3c)", flush=True)
-        return 2
     if args.dump_dir:
         _bb.set_dump_dir(args.dump_dir)
     # kill -USR2 <pid> snapshots the flight recorder to the dump dir —
@@ -1880,7 +2043,12 @@ def main(argv=None):
         print(f"error: model path {args.model!r} does not exist",
               flush=True)
         return 2
+    if args.decode and not args.model:
+        print("error: --decode requires --model (a share-buffer "
+              "decoder graph)", flush=True)
+        return 2
     model = None
+    decode_sched = None
     if args.model:
         from synapseml_tpu_torch import device as device_policy
 
@@ -1889,6 +2057,25 @@ def main(argv=None):
         except (RuntimeError, ValueError) as e:
             print(f"error: --device {args.device!r}: {e}", flush=True)
             return 2
+    if args.decode:
+        from synapseml_tpu_torch.onnx.importer import import_model
+        from synapseml_tpu_torch.runtime import compile_cache as _cc
+        from synapseml_tpu_torch.runtime.decode import DecodeScheduler
+
+        with open(args.model, "rb") as f:
+            payload = f.read()
+        decode_sched = DecodeScheduler(
+            import_model(payload), name=args.name,
+            cache_dir=args.cache_dir, cache_key=_cc.content_hash(payload),
+            device=args.device)
+        del payload
+        # "/" still answers, as echo: decode traffic is POST /generate
+        pipeline = _echo_pipeline
+        what = (f"decode {args.model} [device={args.device} "
+                f"B={decode_sched.B} S_pre={decode_sched.S_pre} "
+                f"page={decode_sched.page} max_seq={decode_sched.max_seq} "
+                f"kv_pages={decode_sched.kv.capacity_pages}]")
+    elif args.model:
         pipeline, model = _model_pipeline(
             args.model, cache_dir=args.cache_dir, device=args.device)
         what = f"scoring {args.model} [device={args.device}]"
@@ -1904,7 +2091,24 @@ def main(argv=None):
                           batch_coalesce=args.coalesce_ms / 1e3,
                           deadline_ms=args.deadline_ms or None,
                           max_queue=args.max_queue or None,
-                          ready=not do_warmup)
+                          ready=not (do_warmup or decode_sched is not None))
+    if decode_sched is not None:
+        # decode warmup is NOT optional: every (S, T) signature is
+        # captured before the first sequence, or steady-state steps run
+        # eagerly and the recompile sentinel fires. Single-threaded
+        # startup: the readiness gate is still closed, so no handler
+        # thread reads `decode` before this write
+        cs.server.decode = decode_sched
+        print(f"warming up [{what}] ...", flush=True)
+        rep = decode_sched.warmup()
+        statuses = [st for sig in rep["signatures"]
+                    for st in sig["entries"]]
+        decode_sched.start()
+        print(f"warmup done: decode signatures={len(statuses)}, "
+              f"compiled={statuses.count('compiled')}, "
+              f"loaded={statuses.count('loaded')}, "
+              f"errors={statuses.count('error')}", flush=True)
+        cs.server.set_ready(True)
     if do_warmup:
         buckets = None if args.warmup == "auto" else \
             [int(b) for b in args.warmup.split(",") if b.strip()]
@@ -1937,11 +2141,19 @@ def main(argv=None):
     print(f"SIGTERM: draining (budget {args.drain_timeout_ms:.0f}ms) ...",
           flush=True)
     drained = cs.drain(args.drain_timeout_ms)
+    if decode_sched is not None:
+        # in-flight sequences finish to real (streamed) replies under
+        # the same budget; new /generate admissions were already shed
+        # 503 by the drain gate
+        drained = decode_sched.drain(
+            args.drain_timeout_ms / 1e3) and drained
     print(f"drain {'complete' if drained else 'timed out'}; stopping",
           flush=True)
     cs.stop()
-    if model is not None:
-        # the executor's threads joined and its graphs freed before
+    if decode_sched is not None:
+        decode_sched.close()
+    if model is not None or decode_sched is not None:
+        # the executors' threads joined and their graphs freed before
         # interpreter teardown, never during it
         _release_model(model)
 

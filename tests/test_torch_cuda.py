@@ -1848,3 +1848,66 @@ def test_tagger_on_the_card_holds_to_the_jax_fixture(card, dtype):
     tol = 1e-4 if dtype == "float32" else 0.05
     np.testing.assert_allclose(losses, fx[f"losses_{dtype}"], rtol=tol)
     np.testing.assert_allclose(norms, fx[f"grad_norm_{dtype}"], rtol=tol)
+
+
+@pytest.fixture(scope="module")
+def decode_sched():
+    """The default ``zoo.tiny_decoder`` scheduler on the card, warmed: one
+    CUDA graph a (phase, KV bucket) signature."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the decode steps replay CUDA "
+                    "graphs")
+    from synapseml_tpu_torch.onnx import import_model, zoo
+    from synapseml_tpu_torch.runtime.decode import DecodeScheduler
+
+    s = DecodeScheduler(import_model(zoo.tiny_decoder()), name="t_cuda_dec",
+                        max_batch=4, prefill_chunk=8, page_size=8,
+                        max_seq=64, capacity_bytes=10 ** 9)
+    rep = s.warmup()
+    assert all(sig["entries"] == ["compiled"] for sig in rep["signatures"])
+    s.start()
+    yield s
+    s.close()
+
+
+def test_decode_replays_are_bitwise_their_eager_steps(decode_sched):
+    """Every warm prefill and decode signature's replay, fed through the
+    executor as the scheduler feeds it, against the eager forward of the
+    same inputs on the same buffers: logits and every present buffer
+    bitwise, each call a replay (an AOT hit, no cold run)."""
+    s = decode_sched
+    rng = np.random.default_rng(0)
+    for t in s.t_ladder:
+        for width in (s.S_pre, 1):
+            ids = rng.integers(0, s.vocab, (s.B, width)).astype(np.int64)
+            seqlens = rng.integers(width - 1, t, s.B).astype(np.int32)
+            bufs = [torch.randn((s.B, s.kv_heads, t, s.head_dim),
+                                device="cuda")
+                    for _ in range(2 * s.n_layers)]
+            hits = s._ex._aot_hits
+            got = s._ex.submit(ids, seqlens, *bufs).result()
+            assert s._ex._aot_hits == hits + 1
+            want = s._fn(torch.from_numpy(ids.astype(np.int32)).cuda(),
+                         torch.from_numpy(seqlens).cuda(), *bufs)
+            assert np.array_equal(got[0], want[0].cpu().numpy()), (t, width)
+            for a, b in zip(got[1:], want[1:]):
+                assert torch.equal(a, b), (t, width)
+
+
+def test_decode_refuses_an_out_of_range_token_before_any_launch(
+        decode_sched):
+    """A token outside ``[0, vocab)`` would be a device-side assert in the
+    embedding's ``index_select``: ``submit`` raises before the executor
+    dispatches anything, and the process goes on serving."""
+    s = decode_sched
+    dispatched = s._ex._m_disp_one.value
+    for bad in ([3, s.vocab], [-1], [1, 2, 10 ** 6]):
+        with pytest.raises(ValueError, match="outside"):
+            s.submit(bad, max_new_tokens=4)
+    torch.cuda.synchronize()
+    assert s._ex._m_disp_one.value == dispatched
+    toks, reason = s.submit([5, 9, 13, 2], max_new_tokens=6).result(
+        timeout=120)
+    assert reason == "completed" and len(toks) == 6
+    assert all(0 <= t < s.vocab for t in toks)
+    assert s._ex._m_disp_one.value > dispatched

@@ -821,16 +821,84 @@ def test_entry_serves_on_the_cpu_and_drains_on_sigterm(tmp_path):
             proc.communicate(timeout=HARD)
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["--devices", "2"], "1e"),
-    (["--tensor-parallel", "2"], "item 4"),
-    (["--partition-rules", "megatron"], "item 4"),
-    (["--decode"], "3c"),
+@pytest.mark.parametrize("argv, said", [
+    (["--devices", "2"], "(ROADMAP Queue 1 item 1e)"),
+    (["--tensor-parallel", "2"], "(ROADMAP Queue 1 item 4)"),
+    (["--partition-rules", "megatron"], "(ROADMAP Queue 1 item 4)"),
+    # decode is ported: without a model to decode it exits 2 with the
+    # reference's message
+    (["--decode"], "error: --decode requires --model (a share-buffer "
+                   "decoder graph)"),
 ])
-def test_entry_refuses_unported_options(argv, item, capsys):
+def test_entry_refuses_unported_options(argv, said, capsys):
+    """The reference's options whose machinery is not ported exit 2
+    naming the ROADMAP item that ports each; ``--decode`` without
+    ``--model`` exits 2 as the reference does."""
     assert serving_mod.main(["--port", "0"] + argv) == 2
     out = capsys.readouterr().out
-    assert out.startswith("error: ") and item in out and "ROADMAP" in out
+    assert out.startswith("error: ") and said in out
+
+
+def test_entry_decodes_on_the_cpu_and_drains_on_sigterm(tmp_path):
+    """``--decode --model <tiny decoder> --device cpu``: every signature
+    warmed, one ``POST /generate`` answered with the scheduler's stream
+    and its digest, SIGTERM, exit 0 with admitted = replied = 1."""
+    from synapseml_tpu_torch.onnx.importer import import_model
+    from synapseml_tpu_torch.runtime.decode import DecodeScheduler
+
+    blob = zoo.tiny_decoder()
+    path = tmp_path / "decoder.onnx"
+    path.write_bytes(blob)
+    geometry = {"SYNAPSEML_DECODE_MAX_BATCH": "2",
+                "SYNAPSEML_DECODE_PREFILL_CHUNK": "8",
+                "SYNAPSEML_KV_PAGE": "8", "SYNAPSEML_DECODE_MAX_SEQ": "32"}
+    env = dict(os.environ, PYTHONPATH=ROOT, **geometry)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "synapseml_tpu_torch.io.serving",
+         "--port", "0", "--host", "127.0.0.1", "--model", str(path),
+         "--device", "cpu", "--decode",
+         "--dump-dir", str(tmp_path / "flight")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=str(tmp_path), env=env)
+    lines = []
+    try:
+        deadline = time.monotonic() + 120
+        warm = _read_until(proc, r"warmup done: decode signatures=(\d+), "
+                                 r"compiled=(\d+), loaded=0, errors=0",
+                           lines, deadline)
+        assert warm.group(1) == warm.group(2) == "6"   # T ladder 8, 16, 32
+        m = _read_until(proc, r"serving \[decode .* B=2 S_pre=8 page=8 "
+                              r"max_seq=32 .*\] on http://127\.0\.0\.1:"
+                              r"(\d+)/", lines, deadline)
+        conn = http.client.HTTPConnection("127.0.0.1", int(m.group(1)),
+                                          timeout=HARD)
+        conn.request("POST", "/generate", json.dumps(
+            {"tokens": [5, 9, 13, 2], "max_new_tokens": 6}).encode(),
+            {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        body = r.read()
+        conn.close()
+        assert r.status == 200
+        assert r.getheader("X-Output-Digest") == \
+            hashlib.sha256(body).hexdigest()
+        sched = DecodeScheduler(import_model(blob), name="t_entry_direct",
+                                device="cpu", max_batch=2, prefill_chunk=8,
+                                page_size=8, max_seq=32)
+        try:
+            want, reason = sched.submit([5, 9, 13, 2], 6).result(timeout=HARD)
+        finally:
+            sched.close()
+        assert json.loads(body) == {"prompt_len": 4, "tokens": want,
+                                    "finish_reason": reason}
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+        lines += out.splitlines()
+        assert proc.returncode == 0, lines
+        assert "exit accounting: admitted=1 replied=1" in lines, lines
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=HARD)
 
 
 def test_entry_without_cuda_refuses_the_card_default(tmp_path, capsys):
