@@ -294,6 +294,23 @@ before the last line:
    prompts non-streamed and streamed from 8 clients, digests, an
    out-of-range token 400, SIGTERM exit 0 with admitted = replied;
    requests/s and p50/p99. K1 and K2 launch 0 times.
+33. onnx_index_ops — the ONNX indexing and loss ops: every one-node case
+   of ``tests/fixtures/index_op_cases.py`` (out-of-range, negative, tie,
+   NaN and ``ignore_index=-100`` edges) on the card equal to the port's
+   CPU run, no device assert, ``NonZero``/``Unique``/``Compress`` refusing
+   a device tensor; the masked-LM head of ``tests/fixtures/mlm_head.py``
+   (``GatherND`` batch_dims=1, the tied 30,522-word projection, ``TopK``
+   5, ``SoftmaxCrossEntropyLoss``, ``GatherElements``, ``CastLike``,
+   ``ScatterND``) over ``zoo.transformer_encoder(30522, 768, 12, 3072,
+   12, seq_len=128, causal=False, seed=0)`` in float32: 8 sequences
+   against the JAX fixture (``mlm_head_io.npz``; floats within 1e-3 of the
+   largest |logit|, ids equal but at counted near-ties); 128 sequences
+   through two executors warmed to one CUDA graph each (``compiled``),
+   the warm head bitwise eager with no copy or sync, within 1e-5 of the
+   largest |logit| of the port's CPU head; wall, card ms, launches and
+   busy share eager and warm, the warmups' reserved memory, the head split
+   into projection, ``TopK`` (beside ``torch.topk``) and the rest,
+   sequences/s. K1 and K2 launch 0 times.
 
 Between phases 3 and 4: prng_card_vs_cpu (the threefry key stream on the
 card equal to the CPU's, bitwise) and masked_index (K1 on a
@@ -4683,6 +4700,240 @@ def decode_phase(smi, reset_counts, read_counts) -> dict:
     return counts
 
 
+MLM_BATCH = 128               # the masked-LM head's warm signature
+MLM_CPU_TOL = 1e-5            # card head vs the CPU head, of the largest |logit|
+MLM_SEED = 1                  # the 128 sequences (the fixture's are seed 0)
+
+
+def index_cases_on_card() -> dict:
+    """Every one-node case of ``tests/fixtures/index_op_cases.py`` on the
+    card against the port's CPU run of the same seeded inputs (bitwise,
+    or within the case's bound); a host-only op fed a device tensor must
+    raise ``NotImplementedError``. Any other exception propagates."""
+    import index_op_cases as cases
+
+    results = []
+    for case in cases.CASES:
+        if case["raises"]:
+            try:
+                cases.run(case, "cuda")
+                results.append({"name": case["name"], "ok": False,
+                                "raised": None})
+            except NotImplementedError:
+                results.append({"name": case["name"], "ok": True,
+                                "raised": "NotImplementedError"})
+            continue
+        got = cases.run(case, "cuda")
+        results.append({"name": case["name"], "exact": case["exact"],
+                        **cases.agree(case, got, cases.run(case, "cpu"))})
+    torch.cuda.synchronize()      # a device-side assert would surface here
+    return {"cases": len(results),
+            "failed": [r for r in results if not r["ok"]],
+            "exact": sum(1 for r in results if r.get("exact")),
+            "max_abs_err_within_bound": max(
+                (r["max_abs_err"] for r in results
+                 if "exact" in r and not r["exact"]), default=0.0)}
+
+
+def mlm_phase(smi, reset_counts, read_counts) -> dict:
+    """Phase 33: the ONNX indexing and loss ops on the card.
+
+    1. Every one-node case of ``tests/fixtures/index_op_cases.py``
+       (negative, past-the-end, tie, NaN and ``ignore_index=-100`` edges
+       included) on the card equal to the port's CPU run, before any wide
+       work: no device assert, the host-only ops refusing a device tensor.
+    2. The masked-LM head (``tests/fixtures/mlm_head.py``) over
+       ``zoo.transformer_encoder(30522, 768, 12, 3072, 12, seq_len=128,
+       causal=False, seed=0)`` in float32: the fixture's 8 sequences
+       against the JAX package's outputs (``mlm_head_io.npz``): floats
+       within 1e-3 of the largest |logit|, ids and filled tokens equal but
+       at counted near-ties.
+    3. 128 sequences through two ``BatchedExecutor``s (``static_batch=128``,
+       the hidden states kept on the card), each warmed to one CUDA graph
+       (``compiled``): the warm head bitwise its eager run, a bound head's
+       copies and syncs (none), the card's head within 1e-5 of the largest
+       |logit| of the port's CPU head on the same hidden states (ids equal
+       but at near-ties).
+    4. Wall, card time, launches and busy share of the encoder and the
+       head, eager and warm, and the memory each warmup reserves; the
+       head's card time split into the projection, the port's ``TopK``
+       (beside ``torch.topk`` on the same logits) and the rest; sequences/s
+       of encoder plus head, warm.
+    K1 and K2 launch 0 times."""
+    sys.path.insert(0, FIXTURES)
+    import mlm_head
+    from synapseml_tpu_torch.onnx import GraphBuilder, import_model, zoo
+    from synapseml_tpu_torch.onnx.importer import OpContext, _REGISTRY
+    from synapseml_tpu_torch.runtime.executor import BatchedExecutor
+
+    phase_start = time.perf_counter()
+    reset_counts()
+    # -- 1. every one-node case, before the wide path ---------------------
+    start = time.perf_counter()
+    one_node = index_cases_on_card()
+    one_node["seconds"] = time.perf_counter() - start
+    emit({"phase": "onnx_index_ops", "part": "one_node_cases", **one_node})
+    check(not one_node["failed"],
+          f"one-node cases differ on the card: {one_node['failed']}")
+
+    # -- 2. the wide head against the JAX fixture -------------------------
+    cfg = mlm_head.ENCODER
+    seq, masked = cfg["seq_len"], mlm_head.MASKED
+    start = time.perf_counter()
+    enc_graph = import_model(zoo.transformer_encoder(**cfg))
+    tok_emb = enc_graph.params["tok_emb"]
+    head_graph = import_model(mlm_head.head_graph(GraphBuilder, tok_emb, seq,
+                                                  masked))
+    enc, head = enc_graph.bind(), head_graph.bind()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - start
+
+    def on_card(b):
+        return [torch.from_numpy(a).cuda()
+                for a in mlm_head.head_inputs(b)]
+
+    fixture = dict(np.load(mlm_head.OUT))
+    b8 = mlm_head.batch(mlm_head.N, seq, cfg["vocab"], masked)
+    out8 = head(enc(torch.from_numpy(b8["tokens"]).cuda())[0], *on_card(b8))
+    vs_jax = mlm_head.held(
+        {k: v.cpu().numpy() for k, v in zip(mlm_head.OUTPUTS, out8)},
+        fixture, ENCODER_TOL * float(fixture["span"]))
+    emit({"phase": "onnx_index_ops", "part": "wide_head_vs_jax",
+          "sequences": mlm_head.N, "masked": masked, **vs_jax})
+    check(vs_jax["ok"], f"the wide head is off the JAX fixture: {vs_jax}")
+
+    # -- 3. 128 sequences, eager and warm ---------------------------------
+    b = mlm_head.batch(MLM_BATCH, seq, cfg["vocab"], masked, seed=MLM_SEED)
+    tokens = torch.from_numpy(b["tokens"]).cuda()
+    rest = on_card(b)
+    hidden = enc(tokens)[0]
+    eager = [t.cpu().numpy() for t in head(hidden, *rest)]
+    warm_io = copies_and_syncs(head, hidden, *rest)
+
+    def warmed(fn, like, **kw):
+        ex = BatchedExecutor(fn, device="cuda", static_batch=MLM_BATCH, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved()
+        begin = time.perf_counter()
+        rep = ex.warmup(like)
+        torch.cuda.synchronize()
+        return ex, {"seconds": time.perf_counter() - begin,
+                    "reserved_bytes": torch.cuda.memory_reserved() - before,
+                    "entries": [e.get("status") for e in rep.entries],
+                    "errors": list(rep.errors)}
+
+    enc_ex, enc_warmup = warmed(enc, [tokens], device_outputs=[0])
+    head_ex, head_warmup = warmed(head, [hidden, *rest])
+
+    def enc_warm():
+        return enc_ex.submit(tokens).result()
+
+    def head_warm():
+        return head_ex.submit(hidden, *rest).result()
+
+    def both_warm():
+        return head_ex.submit(enc_ex.submit(tokens).result()[0],
+                              *rest).result()
+
+    warm = list(head_warm())
+    bitwise = all(np.array_equal(w.view(np.uint8), e.view(np.uint8))
+                  for w, e in zip(warm, eager))
+    hidden_warm_equal = bool(torch.equal(enc_warm()[0], hidden))
+
+    start = time.perf_counter()
+    cpu_head = head_graph.bind(device="cpu")
+    cpu = [t.numpy() for t in cpu_head(hidden.cpu(),
+                                       *[t.cpu() for t in rest])]
+    cpu_s = time.perf_counter() - start
+    picked = hidden[torch.arange(MLM_BATCH, device=hidden.device)[:, None],
+                    rest[0]]
+    emb_t = torch.from_numpy(np.ascontiguousarray(tok_emb.T)).cuda()
+    bias = torch.from_numpy(mlm_head.mlm_bias(cfg["vocab"])).cuda()
+
+    def project():
+        return torch.matmul(picked, emb_t) + bias
+
+    with torch.inference_mode():
+        logits = project()
+        top6 = torch.topk(logits, mlm_head.TOPK + 1, dim=-1)[0].cpu().numpy()
+    want_cpu = dict(zip(mlm_head.OUTPUTS, cpu))
+    want_cpu.update(positions=b["positions"],
+                    gaps=top6[..., :-1] - top6[..., 1:])
+    span = float(logits.abs().max())
+    vs_cpu = mlm_head.held(dict(zip(mlm_head.OUTPUTS, eager)), want_cpu,
+                           MLM_CPU_TOL * span)
+
+    # -- 4. times ----------------------------------------------------------
+    topk_ctx = OpContext({"axis": -1}, 17, "topk", "TopK", 2)
+    k = np.array([mlm_head.TOPK], np.int64)
+    with torch.inference_mode():
+        port_topk = _REGISTRY["TopK"](topk_ctx, logits, k)
+        lib_topk = torch.topk(logits, mlm_head.TOPK, dim=-1)
+        topk_values_equal = bool(torch.equal(port_topk[0], lib_topk[0]))
+        proj_ms = cuda_ms(project, reps=5, inner=5)
+        topk_ms = cuda_ms(lambda: _REGISTRY["TopK"](topk_ctx, logits, k),
+                          reps=5, inner=5)
+        torch_topk_ms = cuda_ms(lambda: torch.topk(logits, mlm_head.TOPK,
+                                                   dim=-1), reps=5, inner=5)
+    del port_topk, lib_topk, logits
+    times = {}
+    for name, fn, card_ms in (
+            ("encoder_eager", lambda: enc(tokens), True),
+            ("encoder_warm", enc_warm, False),
+            ("head_eager", lambda: head(hidden, *rest), True),
+            ("head_warm", head_warm, False),
+            ("encoder_and_head_warm", both_warm, False)):
+        busy = device_busy(fn)
+        times[name] = {"wall_ms": synced_wall_ms(fn, calls=5),
+                       "card_ms": (cuda_ms(fn, reps=3, inner=3) if card_ms
+                                   else busy.get("kernel_s", 0) * 1e3),
+                       "launches": busy.get("kernels"),
+                       "busy_share": busy.get("busy_share"),
+                       "top": busy.get("top", [])[:4]}
+    head_ms = times["head_eager"]["card_ms"]
+    split = {"projection_ms": proj_ms, "topk_ms": topk_ms,
+             "rest_ms": head_ms - proj_ms - topk_ms,
+             "projection_tflop_per_s": 2 * MLM_BATCH * masked
+             * cfg["d_model"] * cfg["vocab"] / proj_ms * 1e-9,
+             "torch_topk_ms": torch_topk_ms,
+             "topk_over_torch_topk": topk_ms / torch_topk_ms,
+             "topk_values_equal_torch_topk": topk_values_equal}
+    counts = read_counts()
+    enc_ex.close()
+    head_ex.close()
+    del enc_ex, head_ex, enc, head, hidden, picked, emb_t, bias
+    torch.cuda.empty_cache()
+    emit({"phase": "onnx_index_ops", "part": "wide_head", "device": smi,
+          "model": "zoo.transformer_encoder(" + ", ".join(
+              f"{k}={v}" for k, v in cfg.items()) + ") + mlm_head",
+          "batch": MLM_BATCH, "masked": masked, "build_s": build_s,
+          "encoder_warmup": enc_warmup, "head_warmup": head_warmup,
+          "warm_bitwise_eager": bitwise,
+          "warm_hidden_bitwise_eager": hidden_warm_equal,
+          "bound_head_copies_and_syncs": warm_io,
+          "vs_cpu": vs_cpu, "cpu_head_s": cpu_s, "largest_logit": span,
+          "times": times, "head_split": split,
+          "sequences_per_s_warm": MLM_BATCH
+          / times["encoder_and_head_warm"]["wall_ms"] * 1e3,
+          "launches": counts,
+          "seconds": time.perf_counter() - phase_start})
+    for name, w in (("encoder", enc_warmup), ("head", head_warmup)):
+        check(w["entries"] == ["compiled"] and not w["errors"],
+              f"the {name} did not warm to one compiled signature: {w}")
+    check(bitwise and hidden_warm_equal,
+          "the warm masked-LM path is not bitwise its eager run")
+    check(warm_io["syncs"] == 0 and warm_io["d2h_copies"] == 0
+          and warm_io["h2d_copies"] == 0,
+          f"the bound head synchronised or copied: {warm_io}")
+    check(vs_cpu["ok"], f"the card's head is off its CPU run: {vs_cpu}")
+    check(all(np.isfinite(a).all() for a in eager),
+          "the head's outputs are not finite")
+    check(counts["forest_traverse"] == 0 and counts["histogram"] == 0,
+          f"the masked-LM path launched K1/K2: {counts}")
+    return counts
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -5662,6 +5913,9 @@ def main() -> int:
     # -- 32. decode serving: the wide GQA decoder from warm CUDA graphs ---
     decode_counts = decode_phase(smi, reset_counts, read_counts)
 
+    # -- 33. the ONNX indexing and loss ops: the masked-LM head -----------
+    mlm_counts = mlm_phase(smi, reset_counts, read_counts)
+
     emit({"kernels": [{
         "name": "forest_traverse", "route": "cuda",
         "source": "synapseml_tpu_torch/csrc/forest_traverse.cu",
@@ -5687,6 +5941,7 @@ def main() -> int:
             k: c["forest_traverse"] for k, c in converted.items()},
         "launches_tagger_path": tagger_counts["forest_traverse"],
         "launches_decode_path": decode_counts["forest_traverse"],
+        "launches_mlm_path": mlm_counts["forest_traverse"],
         "max_abs_err": max_err, "bitwise": True,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
@@ -5714,6 +5969,7 @@ def main() -> int:
             k: c["histogram"] for k, c in converted.items()},
         "launches_tagger_path": tagger_counts["histogram"],
         "launches_decode_path": decode_counts["histogram"],
+        "launches_mlm_path": mlm_counts["histogram"],
         "max_abs_err": k1_max_err,
         "bitwise": True, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],

@@ -863,6 +863,58 @@ def _shape(ctx, x):
     return np.asarray(shp, dtype=np.int64)
 
 
+@op("Size")
+def _size(ctx, x):
+    return np.asarray(int(np.prod(np.shape(x))), dtype=np.int64)
+
+
+def _host_dtype(x) -> np.dtype:
+    """The numpy dtype of a host value or of a tensor's dtype; bfloat16
+    needs ``ml_dtypes`` (as :mod:`proto` reads it), else it raises."""
+    if _is_host(x):
+        return np.asarray(x).dtype
+    if x.dtype in _NUMPY_OF:
+        return _NUMPY_OF[x.dtype]
+    dt = proto.TENSOR_DTYPES.get(proto.DTYPE_BFLOAT16)
+    if x.dtype == torch.bfloat16 and dt is not None:
+        return np.dtype(dt)
+    raise ValueError(f"no numpy dtype for {x.dtype} (ml_dtypes is not "
+                     "installed)")
+
+
+@op("EyeLike")
+def _eye_like(ctx, x):
+    dt = proto.TENSOR_DTYPES.get(ctx.attr("dtype")) or _host_dtype(x)
+    n, m = np.shape(x)
+    return np.eye(n, m, k=ctx.attr("k", 0), dtype=dt)  # a host constant
+
+
+@op("ReverseSequence")
+def _reverse_sequence(ctx, x, seq_lens):
+    """Positions before a row's length reverse, the rest stay; a length
+    past the time axis reads past it, where the reference's gather fills
+    (:func:`_take_along`)."""
+    batch_axis = ctx.attr("batch_axis", 1)
+    time_axis = ctx.attr("time_axis", 0)
+    x = _tensor(x)
+    idx = torch.arange(x.shape[time_axis], device=x.device)
+    lens = _tensor(seq_lens, x.device).to(torch.int32)[:, None]
+    gather_idx = torch.where(idx < lens, lens - 1 - idx, idx)   # [B, T]
+    moved = x.movedim((batch_axis, time_axis), (0, 1))
+    out = _take_along(moved, gather_idx.reshape(
+        gather_idx.shape + (1,) * (moved.ndim - 2)), 1)
+    return out.movedim((0, 1), (batch_axis, time_axis))
+
+
+@op("NonZero")
+def _non_zero(ctx, x):
+    if not _is_host(x):
+        raise NotImplementedError(
+            "NonZero on traced tensors has a data-dependent output shape, "
+            "which XLA cannot express; restructure with Where/masking")
+    return np.stack(np.nonzero(np.asarray(x))).astype(np.int64)
+
+
 @op("Reshape")
 def _reshape(ctx, x, shape=None):
     target = _static_int_list(shape if shape is not None else ctx.attr("shape"),
@@ -1006,6 +1058,162 @@ def _gather(ctx, x, idx):
     return out.reshape(x.shape[:axis] + idx.shape + x.shape[axis + 1:])
 
 
+# The reference's gathers and scatters never refuse an index: XLA wraps a
+# negative one, then a gather through ``take_along_axis`` fills past the
+# end, an indexing gather clamps, and a scatter drops the update. On the
+# card an index out of range would be a device assert, so these ops hand
+# ``gather``/``scatter`` only indices in range, made with ``torch.where``
+# and ``clamp`` on the device (no host read: a graph of them captures).
+
+def _fill_value(dt: torch.dtype):
+    """The value JAX's gather gives past the end (mode "fill"): NaN for a
+    float, the lowest value of a signed integer, the highest of an
+    unsigned one, True for bool. A 64-bit integer takes the value of the
+    32-bit integer the reference narrows it to, so the packages agree."""
+    if dt.is_floating_point:
+        return math.nan
+    if dt == torch.bool:
+        return True
+    info = torch.iinfo({torch.int64: torch.int32,
+                        torch.uint64: torch.uint32}.get(dt, dt))
+    return info.min if info.min < 0 else info.max
+
+
+def _take_along(x: torch.Tensor, idx: torch.Tensor, axis: int):
+    """``jnp.take_along_axis(x, idx, axis)``: the other axes broadcast, a
+    negative index counts from the end, one still out of range reads
+    :func:`_fill_value`."""
+    n = x.shape[axis]
+    shape = list(torch.broadcast_shapes(
+        x.shape[:axis] + (1,) + x.shape[axis + 1:],
+        idx.shape[:axis] + (1,) + idx.shape[axis + 1:]))
+    idx = idx.to(torch.int64)
+    idx = torch.where(idx < 0, idx + n, idx)
+    ok = (idx >= 0) & (idx < n)
+    shape[axis] = idx.shape[axis]
+    safe = torch.where(ok, idx, 0).expand(shape)
+    shape[axis] = n
+    got = x.expand(shape).gather(axis, safe)
+    return torch.where(ok, got, _fill_value(x.dtype))
+
+
+def _scatter_rows(data: torch.Tensor, rows: torch.Tensor,
+                  updates: torch.Tensor, reduction: str) -> torch.Tensor:
+    """``data`` ``[M, R]`` with ``updates`` ``[n, R]`` written to ``rows``
+    ``[n]`` under ``reduction``; a row of ``M`` is a spare row past the
+    end, sliced off, which is how an update out of range is dropped."""
+    out = torch.cat([data, data.new_zeros((1,) + data.shape[1:])])
+    index = rows.reshape(-1, 1).expand(updates.shape)
+    updates = updates.to(data.dtype)
+    if reduction == "add":
+        out.scatter_add_(0, index, updates)
+    elif reduction in ("mul", "multiply", "min", "max"):
+        out.scatter_reduce_(0, index, updates, {
+            "mul": "prod", "multiply": "prod", "min": "amin",
+            "max": "amax"}[reduction])
+    else:
+        out.scatter_(0, index, updates)
+    return out[:-1]
+
+
+def _flat_index(coords, dims, shape, dev, clamp: bool) -> torch.Tensor:
+    """The row-major flat index of ``coords`` (one index tensor an axis of
+    ``dims``, broadcasting to ``shape``) on ``dev``, a negative index
+    counted from the end. An index still out of range is clamped into its axis (``clamp``:
+    JAX's indexing gather) or sends the whole index to ``prod(dims)``, one
+    past the end (a scatter's update that is dropped)."""
+    flat = torch.zeros(shape, dtype=torch.int64, device=dev)
+    ok = torch.ones_like(flat, dtype=torch.bool)
+    for i, d in zip(coords, dims):
+        i = torch.where(i < 0, i + d, i)
+        if clamp:
+            i = i.clamp(0, d - 1)
+        else:
+            ok = ok & (i >= 0) & (i < d)
+        flat = flat * d + i
+    return flat if clamp else torch.where(ok, flat, math.prod(dims))
+
+
+@op("GatherElements")
+def _gather_elements(ctx, x, idx):
+    x = _tensor(x)
+    return _take_along(x, _tensor(idx, x.device), ctx.attr("axis", 0) % x.ndim)
+
+
+@op("GatherND")
+def _gather_nd(ctx, x, idx):
+    """The reference indexes each batch's slice with the index tuples: a
+    negative index counts from the end, then each is clamped into its
+    axis (JAX's indexing gather), one flat index a tuple here."""
+    b = int(ctx.attr("batch_dims", 0))
+    x = _tensor(x)
+    idx = _tensor(idx, x.device).to(torch.int64)
+    k = idx.shape[-1]
+    dims, rest = x.shape[b:b + k], x.shape[b + k:]
+    flat = _flat_index(idx.unbind(-1), dims, idx.shape[:-1], x.device,
+                       clamp=True)
+    nb, r = math.prod(x.shape[:b]), math.prod(rest)
+    flat = flat.reshape(nb, -1, 1)
+    out = x.reshape(nb, math.prod(dims), r).gather(
+        1, flat.expand(nb, flat.shape[1], r))
+    return out.reshape(idx.shape[:-1] + rest)
+
+
+@op("ScatterElements")
+def _scatter_elements(ctx, x, idx, updates):
+    """``x.at[index]`` with ``index`` the indices along ``axis`` and the
+    positions along every other axis. Only ``add`` and ``mul`` are read:
+    any other reduction sets, as in the reference."""
+    reduction = ctx.attr("reduction", "none")
+    x = _tensor(x)
+    idx = _tensor(idx, x.device).to(torch.int64)
+    axis = ctx.attr("axis", 0) % x.ndim
+    coords = [idx if d == axis else torch.arange(
+        idx.shape[d], device=x.device).reshape(
+            [-1 if e == d else 1 for e in range(idx.ndim)])
+        for d in range(x.ndim)]
+    flat = _flat_index(coords, x.shape, idx.shape, x.device, clamp=False)
+    upd = _tensor(updates, x.device).expand(idx.shape).reshape(-1, 1)
+    out = _scatter_rows(x.reshape(-1, 1), flat.reshape(-1), upd,
+                        reduction if reduction in ("add", "mul") else "none")
+    return out.reshape(x.shape)
+
+
+# deprecated opset-9 name for the same op (no reduction attr back then)
+_REGISTRY["Scatter"] = _scatter_elements
+
+
+@op("ScatterND")
+def _scatter_nd(ctx, data, indices, updates):
+    reduction = ctx.attr("reduction", "none")
+    if _all_host((data, indices, updates)):
+        # stay on host so integer results can still feed shape slots
+        out = np.array(data)
+        idx = tuple(np.moveaxis(np.asarray(indices), -1, 0))
+        upd = np.asarray(updates)
+        if reduction == "add":
+            np.add.at(out, idx, upd)
+        elif reduction in ("mul", "multiply"):
+            np.multiply.at(out, idx, upd)
+        elif reduction == "min":
+            np.minimum.at(out, idx, upd)
+        elif reduction == "max":
+            np.maximum.at(out, idx, upd)
+        else:
+            out[idx] = upd
+        return out
+    x = _tensor(data)
+    idx = _tensor(indices, x.device).to(torch.int64)
+    k = idx.shape[-1]
+    flat = _flat_index(idx.unbind(-1), x.shape[:k], idx.shape[:-1],
+                       x.device, clamp=False)
+    rest = math.prod(x.shape[k:])
+    upd = _tensor(updates, x.device).reshape(-1, rest)
+    out = _scatter_rows(x.reshape(-1, rest), flat.reshape(-1), upd,
+                        reduction)
+    return out.reshape(x.shape)
+
+
 @op("Expand")
 def _expand(ctx, x, shape):
     # bidirectional numpy broadcast: align ranks from the right, then each
@@ -1037,6 +1245,15 @@ def _cast(ctx, x):
     if _is_host(x):
         return np.asarray(x).astype(to)
     return x.to(_torch_dtype(_canonical(np.dtype(to))))
+
+
+@op("CastLike")
+def _cast_like(ctx, x, like):
+    if _is_host(x):
+        return np.asarray(x).astype(_host_dtype(like))
+    if isinstance(like, torch.Tensor):
+        return x.to(like.dtype)
+    return x.to(_torch_dtype(_canonical(np.asarray(like).dtype)))
 
 
 @op("Identity")
@@ -1076,6 +1293,24 @@ def _range(ctx, start, limit, delta):
     raise ValueError("Range with device bounds is not supported (dynamic shape)")
 
 
+@op("OneHot")
+def _one_hot(ctx, indices, depth, values):
+    """``jax.nn.one_hot``: each index compared with ``arange(depth)``, so a
+    negative or out-of-range index gives a row all off (the spec wraps a
+    negative one), in float32 whatever the values' dtype; then scaled and
+    shifted by the values."""
+    axis = ctx.attr("axis", -1)
+    d = _static_int_list(depth, "OneHot depth")[0]
+    idx = _tensor(indices)
+    oh = (idx.unsqueeze(-1) == torch.arange(d, device=idx.device)).to(
+        torch.float32).movedim(-1, axis % (idx.ndim + 1))
+    if _is_host(values):
+        values = np.asarray(values).reshape(-1)
+    off_val, on_val = values[0], values[1]
+    return _bin(operator.add, _bin(operator.mul, oh, on_val - off_val),
+                off_val)
+
+
 def _softmax_impl(ctx, x, log: bool):
     x = _tensor(x)
     axis = ctx.attr("axis", -1 if ctx.opset >= 13 else 1)
@@ -1096,6 +1331,62 @@ def _softmax(ctx, x):
 @op("LogSoftmax")
 def _log_softmax(ctx, x):
     return _softmax_impl(ctx, x, log=True)
+
+
+@op("Hardmax")
+def _hardmax(ctx, x):
+    """One at the first maximum along ``axis`` (the first NaN if there is
+    one, as ``jnp.argmax``), built so: the first hit of an integer mask."""
+    x = _tensor(x)
+    axis = ctx.attr("axis", -1 if ctx.opset >= 13 else 1) % x.ndim
+    top = x.amax(axis, keepdim=True)
+    hit = x == top
+    if x.is_floating_point():
+        hit = torch.where(top.isnan(), x.isnan(), hit)
+    first = hit.to(torch.uint8).argmax(axis, keepdim=True)
+    return torch.zeros_like(x).scatter_(axis, first, 1)
+
+
+def _order_key(x: torch.Tensor, negate: bool = False) -> torch.Tensor:
+    """An integer tensor ordered as XLA's sort orders ``x``, or ``-x``
+    under ``negate``: a float's IEEE total order (-NaN < -inf < ... < -0 <
+    +0 < ... < +inf < +NaN, the sign bit read on a NaN too), an integer's
+    value. A float is negated on its bits, as JAX negates it: CUDA's
+    negation would leave a NaN's sign as it was."""
+    if not x.is_floating_point():
+        return x.neg() if negate else x
+    wide = torch.int64 if x.dtype == torch.float64 else torch.int32
+    bits = (x if x.dtype == torch.float64 else x.float()).view(wide)
+    if negate:
+        bits = bits ^ torch.iinfo(wide).min
+    return bits ^ ((bits >> (bits.element_size() * 8 - 1))
+                   & torch.iinfo(wide).max)
+
+
+@op("TopK")
+def _topk(ctx, x, k=None):
+    """``lax.top_k``, the smallest through ``top_k(-x)`` as the reference
+    takes them, on the total-order key of :func:`_order_key`. Ties keep
+    the lower index first by construction (``torch.topk`` fixes no order
+    among ties): a key of 32 bits or fewer takes its position in the low
+    32 bits of an int64, lower positions larger, so no two keys tie; a
+    64-bit key is sorted stably."""
+    axis = ctx.attr("axis", -1)
+    largest = ctx.attr("largest", 1)
+    if ctx.opset < 10:
+        kk = ctx.attr("k")
+    else:
+        kk = _static_int_list(k, "TopK k")[0]
+    moved = _tensor(x).movedim(axis, -1)
+    key = _order_key(moved, negate=not largest)
+    if key.element_size() <= 4:
+        width = key.shape[-1]
+        rank = torch.arange(width - 1, -1, -1, device=key.device)
+        idx = torch.topk((key.to(torch.int64) << 32) | rank, kk, dim=-1)[1]
+    else:
+        idx = torch.sort(key, dim=-1, descending=True, stable=True)[1][
+            ..., :kk]
+    return (moved.gather(-1, idx).movedim(-1, axis), idx.movedim(-1, axis))
 
 
 # ---------------------------------------------------------------------------
@@ -1300,6 +1591,90 @@ def _rnn(ctx, x, w, r, b=None, seq_lens=None, init_h=None):
         return (h,), h
 
     return _recurrent_dirs(ctx, x, w, r, b, (init_h,), 1, step)
+
+
+# ---------------------------------------------------------------------------
+# Host-only selections and the two losses
+# ---------------------------------------------------------------------------
+
+@op("Unique")
+def _unique(ctx, x):
+    """Data-dependent output shape: host-side only (same contract as the
+    reference's ORT CPU kernel; a traced input cannot produce a
+    dynamic-shape XLA result)."""
+    if not _is_host(x):
+        raise NotImplementedError(
+            "Unique produces data-dependent shapes; feed it host-side "
+            "data (constant-folded subgraph) or move it out of the "
+            "jitted region")
+    x = np.asarray(x)
+    axis = ctx.attr("axis")
+    is_sorted = bool(ctx.attr("sorted", 1))
+    y, first_idx, inverse, counts = np.unique(
+        x, return_index=True, return_inverse=True, return_counts=True,
+        axis=axis)
+    if not is_sorted:
+        order = np.argsort(first_idx, kind="stable")
+        rank_of = np.empty_like(order)
+        rank_of[order] = np.arange(len(order))
+        y = np.take(y, order, axis=axis if axis is not None else 0)
+        first_idx = first_idx[order]
+        counts = counts[order]
+        inverse = rank_of[inverse]
+    outs = (y, first_idx.astype(np.int64),
+            inverse.reshape(-1).astype(np.int64),
+            counts.astype(np.int64))
+    return outs[: max(ctx.n_outputs, 1)] if ctx.n_outputs > 1 else y
+
+
+@op("Compress")
+def _compress(ctx, x, condition):
+    """Boolean-mask selection — output length is data-dependent, so the
+    condition must be host-side (initializer / folded)."""
+    if not (_is_host(condition) and _is_host(x)):
+        raise NotImplementedError(
+            "Compress produces data-dependent shapes; condition and data "
+            "must be host-side (constant-folded)")
+    return np.compress(np.asarray(condition, bool).reshape(-1),
+                       np.asarray(x), axis=ctx.attr("axis"))
+
+
+def _nll_core(logp, target, weight, reduction, ignore_index):
+    """The reference's loss: the target's log-probability through its
+    filling gather, so a target outside ``[0, C)`` (``ignore_index``
+    -100 among them) reads NaN, and ``-NaN * 0`` keeps the ignored row's
+    loss NaN and a ``mean`` NaN (the reference's result, kept)."""
+    c = logp.shape[1]
+    t = _tensor(target, logp.device).to(torch.int32).unsqueeze(1)
+    gather = _take_along(logp, t, 1).squeeze(1)
+    t = t.squeeze(1)
+    if weight is not None:
+        w = _tensor(weight, logp.device).to(torch.float32)[
+            t.clamp(0, c - 1).to(torch.int64)]
+    else:
+        w = torch.ones_like(gather)
+    if ignore_index is not None:
+        w = torch.where(t == ignore_index, 0.0, w)
+    loss = -gather * w
+    if reduction == "none":
+        return loss
+    if reduction == "sum":
+        return loss.sum()
+    return loss.sum() / torch.clamp_min(w.sum(), 1e-12)
+
+
+@op("NegativeLogLikelihoodLoss")
+def _nll_loss(ctx, x, target, weight=None):
+    return _nll_core(_tensor(x).to(torch.float32), target, weight,
+                     ctx.attr("reduction", "mean"), ctx.attr("ignore_index"))
+
+
+@op("SoftmaxCrossEntropyLoss")
+def _softmax_ce_loss(ctx, scores, target, weight=None):
+    logp = torch.log_softmax(_tensor(scores).to(torch.float32), 1)
+    loss = _nll_core(logp, target, weight, ctx.attr("reduction", "mean"),
+                     ctx.attr("ignore_index"))
+    return (loss, logp) if ctx.n_outputs > 1 else loss
 
 
 # ---------------------------------------------------------------------------

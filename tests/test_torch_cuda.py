@@ -5,11 +5,17 @@ Marked ``cuda``: every test here needs an NVIDIA GPU and the CUDA toolkit
 skips where there is none. Run on the GPU machine with
 ``python -m pytest tests/test_torch_cuda.py -q``.
 """
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 from synapseml_tpu_torch.gbdt import kernels
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "fixtures")
 
 pytestmark = pytest.mark.cuda
 
@@ -1911,3 +1917,64 @@ def test_decode_refuses_an_out_of_range_token_before_any_launch(
     assert reason == "completed" and len(toks) == 6
     assert all(0 <= t < s.vocab for t in toks)
     assert s._ex._m_disp_one.value > dispatched
+
+
+def _index_cases(pick):
+    sys.path.insert(0, FIXTURES)
+    import index_op_cases
+
+    return [c for c in index_op_cases.CASES if pick(c)]
+
+
+_EDGE_OPS = ("GatherElements", "GatherND", "ScatterND", "ScatterElements",
+             "Scatter")
+
+
+@pytest.mark.parametrize(
+    "name", [c["name"] for c in _index_cases(
+        lambda c: c["op"] in _EDGE_OPS or c["name"].startswith("topk_bf16"))])
+def test_index_op_on_the_card_equals_the_cpu(card, name):
+    """The bf16 ``TopK`` ties and the gathers and scatters, out-of-range
+    indices included (``tests/fixtures/index_op_cases.py``), on the card:
+    no device assert, bitwise the port's CPU run (a float32 scatter-add
+    over duplicate indices within its stated bound)."""
+    import index_op_cases
+
+    case = index_op_cases.by_name(name)
+    got = index_op_cases.run(case, "cuda")
+    torch.cuda.synchronize()
+    res = index_op_cases.agree(case, got, index_op_cases.run(case, "cpu"))
+    assert res["ok"], res
+
+
+def test_warm_masked_lm_head_is_bitwise_its_eager_run(card):
+    """``tests/fixtures/mlm_head.py``'s head over the encoder at 2 layers
+    and width 64, warmed to one CUDA graph (``static_batch=16``): its
+    replay bitwise the eager head on the same card tensors."""
+    sys.path.insert(0, FIXTURES)
+    import mlm_head
+
+    from synapseml_tpu_torch.onnx import GraphBuilder, import_model, zoo
+    from synapseml_tpu_torch.runtime.executor import BatchedExecutor
+
+    cfg = mlm_head.SMALL_ENCODER
+    enc_graph = import_model(zoo.transformer_encoder(**cfg))
+    head = import_model(mlm_head.head_graph(
+        GraphBuilder, enc_graph.params["tok_emb"], cfg["seq_len"],
+        mlm_head.SMALL_MASKED)).bind()
+    b = mlm_head.batch(16, cfg["seq_len"], cfg["vocab"],
+                       mlm_head.SMALL_MASKED)
+    hidden = enc_graph.bind()(torch.from_numpy(b["tokens"]).cuda())[0]
+    feeds = [hidden] + [torch.from_numpy(a).cuda()
+                        for a in mlm_head.head_inputs(b)]
+    ex = BatchedExecutor(head, static_batch=16)
+    try:
+        rep = ex.warmup(feeds)
+        assert [e["status"] for e in rep.entries] == ["compiled"]
+        warm = ex.submit(*feeds).result()
+        eager = [t.cpu().numpy() for t in head(*feeds)]
+        for w, e in zip(warm, eager):
+            assert w.dtype == e.dtype
+            assert np.array_equal(w.view(np.uint8), e.view(np.uint8))
+    finally:
+        ex.close()

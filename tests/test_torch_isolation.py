@@ -16,7 +16,7 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 FORBIDDEN = ("jax", "jaxlib", "synapseml_tpu")
-PORT_FIXTURES = ("decode_streams.py",)
+PORT_FIXTURES = ("decode_streams.py", "index_op_cases.py", "mlm_head.py")
 
 
 def _port_sources():
@@ -90,6 +90,7 @@ def test_fixture_module_chip_smoke_imports_loads_no_jax(name):
 def test_scan_sees_the_port_and_catches_imports():
     rel = {os.path.relpath(p, ROOT) for p in _port_sources()}
     assert {"chip_smoke.py", "tests/fixtures/decode_streams.py",
+            "tests/fixtures/index_op_cases.py", "tests/fixtures/mlm_head.py",
             "synapseml_tpu_torch/gbdt/kernels.py",
             "synapseml_tpu_torch/isolationforest/iforest.py",
             "synapseml_tpu_torch/onnx/importer.py",
@@ -116,7 +117,7 @@ def test_scan_sees_the_port_and_catches_imports():
         "import synapseml_tpu_torch\nfrom . import x\n") == [
         "jax.numpy", "jaxlib", "synapseml_tpu.gbdt"]
     helpers = _fixture_modules_of(os.path.join(ROOT, "chip_smoke.py"))
-    assert "decode_streams" in helpers
+    assert {"decode_streams", "index_op_cases", "mlm_head"} <= set(helpers)
     assert "make_decode_fixture" not in helpers
     tree = ast.parse("import numpy\nif True:\n    import jax\n"
                      "class A:\n    import jaxlib\n"

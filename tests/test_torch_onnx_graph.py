@@ -64,14 +64,23 @@ ONNX_ML = [
     "LinearRegressor", "Imputer", "Binarizer", "ArrayFeatureExtractor",
     "FeatureVectorizer", "LabelEncoder", "CategoryMapper", "OneHotEncoder",
     "SVMClassifier", "SVMRegressor", "DictVectorizer"]
+# indexing and the rest, and the two losses (detection and retrieval
+# heads, fill-mask top-k, label-carrying exports)
+INDEXING_AND_LOSSES = [
+    "TopK", "Hardmax", "OneHot", "NonZero", "Unique", "Size", "EyeLike",
+    "CastLike", "Compress", "ReverseSequence", "GatherElements", "GatherND",
+    "Scatter", "ScatterElements", "ScatterND", "NegativeLogLikelihoodLoss",
+    "SoftmaxCrossEntropyLoss"]
 PORTED = sorted(RESNET_AND_FIXTURES + TRANSFORMER_AND_RECURRENT
-                + CONTROL_FLOW_AND_ACTIVATIONS + ONNX_ML)
+                + CONTROL_FLOW_AND_ACTIVATIONS + ONNX_ML
+                + INDEXING_AND_LOSSES)
 
 
 def test_registry_is_the_ported_op_set():
     assert supported_ops() == PORTED
-    assert len(PORTED) == 151 and len(ONNX_ML) == 19
+    assert len(PORTED) == 168 and len(ONNX_ML) == 19
     assert set(PORTED) <= set(jax_supported_ops())
+    assert len(set(jax_supported_ops()) - set(PORTED)) == 66
 
 
 @pytest.mark.parametrize("name", ["torch_cnn", "torch_transformer"])
