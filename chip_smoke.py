@@ -311,6 +311,20 @@ before the last line:
    busy share eager and warm, the warmups' reserved memory, the head split
    into projection, ``TopK`` (beside ``torch.topk``) and the rest,
    sequences/s. K1 and K2 launch 0 times.
+34. onnx_vision_ops — the ONNX dense-image ops: every one-node case of
+   ``tests/fixtures/vision_op_cases.py`` (ConvTranspose, Resize, Upsample,
+   Pad, the pools, MaxPool's Indices with MaxUnpool, the five
+   normalizations, Col2Im, CenterCropPad) on the card equal to the port's
+   CPU run (bitwise but for sums, within their bound), no device assert;
+   Stable Diffusion v1's VAE decoder (``tests/fixtures/vae_decoder.py``,
+   49.5 M float32 parameters) at its published width: the fixture's
+   latents within 1e-3 of the largest |value| of the JAX images
+   (``vae_decoder_io.npz``); 1 and 4 latents of 64 x 64 (512 x 512
+   images) through one executor warmed to one CUDA graph a bucket, each
+   warm run bitwise eager, no copy or sync in a bound forward, one latent
+   within 1e-3 of the port's CPU run; images/s eager and warm, card ms by
+   part (convolutions, GroupNormalization, Resize, attention, the rest),
+   launches, busy share, warmup's memory. K1 and K2 launch 0 times.
 
 Between phases 3 and 4: prng_card_vs_cpu (the threefry key stream on the
 card equal to the CPU's, bitwise) and masked_index (K1 on a
@@ -670,22 +684,21 @@ def equal_boosters(a, b) -> bool:
 def dp_cases(x_adult, y_adult, dp_params) -> list:
     """The data-parallel cases, run in one launch of two gloo ranks that
     share the card (``tests/torch_dp_worker.py``): the Adult fit through
-    ``boosting.train(mesh=)`` twice (checked; then timed, its collectives
-    synchronised and timed), each mode on the card and on the CPU, and a
-    one-rank NCCL group against a one-rank gloo group."""
+    ``boosting.train(mesh=)`` once, checked and timed (its collectives
+    synchronised and timed; its seconds include the first fit's costs),
+    each mode on the card and on the CPU, and a one-rank NCCL group
+    against a one-rank gloo group."""
     adult = dict(p=dp_params, x=x_adult, y=y_adult.astype(np.float64),
                  valid_sets=[(x_adult[:4096], y_adult[:4096])])
     cases = [{"name": "adult", "kind": "train", "devices": ["cuda"],
-              "kw": adult},
-             {"name": "adult_collectives", "kind": "train",
-              "devices": ["cuda"], "kw": dict(adult, time_collectives=True)}]
+              "kw": dict(adult, time_collectives=True)}]
     xb, yb = synth_rows(20_000, 10, seed=6, classes=2)
     x3, y3 = synth_rows(20_000, 10, seed=3, classes=3)
     xr, yr = synth_rows(20_000, 10, seed=4)
     sys.path.insert(0, FIXTURES)
     import make_lgbm_rank_fixture as rank_fx
     xq, yq, gq = rank_fx.rank_rows(60, 20, seed=3)
-    base = dict(num_iterations=15, num_leaves=31)
+    base = dict(num_iterations=8, num_leaves=31)
     modes = {
         "gbdt": (dict(objective="binary"), xb, yb, {}),
         "bagging_feature_fraction": (dict(
@@ -768,8 +781,8 @@ def dp_phases(x_adult, y_adult, fit_s, fit_median, smi) -> list:
     ll_dp = logloss(dp_b.predict_raw(x_adult, device="cuda"), y_adult)
     ll_dp_fixture = float(dp_io["train_logloss"])
     dp_gap = np.abs(dp_b.predict_raw(dp_io["x"], device="cuda") - dp_io["raw"])
-    wall = [res["adult_collectives"]["cuda"]["seconds"] for res in ranks]
-    timed = ranks[0]["adult_collectives"]["cuda"]
+    wall = [f["seconds"] for f in fits]
+    timed = fits[0]
     dp_counts = [{"histogram": f["k1_launches"],
                   "forest_traverse": f["k2_launches"]} for f in fits]
     emit({"phase": "train_dp_adult",
@@ -787,7 +800,6 @@ def dp_phases(x_adult, y_adult, fit_s, fit_median, smi) -> list:
           "train_logloss": ll_dp, "train_logloss_jax_fixture": ll_dp_fixture,
           "margin_gap_mean": float(dp_gap.mean()),
           "margin_gap_max": float(dp_gap.max()),
-          "fit_first_s": [f["seconds"] for f in fits],
           "fit_s": wall,
           "fit_rows_iterations_per_s": len(y_adult) * 100 / max(wall),
           "single_device_fit_s": fit_s,
@@ -815,7 +827,7 @@ def dp_phases(x_adult, y_adult, fit_s, fit_median, smi) -> list:
 
     # 14. every mode, two card ranks against two CPU ranks: bitwise
     dp_modes = []
-    for case in cases[2:-1]:
+    for case in cases[1:-1]:
         name = case["name"]
         card_b = ranks[0][name]["cuda"]["booster"]
         cpu_b = ranks[0][name]["cpu"]["booster"]
@@ -847,7 +859,7 @@ def dp_phases(x_adult, y_adult, fit_s, fit_median, smi) -> list:
     one = ranks[0]["one_rank"]
     nccl_ok = equal_boosters(one["nccl"]["booster"], one["gloo"]["booster"])
     emit({"phase": "train_nccl_one_rank",
-          "fit": "binary, 15 iterations of 31 leaves, 20,000 x 10",
+          "fit": "binary, 8 iterations of 31 leaves, 20,000 x 10",
           "bitwise_vs_gloo": nccl_ok,
           "reductions": one["nccl"]["collective_calls"],
           "fit_s": {b: one[b]["seconds"] for b in ("nccl", "gloo")},
@@ -4705,27 +4717,27 @@ MLM_CPU_TOL = 1e-5            # card head vs the CPU head, of the largest |logit
 MLM_SEED = 1                  # the 128 sequences (the fixture's are seed 0)
 
 
-def index_cases_on_card() -> dict:
-    """Every one-node case of ``tests/fixtures/index_op_cases.py`` on the
-    card against the port's CPU run of the same seeded inputs (bitwise,
-    or within the case's bound); a host-only op fed a device tensor must
-    raise ``NotImplementedError``. Any other exception propagates."""
-    import index_op_cases as cases
-
+def cases_on_card(cases, run) -> dict:
+    """Every one-node case of the module ``cases`` (``index_op_cases`` or
+    ``vision_op_cases`` of ``tests/fixtures``) on the card against the
+    port's CPU run of the same seeded inputs, ``run(case, device)`` giving
+    the outputs: bitwise where the case is exact, else within its bound
+    (``cases.agree``); a case that names an exception in ``raises`` must
+    raise it on the card. Any other exception propagates."""
     results = []
     for case in cases.CASES:
         if case["raises"]:
             try:
-                cases.run(case, "cuda")
+                run(case, "cuda")
                 results.append({"name": case["name"], "ok": False,
                                 "raised": None})
-            except NotImplementedError:
+            except case["raises"]:
                 results.append({"name": case["name"], "ok": True,
-                                "raised": "NotImplementedError"})
+                                "raised": case["raises"].__name__})
             continue
-        got = cases.run(case, "cuda")
+        got = run(case, "cuda")
         results.append({"name": case["name"], "exact": case["exact"],
-                        **cases.agree(case, got, cases.run(case, "cpu"))})
+                        **cases.agree(case, got, run(case, "cpu"))})
     torch.cuda.synchronize()      # a device-side assert would surface here
     return {"cases": len(results),
             "failed": [r for r in results if not r["ok"]],
@@ -4770,7 +4782,9 @@ def mlm_phase(smi, reset_counts, read_counts) -> dict:
     reset_counts()
     # -- 1. every one-node case, before the wide path ---------------------
     start = time.perf_counter()
-    one_node = index_cases_on_card()
+    import index_op_cases
+
+    one_node = cases_on_card(index_op_cases, index_op_cases.run)
     one_node["seconds"] = time.perf_counter() - start
     emit({"phase": "onnx_index_ops", "part": "one_node_cases", **one_node})
     check(not one_node["failed"],
@@ -4931,6 +4945,210 @@ def mlm_phase(smi, reset_counts, read_counts) -> dict:
           "the head's outputs are not finite")
     check(counts["forest_traverse"] == 0 and counts["histogram"] == 0,
           f"the masked-LM path launched K1/K2: {counts}")
+    return counts
+
+
+VAE_TOL = 1e-3                # float32 decoder: of the largest |value|
+VAE_BATCHES = (1, 4)          # latents a warm signature, 512 x 512 images
+VAE_SEED = 2                  # the 512 x 512 latents (the fixture's: 1)
+VAE_PARTS = ("convolutions", "group_norm", "resize", "attention", "rest")
+
+
+def vae_part(ctx) -> str:
+    """The part of the decoder a node belongs to (``VAE_PARTS``)."""
+    if ctx.op_type == "Conv":
+        return "convolutions"
+    if ctx.op_type == "GroupNormalization":
+        return "group_norm"
+    if ctx.op_type == "Resize":
+        return "resize"
+    return "attention" if ctx.name.startswith("mid.attn.") else "rest"
+
+
+def card_ms_by_part(graph, x, part_of, reps: int = 3) -> dict:
+    """Card ms of one bound forward of ``graph`` on ``x`` by part: a CUDA
+    event before and after each node, the forward queued behind a
+    device-side spin so the card runs the nodes back to back; the mean
+    over ``reps`` forwards after a warm one."""
+    import copy
+
+    events = []
+
+    def timed(impl, part):
+        def run(ctx, *args):
+            begin = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            begin.record()
+            out = impl(ctx, *args)
+            end.record()
+            events.append((part, begin, end))
+            return out
+        return run
+
+    clocked = copy.copy(graph)
+    clocked._nodes = [(timed(impl, part_of(ctx)), ctx, ins, outs)
+                      for impl, ctx, ins, outs in graph._nodes]
+    fn = clocked.bind()
+    fn(x)
+    torch.cuda.synchronize()
+    events.clear()
+    torch.cuda._sleep(SPIN_CYCLES)
+    for _ in range(reps):
+        fn(x)
+    torch.cuda.synchronize()
+    parts = {p: 0.0 for p in VAE_PARTS}
+    for part, begin, end in events:
+        parts[part] += begin.elapsed_time(end) / reps
+    return parts
+
+
+def vae_phase(smi, reset_counts, read_counts) -> dict:
+    """Phase 34: the ONNX dense-image ops on the card.
+
+    1. Every one-node case of ``tests/fixtures/vision_op_cases.py``
+       (ConvTranspose, Resize, Upsample, Pad, the pools, MaxPool's Indices
+       with MaxUnpool, the five normalizations, Col2Im, CenterCropPad) on
+       the card equal to the port's CPU run, before any wide work: no
+       device assert.
+    2. Stable Diffusion v1's VAE decoder (``tests/fixtures/vae_decoder.py``,
+       49.5 M float32 parameters from seed 0) at its published width: the
+       fixture's 32 x 32 latents against the JAX package's images
+       (``vae_decoder_io.npz``), within 1e-3 of the largest |value|.
+    3. 1 and 4 latents of 64 x 64 (512 x 512 images) through one
+       ``BatchedExecutor`` warmed to one CUDA graph a bucket
+       (``compiled``): each warm run bitwise its eager run, a bound
+       forward's copies and syncs (none), one latent on the card within
+       1e-3 of the largest |value| of the port's CPU run.
+    4. Images/s eager and warm; card ms (CUDA events) of a 4-latent
+       forward and by part (convolutions, GroupNormalization, Resize,
+       attention, the rest); launches and busy share; the memory warmup
+       reserves. K1 and K2 launch 0 times."""
+    sys.path.insert(0, FIXTURES)
+    import vae_decoder
+    import vision_op_cases
+    from synapseml_tpu_torch.onnx import GraphBuilder, import_model
+    from synapseml_tpu_torch.runtime.executor import BatchedExecutor
+
+    phase_start = time.perf_counter()
+    reset_counts()
+    # -- 1. every one-node case, before the wide path ---------------------
+    start = time.perf_counter()
+    one_node = cases_on_card(vision_op_cases, lambda case, dev: (
+        vision_op_cases.run(case, import_model, GraphBuilder, dev)))
+    one_node["seconds"] = time.perf_counter() - start
+    emit({"phase": "onnx_vision_ops", "part": "one_node_cases", **one_node})
+    check(not one_node["failed"],
+          f"one-node cases differ on the card: {one_node['failed']}")
+
+    # -- 2. the full-width decoder against the JAX fixture ----------------
+    start = time.perf_counter()
+    graph = import_model(vae_decoder.decoder_graph(GraphBuilder))
+    fn = graph.bind()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - start
+    fixture = np.load(vae_decoder.OUT)
+    got = np.concatenate([
+        fn(torch.from_numpy(fixture["latents"][i:i + 1]).cuda())[0]
+        .cpu().numpy() for i in range(len(fixture["latents"]))])
+    span = float(fixture["span"])
+    vs_jax = {"latents": list(fixture["latents"].shape),
+              "max_abs_err": float(np.abs(got - fixture["image"]).max()),
+              "bound": VAE_TOL * span, "largest_value": span,
+              "jax_version": str(fixture["jax_version"])}
+    emit({"phase": "onnx_vision_ops", "part": "vae_vs_jax", **vs_jax})
+    check(got.shape == fixture["image"].shape
+          and vs_jax["max_abs_err"] <= vs_jax["bound"],
+          f"the decoder is off the JAX fixture: {vs_jax}")
+
+    # -- 3. 512 x 512: eager, warm, the CPU -------------------------------
+    size = vae_decoder.PUBLISHED_SIZE
+    lat = vae_decoder.latents(max(VAE_BATCHES), size, seed=VAE_SEED)
+    xs = {b: torch.from_numpy(lat[:b]).cuda() for b in VAE_BATCHES}
+    eager = {b: fn(x)[0].cpu().numpy() for b, x in xs.items()}
+    warm_io = copies_and_syncs(fn, xs[1])
+    ex = BatchedExecutor(fn, device="cuda", min_bucket=min(VAE_BATCHES),
+                         max_bucket=max(VAE_BATCHES))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    begin = time.perf_counter()
+    rep = ex.warmup([xs[1]], buckets=list(VAE_BATCHES))
+    torch.cuda.synchronize()
+    warmup = {"seconds": time.perf_counter() - begin,
+              "reserved_bytes": torch.cuda.memory_reserved() - before,
+              "entries": [e.get("status") for e in rep.entries],
+              "errors": list(rep.errors)}
+
+    def warm_run(b):
+        return ex.submit(xs[b]).result()[0]
+
+    bitwise = {b: bool(np.array_equal(warm_run(b).view(np.uint8),
+                                      eager[b].view(np.uint8)))
+               for b in VAE_BATCHES}
+    start = time.perf_counter()
+    cpu = graph.bind(device="cpu")(torch.from_numpy(lat[:1]))[0].numpy()
+    cpu_s = time.perf_counter() - start
+    cpu_span = float(np.abs(cpu).max())
+    vs_cpu = {"max_abs_err": float(np.abs(eager[1] - cpu).max()),
+              "bound": VAE_TOL * cpu_span, "largest_value": cpu_span,
+              "cpu_s": cpu_s}
+
+    # -- 4. times ----------------------------------------------------------
+    times = {}
+    for b in VAE_BATCHES:
+        eager_ms = synced_wall_ms(lambda: fn(xs[b]), calls=3)
+        warm_ms = synced_wall_ms(lambda: warm_run(b), calls=3)
+        times[b] = {"eager_wall_ms": eager_ms, "warm_wall_ms": warm_ms,
+                    "images_per_s_eager": b / eager_ms * 1e3,
+                    "images_per_s_warm": b / warm_ms * 1e3}
+    big = max(VAE_BATCHES)
+    with torch.inference_mode():
+        card_ms = cuda_ms(lambda: fn(xs[big]), reps=3, inner=2)
+        by_part = card_ms_by_part(graph, xs[big], vae_part)
+    work = vae_decoder.flops(vae_decoder.FULL, big, size)
+    busy_eager = device_busy(lambda: fn(xs[big]))
+    busy_warm = device_busy(lambda: warm_run(big))
+    counts = read_counts()
+    ex.close()
+    del ex, fn, graph, xs
+    torch.cuda.empty_cache()
+    emit({"phase": "onnx_vision_ops", "part": "vae_decoder_512",
+          "device": smi, "model": "Stable Diffusion v1 VAE decoder "
+          "(AutoencoderKL, runwayml/stable-diffusion-v1-5 vae/config.json),"
+          f" {vae_decoder.parameters()} float32 parameters, seed "
+          f"{vae_decoder.WEIGHT_SEED}", "latent": [4, size, size],
+          "image": [3, 8 * size, 8 * size], "build_s": build_s,
+          "warmup": warmup, "warm_bitwise_eager": bitwise,
+          "bound_forward_copies_and_syncs": warm_io, "vs_cpu": vs_cpu,
+          "times": times, "card_ms": {"batch": big, "forward": card_ms,
+                                      "by_part": by_part,
+                                      "parts_sum": sum(by_part.values())},
+          "tflop": {k: v * 1e-12 for k, v in work.items()},
+          "tflop_per_s": work["total"] / card_ms * 1e-9,
+          "conv_tflop_per_s": work["conv"] / by_part["convolutions"] * 1e-9,
+          "launches": {"eager": busy_eager.get("kernels"),
+                       "warm": busy_warm.get("kernels")},
+          "busy_share": {"eager": busy_eager.get("busy_share"),
+                         "warm": busy_warm.get("busy_share")},
+          "top_kernels_eager": busy_eager.get("top", [])[:5],
+          "kernel_counts": counts,
+          "seconds": time.perf_counter() - phase_start})
+    check(warmup["entries"] == ["compiled"] * len(VAE_BATCHES)
+          and not warmup["errors"],
+          f"the decoder did not warm to one graph a bucket: {warmup}")
+    check(all(bitwise.values()),
+          f"a warm decoder run is not bitwise its eager run: {bitwise}")
+    check(warm_io["syncs"] == 0 and warm_io["d2h_copies"] == 0
+          and warm_io["h2d_copies"] == 0,
+          f"the bound decoder synchronised or copied: {warm_io}")
+    check(vs_cpu["max_abs_err"] <= vs_cpu["bound"],
+          f"the card's decoder is off its CPU run: {vs_cpu}")
+    check(all(np.isfinite(a).all() and a.shape == (len(a), 3, 8 * size,
+                                                   8 * size)
+              for a in eager.values()),
+          "the decoder's images are not finite 512 x 512 images")
+    check(counts["forest_traverse"] == 0 and counts["histogram"] == 0,
+          f"the decoder path launched K1/K2: {counts}")
     return counts
 
 
@@ -5916,6 +6134,9 @@ def main() -> int:
     # -- 33. the ONNX indexing and loss ops: the masked-LM head -----------
     mlm_counts = mlm_phase(smi, reset_counts, read_counts)
 
+    # -- 34. the ONNX dense-image ops: Stable Diffusion's VAE decoder -----
+    vae_counts = vae_phase(smi, reset_counts, read_counts)
+
     emit({"kernels": [{
         "name": "forest_traverse", "route": "cuda",
         "source": "synapseml_tpu_torch/csrc/forest_traverse.cu",
@@ -5942,6 +6163,7 @@ def main() -> int:
         "launches_tagger_path": tagger_counts["forest_traverse"],
         "launches_decode_path": decode_counts["forest_traverse"],
         "launches_mlm_path": mlm_counts["forest_traverse"],
+        "launches_vae_path": vae_counts["forest_traverse"],
         "max_abs_err": max_err, "bitwise": True,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
@@ -5970,6 +6192,7 @@ def main() -> int:
         "launches_tagger_path": tagger_counts["histogram"],
         "launches_decode_path": decode_counts["histogram"],
         "launches_mlm_path": mlm_counts["histogram"],
+        "launches_vae_path": vae_counts["histogram"],
         "max_abs_err": k1_max_err,
         "bitwise": True, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],

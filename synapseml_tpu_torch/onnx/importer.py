@@ -191,6 +191,28 @@ def _tensor(x, dev: Optional[torch.device] = None) -> torch.Tensor:
     return t.view(td).to(dev, non_blocking=True)
 
 
+_TABLE_LOCK = threading.Lock()
+
+
+def _table(ctx, key, dev: torch.device, build: Callable[[], np.ndarray],
+           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A node's constant that depends on static shapes (an index or a
+    weight table), built on the host by ``build`` and copied to ``dev``
+    once per ``key``, device and ``dtype``, then kept on the node's
+    context: later runs of the node, a bound forward's and a CUDA-graph
+    capture's, copy nothing to the card."""
+    tables = ctx.attrs.setdefault("__tables__", {})
+    k = (key, str(dev), dtype)
+    t = tables.get(k)
+    if t is None:
+        with _TABLE_LOCK, torch.inference_mode(False):
+            t = tables.get(k)
+            if t is None:
+                t = _tensor(build(), dev)
+                t = tables[k] = t if dtype is None else t.to(dtype)
+    return t
+
+
 def _strong_dtype(x) -> Optional[torch.dtype]:
     """x's dtype under JAX's promotion; None for a (weak) Python scalar."""
     if isinstance(x, torch.Tensor):
@@ -688,7 +710,9 @@ def _resolve_pads(ctx, x_sp: Sequence[int], kernel: Sequence[int],
 
 
 def _pad(x: torch.Tensor, pads: Sequence[Tuple[int, int]], value=0):
-    """Pad the spatial dims (after N, C) by ``pads``, (low, high) each."""
+    """Pad the last ``len(pads)`` dims (the spatial ones, where ``pads``
+    has one pair a spatial dim) by ``pads``, (low, high) each; a negative
+    amount crops."""
     flat = [p for lo_hi in reversed(pads) for p in lo_hi]
     return F.pad(x, flat, value=value) if any(flat) else x
 
@@ -727,6 +751,57 @@ def _conv(ctx, x, w, b=None):
     return y
 
 
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+@op("ConvTranspose")
+def _conv_transpose(ctx, x, w, b=None):
+    """The reference's transposed convolution: ``x`` dilated by the
+    strides, padded by ``eff - 1 - pad`` (``+ output_padding`` high; a
+    negative amount crops) and convolved with the flipped kernel. Its
+    output is a window of the full transposed convolution (no padding),
+    which ``F.conv_transpose*d`` computes; the window is cut out, or
+    padded with zeros, per axis (``F.conv_transpose*d``'s own padding is
+    symmetric and caps ``output_padding``). Asymmetric ``pads``,
+    ``auto_pad`` SAME_* and grouped ``(I, O/g, k)`` weights as the
+    reference takes them; the ``output_shape`` attribute is not read, as
+    in the reference."""
+    x, w = _operands((x, w), scalars=False)
+    rank = x.ndim - 2
+    strides = ctx.attr("strides", [1] * rank)
+    dilations = ctx.attr("dilations", [1] * rank)
+    group = ctx.attr("group", 1)
+    kernel = ctx.attr("kernel_shape", list(w.shape[2:]))
+    out_pad = ctx.attr("output_padding", [0] * rank)
+    pads = ctx.attr("pads", None)
+    auto = ctx.attr("auto_pad", "NOTSET")
+    eff = [(k - 1) * d + 1 for k, d in zip(kernel, dilations)]
+    eff_w = [(k - 1) * d + 1 for k, d in zip(w.shape[2:], dilations)]
+    if pads is not None:
+        pairs = [(int(pads[i]), int(pads[i + rank])) for i in range(rank)]
+    elif auto in ("SAME_UPPER", "SAME_LOWER"):
+        pairs = []
+        for e, s in zip(eff, strides):
+            total = max(0, e - s)
+            lo = total // 2 if auto == "SAME_UPPER" else total - total // 2
+            pairs.append((lo, total - lo))
+    else:
+        pairs = [(0, 0)] * rank
+    y = _CONV_T[rank](x, w, None, strides, 0, 0, group, dilations)
+    window = []
+    for i in range(rank):
+        # the reference's output j is the full output's j + start
+        start = pairs[i][0] + eff_w[i] - eff[i]
+        length = ((x.shape[2 + i] - 1) * strides[i] + 2 * eff[i]
+                  - pairs[i][0] - pairs[i][1] + out_pad[i] - eff_w[i])
+        window.append((-start, start + length - y.shape[2 + i]))
+    y = _pad(y, window)
+    if b is not None:
+        y = _bin(operator.add, y, b.reshape((1, -1) + (1,) * rank))
+    return y
+
+
 def _window_reduce(x: torch.Tensor, kernel, strides, dilations, reduce):
     """``reduce`` over every window of the (already padded) spatial dims:
     each dim unfolded into (out, effective kernel), the kernel strided by
@@ -745,28 +820,106 @@ def _max_pool(ctx, x):
     kernel = ctx.attr("kernel_shape")
     strides = ctx.attr("strides", [1] * rank)
     dilations = ctx.attr("dilations", [1] * rank)
-    if ctx.n_outputs > 1:
-        raise NotImplementedError(
-            "MaxPool's Indices output is not ported yet")
     pads = _resolve_pads(ctx, x.shape[2:], kernel, strides, dilations,
                          ctx.attr("ceil_mode", 0))
     floating = x.is_floating_point()
+    fill = -math.inf if floating else int(torch.iinfo(x.dtype).min)
+    if ctx.n_outputs > 1:
+        if int(ctx.attr("storage_order", 0)):
+            raise NotImplementedError(
+                "MaxPool storage_order=1 (column-major Indices) is not "
+                "supported; re-export with row-major indices")
+        return _max_pool_with_indices(x, kernel, strides, dilations, pads,
+                                      fill)
     if floating and rank in _MAX_POOL:
         padding = _symmetric(pads, [k // 2 for k in kernel])
         if padding is None:
             x, padding = _pad(x, pads, -math.inf), [0] * rank
         return _MAX_POOL[rank](x, kernel, strides, padding, dilations)
-    fill = -math.inf if floating else int(torch.iinfo(x.dtype).min)
     x = _pad(x, pads, fill)
     return _window_reduce(x, kernel, strides, dilations, torch.amax)
 
 
-def _window_sum(x: torch.Tensor, kernel, strides) -> torch.Tensor:
+# the reference's index for a window that lies wholly in padding: the
+# largest value of its index dtype, int32 under JAX's default 32-bit mode,
+# past the end of any unpooled tensor (MaxUnpool drops it)
+_NO_INDEX = 2 ** 31 - 1
+
+
+def _max_pool_with_indices(x, kernel, strides, dilations, pads, fill):
+    """MaxPool and its Indices output, as the reference computes them:
+    each window's cells in row-major order, the first largest one wins (a
+    NaN is the largest), and its index is flat over the whole ``[N, C,
+    spatial]`` input. A window whose winner is a padded cell gets
+    ``_NO_INDEX``."""
+    rank = len(kernel)
+    sp = x.shape[2:]
+    n, c = x.shape[:2]
+    dev = x.device
+    padded = _pad(x, pads, fill)
+    out_sp = [(sp[d] + pads[d][0] + pads[d][1]
+               - (kernel[d] - 1) * dilations[d] - 1) // strides[d] + 1
+              for d in range(rank)]
+    win = padded
+    for d in range(rank):
+        eff_k = (kernel[d] - 1) * dilations[d] + 1
+        win = win.unfold(2 + d, eff_k, strides[d])[..., ::dilations[d]]
+    vals, rem = win.reshape(win.shape[:2 + rank] + (-1,)).max(-1)
+    in_bounds = torch.ones_like(rem, dtype=torch.bool)
+    coords = [None] * rank
+    for d in reversed(range(rank)):    # unravel the window's argmax
+        kd, rem = rem % kernel[d], rem // kernel[d]
+        shape = [1] * (2 + rank)
+        shape[2 + d] = out_sp[d]
+        o = torch.arange(out_sp[d], device=dev).reshape(shape)
+        raw = o * strides[d] + kd * dilations[d] - pads[d][0]
+        in_bounds &= (raw >= 0) & (raw < sp[d])
+        coords[d] = raw.clamp(0, sp[d] - 1)
+    flat = coords[0]
+    for d in range(1, rank):
+        flat = flat * sp[d] + coords[d]
+    plane = torch.arange(n * c, device=dev).reshape((n, c) + (1,) * rank)
+    index = plane * math.prod(sp) + flat
+    return vals, torch.where(in_bounds, index, _NO_INDEX)
+
+
+@op("MaxUnpool")
+def _max_unpool(ctx, x, idx, output_shape=None):
+    """The pooled values written to their flat indices in a zero tensor
+    (``.at[idx].set`` in the reference): a negative index counts from the
+    end, one still out of range (``_NO_INDEX`` included) is dropped
+    through :func:`_scatter_rows`'s spare row. Two values at one index
+    land in no fixed order, in either package."""
+    kernel = ctx.attr("kernel_shape")
+    rank = len(kernel)
+    strides = ctx.attr("strides", [1] * rank)
+    pads = [int(p) for p in ctx.attr("pads", [0] * (2 * rank))]
+    x = _tensor(x)
+    if output_shape is not None:
+        out_shape = tuple(_static_int_list(output_shape,
+                                           "MaxUnpool output_shape"))
+    else:
+        sp = x.shape[2:]
+        out_shape = tuple(x.shape[:2]) + tuple(
+            (sp[d] - 1) * strides[d] + kernel[d] - pads[d] - pads[rank + d]
+            for d in range(rank))
+    total = math.prod(out_shape)
+    i = _tensor(idx, x.device).to(torch.int64).reshape(-1)
+    i = torch.where(i < 0, i + total, i)
+    rows = torch.where((i >= 0) & (i < total), i, total)
+    out = _scatter_rows(x.new_zeros((total, 1)), rows, x.reshape(-1, 1),
+                        "none")
+    return out.reshape(out_shape)
+
+
+def _window_sum(x: torch.Tensor, kernel, strides,
+                dilations=None) -> torch.Tensor:
     """Window sums of the (already padded) spatial dims."""
     rank = len(kernel)
-    if rank in _AVG_POOL:
+    dilations = dilations or [1] * rank
+    if rank in _AVG_POOL and all(d == 1 for d in dilations):
         return _AVG_POOL[rank](x, kernel, strides, divisor_override=1)
-    return _window_reduce(x, kernel, strides, [1] * rank, torch.sum)
+    return _window_reduce(x, kernel, strides, dilations, torch.sum)
 
 
 @op("AveragePool")
@@ -793,6 +946,54 @@ def _avg_pool(ctx, x):
 def _gap(ctx, x):
     x = _tensor(x)
     return x.mean(dim=tuple(range(2, x.ndim)), keepdim=True)
+
+
+@op("GlobalMaxPool")
+def _gmp(ctx, x):
+    x = _tensor(x)
+    return x.amax(dim=tuple(range(2, x.ndim)), keepdim=True)
+
+
+@op("LpPool")
+def _lp_pool(ctx, x):
+    """Window sums of ``|x| ** p`` (zero-padded; dilations as opset 18
+    has them), to the power ``1 / p``: ``F.lp_pool*d`` takes no
+    absolute value, padding or dilation."""
+    x = _tensor(x)
+    rank = x.ndim - 2
+    p = ctx.attr("p", 2)
+    kernel = ctx.attr("kernel_shape")
+    strides = ctx.attr("strides", [1] * rank)
+    dilations = ctx.attr("dilations", [1] * rank)
+    pads = _resolve_pads(ctx, x.shape[2:], kernel, strides, dilations,
+                         ctx.attr("ceil_mode", 0))
+    s = _window_sum(_pad(x.abs() ** p, pads), kernel, strides, dilations)
+    return s ** (1.0 / p)
+
+
+@op("GlobalLpPool")
+def _global_lp_pool(ctx, x):
+    x = _tensor(x)
+    p = ctx.attr("p", 2)
+    axes = tuple(range(2, x.ndim))
+    return (x.abs() ** p).sum(dim=axes, keepdim=True) ** (1.0 / p)
+
+
+@op("LRN")
+def _lrn(ctx, x):
+    """Sums of squares over a window of ``size`` channels, ``(size - 1)
+    // 2`` before a channel and the rest after, as the spec and the
+    reference place it (``F.local_response_norm`` puts the larger half
+    before)."""
+    x = _tensor(x)
+    size = ctx.attr("size")
+    dt = x.dtype
+    lo = (size - 1) // 2
+    sq = F.pad((x * x).movedim(1, -1), (lo, size - 1 - lo))
+    window = sq.unfold(-1, size, 1).sum(-1).movedim(-1, 1)
+    base = (window * _scalar(ctx.attr("alpha", 1e-4) / size, dt)
+            + _scalar(ctx.attr("bias", 1.0), dt))
+    return x / torch.pow(base, _scalar(ctx.attr("beta", 0.75), dt))
 
 
 # ---------------------------------------------------------------------------
@@ -848,6 +1049,74 @@ def _layer_norm(ctx, x, scale, b=None):
     if ctx.n_outputs > 1:
         return (y, mean, inv)[: ctx.n_outputs]
     return y
+
+
+def _standardize(x: torch.Tensor, dims, eps: float) -> torch.Tensor:
+    """``(x - mean) * rsqrt(var + eps)`` over ``dims``, with the
+    population variance."""
+    var, mean = torch.var_mean(x, dim=dims, correction=0, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + _scalar(eps, var.dtype))
+
+
+def _per_channel(v, ndim: int):
+    """A ``[C]`` scale or bias shaped to broadcast over ``[N, C, ...]``."""
+    return v.reshape((1, -1) + (1,) * (ndim - 2))
+
+
+@op("InstanceNormalization")
+def _instance_norm(ctx, x, scale, b):
+    x = _tensor(x)
+    y = _standardize(x, tuple(range(2, x.ndim)), ctx.attr("epsilon", 1e-5))
+    y = _bin(operator.mul, y, _per_channel(scale, x.ndim))
+    return _bin(operator.add, y, _per_channel(b, x.ndim))
+
+
+@op("GroupNormalization")
+def _group_norm(ctx, x, scale, b):
+    """Statistics over each group of ``C / num_groups`` channels; opset
+    18's per-group scale and bias (length ``num_groups``) repeated over
+    their channels, opset 21's per-channel ones as they are, told apart
+    by length as in the reference (so with ``num_groups == C`` either
+    reads per channel)."""
+    x = _tensor(x)
+    groups = int(ctx.attr("num_groups"))
+    n, c = x.shape[:2]
+    xg = x.reshape((n, groups, c // groups) + tuple(x.shape[2:]))
+    y = _standardize(xg, tuple(range(2, xg.ndim)),
+                     ctx.attr("epsilon", 1e-5)).reshape(x.shape)
+    if scale.shape[0] == groups and groups != c:
+        r = c // groups
+        scale, b = [np.repeat(v, r) if _is_host(v)
+                    else v.reshape(-1, 1).expand(-1, r).reshape(-1)
+                    for v in (scale, b)]
+    y = _bin(operator.mul, y, _per_channel(scale, x.ndim))
+    return _bin(operator.add, y, _per_channel(b, x.ndim))
+
+
+@op("MeanVarianceNormalization")
+def _mvn(ctx, x):
+    """Statistics over ``axes`` (``[0, 2, 3]`` by default: across the
+    batch, so the rows of a padded bucket change each other's output, in
+    either package) with a fixed eps of 1e-9, as in the reference."""
+    x = _tensor(x)
+    axes = tuple(int(a) for a in ctx.attr("axes", [0, 2, 3]))
+    return _standardize(x, axes, 1e-9)
+
+
+@op("LpNormalization")
+def _lp_normalization(ctx, x):
+    """``x`` over its L1 norm along ``axis`` where ``p == 1``, else over
+    its L2 norm (the reference reads any other ``p`` as 2), the norm
+    clamped below at 1e-12."""
+    x = _tensor(x)
+    axis = ctx.attr("axis", -1)
+    if ctx.attr("p", 2) == 1:
+        norm = x.abs().sum(dim=axis, keepdim=True)
+    else:
+        norm = torch.sqrt((x * x).sum(dim=axis, keepdim=True))
+    if not norm.is_floating_point():
+        norm = norm.to(torch.get_default_dtype())
+    return x / torch.clamp(norm, min=1e-12)
 
 
 # ---------------------------------------------------------------------------
@@ -1239,6 +1508,53 @@ def _tile(ctx, x, repeats):
     return np.tile(x, reps) if _is_host(x) else torch.tile(x, reps)
 
 
+_PAD_MODES = {"reflect": "reflect", "edge": "edge", "wrap": "wrap"}
+
+
+@op("Pad")
+def _pad_node(ctx, x, pads=None, value=None, axes=None):
+    """``jnp.pad`` on any axis, N and C included. ``constant`` pads with
+    ``value`` cast to x's dtype (a float value truncates for an integer
+    tensor); ``reflect``, ``edge`` and ``wrap`` gather each padded axis
+    through the source index numpy's ``pad`` gives for that mode (so a
+    reflection wider than the axis repeats, as in the reference), built
+    once per shape (:func:`_table`). A negative pad raises ``ValueError``,
+    as ``jnp.pad`` does."""
+    mode = ctx.attr("mode", "constant")
+    if ctx.opset < 11:
+        pads = ctx.attr("pads")
+        value = ctx.attr("value", 0.0)
+    plist = _static_int_list(pads, "Pad pads")
+    x = _tensor(x)
+    ax = (_static_int_list(axes, "Pad axes") if axes is not None
+          else list(range(x.ndim)))
+    half = len(plist) // 2
+    width = [(0, 0)] * x.ndim
+    for i, a in enumerate(ax):
+        width[a % x.ndim] = (plist[i], plist[half + i])
+    if any(lo < 0 or hi < 0 for lo, hi in width):
+        raise ValueError(f"Pad: negative pads {plist}: the reference's "
+                         "jnp.pad refuses them (index can't contain "
+                         "negative values)")
+    if mode == "constant":
+        v = value.cpu().numpy() if isinstance(value, torch.Tensor) \
+            else np.asarray(0.0 if value is None else value)
+        cv = float(v.reshape(())) if v.size else 0.0
+        if x.dtype == torch.bool:
+            cv = bool(cv)
+        elif not x.is_floating_point():
+            cv = int(cv)
+        return _pad(x, width, cv)
+    np_mode = _PAD_MODES[mode]
+    for a, (lo, hi) in enumerate(width):
+        if lo or hi:
+            n = x.shape[a]
+            idx = _table(ctx, ("pad", np_mode, n, lo, hi), x.device,
+                         lambda: np.pad(np.arange(n), (lo, hi), np_mode))
+            x = x.index_select(a, idx)
+    return x
+
+
 @op("Cast")
 def _cast(ctx, x):
     to = proto.TENSOR_DTYPES[ctx.attr("to")]
@@ -1309,6 +1625,27 @@ def _one_hot(ctx, indices, depth, values):
     off_val, on_val = values[0], values[1]
     return _bin(operator.add, _bin(operator.mul, oh, on_val - off_val),
                 off_val)
+
+
+@op("SpaceToDepth")
+def _space_to_depth(ctx, x):
+    b = ctx.attr("blocksize")
+    x = _tensor(x)
+    n, c, h, w = x.shape
+    x = x.reshape(n, c, h // b, b, w // b, b).permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(n, c * b * b, h // b, w // b)
+
+
+@op("DepthToSpace")
+def _depth_to_space(ctx, x):
+    b = ctx.attr("blocksize")
+    x = _tensor(x)
+    n, c, h, w = x.shape
+    if ctx.attr("mode", "DCR") == "DCR":
+        x = x.reshape(n, b, b, c // (b * b), h, w).permute(0, 3, 4, 1, 5, 2)
+    else:
+        x = x.reshape(n, c // (b * b), b, b, h, w).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(n, c // (b * b), h * b, w * b)
 
 
 def _softmax_impl(ctx, x, log: bool):
@@ -2308,6 +2645,238 @@ def _embed_layer_norm(ctx, input_ids, segment_ids=None, word_emb=None,
     if ctx.n_outputs > 2:
         return y, mask_index, emb
     return y, mask_index
+
+
+# ---------------------------------------------------------------------------
+# Resize / Upsample
+# ---------------------------------------------------------------------------
+#
+# The reference's Resize is ``jax.image.resize`` but for ``nearest`` under
+# ``asymmetric``, and not ``F.interpolate``: ``linear`` and ``cubic``
+# downsample with an antialiasing kernel, ``cubic`` is Keys' with a = -0.5,
+# weights are renormalised at the borders, and ``nearest`` under
+# ``half_pixel`` reads ``floor((i + 0.5) * in / out)``. Each axis here is a
+# gather through a host-built index or a product with a host-built
+# ``[in, out]`` weight matrix (``compute_weight_mat`` of
+# ``jax/_src/image/scale.py``), both made once per shape (:func:`_table`).
+
+def _nearest_asymmetric(n_in: int, n_out: int, mode: str) -> np.ndarray:
+    """``in[round(i * in / out)]`` with ``mode``'s rounding: the opset-10
+    and ``Upsample`` convention that torch exports by default."""
+    pos = np.arange(n_out) * (n_in / n_out)
+    if mode in ("floor", ""):
+        idx = np.floor(pos)
+    elif mode == "ceil":
+        idx = np.ceil(pos)
+    elif mode == "round_prefer_ceil":
+        idx = np.floor(pos + 0.5)
+    else:  # round_prefer_floor (the spec's default)
+        idx = np.ceil(pos - 0.5)
+    return np.clip(idx, 0, n_in - 1).astype(np.int64)
+
+
+def _nearest_half_pixel(n_in: int, n_out: int) -> np.ndarray:
+    """``jax.image.resize``'s nearest: ``floor((i + 0.5) * in / out)`` in
+    float32."""
+    f32 = np.float32
+    pos = (np.arange(n_out, dtype=f32) + f32(0.5)) * f32(n_in) / f32(n_out)
+    return np.floor(pos).astype(np.int64)
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out)
+
+
+_RESIZE_KERNELS = {"linear": lambda x: np.maximum(0.0, 1.0 - np.abs(x)),
+                   "cubic": _keys_cubic}
+
+
+def _resize_weights(n_in: int, n_out: int, method: str) -> np.ndarray:
+    """The ``[n_in, n_out]`` float32 weights of one axis: the kernel at
+    each (input, sample) distance, widened by ``1 / scale`` when
+    shrinking, each column divided by its sum (zero where the sum is
+    within 1000 eps32 of 0), zero where the sample lies outside the
+    input."""
+    f32 = np.float32
+    inv_scale = f32(1.0) / f32(n_out / n_in)
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) \
+        / kernel_scale
+    w = _RESIZE_KERNELS[method](x).astype(f32)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps,
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def _resize_nearest(ctx, x: torch.Tensor, out_shape, index, key):
+    """Each axis whose size changes gathered through ``index(in, out)``."""
+    for axis, o in enumerate(out_shape[:x.ndim]):
+        i = x.shape[axis]
+        if o != i:
+            idx = _table(ctx, (key, i, o), x.device, lambda: index(i, o))
+            x = x.index_select(axis, idx)
+    return x
+
+
+def _resize_kernel(ctx, x: torch.Tensor, out_shape, method: str):
+    """``jax.image.resize(x, out_shape, method)`` for ``linear`` and
+    ``cubic`` (antialiased): each axis whose size changes contracted with
+    its weight matrix, in x's float dtype (float32 for an integer x)."""
+    if len(out_shape) != x.ndim:
+        raise ValueError("shape must have length equal to the number of "
+                         f"dimensions of x;  {out_shape} vs {x.shape}")
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
+    for axis, o in enumerate(out_shape):
+        i = x.shape[axis]
+        if o != i:
+            w = _table(ctx, (method, i, o), x.device,
+                       lambda: _resize_weights(i, o, method), x.dtype)
+            x = torch.matmul(x.movedim(axis, -1), w).movedim(-1, axis)
+    return x
+
+
+@op("Resize")
+def _resize(ctx, x, roi=None, scales=None, sizes=None):
+    """The reference's Resize. ``roi``, ``cubic_coeff_a``,
+    ``exclude_outside``, ``extrapolation_value``, ``antialias``,
+    ``axes``, ``keep_aspect_ratio_policy`` and ``pytorch_half_pixel``'s
+    rule for an output of size 1 are not read, as in the reference; a
+    mode other than ``nearest`` + ``asymmetric`` and the half-pixel
+    family raises."""
+    mode = ctx.attr("mode", "nearest")
+    coord = ctx.attr("coordinate_transformation_mode", "half_pixel")
+    x = _tensor(x)
+    if sizes is not None and np.asarray(sizes).size:
+        out_shape = _static_int_list(sizes, "Resize sizes")
+    else:
+        sc = np.asarray(scales).reshape(-1)
+        out_shape = [int(math.floor(s * f)) for s, f in zip(x.shape, sc)]
+    if mode == "nearest" and coord == "asymmetric":
+        nearest = ctx.attr("nearest_mode", "round_prefer_floor")
+        return _resize_nearest(
+            ctx, x, out_shape,
+            lambda i, o: _nearest_asymmetric(i, o, nearest),
+            ("asymmetric", nearest))
+    if coord not in ("half_pixel", "pytorch_half_pixel"):
+        raise NotImplementedError(
+            f"Resize coordinate_transformation_mode={coord!r} with "
+            f"mode={mode!r} is not supported (half_pixel family and "
+            "nearest+asymmetric are)")
+    method = {"nearest": "nearest", "linear": "linear", "cubic": "cubic"}[mode]
+    if method == "nearest":
+        if len(out_shape) != x.ndim:
+            raise ValueError("shape must have length equal to the number "
+                             f"of dimensions of x;  {out_shape} vs "
+                             f"{x.shape}")
+        return _resize_nearest(ctx, x, out_shape, _nearest_half_pixel,
+                               "half_pixel")
+    return _resize_kernel(ctx, x, out_shape, method)
+
+
+@op("Upsample")
+def _upsample(ctx, x, scales=None):
+    """``nearest`` reads ``in[floor(i * in / out)]``; any other mode is
+    the reference's half-pixel, antialiased ``linear`` (the spec's
+    ``linear`` is asymmetric)."""
+    if scales is None:
+        scales = ctx.attr("scales")
+    x = _tensor(x)
+    sc = np.asarray(scales).reshape(-1)
+    out_shape = [int(math.floor(s * f)) for s, f in zip(x.shape, sc)]
+    if ctx.attr("mode", "nearest") == "nearest":
+        return _resize_nearest(
+            ctx, x, out_shape,
+            lambda i, o: _nearest_asymmetric(i, o, "floor"),
+            ("asymmetric", "floor"))
+    return _resize_kernel(ctx, x, out_shape, "linear")
+
+
+# ---------------------------------------------------------------------------
+# Image layout: CenterCropPad, Col2Im
+# ---------------------------------------------------------------------------
+
+@op("CenterCropPad")
+def _center_crop_pad(ctx, x, shape):
+    """Each listed axis cropped about its centre (the odd cell left at
+    the low side) or padded with zeros (the odd cell at the high side); a
+    host value stays on the host, as in the reference."""
+    target = _static_int_list(shape, "CenterCropPad shape")
+    axes = ctx.attr("axes")
+    if axes is None:
+        axes = list(range(len(target)))
+    host = _is_host(x)
+    if host:
+        x = np.asarray(x)
+    for ax, want in zip(axes, target):
+        ax %= x.ndim
+        have = x.shape[ax]
+        if want < have:
+            lo = (have - want) // 2
+            x = (np.take(x, range(lo, lo + want), axis=ax) if host
+                 else x.narrow(ax, lo, want))
+        elif want > have:
+            lo = (want - have) // 2
+            width = [(0, 0)] * x.ndim
+            width[ax] = (lo, want - have - lo)
+            x = np.pad(x, width) if host else _pad(x, width)
+    return x
+
+
+def _col2im_cells(img, blk, strides, dil, pads, outs):
+    """The flat image cell of each (block offset, column) pair, clamped
+    into the image, and whether the pair lies inside it (``[K, L]``)."""
+    rank = len(img)
+    kprod, n_cols = math.prod(blk), math.prod(outs)
+    k_idx = np.stack(np.unravel_index(np.arange(kprod), blk), 0)
+    l_idx = np.stack(np.unravel_index(np.arange(n_cols), outs), 0)
+    flat = np.zeros((kprod, n_cols), np.int64)
+    valid = np.ones((kprod, n_cols), bool)
+    for d in range(rank):
+        pos = (k_idx[d][:, None] * dil[d] + l_idx[d][None, :] * strides[d]
+               - pads[d])
+        valid &= (pos >= 0) & (pos < img[d])
+        flat = flat * img[d] + np.clip(pos, 0, img[d] - 1)
+    return flat.reshape(-1), valid.reshape(-1)
+
+
+@op("Col2Im")
+def _col2im(ctx, x, image_shape, block_shape):
+    """Column blocks added back into the image, any number of spatial
+    dims: the columns outside the image multiplied by 0 (a NaN stays
+    NaN, as in the reference) and every column added at its clamped cell
+    with one ``index_add_`` (``F.fold`` is 2-D only)."""
+    img = _static_int_list(image_shape, "Col2Im image_shape")
+    blk = _static_int_list(block_shape, "Col2Im block_shape")
+    rank = len(img)
+    strides = ctx.attr("strides", [1] * rank)
+    dil = ctx.attr("dilations", [1] * rank)
+    pads = ctx.attr("pads", [0] * (2 * rank))
+    x = _tensor(x)
+    n, ckk, n_cols = x.shape
+    kprod = math.prod(blk)
+    c = ckk // kprod
+    outs = [1 + (img[d] + pads[d] + pads[d + rank]
+                 - dil[d] * (blk[d] - 1) - 1) // strides[d]
+            for d in range(rank)]
+    if math.prod(outs) != n_cols:
+        raise ValueError(
+            f"Col2Im: {n_cols} columns do not factor into positions {outs}")
+    key = ("col2im", tuple(img), tuple(blk), tuple(strides), tuple(dil),
+           tuple(pads))
+    args = (img, blk, strides, dil, pads, outs)
+    flat = _table(ctx, key + ("cell",), x.device,
+                  lambda: _col2im_cells(*args)[0])
+    valid = _table(ctx, key + ("valid",), x.device,
+                   lambda: _col2im_cells(*args)[1], x.dtype)
+    out = x.new_zeros((n, c, math.prod(img)))
+    out.index_add_(2, flat, x.reshape(n, c, -1) * valid)
+    return out.reshape((n, c) + tuple(img))
 
 
 # ---------------------------------------------------------------------------

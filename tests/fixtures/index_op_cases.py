@@ -22,7 +22,8 @@ in both packages); an empty name skips an optional input), ``attrs``,
 ``cast_dtype``: the way a bf16 tensor reaches an op without a numpy
 bfloat16), ``host`` (feeds numpy), ``exact`` (the card equals the CPU
 bitwise; otherwise within ``tol``, see :func:`agree`) and ``raises``
-(the op refuses a device tensor with ``NotImplementedError``).
+(the exception the op refuses a device tensor with,
+``NotImplementedError``).
 
 This module imports the port (its ``GraphBuilder``) and no JAX.
 """
@@ -44,7 +45,7 @@ def _i(seed, lo, hi, *shape, dtype=I64):
 
 
 def _case(name, op, inputs, opset=17, n_out=1, cast=None, host=False,
-          exact=True, raises=False, tol=None, **attrs):
+          exact=True, raises=None, tol=None, **attrs):
     return dict(name=name, op=op, inputs=inputs, opset=opset, n_out=n_out,
                 cast=cast, host=host, exact=exact, raises=raises, tol=tol,
                 attrs=attrs)
@@ -291,7 +292,7 @@ CASES = [
           [("x", np.array([[0, 2, 0], [1, 0, 3]], I64), "const")],
           host=True),
     _case("non_zero_device_raises", "NonZero",
-          [("x", _x(69, 2, 3), "feed")], raises=True),
+          [("x", _x(69, 2, 3), "feed")], raises=NotImplementedError),
     _case("unique_sorted_host", "Unique",
           [("x", np.array([2, 1, 1, 3, 4, 3], I64), "const")], n_out=4,
           host=True),
@@ -302,7 +303,7 @@ CASES = [
           [("x", np.array([[1, 0], [1, 0], [2, 3]], F32), "const")],
           n_out=4, host=True, axis=0, sorted=0),
     _case("unique_device_raises", "Unique", [("x", _x(70, 6), "feed")],
-          raises=True),
+          raises=NotImplementedError),
     _case("compress_host", "Compress",
           [("x", np.arange(6, dtype=F32).reshape(2, 3), "const"),
            ("c", np.array([True, False, True]), "const")], host=True,
@@ -312,7 +313,7 @@ CASES = [
            ("c", np.array([0, 1, 1, 0, 1], I64), "const")], host=True),
     _case("compress_device_raises", "Compress",
           [("x", _x(71, 2, 3), "feed"),
-           ("c", np.array([True, False]), "const")], raises=True, axis=0),
+           ("c", np.array([True, False]), "const")], raises=NotImplementedError, axis=0),
     # -- NegativeLogLikelihoodLoss, SoftmaxCrossEntropyLoss -------------
     _case("nll_mean", "NegativeLogLikelihoodLoss",
           [("x", _x(72, 5, 4), "feed"), ("t", _i(73, 0, 4, 5), "feed")],

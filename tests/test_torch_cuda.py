@@ -1978,3 +1978,61 @@ def test_warm_masked_lm_head_is_bitwise_its_eager_run(card):
             assert np.array_equal(w.view(np.uint8), e.view(np.uint8))
     finally:
         ex.close()
+
+
+def _vision_cases():
+    sys.path.insert(0, FIXTURES)
+    import vision_op_cases
+
+    return vision_op_cases.CASES
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in _vision_cases()])
+def test_vision_op_on_the_card_equals_the_cpu(card, name):
+    """Every one-node case of ``tests/fixtures/vision_op_cases.py`` on the
+    card: no device assert, bitwise the port's CPU run where the case is
+    exact (gathers, pads, views, max pools and their indices,
+    ``MaxUnpool``), else within its bound; a refused case refused alike."""
+    import vision_op_cases as cases
+
+    from synapseml_tpu_torch.onnx import GraphBuilder, import_model
+
+    case = cases.by_name(name)
+    if case["raises"]:
+        with pytest.raises(case["raises"]):
+            cases.run(case, import_model, GraphBuilder, "cuda")
+        return
+    got = cases.run(case, import_model, GraphBuilder, "cuda")
+    torch.cuda.synchronize()
+    res = cases.agree(case, got, cases.run(case, import_model, GraphBuilder,
+                                           "cpu"))
+    assert res["ok"], res
+
+
+def test_warm_small_vae_decoder_is_bitwise_its_eager_run(card):
+    """``tests/fixtures/vae_decoder.py`` at its small width, 4 latents of
+    8 x 8, warmed to one CUDA graph (``static_batch=4``): the replay
+    bitwise the eager forward on the same card tensor, and both within
+    1e-4 of the largest |value| of the port's CPU run."""
+    sys.path.insert(0, FIXTURES)
+    import vae_decoder
+
+    from synapseml_tpu_torch.onnx import GraphBuilder, import_model
+    from synapseml_tpu_torch.runtime.executor import BatchedExecutor
+
+    graph = import_model(vae_decoder.decoder_graph(GraphBuilder,
+                                                   vae_decoder.SMALL))
+    fn = graph.bind()
+    lat = vae_decoder.latents(4, 8)
+    x = torch.from_numpy(lat).cuda()
+    ex = BatchedExecutor(fn, static_batch=4)
+    try:
+        rep = ex.warmup([x])
+        assert [e["status"] for e in rep.entries] == ["compiled"]
+        warm = ex.submit(x).result()[0]
+        eager = fn(x)[0].cpu().numpy()
+    finally:
+        ex.close()
+    assert np.array_equal(warm.view(np.uint8), eager.view(np.uint8))
+    cpu = graph.bind(device="cpu")(torch.from_numpy(lat))[0].numpy()
+    assert np.abs(eager - cpu).max() <= 1e-4 * np.abs(cpu).max()

@@ -16,7 +16,8 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 FORBIDDEN = ("jax", "jaxlib", "synapseml_tpu")
-PORT_FIXTURES = ("decode_streams.py", "index_op_cases.py", "mlm_head.py")
+PORT_FIXTURES = ("decode_streams.py", "index_op_cases.py", "mlm_head.py",
+                 "vae_decoder.py", "vision_op_cases.py")
 
 
 def _port_sources():

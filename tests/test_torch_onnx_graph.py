@@ -71,16 +71,24 @@ INDEXING_AND_LOSSES = [
     "CastLike", "Compress", "ReverseSequence", "GatherElements", "GatherND",
     "Scatter", "ScatterElements", "ScatterND", "NegativeLogLikelihoodLoss",
     "SoftmaxCrossEntropyLoss"]
+# the dense-image ops (segmentation, super-resolution and generative
+# decoders)
+DENSE_IMAGE = [
+    "ConvTranspose", "Resize", "Upsample", "Pad", "DepthToSpace",
+    "SpaceToDepth", "GlobalMaxPool", "GlobalLpPool", "LpPool", "MaxUnpool",
+    "LRN", "InstanceNormalization", "GroupNormalization",
+    "MeanVarianceNormalization", "LpNormalization", "Col2Im",
+    "CenterCropPad"]
 PORTED = sorted(RESNET_AND_FIXTURES + TRANSFORMER_AND_RECURRENT
                 + CONTROL_FLOW_AND_ACTIVATIONS + ONNX_ML
-                + INDEXING_AND_LOSSES)
+                + INDEXING_AND_LOSSES + DENSE_IMAGE)
 
 
 def test_registry_is_the_ported_op_set():
     assert supported_ops() == PORTED
-    assert len(PORTED) == 168 and len(ONNX_ML) == 19
+    assert len(PORTED) == 185 and len(ONNX_ML) == 19
     assert set(PORTED) <= set(jax_supported_ops())
-    assert len(set(jax_supported_ops()) - set(PORTED)) == 66
+    assert len(set(jax_supported_ops()) - set(PORTED)) == 49
 
 
 @pytest.mark.parametrize("name", ["torch_cnn", "torch_transformer"])
