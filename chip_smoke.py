@@ -325,6 +325,21 @@ before the last line:
    within 1e-3 of the port's CPU run; images/s eager and warm, card ms by
    part (convolutions, GroupNormalization, Resize, attention, the rest),
    launches, busy share, warmup's memory. K1 and K2 launch 0 times.
+35. onnx_detection_ops — the ONNX sampling and detection ops: every
+   one-node case of ``tests/fixtures/detection_op_cases.py`` but
+   ImageDecoder's (NonMaxSuppression, RoiAlign, MaxRoiPool, DeformConv,
+   GridSample, AffineGrid) on the card equal to the port's CPU run (NMS
+   rows and MaxRoiPool bitwise, sums within 2e-5 of the largest |value|),
+   no device assert; torchvision Faster R-CNN R50-FPN's second stage
+   (``tests/fixtures/detection_head.py``) at its published width: the
+   first NMS stage's rows equal the JAX fixture's
+   (``detection_head_io.npz``), the pooled features within 1e-5 of the
+   port's CPU run, the 100 detections the fixture's but at counted
+   near-ties (boxes within 1e-3 of the largest |coordinate|), no copy or
+   sync in a bound forward; wall, card span and host issue ms by part
+   (the two NMS stages, RoiAlign, the Gemms, the rest), launches, busy
+   share, peak memory; DeformConv at DCNv2's res5 width and MaxRoiPool at
+   Fast R-CNN's ``roi_pool5`` alone. K1 and K2 launch 0 times.
 
 Between phases 3 and 4: prng_card_vs_cpu (the threefry key stream on the
 card equal to the CPU's, bitwise) and masked_index (K1 on a
@@ -4718,14 +4733,15 @@ MLM_SEED = 1                  # the 128 sequences (the fixture's are seed 0)
 
 
 def cases_on_card(cases, run) -> dict:
-    """Every one-node case of the module ``cases`` (``index_op_cases`` or
-    ``vision_op_cases`` of ``tests/fixtures``) on the card against the
-    port's CPU run of the same seeded inputs, ``run(case, device)`` giving
-    the outputs: bitwise where the case is exact, else within its bound
+    """Every one-node case of the module ``cases`` (``index_op_cases``,
+    ``vision_op_cases`` or ``detection_op_cases`` of ``tests/fixtures``; its
+    ``CARD_CASES`` where it names them) on the card against the port's CPU
+    run of the same seeded inputs, ``run(case, device)`` giving the
+    outputs: bitwise where the case is exact, else within its bound
     (``cases.agree``); a case that names an exception in ``raises`` must
     raise it on the card. Any other exception propagates."""
     results = []
-    for case in cases.CASES:
+    for case in getattr(cases, "CARD_CASES", cases.CASES):
         if case["raises"]:
             try:
                 run(case, "cuda")
@@ -4965,41 +4981,52 @@ def vae_part(ctx) -> str:
     return "attention" if ctx.name.startswith("mid.attn.") else "rest"
 
 
-def card_ms_by_part(graph, x, part_of, reps: int = 3) -> dict:
-    """Card ms of one bound forward of ``graph`` on ``x`` by part: a CUDA
-    event before and after each node, the forward queued behind a
-    device-side spin so the card runs the nodes back to back; the mean
-    over ``reps`` forwards after a warm one."""
+def card_ms_by_part(graph, x, part_of, reps: int = 3, parts=VAE_PARTS,
+                    host: bool = False) -> dict:
+    """Card ms of one bound forward of ``graph`` on ``x`` (a tensor, or a
+    tuple of the inputs) by part: a CUDA event before and after each node,
+    the forward queued behind a device-side spin so the card runs the
+    nodes back to back (where the host issues a part slower than the card
+    runs it, its span is the host's issue time); the mean over ``reps``
+    forwards after a warm one. ``host``: also the host ms each part takes
+    to issue, under ``"host_ms"``."""
     import copy
 
     events = []
+    issue = {p: 0.0 for p in parts}
 
     def timed(impl, part):
         def run(ctx, *args):
             begin = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            start = time.perf_counter()
             begin.record()
             out = impl(ctx, *args)
             end.record()
+            issue[part] += time.perf_counter() - start
             events.append((part, begin, end))
             return out
         return run
 
+    args = tuple(x) if isinstance(x, (tuple, list)) else (x,)
     clocked = copy.copy(graph)
     clocked._nodes = [(timed(impl, part_of(ctx)), ctx, ins, outs)
                       for impl, ctx, ins, outs in graph._nodes]
     fn = clocked.bind()
-    fn(x)
+    fn(*args)
     torch.cuda.synchronize()
     events.clear()
+    issue.update({p: 0.0 for p in parts})
     torch.cuda._sleep(SPIN_CYCLES)
     for _ in range(reps):
-        fn(x)
+        fn(*args)
     torch.cuda.synchronize()
-    parts = {p: 0.0 for p in VAE_PARTS}
+    out = {p: 0.0 for p in parts}
     for part, begin, end in events:
-        parts[part] += begin.elapsed_time(end) / reps
-    return parts
+        out[part] += begin.elapsed_time(end) / reps
+    if host:
+        out["host_ms"] = {p: v * 1e3 / reps for p, v in issue.items()}
+    return out
 
 
 def vae_phase(smi, reset_counts, read_counts) -> dict:
@@ -5149,6 +5176,216 @@ def vae_phase(smi, reset_counts, read_counts) -> dict:
           "the decoder's images are not finite 512 x 512 images")
     check(counts["forest_traverse"] == 0 and counts["histogram"] == 0,
           f"the decoder path launched K1/K2: {counts}")
+    return counts
+
+
+DETECTION_POOLED_TOL = 1e-5   # RoiAlign output, card vs CPU, of the largest |value|
+DETECTION_BOX_TOL = 1e-3      # matched detections' boxes vs JAX, of the largest |coordinate|
+DETECTION_PARTS = ("nms_stage1", "nms_stage2", "roi_align", "gemm", "rest")
+DCN_RES5 = dict(channels=512, hw=(25, 34), kernel=3)   # DCNv2 ResNet-50 res5
+ROI_POOL5 = dict(channels=512, hw=(38, 63), rois=300, pooled=7,
+                 spatial_scale=0.0625)                # Fast R-CNN VGG16
+
+
+def detection_part(ctx) -> str:
+    """The part of the detection head a node belongs to
+    (``DETECTION_PARTS``)."""
+    if ctx.name == "rpn_nms":
+        return "nms_stage1"
+    if ctx.name == "box_nms":
+        return "nms_stage2"
+    if ctx.op_type == "RoiAlign":
+        return "roi_align"
+    return "gemm" if ctx.op_type == "Gemm" else "rest"
+
+
+def one_node_timing(graph_cls, import_model, op, feeds, inits, order,
+                    **attrs):
+    """A one-node graph of ``op`` (its inputs named in ``order``: graph
+    inputs ``feeds``, initializers ``inits``) bound on the card: its
+    CUDA-event ms, its synced wall ms and the peak memory one call
+    allocates beyond its inputs."""
+    g = graph_cls(opset=19)
+    for name, a in feeds.items():
+        g.add_input(name, a.dtype, list(a.shape))
+    for name, a in inits.items():
+        g.add_initializer(name, a)
+    g.add_node(op, list(order), outputs=["y"], **attrs)
+    g.add_output("y", np.float32, None)
+    fn = import_model(g.to_bytes()).bind()
+    xs = [torch.from_numpy(a).cuda() for a in feeds.values()]
+    with torch.inference_mode():
+        fn(*xs)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(*xs)[0]
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - resident
+        ms = cuda_ms(lambda: fn(*xs), reps=3, inner=3)
+        wall = synced_wall_ms(lambda: fn(*xs), calls=3)
+    return {"card_ms": ms, "wall_ms": wall, "peak_bytes": peak,
+            "out_shape": list(out.shape),
+            "finite": bool(torch.isfinite(out).all())}
+
+
+def detection_phase(smi, reset_counts, read_counts) -> dict:
+    """Phase 35: the ONNX sampling and detection ops on the card.
+
+    1. Every one-node case of ``tests/fixtures/detection_op_cases.py`` but
+       ``ImageDecoder``'s (host only): NMS, RoiAlign, MaxRoiPool,
+       DeformConv, GridSample, AffineGrid, with the tie, NaN, 1e10,
+       near-threshold and out-of-range edges, on the card equal to the
+       port's CPU run (NMS rows and MaxRoiPool bitwise, the sums within
+       2e-5 of the largest |value|), before any wide work: no device
+       assert.
+    2. torchvision Faster R-CNN R50-FPN's second stage
+       (``tests/fixtures/detection_head.py``) at its published width
+       through ``bind()``: 1,000 proposals, NMS 0.7, RoiAlign 7 x 7 over
+       P4 ``[1, 256, 50, 68]``, the two-layer MLP, the 91-class predictor,
+       the box decode, per-class NMS 0.5 over 90 classes, the 100 best.
+       The first stage's rows equal the JAX fixture's
+       (``detection_head_io.npz``); the pooled features within 1e-5 of the
+       largest |value| of the port's CPU run; the 100 detections the
+       fixture's (label, slot) pairs but at counted near-ties, matched
+       boxes within 1e-3 of the largest |coordinate|.
+    3. A bound forward's copies and syncs (none).
+    4. The eager forward's wall (median of 3), its card span and host
+       issue ms by part (NMS stage 1, NMS stage 2, RoiAlign, the four
+       ``Gemm``s, the rest), launches, busy share and peak allocation;
+       DeformConv at DCNv2's ResNet-50 res5 width (512 -> 512, 3 x 3, with
+       mask, 25 x 34) and MaxRoiPool at Fast R-CNN VGG16's ``roi_pool5``
+       (300 rois, 7 x 7, ``spatial_scale`` 1/16 over ``[1, 512, 38, 63]``)
+       alone, with the peak memory of each. K1 and K2 launch 0 times."""
+    sys.path.insert(0, FIXTURES)
+    import detection_head as head
+    import detection_op_cases
+    from synapseml_tpu_torch.onnx import GraphBuilder, import_model
+
+    phase_start = time.perf_counter()
+    reset_counts()
+    # -- 1. every one-node case, before the wide path ---------------------
+    start = time.perf_counter()
+    one_node = cases_on_card(detection_op_cases, lambda case, dev: (
+        detection_op_cases.run(case, import_model, GraphBuilder, dev)))
+    one_node["seconds"] = time.perf_counter() - start
+    emit({"phase": "onnx_detection_ops", "part": "one_node_cases",
+          **one_node})
+    check(not one_node["failed"],
+          f"one-node cases differ on the card: {one_node['failed']}")
+
+    # -- 2. the full-width head against the JAX fixture and the CPU ------
+    start = time.perf_counter()
+    cfg = head.FULL
+    graph = import_model(head.head_graph(GraphBuilder, cfg))
+    fn = graph.bind()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - start
+    feeds = head.inputs(cfg)
+    xs = tuple(torch.from_numpy(feeds[k]).cuda() for k in head.INPUTS)
+    got = {k: v.cpu().numpy() for k, v in zip(head.OUTPUTS, fn(*xs))}
+    torch.cuda.synchronize()      # a device-side assert would surface here
+    fixture = dict(np.load(head.OUT))
+    start = time.perf_counter()
+    cpu = {k: v.numpy() for k, v in zip(head.OUTPUTS, graph.bind(
+        device="cpu")(*[torch.from_numpy(feeds[k]) for k in head.INPUTS]))}
+    cpu_s = time.perf_counter() - start
+    rows1_equal = bool(np.array_equal(got["rows1"], fixture["rows1"]))
+    span = float(np.abs(cpu["pooled"]).max())
+    pooled_err = float(np.abs(got["pooled"] - cpu["pooled"]).max())
+    vs_jax = head.held(got, fixture, DETECTION_BOX_TOL)
+    vs_cpu = head.held(got, cpu, DETECTION_BOX_TOL)
+    kept = int((got["rows1"][:, 0] >= 0).sum())
+    emit({"phase": "onnx_detection_ops", "part": "head_vs_jax",
+          "rows1_equal_jax": rows1_equal,
+          "rows2_equal_jax": bool(np.array_equal(got["rows2"],
+                                                 fixture["rows2"])),
+          "kept_proposals": kept, "kept_share": kept / cfg["proposals"],
+          "pairs_over_threshold_jax": int(fixture["pairs_over_threshold"]),
+          "detections_used": int((got["det_rows"][:, 0] >= 0).sum()),
+          "vs_jax": vs_jax, "vs_cpu": vs_cpu,
+          "pooled_max_abs_err_vs_cpu": pooled_err,
+          "pooled_bound": DETECTION_POOLED_TOL * span,
+          "pooled_span_cpu": span,
+          "pooled_span_jax": float(fixture["pooled_span"]),
+          "cpu_s": cpu_s, "jax_version": str(fixture["jax_version"])})
+    check(rows1_equal, "the first NMS stage's rows differ from the JAX "
+          "fixture's")
+    check(pooled_err <= DETECTION_POOLED_TOL * span,
+          f"the card's pooled features are off its CPU run: {pooled_err}")
+    check(vs_jax["ok"], f"the detections are off the JAX fixture: {vs_jax}")
+    check(all(np.isfinite(got[k]).all() for k in ("pooled", "det_boxes")),
+          "the head's pooled features or boxes are not finite")
+
+    # -- 3. a bound forward reads nothing back ----------------------------
+    with torch.inference_mode():
+        io = copies_and_syncs(fn, *xs)
+    check(io["syncs"] == 0 and io["d2h_copies"] == 0
+          and io["h2d_copies"] == 0,
+          f"the bound detection head synchronised or copied: {io}")
+
+    # -- 4. times ----------------------------------------------------------
+    with torch.inference_mode():
+        wall = synced_wall_ms(lambda: fn(*xs), calls=3)
+        by_part = card_ms_by_part(graph, xs, detection_part, reps=3,
+                                  parts=DETECTION_PARTS, host=True)
+        busy = device_busy(lambda: fn(*xs))
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(*xs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - resident
+    rng = np.random.default_rng(3)
+    c, (h, w), k = (DCN_RES5["channels"], DCN_RES5["hw"], DCN_RES5["kernel"])
+    f32 = np.float32
+    dcn = one_node_timing(
+        GraphBuilder, import_model, "DeformConv",
+        {"x": rng.standard_normal((1, c, h, w), dtype=f32),
+         "offset": rng.standard_normal((1, 2 * k * k, h, w), dtype=f32),
+         "mask": rng.uniform(0, 1, (1, k * k, h, w)).astype(f32)},
+        {"w": (rng.standard_normal((c, c, k, k), dtype=f32)
+               / f32(np.sqrt(c * k * k))), "b": np.zeros(c, f32)},
+        ("x", "w", "offset", "b", "mask"), pads=[1, 1, 1, 1])
+    dcn["tflop_per_s"] = 2 * c * c * k * k * h * w / dcn["card_ms"] * 1e-9
+    pc, (ph_, pw_), n_rois = (ROI_POOL5["channels"], ROI_POOL5["hw"],
+                              ROI_POOL5["rois"])
+    image = np.array([pw_, ph_]) / ROI_POOL5["spatial_scale"]
+    wh = rng.uniform(32, 400, (n_rois, 2))
+    xy = rng.uniform(0, 1, (n_rois, 2)) * (image - wh)
+    rois = np.concatenate([np.zeros((n_rois, 1)), xy, xy + wh], 1).astype(f32)
+    pool = one_node_timing(
+        GraphBuilder, import_model, "MaxRoiPool",
+        {"x": rng.standard_normal((1, pc, ph_, pw_), dtype=f32),
+         "rois": rois}, {}, ("x", "rois"),
+        pooled_shape=[ROI_POOL5["pooled"]] * 2,
+        spatial_scale=ROI_POOL5["spatial_scale"])
+    pool["reference_plan_bytes"] = (n_rois * pc * ROI_POOL5["pooled"]
+                                    * ph_ * pw_ * 4)
+    counts = read_counts()
+    del fn, graph, xs
+    torch.cuda.empty_cache()
+    emit({"phase": "onnx_detection_ops", "part": "faster_rcnn_head",
+          "device": smi, "model": "torchvision fasterrcnn_resnet50_fpn "
+          "second stage (detection_head.FULL), weights seed "
+          f"{head.WEIGHT_SEED}, inputs seed {head.INPUT_SEED}",
+          "build_s": build_s, "bound_forward_copies_and_syncs": io,
+          "wall_ms": wall, "card_span_ms_by_part": {
+              p: by_part[p] for p in DETECTION_PARTS},
+          "host_ms_by_part": by_part["host_ms"],
+          "gemm_gflop": head.flops(cfg) * 1e-9,
+          "launches": busy.get("kernels"), "busy_share":
+          busy.get("busy_share"), "kernel_ms": busy.get("kernel_s", 0) * 1e3,
+          "top_kernels": busy.get("top", [])[:5], "peak_bytes": peak,
+          "deform_conv_res5": dcn, "max_roi_pool5": pool,
+          "kernel_counts": counts,
+          "seconds": time.perf_counter() - phase_start})
+    check(dcn["finite"] and dcn["out_shape"] == [1, c, h, w],
+          f"DeformConv at res5 width gave {dcn}")
+    check(pool["finite"] and pool["out_shape"] == [n_rois, pc, 7, 7],
+          f"MaxRoiPool at roi_pool5 width gave {pool}")
+    check(counts["forest_traverse"] == 0 and counts["histogram"] == 0,
+          f"the detection path launched K1/K2: {counts}")
     return counts
 
 
@@ -5824,7 +6061,8 @@ def main() -> int:
     rank_small = Table({"features": xr1, "label": yr1, "query": gr1})
     weighted_small = rank_small.with_column(
         "w", np.random.default_rng(4).random(len(yr1)) + 0.5)
-    # early stopping runs ~100 iterations: fewer rows keep its CPU fit short
+    # early stopping: fewer rows, a learning rate of 0.6 and a patience of 5
+    # (18 trees, best iteration 12) keep its CPU fit short
     xr2, yr2, gr2 = rank_fx.rank_rows(70, 20, seed=6)
     valid_small = Table({"features": xr2, "label": yr2, "query": gr2,
                          "valid": gr2 % 5 == 0})
@@ -5859,7 +6097,7 @@ def main() -> int:
             num_iterations=8, bagging_fraction=0.8, bagging_freq=1,
             feature_fraction=0.8), rank_small, xr1[:2000]),
         ("early_stopping_grouped_valid", rank_est(
-            num_iterations=200, learning_rate=0.3, early_stopping_round=10,
+            num_iterations=200, learning_rate=0.6, early_stopping_round=5,
             validation_indicator_col="valid"), valid_small,
          xr2[gr2 % 5 == 0]),
     ]
@@ -6137,6 +6375,9 @@ def main() -> int:
     # -- 34. the ONNX dense-image ops: Stable Diffusion's VAE decoder -----
     vae_counts = vae_phase(smi, reset_counts, read_counts)
 
+    # -- 35. the ONNX detection ops: Faster R-CNN's second stage ---------
+    detection_counts = detection_phase(smi, reset_counts, read_counts)
+
     emit({"kernels": [{
         "name": "forest_traverse", "route": "cuda",
         "source": "synapseml_tpu_torch/csrc/forest_traverse.cu",
@@ -6164,6 +6405,7 @@ def main() -> int:
         "launches_decode_path": decode_counts["forest_traverse"],
         "launches_mlm_path": mlm_counts["forest_traverse"],
         "launches_vae_path": vae_counts["forest_traverse"],
+        "launches_detection_path": detection_counts["forest_traverse"],
         "max_abs_err": max_err, "bitwise": True,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
@@ -6193,6 +6435,7 @@ def main() -> int:
         "launches_decode_path": decode_counts["histogram"],
         "launches_mlm_path": mlm_counts["histogram"],
         "launches_vae_path": vae_counts["histogram"],
+        "launches_detection_path": detection_counts["histogram"],
         "max_abs_err": k1_max_err,
         "bitwise": True, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],

@@ -46,6 +46,7 @@ is imported; nothing falls back.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 import operator
 import threading
@@ -791,11 +792,17 @@ def _conv_transpose(ctx, x, w, b=None):
     y = _CONV_T[rank](x, w, None, strides, 0, 0, group, dilations)
     window = []
     for i in range(rank):
-        # the reference's output j is the full output's j + start
+        # the reference's output j is the full output's j + start; pads
+        # that crop past the full output leave an empty axis, as there
         start = pairs[i][0] + eff_w[i] - eff[i]
-        length = ((x.shape[2 + i] - 1) * strides[i] + 2 * eff[i]
-                  - pairs[i][0] - pairs[i][1] + out_pad[i] - eff_w[i])
-        window.append((-start, start + length - y.shape[2 + i]))
+        length = max(0, (x.shape[2 + i] - 1) * strides[i] + 2 * eff[i]
+                     - pairs[i][0] - pairs[i][1] + out_pad[i] - eff_w[i])
+        size = y.shape[2 + i]
+        lo = min(max(start, 0), size)
+        hi = max(min(start + length, size), lo)
+        y = y.narrow(2 + i, lo, hi - lo)
+        before = min(max(-start, 0), length)
+        window.append((before, length - (hi - lo) - before))
     y = _pad(y, window)
     if b is not None:
         y = _bin(operator.add, y, b.reshape((1, -1) + (1,) * rank))
@@ -2877,6 +2884,512 @@ def _col2im(ctx, x, image_shape, block_shape):
     out = x.new_zeros((n, c, math.prod(img)))
     out.index_add_(2, flat, x.reshape(n, c, -1) * valid)
     return out.reshape((n, c) + tuple(img))
+
+
+# ---------------------------------------------------------------------------
+# Detection ops: NonMaxSuppression, RoiAlign, MaxRoiPool, DeformConv,
+# GridSample, AffineGrid, ImageDecoder
+# ---------------------------------------------------------------------------
+# Where the reference narrows a float to an int32 index (``astype``), XLA
+# truncates toward zero, saturates at the int32 range and sends NaN to 0;
+# a traced ``jnp`` gather wraps a negative index once, then clamps it.
+# Torch's cast differs there (the CPU's gives -2^31 for NaN, +-1e10 and
+# inf alike) and an index out of range on the card is a device assert, so
+# these ops settle each index on the device (:func:`_int32_of`,
+# :func:`_wrap_clamp`) before it reaches a gather, with no host read.
+
+def _int32_of(x: torch.Tensor) -> torch.Tensor:
+    """``x.astype(jnp.int32)`` of a float tensor, as int64: toward zero,
+    NaN to 0, saturated at the int32 range."""
+    x = torch.nan_to_num(x, nan=0.0).clamp(-2.0 ** 31, 2.0 ** 31)
+    return x.to(torch.int64).clamp(max=2 ** 31 - 1)
+
+
+def _wrap_int32(i: torch.Tensor) -> torch.Tensor:
+    """An int64 result wrapped as int32 arithmetic wraps it."""
+    return (i + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def _wrap_clamp(i: torch.Tensor, n: int) -> torch.Tensor:
+    """A traced ``jnp`` gather's index into an axis of ``n``: a negative
+    one counts from the end once, then it is clamped into the axis."""
+    return torch.where(i < 0, i + n, i).clamp(0, n - 1)
+
+
+def _round_away(x: torch.Tensor) -> torch.Tensor:
+    """``lax.round``: half away from zero (``torch.round`` takes half to
+    even); NaN and inf stay."""
+    t = x.trunc()
+    return torch.where((x - t).abs() >= 0.5, t + x.sign(), t)
+
+
+def _div(x: torch.Tensor, n) -> torch.Tensor:
+    """``x / n`` correctly rounded on every device: CUDA divides a tensor
+    by a host scalar as a multiply by its reciprocal, which rounds
+    otherwise than the CPU and the reference (a quantized bin edge would
+    move), so ``n`` is made a 0-d tensor on ``x``'s device first (a fill,
+    no copy)."""
+    return x / torch.full((), n, dtype=x.dtype, device=x.device)
+
+
+def _host_scalar(x) -> np.ndarray:
+    """A scalar input's value on the host; a tensor is read back, as the
+    reference reads a device array with ``np.asarray``."""
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    return np.asarray(x).reshape(())
+
+
+def _nms_iou_corners(boxes, center_point_box):
+    """``[..., N, 4]`` -> (y1, x1, y2, x2) corners and areas, per ONNX NMS
+    conventions (corner coordinates may arrive in either diagonal order;
+    center format is [x_c, y_c, w, h]); numpy or torch, as ``boxes`` is."""
+    if center_point_box:
+        xc, yc, w, h = (boxes[..., 0], boxes[..., 1], boxes[..., 2],
+                        boxes[..., 3])
+        y1, y2 = yc - h / 2, yc + h / 2
+        x1, x2 = xc - w / 2, xc + w / 2
+    else:
+        xp = np if _is_host(boxes) else torch
+        y1 = xp.minimum(boxes[..., 0], boxes[..., 2])
+        y2 = xp.maximum(boxes[..., 0], boxes[..., 2])
+        x1 = xp.minimum(boxes[..., 1], boxes[..., 3])
+        x2 = xp.maximum(boxes[..., 1], boxes[..., 3])
+    area = (y2 - y1) * (x2 - x1)
+    return y1, x1, y2, x2, area
+
+
+def _nms_host(boxes, scores, max_out, iou_th, score_th, center):
+    """Exact ONNX semantics on host data: [num_selected, 3] int64 rows of
+    (batch, class, box), per-class score-descending selection order (the
+    reference's host path, verbatim)."""
+    nb, nc, n = scores.shape
+    rows = []
+    for bi in range(nb):
+        y1, x1, y2, x2, area = _nms_iou_corners(boxes[bi], center)
+        for ci in range(nc):
+            s = scores[bi, ci]
+            cand = np.argsort(-s, kind="stable")
+            if score_th is not None:
+                cand = cand[s[cand] > score_th]
+            chosen: List[int] = []
+            for i in cand:
+                if len(chosen) >= max_out:
+                    break
+                ok = True
+                for j in chosen:
+                    yy1 = max(y1[i], y1[j]); xx1 = max(x1[i], x1[j])  # noqa: E702
+                    yy2 = min(y2[i], y2[j]); xx2 = min(x2[i], x2[j])  # noqa: E702
+                    inter = max(0.0, yy2 - yy1) * max(0.0, xx2 - xx1)
+                    union = area[i] + area[j] - inter
+                    if union > 0 and inter / union > iou_th:
+                        ok = False
+                        break
+                if ok:
+                    chosen.append(int(i))
+            rows.extend([bi, ci, i] for i in chosen)
+    return (np.asarray(rows, np.int64).reshape(-1, 3) if rows
+            else np.zeros((0, 3), np.int64))
+
+
+def _nms_device(boxes: torch.Tensor, scores: torch.Tensor, n_max: int,
+                iou: float, sth: Optional[float], center) -> torch.Tensor:
+    """The reference's fixed-capacity NMS, every (batch, class) at once:
+    ``n_max`` steps of an argmax over the live scores (the first index on
+    ties) and a suppression of the live boxes that overlap the pick
+    (``inter > iou * union`` and ``union > 0``, each product and sum
+    rounded to float32 on its own, as the reference's scan body does). A
+    pick that is not above -inf (a NaN among the live scores, or none
+    left) ends its class. ``[B * C * n_max, 3]`` int64 rows, ``-1`` rows
+    for unused slots. Nothing is read on the host."""
+    nb, nc, n = scores.shape
+    dev = scores.device
+    y1, x1, y2, x2, area = _nms_iou_corners(boxes, center)      # [B, N]
+    table = torch.stack([y1, x1, y2, x2, area], -1)             # [B, N, 5]
+    lo = torch.stack([y1, x1], -1)[:, None]                     # [B, 1, N, 2]
+    hi = torch.stack([y2, x2], -1)[:, None]
+    area = area[:, None]                                        # [B, 1, N]
+    alive = (scores > float(np.float32(sth)) if sth is not None
+             else torch.ones_like(scores, dtype=torch.bool))
+    iou = float(np.float32(iou))
+    picks, valids = [], []
+    for _ in range(n_max):
+        best, i = torch.where(alive, scores, -math.inf).max(-1)     # [B, C]
+        valid = best > -math.inf
+        p = table.gather(1, i[..., None].expand(nb, nc, 5))[:, :, None]
+        d = (torch.minimum(hi, p[..., 2:4])
+             - torch.maximum(lo, p[..., 0:2])).clamp_min(0.0)
+        inter = d[..., 0] * d[..., 1]                            # [B, C, N]
+        union = area + p[..., 4] - inter
+        sup = (inter > iou * union) & (union > 0)
+        alive = alive > sup                   # alive and not suppressed
+        alive.scatter_(-1, i[..., None], False)
+        alive &= valid[..., None]
+        picks.append(i)
+        valids.append(valid)
+    sel = torch.where(torch.stack(valids, -1), torch.stack(picks, -1), -1)
+    bi = torch.arange(nb, device=dev)[:, None, None].expand_as(sel)
+    ci = torch.arange(nc, device=dev)[None, :, None].expand_as(sel)
+    out = torch.stack([bi, ci, sel], -1).reshape(-1, 3)
+    return torch.where(out[:, 2:] < 0, -1, out)
+
+
+@op("NonMaxSuppression")
+def _non_max_suppression(ctx, boxes, scores, max_out=None, iou_th=None,
+                         score_th=None):
+    """ONNX NMS, the reference's two paths. Host inputs get the exact,
+    data-dependent ``[num_selected, 3]`` (:func:`_nms_host`: a stable
+    argsort, ``inter / union > iou``). Device inputs get the
+    fixed-capacity ``[B * C * max_out, 3]`` of :func:`_nms_device`, in the
+    same (batch, class, score-descending) order, unused slots ``-1`` rows
+    (consumers mask on the first column). Rows are int64, as the spec
+    says (the reference narrows them to int32). ``max_out`` absent or not
+    positive gives a host ``zeros((0, 3))``."""
+    center = ctx.attr("center_point_box", 0)
+    n_max = 0 if max_out is None else int(_host_scalar(max_out))
+    iou = 0.0 if iou_th is None else float(_host_scalar(iou_th))
+    sth = None if score_th is None else float(_host_scalar(score_th))
+    if n_max <= 0:
+        return np.zeros((0, 3), np.int64)
+    if _all_host((boxes, scores)):
+        return _nms_host(np.asarray(boxes, np.float32),
+                         np.asarray(scores, np.float32),
+                         n_max, iou, sth, center)
+    scores = _tensor(scores).to(torch.float32)
+    boxes = _tensor(boxes, scores.device).to(torch.float32)
+    return _nms_device(boxes, scores, n_max, iou, sth, center)
+
+
+def _roi_offsets(n: int, sr: int) -> np.ndarray:
+    """RoiAlign's sample offsets along an axis of ``n`` bins, in bins:
+    ``i + (j + 0.5) / sr`` for bin i and sample j, in float32."""
+    f32 = np.float32
+    return (np.arange(n, dtype=f32)[:, None]
+            + (np.arange(sr, dtype=f32) + f32(0.5)) / f32(sr)).reshape(-1)
+
+
+def _roi_axis(g: torch.Tensor, size: int):
+    """The reference's per-axis bilinear terms of sample positions ``g``:
+    the lower and upper cell (clamped into the axis), the upper weight,
+    and whether the sample lies outside ``[-1, size]``."""
+    outside = (g < -1.0) | (g > size)
+    gc = g.clamp(0, size - 1)
+    lo = _int32_of(torch.floor(gc))
+    hi = (lo + 1).clamp(max=size - 1)
+    return lo, hi, gc - lo.to(g.dtype), outside
+
+
+@op("RoiAlign")
+def _roi_align(ctx, x, rois, batch_indices):
+    """ONNX RoiAlign, the rows of the reference's roi-by-roi ``vmap`` with
+    every roi in one pass: each roi's ``sr`` x ``sr`` samples a bin, four
+    row gathers of the channels-last map a sample, lerped along x, then
+    y, in the reference's order; a sample outside ``[-1, size]`` is 0;
+    ``mode="max"`` is the max of the bilinear samples (the spec takes
+    the max of weighted corners). ``output_half_pixel`` (opset < 16, and
+    torchvision's ``aligned=False`` export) clamps a roi's sides at 1
+    pixel. A ``batch_indices`` value out of range reads as the
+    reference's traced gather does (wrap once, then clamp).
+    ``sampling_ratio=0`` raises, as in the reference."""
+    mode = ctx.attr("mode", "avg")
+    oh, ow = ctx.attr("output_height", 1), ctx.attr("output_width", 1)
+    sr = int(ctx.attr("sampling_ratio", 0))
+    scale = ctx.attr("spatial_scale", 1.0)
+    ctm = ctx.attr("coordinate_transformation_mode",
+                   "half_pixel" if ctx.opset >= 16 else "output_half_pixel")
+    if sr <= 0:
+        raise NotImplementedError(
+            "RoiAlign with sampling_ratio=0 sizes its sampling grid from "
+            "roi extents (data-dependent shapes); re-export with an "
+            "explicit sampling_ratio (torchvision/detectron2 use 2)")
+    x = _tensor(x).to(torch.float32)
+    dev = x.device
+    rois = _tensor(rois, dev).to(torch.float32)
+    bidx = _tensor(batch_indices, dev)
+    n, c, h, w = x.shape
+    bidx = _wrap_clamp(_int32_of(bidx) if bidx.is_floating_point()
+                       else bidx.to(torch.int64), n)
+    off = 0.5 if ctm == "half_pixel" else 0.0
+    scale = float(np.float32(scale))
+    x1, y1, x2, y2 = (rois[:, k] * scale - off for k in range(4))
+    rw, rh = x2 - x1, y2 - y1
+    if ctm != "half_pixel":  # legacy mode clamps tiny rois to 1px
+        rw, rh = rw.clamp_min(1.0), rh.clamp_min(1.0)
+    ty = _table(ctx, ("roi_offsets", oh, sr), dev, lambda: _roi_offsets(oh, sr))
+    tx = _table(ctx, ("roi_offsets", ow, sr), dev, lambda: _roi_offsets(ow, sr))
+    ylo, yhi, fy, oy = _roi_axis(y1[:, None] + ty * _div(rh, oh)[:, None], h)
+    xlo, xhi, fx, ox = _roi_axis(x1[:, None] + tx * _div(rw, ow)[:, None], w)
+    pixels = x.permute(0, 2, 3, 1).reshape(n * h * w, c)
+    base = bidx[:, None, None] * (h * w)
+
+    def g2(yy, xx):                                  # [R, oh*sr, ow*sr, C]
+        idx = base + yy[:, :, None] * w + xx[:, None, :]
+        return pixels.index_select(0, idx.reshape(-1)).reshape(
+            idx.shape + (c,))
+
+    fx, fy = fx[:, None, :, None], fy[:, :, None, None]
+    top = g2(ylo, xlo) * (1 - fx) + g2(ylo, xhi) * fx
+    bot = g2(yhi, xlo) * (1 - fx) + g2(yhi, xhi) * fx
+    val = top * (1 - fy) + bot * fy
+    val = torch.where((oy[:, :, None] | ox[:, None, :])[..., None], 0.0, val)
+    val = val.reshape(-1, oh, sr, ow, sr, c)
+    val = val.amax((2, 4)) if mode == "max" else val.mean((2, 4))
+    return val.permute(0, 3, 1, 2).contiguous()                  # [R, C, oh, ow]
+
+
+# the largest masked piece of the feature map MaxRoiPool makes at once
+_ROI_POOL_PIECE_BYTES = 1 << 28
+
+
+def _roi_bins(lo, extent, n_bins: int, size: int) -> torch.Tensor:
+    """``[R, n_bins, size]`` membership of each pixel in each quantized
+    bin (the reference's clipped floor/ceil bins, in float32)."""
+    b = torch.arange(n_bins, dtype=torch.float32, device=lo.device)
+    bin_sz = _div(extent, n_bins)[:, None]
+    start = (torch.floor(b * bin_sz) + lo[:, None]).clamp(0, size)
+    end = (torch.ceil((b + 1) * bin_sz) + lo[:, None]).clamp(0, size)
+    pix = torch.arange(size, dtype=torch.float32, device=lo.device)
+    return (pix >= start[..., None]) & (pix < end[..., None])
+
+
+@op("MaxRoiPool")
+def _max_roi_pool(ctx, x, rois):
+    """MaxRoiPool (Caffe/Fast R-CNN ROIPooling): hard-quantized roi bins
+    (``round``, half to even, of the roi and its batch column), max-pooled
+    as two masked per-axis maxes; an empty bin gives 0, a NaN propagates.
+    The reference masks ``[R, C, ph, H, W]`` at once; the port takes the
+    same maxes a few rois at a time, so no piece passes
+    ``_ROI_POOL_PIECE_BYTES`` (any order of a max is exact)."""
+    ph, pw = [int(v) for v in ctx.attr("pooled_shape")]
+    scale = float(np.float32(ctx.attr("spatial_scale", 1.0)))
+    x = _tensor(x).to(torch.float32)
+    rois = _tensor(rois, x.device).to(torch.float32)
+    n, c, h, w = x.shape
+    bidx = _wrap_clamp(_int32_of(torch.round(rois[:, 0])), n)
+    x1, y1, x2, y2 = (torch.round(rois[:, k] * scale) for k in range(1, 5))
+    mh = _roi_bins(y1, (y2 - y1 + 1.0).clamp_min(1.0), ph, h)   # [R, ph, H]
+    mw = _roi_bins(x1, (x2 - x1 + 1.0).clamp_min(1.0), pw, w)   # [R, pw, W]
+    step = max(1, _ROI_POOL_PIECE_BYTES
+               // (4 * c * max(h * w, ph * pw * w)))
+    out = []
+    for r in range(0, rois.shape[0], step):
+        part = slice(r, r + step)
+        fmap = x.index_select(0, bidx[part])                    # [r, C, H, W]
+        t = torch.stack([
+            torch.where(mh[part, k, None, :, None], fmap, -math.inf).amax(2)
+            for k in range(ph)], 2)                             # [r, C, ph, W]
+        out.append(torch.where(mw[part, None, None], t[:, :, :, None],
+                               -math.inf).amax(4))              # [r, C, ph, pw]
+    out = torch.cat(out) if out else x.new_zeros((0, c, ph, pw))
+    return torch.where(torch.isneginf(out), 0.0, out)
+
+
+def _deform_base(kh, kw, oh, ow, strides, dil, pads) -> np.ndarray:
+    """DeformConv's sampling grid before the offsets, ``[2, k, p]`` (y, x)
+    as float32."""
+    ker_y = (np.arange(kh)[:, None] * dil[0]).repeat(kw, 1).reshape(-1)
+    ker_x = np.tile(np.arange(kw) * dil[1], kh)
+    return np.stack([
+        ker_y[:, None] + (np.arange(oh) * strides[0]
+                          - pads[0]).repeat(ow)[None, :],
+        ker_x[:, None] + np.tile(np.arange(ow) * strides[1]
+                                 - pads[1], oh)[None, :]]).astype(np.float32)
+
+
+@op("DeformConv")
+def _deform_conv(ctx, x, w, offset, b=None, mask=None):
+    """DeformConv (opset 19, torchvision ``deform_conv2d`` semantics), 2-D
+    only: offsets ``(dy, dx)`` interleaved per kernel point and offset
+    group, bilinear sampling with zero padding through the corners'
+    validity test (in the reference's corner order), the optional
+    modulation mask, then the grouped contraction as one float32
+    ``einsum`` (IEEE float32 under :func:`_ieee_float32`, never TF32)."""
+    if len(x.shape) != 4:
+        raise NotImplementedError("DeformConv supports 2-D (NCHW) only")
+    x = _tensor(x).to(torch.float32)
+    dev = x.device
+    w = _tensor(w, dev).to(torch.float32)
+    offset = _tensor(offset, dev).to(torch.float32)
+    n, c, h, wd = x.shape
+    oc, cg_w, kh, kw = w.shape
+    strides = [int(v) for v in ctx.attr("strides", [1, 1])]
+    dil = [int(v) for v in ctx.attr("dilations", [1, 1])]
+    pads = [int(v) for v in ctx.attr("pads", [0, 0, 0, 0])]
+    group = int(ctx.attr("group", 1))
+    og = int(ctx.attr("offset_group", 1))
+    oh, ow = offset.shape[2], offset.shape[3]
+    k, p, cg = kh * kw, oh * ow, c // og
+    shape = (kh, kw, oh, ow, tuple(strides), tuple(dil), tuple(pads[:2]))
+    base = _table(ctx, ("deform_base",) + shape, dev,
+                  lambda: _deform_base(kh, kw, oh, ow, strides, dil, pads))
+    off = offset.reshape(n, og, k, 2, p)
+    py = base[0] + off[:, :, :, 0]                            # [N, og, k, p]
+    px = base[1] + off[:, :, :, 1]
+    y0, x0 = torch.floor(py), torch.floor(px)
+    fy, fx = py - y0, px - x0
+    x_r = x.reshape(n, og, cg, h * wd)
+
+    def corner(yy, xx):
+        valid = (yy >= 0) & (yy <= h - 1) & (xx >= 0) & (xx <= wd - 1)
+        idx = (_int32_of(yy.clamp(0, h - 1)) * wd
+               + _int32_of(xx.clamp(0, wd - 1)))
+        g = x_r.gather(3, idx.reshape(n, og, 1, k * p).expand(
+            n, og, cg, k * p)).reshape(n, og, cg, k, p)
+        return g * valid.to(x.dtype).reshape(n, og, 1, k, p)
+
+    samp = (corner(y0, x0) * ((1 - fy) * (1 - fx))[:, :, None]
+            + corner(y0, x0 + 1) * ((1 - fy) * fx)[:, :, None]
+            + corner(y0 + 1, x0) * (fy * (1 - fx))[:, :, None]
+            + corner(y0 + 1, x0 + 1) * (fy * fx)[:, :, None])
+    if mask is not None:
+        samp = samp * _tensor(mask, dev).to(torch.float32).reshape(
+            n, og, 1, k, p)
+    samp = samp.reshape(n, group, c // group, k, p)
+    w_g = w.reshape(group, oc // group, cg_w, k)
+    out = torch.einsum("ngckp,gock->ngop", samp, w_g).reshape(n, oc, oh, ow)
+    if b is not None:
+        out = out + _tensor(b, dev).to(torch.float32)[None, :, None, None]
+    return out
+
+
+@op("GridSample")
+def _grid_sample(ctx, x, grid):
+    """Bilinear/nearest sampling of ``[N, C, H, W]`` at a [-1, 1] grid, as
+    the reference's ``jax.scipy.ndimage.map_coordinates`` computes it, not
+    ``F.grid_sample``: ``nearest`` rounds half away from zero; a corner's
+    weight is the product of its per-axis weights, the corners summed in
+    ``itertools.product`` order; an index is the saturated int32 cast of
+    its coordinate (a NaN one reads cell 0), ``border`` clamps it,
+    ``zeros`` zeroes a corner whose index is out of range; an integer
+    input is rounded half away from zero and cast back."""
+    mode = ctx.attr("mode", "bilinear")
+    padding = ctx.attr("padding_mode", "zeros")
+    align = bool(ctx.attr("align_corners", 0))
+    if mode not in ("bilinear", "linear", "nearest"):
+        raise NotImplementedError(f"GridSample mode {mode!r}")
+    if padding not in ("zeros", "border"):
+        raise NotImplementedError(f"GridSample padding_mode {padding!r}")
+    if len(x.shape) != 4:
+        raise NotImplementedError(
+            "GridSample: only 4-D [N,C,H,W] input is supported "
+            f"(got {len(x.shape)}-D)")
+    x = _tensor(x)
+    grid = _tensor(grid, x.device)
+    n, c, h, w = x.shape
+    zeros = padding == "zeros"
+
+    def unnorm(g, size):
+        if align:
+            return (g + 1.0) * (size - 1) / 2.0
+        return ((g + 1.0) * size - 1.0) / 2.0
+
+    def nodes(coord, size):
+        """(index for the gather, validity or None, weight or None)."""
+        if mode == "nearest":
+            pairs = [(_int32_of(_round_away(coord)), None)]
+        else:
+            lower = torch.floor(coord)
+            upper = coord - lower
+            index = _int32_of(lower)
+            pairs = [(index, 1 - upper), (_wrap_int32(index + 1), upper)]
+        return [(i.clamp(0, size - 1),
+                 (i >= 0) & (i < size) if zeros else None, wt)
+                for i, wt in pairs]
+
+    planes = x.reshape(n, c, h * w)
+    out_dt = torch.promote_types(x.dtype, torch.float32)
+    result = None
+    for (iy, vy, wy), (ix, vx, wx) in itertools.product(
+            nodes(unnorm(grid[..., 1], h), h),
+            nodes(unnorm(grid[..., 0], w), w)):
+        flat = (iy * w + ix).reshape(n, 1, -1).expand(n, c, -1)
+        got = planes.gather(2, flat).reshape((n, c) + iy.shape[1:])
+        if zeros:
+            got = torch.where((vy & vx)[:, None], got, 0)
+        term = got.to(out_dt) * (1.0 if wy is None else (wy * wx)[:, None])
+        result = term if result is None else result + term
+    if x.is_floating_point():
+        return result.to(x.dtype)
+    result = _round_away(result)
+    if x.dtype in (torch.int32, torch.int64):
+        return _int32_of(result).to(x.dtype)
+    info = torch.iinfo(x.dtype)
+    return torch.nan_to_num(result, nan=0.0).clamp(info.min, info.max).to(
+        x.dtype)
+
+
+def _linspace_axis(n: int) -> np.ndarray:
+    """``jnp.linspace(-1, 1, n)`` in float32 as XLA:CPU evaluates it outside
+    its vectorized loop body (every point below 353 points): step ``k *
+    fl(1 / (n - 1))``, ``1 - step`` rounded, the sum with ``stop * step``
+    one FMA (emulated in float64); the last point is 1."""
+    f32 = np.float32
+    d = n - 1
+    k = np.arange(d, dtype=f32)
+    r = f32(1) / f32(d)
+    one_minus = (1 - (k * r).astype(np.float64)).astype(f32)
+    out = (k.astype(np.float64) * np.float64(r) - one_minus).astype(f32)
+    return np.concatenate([out, np.ones(1, f32)])
+
+
+def _affine_axis(n: int, align: bool) -> np.ndarray:
+    """AffineGrid's base coordinates along an axis of ``n`` points, float32:
+    ``linspace(-1, 1, n)`` under ``align_corners``, else the half-step
+    formula ``-1 + step / 2 + step * k`` (the sum of the first two in
+    float64, as the reference's Python floats are, then float32)."""
+    if align:
+        return _linspace_axis(n) if n > 1 else np.zeros((1,), np.float32)
+    step = 2.0 / n
+    return np.float32(-1.0 + step / 2) + np.float32(step) * np.arange(
+        n, dtype=np.float32)
+
+
+def _affine_points(spatial, align: bool) -> np.ndarray:
+    """``[*spatial, rank + 1]`` homogeneous base points (x, y[, z], 1)."""
+    mesh = np.meshgrid(*[_affine_axis(s, align) for s in spatial],
+                       indexing="ij")
+    return np.stack(list(reversed(mesh)) + [np.ones_like(mesh[0])], -1)
+
+
+@op("AffineGrid")
+def _affine_grid(ctx, theta, size):
+    """Sampling-grid generator (opset 20), the ``F.affine_grid`` export, for
+    4-D and 5-D sizes: the base points built on the host once per size
+    (``_table``), then one float32 contraction with ``theta`` (IEEE)."""
+    dims = _static_int_list(size, "AffineGrid size")
+    align = bool(ctx.attr("align_corners", 0))
+    theta = _tensor(theta).to(torch.float32)
+    spatial = dims[2:]
+    if len(spatial) not in (2, 3):
+        raise NotImplementedError("AffineGrid supports 4-D/5-D sizes")
+    pts = _table(ctx, ("affine_points", tuple(spatial), align), theta.device,
+                 lambda: _affine_points(spatial, align))
+    return torch.einsum("...k,njk->n...j", pts, theta)
+
+
+@op("ImageDecoder")
+def _image_decoder(ctx, encoded):
+    """ImageDecoder (opset 20): host-side decode of an encoded image byte
+    stream to ``[H, W, C]`` uint8 via PIL (RGB, BGR or Grayscale). Decoding
+    is host work: a device tensor is refused."""
+    if not _is_host(encoded):
+        raise NotImplementedError(
+            "ImageDecoder needs host bytes: image decoding cannot run on "
+            "the device — decode ahead of the graph or feed host values")
+    import io as _io
+
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise NotImplementedError(
+            "ImageDecoder requires PIL for this codec") from e
+    data = np.asarray(encoded, np.uint8).tobytes()
+    img = Image.open(_io.BytesIO(data))
+    fmt = str(ctx.attr("pixel_format", "RGB"))
+    if fmt == "Grayscale":
+        return np.asarray(img.convert("L"), np.uint8)[:, :, None]
+    rgb = np.asarray(img.convert("RGB"), np.uint8)
+    return rgb[:, :, ::-1] if fmt == "BGR" else rgb
 
 
 # ---------------------------------------------------------------------------

@@ -142,6 +142,12 @@ CASES = [
     _sum("conv_t_output_padding_past_stride", "ConvTranspose",
          [("x", _x(19, 1, 2, 3, 3), "feed"), ("w", _x(20, 2, 2, 2, 2), "init")],
          strides=[2, 2], output_padding=[2, 0]),
+    _sum("conv_t_pads_crop_an_axis_empty", "ConvTranspose",
+         [("x", _x(99, 1, 2, 2, 4), "feed"), ("w", _x(100, 2, 2, 2, 1), "init")],
+         pads=[2, 0, 2, 1]),
+    _sum("conv_t_1d_pads_crop_past_the_output", "ConvTranspose",
+         [("x", _x(101, 1, 2, 5), "feed"), ("w", _x(102, 2, 3, 2), "init"),
+          ("b", _x(103, 3), "init")], pads=[4, 3]),
     _sum("conv_t_output_shape_ignored", "ConvTranspose",
          [("x", _x(21, 1, 2, 3, 3), "feed"), ("w", _x(22, 2, 3, 3, 3), "init")],
          strides=[2, 2], output_shape=[10, 10]),

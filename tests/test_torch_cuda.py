@@ -2036,3 +2036,66 @@ def test_warm_small_vae_decoder_is_bitwise_its_eager_run(card):
     assert np.array_equal(warm.view(np.uint8), eager.view(np.uint8))
     cpu = graph.bind(device="cpu")(torch.from_numpy(lat))[0].numpy()
     assert np.abs(eager - cpu).max() <= 1e-4 * np.abs(cpu).max()
+
+
+def _detection_cases():
+    sys.path.insert(0, FIXTURES)
+    import detection_op_cases
+
+    return detection_op_cases.CARD_CASES
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in _detection_cases()])
+def test_detection_op_on_the_card_equals_the_cpu(card, name):
+    """Every one-node case of ``tests/fixtures/detection_op_cases.py`` but
+    ``ImageDecoder``'s (host only) on the card: no device assert, bitwise
+    the port's CPU run where the case is exact (NMS rows, ``MaxRoiPool``,
+    nearest ``GridSample``), else within 2e-5 of the largest |value|; a
+    refused case refused alike."""
+    import detection_op_cases as cases
+
+    from synapseml_tpu_torch.onnx import GraphBuilder, import_model
+
+    case = cases.by_name(name)
+    if case["raises"]:
+        with pytest.raises(case["raises"]):
+            cases.run(case, import_model, GraphBuilder, "cuda")
+        return
+    got = cases.run(case, import_model, GraphBuilder, "cuda")
+    torch.cuda.synchronize()
+    res = cases.agree(case, got, cases.run(case, import_model, GraphBuilder,
+                                           "cpu"))
+    assert res["ok"], res
+
+
+def test_small_detection_head_captures_into_a_cuda_graph(card):
+    """``tests/fixtures/detection_head.py`` at its small width captured
+    into one ``torch.cuda.CUDAGraph`` after an eager run: both NMS loops
+    and ``RoiAlign`` read nothing on the host, so the capture succeeds,
+    the replay is bitwise the eager forward, and the first stage's rows
+    equal the port's CPU run."""
+    sys.path.insert(0, FIXTURES)
+    import detection_head as head
+
+    from synapseml_tpu_torch.onnx import GraphBuilder, import_model
+
+    graph = import_model(head.head_graph(GraphBuilder, head.SMALL))
+    fn = graph.bind()
+    feeds = head.inputs(head.SMALL)
+    xs = [torch.from_numpy(feeds[k]).cuda() for k in head.INPUTS]
+    eager = [t.cpu().numpy() for t in fn(*xs)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*xs)
+    torch.cuda.current_stream().wait_stream(side)
+    cuda_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(cuda_graph):
+        captured = fn(*xs)
+    cuda_graph.replay()
+    torch.cuda.synchronize()
+    for c, e in zip(captured, eager):
+        assert np.array_equal(c.cpu().numpy().view(np.uint8), e.view(np.uint8))
+    cpu = graph.bind(device="cpu")(*[torch.from_numpy(feeds[k])
+                                     for k in head.INPUTS])
+    assert np.array_equal(eager[0], cpu[0].numpy())

@@ -79,16 +79,21 @@ DENSE_IMAGE = [
     "LRN", "InstanceNormalization", "GroupNormalization",
     "MeanVarianceNormalization", "LpNormalization", "Col2Im",
     "CenterCropPad"]
+# the sampling and detection family (Faster R-CNN, SSD, YOLO and DCNv2
+# exports, spatial transformers)
+DETECTION = [
+    "NonMaxSuppression", "RoiAlign", "MaxRoiPool", "DeformConv",
+    "GridSample", "AffineGrid", "ImageDecoder"]
 PORTED = sorted(RESNET_AND_FIXTURES + TRANSFORMER_AND_RECURRENT
                 + CONTROL_FLOW_AND_ACTIVATIONS + ONNX_ML
-                + INDEXING_AND_LOSSES + DENSE_IMAGE)
+                + INDEXING_AND_LOSSES + DENSE_IMAGE + DETECTION)
 
 
 def test_registry_is_the_ported_op_set():
     assert supported_ops() == PORTED
-    assert len(PORTED) == 185 and len(ONNX_ML) == 19
+    assert len(PORTED) == 192 and len(ONNX_ML) == 19
     assert set(PORTED) <= set(jax_supported_ops())
-    assert len(set(jax_supported_ops()) - set(PORTED)) == 49
+    assert len(set(jax_supported_ops()) - set(PORTED)) == 42
 
 
 @pytest.mark.parametrize("name", ["torch_cnn", "torch_transformer"])
@@ -149,13 +154,10 @@ def test_causal_transformer_needs_an_op_not_ported_yet():
 def test_unsupported_op_raises_at_import():
     """An op outside the port's registry is refused when the graph is
     imported, with the reference's message; nothing falls back."""
-    blob = one_node("NonMaxSuppression", {"b": np.zeros((1, 2, 4),
-                                                         np.float32),
-                                          "s": np.zeros((1, 1, 2),
-                                                        np.float32)})
+    blob = one_node("DFT", {"x": np.zeros((1, 8, 1), np.float32)},
+                    opset=17)
     with pytest.raises(NotImplementedError,
-                       match="'NonMaxSuppression'.*not supported by the "
-                             "importer"):
+                       match="'DFT'.*not supported by the importer"):
         import_model(blob)
     jax_import_model(blob)                           # the reference has it
     g = GraphBuilder(opset=17)
