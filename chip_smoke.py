@@ -340,6 +340,25 @@ before the last line:
    (the two NMS stages, RoiAlign, the Gemms, the rest), launches, busy
    share, peak memory; DeformConv at DCNv2's res5 width and MaxRoiPool at
    Fast R-CNN's ``roi_pool5`` alone. K1 and K2 launch 0 times.
+36. onnx_random_ops — the ONNX random ops: every one-node case of
+   ``tests/fixtures/random_op_cases.py`` (RandomNormal, RandomNormalLike,
+   RandomUniform, RandomUniformLike, Bernoulli, Multinomial with a
+   GPT-2-vocabulary head in float32 and float16, Dropout) on the card
+   against the port's CPU run (uniform, Bernoulli and Dropout bitwise,
+   normal draws within 1e-6, Multinomial ids equal but at counted
+   near-ties); Stable Diffusion v1's VAE encoder
+   (``tests/fixtures/vae_encoder.py``, 34.2 M float32 parameters) sampling
+   its latent through ``RandomNormalLike`` at its published width: the
+   fixture's 256 x 256 images against the JAX run
+   (``vae_encoder_io.npz``: mean, logvar and latent within 1e-4 of their
+   largest |value|, the draw within 1e-6); 1 and 4 images of 512 x 512
+   through ``bind()`` and one executor warmed to one CUDA graph a bucket,
+   each warm run bitwise eager, two calls alike, 3 images padded into
+   bucket 4 bitwise the first 3 of a full one, no copy or sync in a bound
+   forward, one image within 1e-4 of the port's CPU run; images/s eager
+   and warm, card ms by part (convolutions, GroupNormalization, attention,
+   the random draw, the rest), launches (the draw's alone too), busy
+   share, warmup's memory. K1 and K2 launch 0 times.
 
 Between phases 3 and 4: prng_card_vs_cpu (the threefry key stream on the
 card equal to the CPU's, bitwise) and masked_index (K1 on a
@@ -4734,12 +4753,13 @@ MLM_SEED = 1                  # the 128 sequences (the fixture's are seed 0)
 
 def cases_on_card(cases, run) -> dict:
     """Every one-node case of the module ``cases`` (``index_op_cases``,
-    ``vision_op_cases`` or ``detection_op_cases`` of ``tests/fixtures``; its
-    ``CARD_CASES`` where it names them) on the card against the port's CPU
-    run of the same seeded inputs, ``run(case, device)`` giving the
-    outputs: bitwise where the case is exact, else within its bound
-    (``cases.agree``); a case that names an exception in ``raises`` must
-    raise it on the card. Any other exception propagates."""
+    ``vision_op_cases``, ``detection_op_cases`` or ``random_op_cases`` of
+    ``tests/fixtures``; its ``CARD_CASES`` where it names them) on the
+    card against the port's CPU run of the same seeded inputs,
+    ``run(case, device)`` giving the outputs: bitwise where the case is
+    exact, else within its bound (``cases.agree``); a case that names an
+    exception in ``raises`` must raise it on the card. Any other exception
+    propagates."""
     results = []
     for case in getattr(cases, "CARD_CASES", cases.CASES):
         if case["raises"]:
@@ -4755,12 +4775,19 @@ def cases_on_card(cases, run) -> dict:
         results.append({"name": case["name"], "exact": case["exact"],
                         **cases.agree(case, got, run(case, "cpu"))})
     torch.cuda.synchronize()      # a device-side assert would surface here
-    return {"cases": len(results),
-            "failed": [r for r in results if not r["ok"]],
-            "exact": sum(1 for r in results if r.get("exact")),
-            "max_abs_err_within_bound": max(
-                (r["max_abs_err"] for r in results
-                 if "exact" in r and not r["exact"]), default=0.0)}
+    bounded = [r for r in results if "exact" in r and not r["exact"]]
+    summary = {"cases": len(results),
+               "failed": [r for r in results if not r["ok"]],
+               "exact": sum(1 for r in results if r.get("exact")),
+               "max_abs_err_within_bound": max(
+                   (r["max_abs_err"] for r in bounded), default=0.0)}
+    # what a case module's agree counts beyond ok and max_abs_err
+    for key, fold in (("bitwise_share", min), ("differing", sum),
+                      ("near_ties", sum)):
+        if any(key in r for r in bounded):
+            summary[f"{key}_{fold.__name__}"] = fold(
+                r[key] for r in bounded if key in r)
+    return summary
 
 
 def mlm_phase(smi, reset_counts, read_counts) -> dict:
@@ -5386,6 +5413,215 @@ def detection_phase(smi, reset_counts, read_counts) -> dict:
           f"MaxRoiPool at roi_pool5 width gave {pool}")
     check(counts["forest_traverse"] == 0 and counts["histogram"] == 0,
           f"the detection path launched K1/K2: {counts}")
+    return counts
+
+
+VAE_ENCODER_TOL = 1e-4        # float32 VAE encoder outputs: of each one's largest |value|
+ENCODER_BATCHES = (1, 4)      # images a warm signature, 512 x 512
+ENCODER_SEED = 2              # the 512 x 512 images (the fixture's: 1)
+ENCODER_PARTS = ("convolutions", "group_norm", "attention", "random_draw",
+                 "rest")
+
+
+def encoder_part(ctx) -> str:
+    """The part of the encoder a node belongs to (``ENCODER_PARTS``)."""
+    if ctx.op_type == "Conv":
+        return "convolutions"
+    if ctx.op_type == "GroupNormalization":
+        return "group_norm"
+    if ctx.op_type == "RandomNormalLike":
+        return "random_draw"
+    return "attention" if ctx.name.startswith("mid.attn.") else "rest"
+
+
+def random_phase(smi, reset_counts, read_counts) -> dict:
+    """Phase 36: the ONNX random ops on the card.
+
+    1. Every one-node case of ``tests/fixtures/random_op_cases.py``
+       (RandomNormal, RandomNormalLike, RandomUniform, RandomUniformLike,
+       Bernoulli, Multinomial with a GPT-2-vocabulary head over
+       ``[8, 50257]`` float32 and float16 logits, Dropout) on the card
+       against the port's CPU run, before any wide work: uniform,
+       Bernoulli and Dropout bitwise, normal draws within 1e-6,
+       Multinomial ids equal but at counted near-ties.
+    2. Stable Diffusion v1's VAE encoder (``tests/fixtures/vae_encoder.py``,
+       34.2 M float32 parameters from seed 0), sampling its latent with
+       ``RandomNormalLike``, at its published width: the fixture's two
+       256 x 256 images against the JAX package's run
+       (``vae_encoder_io.npz``): ``mean``, ``logvar`` and the latent
+       within 1e-4 of each one's largest |value|, the draw within 1e-6.
+    3. 1 and 4 images of 512 x 512 through ``bind()`` and one
+       ``BatchedExecutor`` warmed to one CUDA graph a bucket: each warm
+       run bitwise its eager run, two calls the same latents, a bound
+       forward's copies and syncs (none), 3 images padded into bucket 4
+       bitwise the first 3 of a full bucket, one image within 1e-4 of the
+       port's CPU run.
+    4. Images/s eager and warm; card ms (CUDA events) of a 4-image forward
+       and by part (convolutions, GroupNormalization, attention, the
+       random draw, the rest); launches, those of the draw alone, busy
+       share; the memory warmup reserves. K1 and K2 launch 0 times."""
+    sys.path.insert(0, FIXTURES)
+    import random_op_cases
+    import vae_encoder
+    from synapseml_tpu_torch.onnx import GraphBuilder, import_model
+    from synapseml_tpu_torch.runtime.executor import BatchedExecutor
+
+    phase_start = time.perf_counter()
+    reset_counts()
+    # -- 1. every one-node case, before the wide path ---------------------
+    start = time.perf_counter()
+    one_node = cases_on_card(random_op_cases, lambda case, dev: (
+        random_op_cases.run(case, import_model, GraphBuilder, dev)))
+    one_node["seconds"] = time.perf_counter() - start
+    emit({"phase": "onnx_random_ops", "part": "one_node_cases", **one_node})
+    check(not one_node["failed"],
+          f"one-node cases differ on the card: {one_node['failed']}")
+
+    # -- 2. the full-width encoder against the JAX fixture ----------------
+    start = time.perf_counter()
+    graph = import_model(vae_encoder.encoder_graph(GraphBuilder))
+    fn = graph.bind()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - start
+    fixture = np.load(vae_encoder.OUT)
+    n, side = vae_encoder.FIXTURE_IMAGES, vae_encoder.FIXTURE_SIZE
+    got = dict(zip(vae_encoder.OUTPUTS, (t.cpu().numpy() for t in fn(
+        torch.from_numpy(vae_encoder.images(n, side)).cuda()))))
+    vs_jax = {k: {"max_abs_err": float(np.abs(got[k] - fixture[k]).max()),
+                  "bound": (VAE_ENCODER_TOL * float(fixture[f"span_{k}"])
+                            if k != "eps" else None)}
+              for k in vae_encoder.OUTPUTS}
+    eps_ok = bool(np.allclose(got["eps"], fixture["eps"], rtol=1e-6,
+                              atol=1e-6))
+    emit({"phase": "onnx_random_ops", "part": "encoder_vs_jax",
+          "images": [n, 3, side, side], "vs_jax": vs_jax,
+          "eps_within_1e-6": eps_ok, "eps_bitwise_share": float(np.mean(
+              got["eps"].view(np.uint32) == fixture["eps"].view(np.uint32))),
+          "jax_version": str(fixture["jax_version"])})
+    check(all(got[k].shape == fixture[k].shape for k in vae_encoder.OUTPUTS)
+          and all(v["max_abs_err"] <= v["bound"] for k, v in vs_jax.items()
+                  if k != "eps") and eps_ok,
+          f"the encoder is off the JAX fixture: {vs_jax}, eps {eps_ok}")
+
+    # -- 3. 512 x 512: eager, warm, padded, the CPU -----------------------
+    size = vae_encoder.PUBLISHED_SIZE
+    imgs = vae_encoder.images(max(ENCODER_BATCHES), size, seed=ENCODER_SEED)
+    xs = {b: torch.from_numpy(imgs[:b]).cuda() for b in ENCODER_BATCHES}
+    x3 = xs[4][:3].clone()
+
+    def numpy_of(outs):
+        return [t.cpu().numpy() for t in outs]
+
+    def same_bits(got, want):
+        return all(np.array_equal(np.ascontiguousarray(a).view(np.uint8),
+                                  np.ascontiguousarray(b).view(np.uint8))
+                   for a, b in zip(got, want))
+
+    eager = {b: numpy_of(fn(x)) for b, x in xs.items()}
+    repeat = same_bits(numpy_of(fn(xs[4])), eager[4])
+    with torch.inference_mode():
+        io = copies_and_syncs(fn, xs[1])
+    ex = BatchedExecutor(fn, device="cuda", min_bucket=min(ENCODER_BATCHES),
+                         max_bucket=max(ENCODER_BATCHES))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    begin = time.perf_counter()
+    rep = ex.warmup([xs[1]], buckets=list(ENCODER_BATCHES))
+    torch.cuda.synchronize()
+    warmup = {"seconds": time.perf_counter() - begin,
+              "reserved_bytes": torch.cuda.memory_reserved() - before,
+              "entries": [e.get("status") for e in rep.entries],
+              "errors": list(rep.errors)}
+
+    def warm_run(x):
+        return list(ex.submit(x).result())
+
+    warm = {b: warm_run(x) for b, x in xs.items()}
+    bitwise = {b: same_bits(warm[b], eager[b]) for b in ENCODER_BATCHES}
+    prefix = same_bits(warm_run(x3), [f[:3] for f in warm[4]])
+    start = time.perf_counter()
+    cpu = graph.bind(device="cpu")(torch.from_numpy(imgs[:1]))[0].numpy()
+    cpu_s = time.perf_counter() - start
+    cpu_span = float(np.abs(cpu).max())
+    vs_cpu = {"max_abs_err": float(np.abs(eager[1][0] - cpu).max()),
+              "bound": VAE_ENCODER_TOL * cpu_span, "largest_value": cpu_span,
+              "cpu_s": cpu_s}
+
+    # -- 4. times ----------------------------------------------------------
+    times = {}
+    for b in ENCODER_BATCHES:
+        eager_ms = synced_wall_ms(lambda: fn(xs[b]), calls=3)
+        warm_ms = synced_wall_ms(lambda: warm_run(xs[b]), calls=3)
+        times[b] = {"eager_wall_ms": eager_ms, "warm_wall_ms": warm_ms,
+                    "images_per_s_eager": b / eager_ms * 1e3,
+                    "images_per_s_warm": b / warm_ms * 1e3}
+    big = max(ENCODER_BATCHES)
+    latent_shape = (big, 4, size // 8, size // 8)
+    g = GraphBuilder(opset=vae_encoder.OPSET)
+    g.add_input("mean", np.float32, list(latent_shape))
+    g.add_node("RandomNormalLike", ["mean"], outputs=["eps"],
+               name="sample.eps")
+    g.add_output("eps", np.float32, None)
+    draw_fn = import_model(g.to_bytes()).bind()
+    mean = torch.zeros(latent_shape, device="cuda")
+    with torch.inference_mode():
+        card_ms = cuda_ms(lambda: fn(xs[big]), reps=3, inner=2)
+        by_part = card_ms_by_part(graph, xs[big], encoder_part,
+                                  parts=ENCODER_PARTS)
+        draw_ms = cuda_ms(lambda: draw_fn(mean), reps=3, inner=5)
+        busy_draw = device_busy(lambda: draw_fn(mean))
+    work = vae_encoder.flops(vae_encoder.FULL, big, size)
+    busy_eager = device_busy(lambda: fn(xs[big]))
+    busy_warm = device_busy(lambda: warm_run(xs[big]))
+    counts = read_counts()
+    ex.close()
+    del ex, fn, graph, xs, x3, draw_fn
+    torch.cuda.empty_cache()
+    emit({"phase": "onnx_random_ops", "part": "vae_encoder_512",
+          "device": smi, "model": "Stable Diffusion v1 VAE encoder with "
+          "its sampled latent (AutoencoderKL, runwayml/stable-diffusion-v1-5"
+          f" vae/config.json), {vae_encoder.parameters()} float32 "
+          f"parameters, seed {vae_encoder.WEIGHT_SEED}",
+          "image": [3, size, size], "latent": [4, size // 8, size // 8],
+          "build_s": build_s, "warmup": warmup,
+          "warm_bitwise_eager": bitwise, "two_calls_bitwise": repeat,
+          "padded_3_of_4_bitwise_full_bucket": prefix,
+          "bound_forward_copies_and_syncs": io, "vs_cpu": vs_cpu,
+          "times": times, "card_ms": {"batch": big, "forward": card_ms,
+                                      "by_part": by_part,
+                                      "parts_sum": sum(by_part.values())},
+          "draw_alone": {"shape": list(latent_shape), "card_ms": draw_ms,
+                         "launches": busy_draw.get("kernels")},
+          "tflop": {k: v * 1e-12 for k, v in work.items()},
+          "tflop_per_s": work["total"] / card_ms * 1e-9,
+          "conv_tflop_per_s": work["conv"] / by_part["convolutions"] * 1e-9,
+          "launches": {"eager": busy_eager.get("kernels"),
+                       "warm": busy_warm.get("kernels")},
+          "busy_share": {"eager": busy_eager.get("busy_share"),
+                         "warm": busy_warm.get("busy_share")},
+          "top_kernels_eager": busy_eager.get("top", [])[:5],
+          "kernel_counts": counts,
+          "seconds": time.perf_counter() - phase_start})
+    check(warmup["entries"] == ["compiled"] * len(ENCODER_BATCHES)
+          and not warmup["errors"],
+          f"the encoder did not warm to one graph a bucket: {warmup}")
+    check(all(bitwise.values()),
+          f"a warm encoder run is not bitwise its eager run: {bitwise}")
+    check(repeat, "two bound calls drew different latents")
+    check(prefix, "3 images padded into bucket 4 are not the first 3 of a "
+          "full bucket")
+    check(io["syncs"] == 0 and io["d2h_copies"] == 0
+          and io["h2d_copies"] == 0,
+          f"the bound encoder synchronised or copied: {io}")
+    check(vs_cpu["max_abs_err"] <= vs_cpu["bound"],
+          f"the card's encoder is off its CPU run: {vs_cpu}")
+    check(all(np.isfinite(a).all() and a.shape == (b, 4, size // 8,
+                                                   size // 8)
+              for b, outs in eager.items() for a in outs),
+          "the encoder's outputs are not finite 64 x 64 latents")
+    check(counts["forest_traverse"] == 0 and counts["histogram"] == 0,
+          f"the random path launched K1/K2: {counts}")
     return counts
 
 
@@ -6378,6 +6614,9 @@ def main() -> int:
     # -- 35. the ONNX detection ops: Faster R-CNN's second stage ---------
     detection_counts = detection_phase(smi, reset_counts, read_counts)
 
+    # -- 36. the ONNX random ops: Stable Diffusion's VAE encoder ---------
+    random_counts = random_phase(smi, reset_counts, read_counts)
+
     emit({"kernels": [{
         "name": "forest_traverse", "route": "cuda",
         "source": "synapseml_tpu_torch/csrc/forest_traverse.cu",
@@ -6406,6 +6645,7 @@ def main() -> int:
         "launches_mlm_path": mlm_counts["forest_traverse"],
         "launches_vae_path": vae_counts["forest_traverse"],
         "launches_detection_path": detection_counts["forest_traverse"],
+        "launches_random_path": random_counts["forest_traverse"],
         "max_abs_err": max_err, "bitwise": True,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
@@ -6436,6 +6676,7 @@ def main() -> int:
         "launches_mlm_path": mlm_counts["histogram"],
         "launches_vae_path": vae_counts["histogram"],
         "launches_detection_path": detection_counts["histogram"],
+        "launches_random_path": random_counts["histogram"],
         "max_abs_err": k1_max_err,
         "bitwise": True, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],

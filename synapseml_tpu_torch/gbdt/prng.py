@@ -14,8 +14,10 @@ that mode:
   flat iota, ``threefry2x32(key, iota_hi, iota_lo)``; ``split`` stacks the
   two halves into the new keys, 32-bit bits are ``bits1 ^ bits2``;
 - ``fold_in(key, d)`` is ``threefry2x32(key, 0, d)``;
-- ``uniform`` puts the top 23 bits into the mantissa of a float in [1, 2)
-  and subtracts 1;
+- ``unit`` puts the top mantissa bits into a float in [1, 2) and
+  subtracts 1 (float32 from 32-bit words; float16 from 16 bits and
+  bfloat16 from 8, the low bits of the words); ``uniform`` is its float32
+  draw;
 - ``permutation(key, f)`` is ``_shuffle``: ``ceil(3 ln f / ln(2^32 - 1))``
   rounds (one for 1 < f < 1,625), each splitting the key and stably
   sorting by fresh 32-bit sort keys.
@@ -30,12 +32,17 @@ ops on any device.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+# the float formats: bits, mantissa bits, 1.0's bits and the signed
+# integer view of the same width
+_FORMATS = {torch.float32: (32, 23, 0x3F800000, torch.int32),
+            torch.float16: (16, 10, 0x3C00, torch.int16),
+            torch.bfloat16: (16, 7, 0x3F80, torch.int16)}
 
 
 def _threefry2x32(key: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor
@@ -82,11 +89,23 @@ def random_bits32(key: torch.Tensor, n: int) -> torch.Tensor:
     return b0 ^ b1
 
 
+def unit(key: torch.Tensor, shape: Sequence[int],
+         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype)``: floats in [0, 1) of
+    ``dtype`` (float32, float16 or bfloat16), random mantissa bits under
+    1.0's exponent, minus 1."""
+    nbits, nmant, one, view = _FORMATS[dtype]
+    rng_bits = 8 if nmant < 8 else nbits
+    bits = random_bits32(key, math.prod(shape))
+    if rng_bits < 32:
+        bits = bits & ((1 << rng_bits) - 1)
+    word = (bits >> (rng_bits - nmant)) | one
+    return word.to(view).view(dtype).reshape(tuple(shape)) - 1.0
+
+
 def uniform(key: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.uniform(key, (n,))``: [n] float32 in [0, 1)."""
-    mantissa = random_bits32(key, n) >> 9
-    one_to_two = (mantissa | 0x3F800000).to(torch.int32).view(torch.float32)
-    return one_to_two - 1.0
+    return unit(key, (n,))
 
 
 def permutation(key: torch.Tensor, f: int) -> torch.Tensor:

@@ -50,6 +50,7 @@ import itertools
 import math
 import operator
 import threading
+import zlib
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -58,6 +59,7 @@ import torch.nn.functional as F
 
 from synapseml_tpu_torch import device as device_policy
 from synapseml_tpu_torch.onnx import proto
+from synapseml_tpu_torch.onnx import random as _random
 from synapseml_tpu_torch.onnx.proto import Msg, node_attrs, tensor_to_numpy
 
 _REGISTRY: Dict[str, Callable] = {}
@@ -3390,6 +3392,119 @@ def _image_decoder(ctx, encoded):
         return np.asarray(img.convert("L"), np.uint8)[:, :, None]
     rgb = np.asarray(img.convert("RGB"), np.uint8)
     return rgb[:, :, ::-1] if fmt == "BGR" else rgb
+
+
+# ---------------------------------------------------------------------------
+# Random ops: RandomNormal, RandomNormalLike, RandomUniform,
+# RandomUniformLike, Bernoulli, Multinomial, Dropout
+# ---------------------------------------------------------------------------
+# The draws are ``jax.random``'s (:mod:`synapseml_tpu_torch.onnx.random`),
+# keyed per node as the reference keys them, so a bound graph draws the
+# same numbers at every call, as the reference's does. Where the spec
+# asks for a 64-bit type (``dtype`` 11, Multinomial's 7) the port keeps
+# it; the reference, with JAX's 64-bit mode off, gives float32 and int32
+# of the same values.
+
+def _node_seed(ctx) -> int:
+    """The reference's ``_node_key`` seed: the ``seed`` attribute, read as
+    a float (an integral one masked to 31 bits, any other bit-cast through
+    float32), else the crc32 of ``"name|op_type"``, masked alike."""
+    seed = ctx.attr("seed")
+    if seed is None:
+        seed = zlib.crc32(f"{ctx.name}|{ctx.op_type}".encode())
+    if float(seed).is_integer():
+        return int(seed) & 0x7FFFFFFF
+    return int(np.float32(seed).view(np.uint32))
+
+
+def _node_key(ctx, dev: torch.device) -> torch.Tensor:
+    """The node's ``PRNGKey`` on ``dev``, copied there once (a bound
+    forward and a CUDA-graph capture copy nothing)."""
+    return _table(ctx, "prng_key", dev,
+                  lambda: np.array([0, _node_seed(ctx)], np.int64))
+
+
+def _random_dtype(ctx, like=None) -> torch.dtype:
+    """The ``dtype`` attribute's type, else ``like``'s, else float32."""
+    dt = ctx.attr("dtype")
+    if dt is not None:
+        return _torch_dtype(proto.TENSOR_DTYPES[int(dt)])
+    if isinstance(like, torch.Tensor):
+        return like.dtype
+    if like is not None:
+        return _torch_dtype(_canonical(np.asarray(like).dtype))
+    return torch.float32
+
+
+def _random_normal_of(ctx, shape, dt: torch.dtype, dev) -> torch.Tensor:
+    # the affine is two float32 steps, as the reference's eager forward
+    # takes them (under jit XLA would fuse them)
+    z = _random.normal(_node_key(ctx, dev), shape)
+    return (z * float(ctx.attr("scale", 1.0))
+            + float(ctx.attr("mean", 0.0))).to(dt)
+
+
+def _random_uniform_of(ctx, shape, dt: torch.dtype, dev) -> torch.Tensor:
+    return _random.uniform(_node_key(ctx, dev), shape,
+                           float(ctx.attr("low", 0.0)),
+                           float(ctx.attr("high", 1.0))).to(dt)
+
+
+@op("RandomNormal")
+def _random_normal(ctx):
+    shape = tuple(int(s) for s in ctx.attr("shape"))
+    return _random_normal_of(ctx, shape, _random_dtype(ctx), _device_of(()))
+
+
+@op("RandomNormalLike")
+def _random_normal_like(ctx, x):
+    return _random_normal_of(ctx, tuple(np.shape(x)), _random_dtype(ctx, x),
+                             _device_of((x,)))
+
+
+@op("RandomUniform")
+def _random_uniform(ctx):
+    shape = tuple(int(s) for s in ctx.attr("shape"))
+    return _random_uniform_of(ctx, shape, _random_dtype(ctx), _device_of(()))
+
+
+@op("RandomUniformLike")
+def _random_uniform_like(ctx, x):
+    return _random_uniform_of(ctx, tuple(np.shape(x)),
+                              _random_dtype(ctx, x), _device_of((x,)))
+
+
+@op("Bernoulli")
+def _bernoulli(ctx, x):
+    x = _tensor(x)
+    draws = _random.uniform(_node_key(ctx, x.device), tuple(x.shape))
+    return (draws < x.float()).to(_random_dtype(ctx, x))
+
+
+@op("Multinomial")
+def _multinomial(ctx, x):
+    """Multinomial: ``sample_size`` draws per batch row from unnormalized
+    log-probabilities, ``jax.random.categorical``'s Gumbel-max: the first
+    index of the largest ``x + gumbel`` over ``[B, n, C]`` noise in
+    ``x``'s dtype (float32 for a 64-bit input, as the reference's)."""
+    n = int(ctx.attr("sample_size", 1))
+    dt = _torch_dtype(proto.TENSOR_DTYPES[int(ctx.attr("dtype", 6))])
+    x = _tensor(x)
+    if x.dtype not in (torch.float16, torch.bfloat16):
+        x = x.float()
+    noise = _random.gumbel(_node_key(ctx, x.device),
+                           (x.shape[0], n, x.shape[1]), x.dtype)
+    return torch.argmax(noise + x[:, None, :], dim=-1).to(dt)
+
+
+@op("Dropout")
+def _dropout(ctx, x, ratio=None, training_mode=None):
+    """Dropout as the reference runs it: a pass-through (and an all-true
+    mask where asked) whatever ``ratio`` and ``training_mode`` say."""
+    if ctx.n_outputs > 1:
+        return x, torch.ones(tuple(np.shape(x)), dtype=torch.bool,
+                             device=_device_of((x,)))
+    return x
 
 
 # ---------------------------------------------------------------------------

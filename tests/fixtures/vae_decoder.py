@@ -74,13 +74,17 @@ class _Net:
         return self.g.add_node(op, inputs, name=self.name(op.lower()),
                                **attrs)
 
-    def conv(self, x: str, cin: int, cout: int, k: int) -> str:
+    def conv(self, x: str, cin: int, cout: int, k: int, stride: int = 1,
+             pad: int = None) -> str:
+        """A ``k`` x ``k`` convolution, padded ``k // 2`` a side unless
+        ``pad`` says otherwise."""
         w = self.init("w", self.normal((cout, cin, k, k),
                                        1.0 / math.sqrt(cin * k * k)))
         b = self.init("b", self.normal((cout,), 0.02))
-        p = k // 2
+        p = k // 2 if pad is None else pad
+        attrs = {"strides": [stride, stride]} if stride != 1 else {}
         return self.node("Conv", [x, w, b], kernel_shape=[k, k],
-                         pads=[p, p, p, p])
+                         pads=[p, p, p, p], **attrs)
 
     def group_norm(self, x: str, c: int, groups: int) -> str:
         scale = self.init("gamma", 1.0 + self.normal((c,), 0.1))

@@ -2099,3 +2099,94 @@ def test_small_detection_head_captures_into_a_cuda_graph(card):
     cpu = graph.bind(device="cpu")(*[torch.from_numpy(feeds[k])
                                      for k in head.INPUTS])
     assert np.array_equal(eager[0], cpu[0].numpy())
+
+
+def _random_cases():
+    sys.path.insert(0, FIXTURES)
+    import random_op_cases
+
+    return random_op_cases.CASES
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in _random_cases()])
+def test_random_op_on_the_card_equals_the_cpu(card, name):
+    """Every one-node case of ``tests/fixtures/random_op_cases.py`` on the
+    card against the port's CPU run: uniform, Bernoulli and Dropout
+    bitwise, normal draws within 1e-6, Multinomial's ids equal but at
+    near-ties of the CPU's ``logits + noise``."""
+    import random_op_cases as cases
+
+    from synapseml_tpu_torch.onnx import GraphBuilder, import_model
+
+    case = cases.by_name(name)
+    got = cases.run(case, import_model, GraphBuilder, "cuda")
+    torch.cuda.synchronize()
+    res = cases.agree(case, got, cases.run(case, import_model, GraphBuilder,
+                                           "cpu"))
+    assert res["ok"], res
+
+
+def test_random_normal_like_captures_with_no_host_copy(card):
+    """A graph holding an unseeded ``RandomNormalLike`` captured into one
+    ``torch.cuda.CUDAGraph`` after an eager run: its key is on the card
+    from the eager run, so the capture copies nothing from the host (a
+    copy would fail the capture); the replay draws bitwise what the eager
+    forward drew, and every replay the same."""
+    sys.path.insert(0, FIXTURES)
+    import random_op_cases as cases
+
+    from synapseml_tpu_torch.onnx import GraphBuilder, import_model
+
+    case = cases.by_name("normal_like_unseeded_latent")
+    fn = import_model(cases.graph(case, GraphBuilder)).bind()
+    x = torch.from_numpy(cases.feeds(case)[0]).cuda()
+    eager = fn(x)[0].cpu().numpy()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(x)
+    torch.cuda.current_stream().wait_stream(side)
+    cuda_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(cuda_graph):
+        captured = fn(x)[0]
+    for _ in range(2):
+        cuda_graph.replay()
+        torch.cuda.synchronize()
+        assert np.array_equal(captured.cpu().numpy().view(np.uint32),
+                              eager.view(np.uint32))
+
+
+def test_warm_small_vae_encoder_is_bitwise_its_eager_run(card):
+    """``tests/fixtures/vae_encoder.py`` at its small width, 4 images of
+    32 x 32, warmed to one CUDA graph (``static_batch=4``): every output
+    of the replay bitwise the eager forward's; 3 images padded into the
+    bucket bitwise the first 3 of the full one; the latent within 1e-4 of
+    the largest |value| of the port's CPU run."""
+    sys.path.insert(0, FIXTURES)
+    import vae_encoder
+
+    from synapseml_tpu_torch.onnx import GraphBuilder, import_model
+    from synapseml_tpu_torch.runtime.executor import BatchedExecutor
+
+    graph = import_model(vae_encoder.encoder_graph(GraphBuilder,
+                                                   vae_encoder.SMALL))
+    fn = graph.bind()
+    imgs = vae_encoder.images(4, 32)
+    x = torch.from_numpy(imgs).cuda()
+    ex = BatchedExecutor(fn, static_batch=4)
+    try:
+        rep = ex.warmup([x])
+        assert [e["status"] for e in rep.entries] == ["compiled"]
+        warm = ex.submit(x).result()
+        padded = ex.submit(x[:3].clone()).result()
+        eager = [t.cpu().numpy() for t in fn(x)]
+    finally:
+        ex.close()
+    for w, p, e in zip(warm, padded, eager):
+        e = np.ascontiguousarray(e)
+        assert np.array_equal(np.ascontiguousarray(w).view(np.uint8),
+                              e.view(np.uint8))
+        assert np.array_equal(np.ascontiguousarray(p).view(np.uint8),
+                              np.ascontiguousarray(e[:3]).view(np.uint8))
+    cpu = graph.bind(device="cpu")(torch.from_numpy(imgs))[0].numpy()
+    assert np.abs(eager[0] - cpu).max() <= 1e-4 * np.abs(cpu).max()

@@ -17,7 +17,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 FORBIDDEN = ("jax", "jaxlib", "synapseml_tpu")
 PORT_FIXTURES = ("decode_streams.py", "index_op_cases.py", "mlm_head.py",
-                 "vae_decoder.py", "vision_op_cases.py")
+                 "random_op_cases.py", "vae_decoder.py", "vae_encoder.py",
+                 "vision_op_cases.py")
 
 
 def _port_sources():
@@ -97,6 +98,7 @@ def test_scan_sees_the_port_and_catches_imports():
             "synapseml_tpu_torch/onnx/importer.py",
             "synapseml_tpu_torch/onnx/ml_ops.py",
             "synapseml_tpu_torch/onnx/convert.py",
+            "synapseml_tpu_torch/onnx/random.py",
             "synapseml_tpu_torch/dl/cntk.py",
             "synapseml_tpu_torch/dl/cntk_format.py",
             "synapseml_tpu_torch/dl/tagger.py",
