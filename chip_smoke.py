@@ -359,6 +359,23 @@ before the last line:
    and warm, card ms by part (convolutions, GroupNormalization, attention,
    the random draw, the rest), launches (the draw's alone too), busy
    share, warmup's memory. K1 and K2 launch 0 times.
+37. onnx_sequence_string_ops — the ONNX optional, sequence and string
+   ops: every case of ``tests/fixtures/sequence_string_op_cases.py`` on
+   the card against the port's CPU run (strings and host values equal,
+   floats bitwise but sums of products within 1e-5, counts bitwise,
+   refusals raised); a device-only ``SplitToSequence`` -> ``SequenceMap``
+   (MatMul by a body initializer, Relu) -> ``ConcatFromSequence`` graph
+   through an ``ONNXModel`` warmed at buckets 8 and 32, replays bitwise
+   eager, no copy or sync in a bound forward; the 20 Newsgroups-width
+   text classifier (``tests/fixtures/newsgroups_classifier.py``: 130,107
+   words, 20 classes) on 256 documents, the first 32 against the JAX run
+   (``newsgroups_classifier_io.npz``: counts bitwise, labels equal but at
+   counted near-ties, scores within 1e-4 of the largest |score|) and
+   against the port's CPU run; documents/s, host ms by part (string ops,
+   LabelEncoder, the sequence plumbing), card ms by part
+   (TfIdfVectorizer, ConcatFromSequence, Normalizer, the Gemm), launches,
+   busy share, peak memory, copies to the card a document. K1 and K2
+   launch 0 times.
 
 Between phases 3 and 4: prng_card_vs_cpu (the threefry key stream on the
 card equal to the CPU's, bitwise) and masked_index (K1 on a
@@ -5625,6 +5642,296 @@ def random_phase(smi, reset_counts, read_counts) -> dict:
     return counts
 
 
+NEWS_DOCS = 256               # documents a forward of the text classifier
+SEQ_MAP_BUCKETS = [8, 32]     # the device-only sequence graph's warm buckets
+SEQ_MAP_CASE = "sequence_map_body_initializer_matmul_relu"
+HOST_PARTS = ("strings", "label_encoder", "sequence")
+
+
+def timed_parts(graph, part_of) -> tuple:
+    """A copy of ``graph`` whose nodes, and those of its ``SequenceMap``
+    body, add the host seconds each call takes to ``host[part]``
+    (``part_of(ctx)``); a ``SequenceMap``'s own share is its time less its
+    body's. Returns ``(copy, host)``."""
+    import copy
+    import functools
+
+    from synapseml_tpu_torch.onnx import importer
+
+    host = {}
+
+    def timed(impl, part):
+        @functools.wraps(impl)
+        def run(ctx, *args, **kw):
+            start = time.perf_counter()
+            out = impl(ctx, *args, **kw)
+            host[part] = host.get(part, 0.0) + time.perf_counter() - start
+            return out
+        return run
+
+    def nodes(lowered):
+        out = []
+        for impl, ctx, ins, outs in lowered:
+            body = ctx.attrs.get("__lowered_body__")
+            if body is not None:
+                body = copy.copy(body)
+                body.lowered = nodes(body.lowered)
+                ctx = importer.OpContext(
+                    {**ctx.attrs, "__lowered_body__": body}, ctx.opset,
+                    ctx.name, ctx.op_type, ctx.n_outputs)
+                impl = timed(impl, "__map__")
+            else:
+                impl = timed(impl, part_of(ctx))
+            out.append((impl, ctx, ins, outs))
+        return out
+
+    clocked = copy.copy(graph)
+    clocked._nodes = nodes(graph._nodes)
+    return clocked, host
+
+
+def news_part(ctx) -> str:
+    """The part of the classifier a node belongs to (its name's entry in
+    ``newsgroups_classifier.PARTS``)."""
+    import newsgroups_classifier as news
+
+    return news.PARTS[ctx.name]
+
+
+def sequence_string_phase(smi, reset_counts, read_counts) -> dict:
+    """Phase 37: the ONNX optional, sequence and string ops on the card.
+
+    1. Every case of ``tests/fixtures/sequence_string_op_cases.py``
+       (Optional, OptionalHasElement, OptionalGetElement, the Sequence
+       ops, SplitToSequence, ConcatFromSequence, SequenceMap, StringConcat,
+       StringSplit, StringNormalizer, RegexFullMatch, TfIdfVectorizer) on
+       the card against the port's CPU run: strings and host values equal,
+       floats bitwise but sums of products within 1e-5, counts bitwise,
+       every refusal raised.
+    2. A device-only sequence graph (``SplitToSequence(split=[4, 4, 4])``,
+       ``SequenceMap`` over ``MatMul`` by a ``[4, 8]`` body initializer and
+       ``Relu``, ``ConcatFromSequence``) through an ``ONNXModel`` warmed at
+       buckets 8 and 32: every bucket captured, replays bitwise the eager
+       model, a bound forward with no copy and no sync.
+    3. The 20 Newsgroups-width classifier
+       (``tests/fixtures/newsgroups_classifier.py``: 130,107 words, 20
+       classes, seed 0) on 256 documents through ``bind()``: the first 32
+       against the JAX fixture (``newsgroups_classifier_io.npz``: counts
+       bitwise, labels equal but at counted near-ties, scores within 1e-4
+       of the largest |score|) and against the port's CPU run.
+    4. Documents/s (eager, median of 3 forwards), host ms by part (string
+       ops, LabelEncoder, the sequence plumbing), card ms by part
+       (TfIdfVectorizer's compare and add, Normalizer, the classifier's
+       Gemm), launches, busy share, peak memory, copies to the card a
+       document. K1 and K2 launch 0 times."""
+    sys.path.insert(0, FIXTURES)
+    import copy
+
+    import newsgroups_classifier as news
+    import sequence_string_op_cases as seq_cases
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.onnx import GraphBuilder, ONNXModel, importer
+    from synapseml_tpu_torch.onnx import import_model
+
+    phase_start = time.perf_counter()
+    reset_counts()
+    # -- 1. every case, before the wide path ------------------------------
+    start = time.perf_counter()
+    one_node = cases_on_card(seq_cases, lambda case, dev: seq_cases.run(
+        case, import_model, GraphBuilder, dev))
+    one_node["seconds"] = time.perf_counter() - start
+    emit({"phase": "onnx_sequence_string_ops", "part": "one_node_cases",
+          **one_node})
+    check(not one_node["failed"],
+          f"sequence/string cases differ on the card: {one_node['failed']}")
+
+    # -- 2. a device-only sequence graph, warmed -------------------------
+    start = time.perf_counter()
+    blob = seq_cases.graph(seq_cases.by_name(SEQ_MAP_CASE), GraphBuilder)
+    rows = np.random.default_rng(37).standard_normal(
+        (max(SEQ_MAP_BUCKETS) + min(SEQ_MAP_BUCKETS), 12)).astype(np.float32)
+    eager = ONNXModel(model_bytes=blob, mini_batch_size=max(SEQ_MAP_BUCKETS))
+    warm = ONNXModel(model_bytes=blob, mini_batch_size=max(SEQ_MAP_BUCKETS))
+    rep = warm.warmup(buckets=SEQ_MAP_BUCKETS, device="cuda")
+    replays = {}
+    for n in (min(SEQ_MAP_BUCKETS), max(SEQ_MAP_BUCKETS), len(rows)):
+        a = served(eager, Table({"x": rows[:n]}))["y"]
+        b = served(warm, Table({"x": rows[:n]}))["y"]
+        replays[n] = bool(np.array_equal(a.view(np.uint32),
+                                         b.view(np.uint32)))
+    seq_fn = import_model(blob).bind()
+    xd = torch.from_numpy(rows[:max(SEQ_MAP_BUCKETS)]).cuda()
+    with torch.inference_mode():
+        seq_io = copies_and_syncs(seq_fn, xd)
+    w = seq_cases.by_name(SEQ_MAP_CASE)["nodes"][1][3]["body"]["inits"][0][1]
+    want = np.concatenate([np.maximum(rows[:, 4 * i:4 * i + 4] @ w, 0)
+                           for i in range(3)], axis=1)
+    got = served(warm, Table({"x": rows}))["y"]
+    seq_map = {"status": [e["status"] for e in rep.entries],
+               "buckets": [e["bucket"] for e in rep.entries],
+               "errors": rep.errors, "replays_bitwise_eager": replays,
+               "bound_forward_copies_and_syncs": seq_io,
+               "max_abs_err_vs_numpy": float(np.abs(got - want).max()),
+               "seconds": time.perf_counter() - start}
+    close_models(eager, warm)
+    del eager, warm, seq_fn, xd
+    emit({"phase": "onnx_sequence_string_ops", "part": "warm_sequence_map",
+          **seq_map})
+    check(seq_map["status"] == ["compiled"] * len(SEQ_MAP_BUCKETS)
+          and not seq_map["errors"],
+          f"the sequence graph did not capture a graph a bucket: {seq_map}")
+    check(all(replays.values()),
+          f"a warm sequence-graph replay is not its eager run: {replays}")
+    check(seq_io["syncs"] == 0 and seq_io["h2d_copies"] == 0
+          and seq_io["d2h_copies"] == 0,
+          f"the bound sequence graph copied or synchronised: {seq_io}")
+    check(seq_map["max_abs_err_vs_numpy"] <= 1e-4,
+          f"the sequence graph is off its numpy forward: {seq_map}")
+
+    # -- 3. the full-width classifier: the JAX fixture, the CPU -----------
+    start = time.perf_counter()
+    vocab = news.vocabulary(news.FULL["vocab"])
+    graph = import_model(news.classifier_graph(GraphBuilder, news.FULL,
+                                               vocab=vocab))
+    fn = graph.bind()
+    head = graph.truncated(2).bind()
+    docs = news.documents(news.FULL, NEWS_DOCS, vocab=vocab)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - start
+    fixture = np.load(news.OUT)
+    n_fx = len(fixture["labels"])
+    same_docs = news.digest(docs[:n_fx]) == str(fixture["docs_sha256"])
+    labels, scores = (t.cpu().numpy() for t in fn(docs))
+    counts = news.counts_of(head, docs)
+    vs_jax = news.held(labels, scores, fixture)
+    counts_vs_jax = news.same_counts(counts, fixture)
+    start = time.perf_counter()
+    cpu_graph = import_model(news.classifier_graph(GraphBuilder, news.FULL,
+                                                   vocab=vocab))
+    cpu_labels, cpu_scores = (t.numpy() for t in cpu_graph.bind(
+        device="cpu")(docs[:n_fx]))
+    cpu_counts = news.counts_of(cpu_graph.truncated(2).bind(device="cpu"),
+                                docs[:n_fx])
+    cpu_s = time.perf_counter() - start
+    vs_cpu = news.held(labels, scores, {"labels": cpu_labels,
+                                        "scores": cpu_scores})
+    counts_vs_cpu = bool(np.array_equal(counts[:n_fx].view(np.uint32),
+                                        cpu_counts.view(np.uint32)))
+    del cpu_graph, cpu_counts
+    emit({"phase": "onnx_sequence_string_ops", "part": "classifier_vs_jax",
+          "documents": NEWS_DOCS, "fixture_documents": n_fx,
+          "same_documents_as_fixture": same_docs, "vs_jax": vs_jax,
+          "counts_bitwise_jax": counts_vs_jax, "vs_cpu": vs_cpu,
+          "counts_bitwise_cpu": counts_vs_cpu, "cpu_s": cpu_s,
+          "counted_tokens": float(counts.sum()),
+          "jax_version": str(fixture["jax_version"])})
+    check(same_docs, "the documents are not the fixture's (their digest)")
+    check(vs_jax["ok"] and counts_vs_jax,
+          f"the classifier is off the JAX fixture: {vs_jax}, counts "
+          f"bitwise {counts_vs_jax}")
+    check(vs_cpu["ok"] and counts_vs_cpu,
+          f"the classifier is off its CPU run: {vs_cpu}, counts bitwise "
+          f"{counts_vs_cpu}")
+    check(labels.shape == (NEWS_DOCS,) and scores.shape == (
+        NEWS_DOCS, news.FULL["classes"]) and np.isfinite(scores).all()
+          and counts.shape == (NEWS_DOCS, news.FULL["vocab"]),
+          "the classifier's outputs are not finite and of their shapes")
+    del counts
+
+    # -- 4. times ----------------------------------------------------------
+    with torch.inference_mode():
+        wall_ms = synced_wall_ms(lambda: fn(docs), calls=3)
+        clocked, host = timed_parts(graph, news_part)
+        cfn = clocked.bind()
+        cfn(docs)
+        torch.cuda.synchronize()
+        host.clear()
+        cfn(docs)
+        torch.cuda.synchronize()
+        del cfn, clocked
+        host_ms = {p: host.get(p, 0.0) * 1e3
+                   for p in HOST_PARTS + ("tfidf", "normalizer", "gemm")}
+        host_ms["sequence"] += (host.get("__map__", 0.0) * 1e3 - sum(
+            host.get(p, 0.0) * 1e3 for p in ("strings", "label_encoder",
+                                             "tfidf")))
+        # the card's parts, each timed alone on this forward's values: the
+        # body up to its LabelEncoder gives each document's ids
+        body = next(c for _, c, _, _ in graph._nodes
+                    if c.op_type == "SequenceMap").attrs["__lowered_body__"]
+        ops = [c.op_type for _, c, _, _ in body.lowered]
+        tfidf = body.lowered[ops.index("TfIdfVectorizer")]
+        prefix = copy.copy(body)
+        prefix.lowered = body.lowered[:ops.index("TfIdfVectorizer")]
+        prefix.output_names = [prefix.lowered[-1][3][0]]
+        prefix.drops = importer._last_uses(prefix.lowered,
+                                           prefix.output_names)
+        ids = [prefix.run({}, {body.input_names[0]: np.asarray(
+            d, dtype=object)})[0] for d in docs]
+        ids_card = [torch.from_numpy(i).cuda() for i in ids]
+        tokens = int(sum(i.size for i in ids))
+        dev = ids_card[0].device
+
+        def count_all():
+            with importer._running_on(dev):
+                return [tfidf[0](tfidf[1], i) for i in ids_card]
+
+        def node_fn(op_type):
+            impl, ctx, _, _ = importer._bound_node(next(
+                n for n in graph._nodes if n[1].op_type == op_type), dev)
+            return lambda x: impl(ctx, x)
+
+        rows_tf = count_all()
+        stacked = torch.stack(rows_tf)
+        normalize, classify = (node_fn("Normalizer"),
+                               node_fn("LinearClassifier"))
+        normed = normalize(stacked)
+        with importer._ieee_float32():
+            tfidf_busy = device_busy(count_all)
+            card_ms = {
+                "tfidf": tfidf_busy.get("kernel_s", float("nan")) * 1e3,
+                "concat_from_sequence": cuda_ms(
+                    lambda: torch.stack(rows_tf), reps=3, inner=5),
+                "normalizer": cuda_ms(lambda: normalize(stacked), reps=3,
+                                      inner=5),
+                "gemm": cuda_ms(lambda: classify(normed), reps=3, inner=5)}
+        busy = device_busy(lambda: fn(docs))
+        few = docs[:8]
+        io = copies_and_syncs(fn, few)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(docs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - resident
+    counts = read_counts()
+    v, k = news.FULL["vocab"], news.FULL["classes"]
+    del fn, head, graph, stacked, normed, ids_card, rows_tf
+    torch.cuda.empty_cache()
+    emit({"phase": "onnx_sequence_string_ops", "part": "newsgroups_256",
+          "device": smi, "model": "20 Newsgroups-width text classifier "
+          "(fetch_20newsgroups_vectorized: 130,107 CountVectorizer words, "
+          "20 classes), L2-normalised counts, LinearClassifier; vocabulary,"
+          f" weights and documents seed {news.SEED}",
+          "documents": NEWS_DOCS, "tokens": tokens, "build_s": build_s,
+          "wall_ms": wall_ms, "documents_per_s": NEWS_DOCS / wall_ms * 1e3,
+          "host_ms_by_part": host_ms, "card_ms_by_part": card_ms,
+          "tfidf_compares": tokens * v, "gemm_gflop": 2 * NEWS_DOCS * v * k
+          * 1e-9, "launches": busy.get("kernels"),
+          "busy_share": busy.get("busy_share"),
+          "kernel_ms": busy.get("kernel_s", 0) * 1e3,
+          "top_kernels": busy.get("top", [])[:5],
+          "tfidf_launches": tfidf_busy.get("kernels"),
+          "peak_bytes": peak, "copies_and_syncs_8_documents": io,
+          "h2d_copies_per_document": io["h2d_copies"] / len(few),
+          "kernel_counts": counts,
+          "seconds": time.perf_counter() - phase_start})
+    check(io["h2d_copies"] == len(few) and io["d2h_copies"] == 0,
+          f"a bound forward copied more than each document's ids: {io}")
+    check(counts["forest_traverse"] == 0 and counts["histogram"] == 0,
+          f"the sequence/string path launched K1/K2: {counts}")
+    return counts
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -6617,6 +6924,9 @@ def main() -> int:
     # -- 36. the ONNX random ops: Stable Diffusion's VAE encoder ---------
     random_counts = random_phase(smi, reset_counts, read_counts)
 
+    # -- 37. the ONNX sequence and string ops: a 20 Newsgroups classifier -
+    sequence_counts = sequence_string_phase(smi, reset_counts, read_counts)
+
     emit({"kernels": [{
         "name": "forest_traverse", "route": "cuda",
         "source": "synapseml_tpu_torch/csrc/forest_traverse.cu",
@@ -6646,6 +6956,7 @@ def main() -> int:
         "launches_vae_path": vae_counts["forest_traverse"],
         "launches_detection_path": detection_counts["forest_traverse"],
         "launches_random_path": random_counts["forest_traverse"],
+        "launches_sequence_string_path": sequence_counts["forest_traverse"],
         "max_abs_err": max_err, "bitwise": True,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
@@ -6677,6 +6988,7 @@ def main() -> int:
         "launches_vae_path": vae_counts["histogram"],
         "launches_detection_path": detection_counts["histogram"],
         "launches_random_path": random_counts["histogram"],
+        "launches_sequence_string_path": sequence_counts["histogram"],
         "max_abs_err": k1_max_err,
         "bitwise": True, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],

@@ -3508,6 +3508,314 @@ def _dropout(ctx, x, ratio=None, training_mode=None):
 
 
 # ---------------------------------------------------------------------------
+# Optional, sequence and string ops
+# ---------------------------------------------------------------------------
+# An optional is the value or None, as in the reference. A sequence is a
+# Python ``list`` (never a tuple: ``_run_nodes`` reads a tuple as a node's
+# several outputs) whose length and positions are static host ints, so a
+# graph of device elements runs with no host read and captures into a
+# CUDA graph. String values stay host numpy ``object`` arrays: a string op
+# handed a device tensor raises, as the reference's ``_host_strings`` does.
+
+_REGISTRY["Optional"] = lambda ctx, x=None: x
+_REGISTRY["OptionalHasElement"] = lambda ctx, x=None: np.bool_(
+    x is not None)
+
+
+@op("OptionalGetElement")
+def _optional_get_element(ctx, x=None):
+    if x is None:
+        raise ValueError("OptionalGetElement on an empty optional")
+    return x
+
+
+_REGISTRY["SequenceEmpty"] = lambda ctx: []
+_REGISTRY["SequenceConstruct"] = lambda ctx, *xs: list(xs)
+_REGISTRY["SequenceLength"] = lambda ctx, seq: np.int64(len(seq))
+
+
+def _seq_pos(pos, n: int, what: str) -> int:
+    (p,) = _static_int_list(pos, what)
+    if not -n <= p <= n - 1:
+        raise ValueError(f"{what}: position {p} out of range for a "
+                         f"{n}-element sequence")
+    return p
+
+
+@op("SequenceAt")
+def _sequence_at(ctx, seq, pos):
+    return seq[_seq_pos(pos, len(seq), "SequenceAt position")]
+
+
+@op("SequenceInsert")
+def _sequence_insert(ctx, seq, tensor, pos=None):
+    """Python's ``insert``, as the reference's: ``-1`` places the value
+    before the last element, ``len(seq)`` after it."""
+    out = list(seq)
+    if pos is None:
+        out.append(tensor)
+        return out
+    (p,) = _static_int_list(pos, "SequenceInsert position")
+    if not -len(seq) <= p <= len(seq):
+        raise ValueError(f"SequenceInsert: position {p} out of range for a "
+                         f"{len(seq)}-element sequence")
+    out.insert(p, tensor)
+    return out
+
+
+@op("SequenceErase")
+def _sequence_erase(ctx, seq, pos=None):
+    out = list(seq)
+    del out[-1 if pos is None
+            else _seq_pos(pos, len(seq), "SequenceErase position")]
+    return out
+
+
+@op("ConcatFromSequence")
+def _concat_from_sequence(ctx, seq):
+    """An all-host sequence stays numpy (the ``Concat`` convention);
+    otherwise the elements go to the device in JAX's promoted dtype."""
+    axis = ctx.attr("axis")
+    if axis is None:
+        raise ValueError("ConcatFromSequence needs an axis attribute")
+    axis, stack = int(axis), bool(ctx.attr("new_axis", 0))
+    if _all_host(seq):
+        fn = np.stack if stack else np.concatenate
+        return fn(list(seq), axis=axis)
+    fn = torch.stack if stack else torch.cat
+    return fn(_operands(list(seq), scalars=False), dim=axis)
+
+
+@op("SplitToSequence")
+def _split_to_sequence(ctx, x, split=None):
+    """Without ``split``, one element a position along ``axis`` (squeezed
+    where ``keepdims`` is 0); a scalar ``split`` gives chunks of that size
+    and a smaller last one; a list gives its sizes. Host values stay
+    host; device parts are views of ``x``."""
+    host = _is_host(x)
+    x = np.asarray(x) if host else _tensor(x)
+    axis = int(ctx.attr("axis", 0)) % x.ndim
+    n = x.shape[axis]
+    if split is None:
+        if host:
+            parts = [np.take(x, [i], axis=axis) for i in range(n)]
+            return (parts if ctx.attr("keepdims", 1)
+                    else [np.squeeze(p, axis=axis) for p in parts])
+        if ctx.attr("keepdims", 1):
+            return [x.narrow(axis, i, 1) for i in range(n)]
+        return [x.select(axis, i) for i in range(n)]
+    sizes = _static_int_list(split, "SplitToSequence split")
+    if len(sizes) == 1 and np.ndim(split) == 0:
+        size = sizes[0]
+        sizes = [size] * (n // size) + ([n % size] if n % size else [])
+    bounds = np.cumsum(sizes)[:-1].tolist()
+    if host:
+        return list(np.split(x, bounds, axis=axis))
+    return list(torch.tensor_split(x, bounds, dim=axis))
+
+
+@op("SequenceMap")
+def _sequence_map(ctx, seq, *extra, env=None):
+    """The body once per element of ``seq``: a tensor extra input is
+    passed whole to every run, a sequence one element by element. One
+    output gives a list; several give a tuple of lists (the node's
+    outputs)."""
+    body = ctx.attrs["__lowered_body__"]
+    outs: List[List[Any]] = [[] for _ in body.output_names]
+    for i in range(len(seq)):
+        vals = [seq[i]] + [e[i] if isinstance(e, list) else e
+                           for e in extra]
+        for acc, r in zip(outs, body.run(env or {}, dict(zip(
+                body.input_names, vals)))):
+            acc.append(r)
+    return tuple(outs) if len(outs) > 1 else outs[0]
+
+
+_sequence_map._needs_env = True
+
+
+def _host_strings(x, opname: str) -> np.ndarray:
+    if not _is_host(x):
+        raise NotImplementedError(
+            f"{opname} operates on host string arrays; a device tensor "
+            "cannot hold strings: feed them as a host (numpy) input")
+    return np.asarray(x, dtype=object)
+
+
+@op("StringConcat")
+def _string_concat(ctx, a, b):
+    a = _host_strings(a, "StringConcat")
+    b = _host_strings(b, "StringConcat")
+    return np.frompyfunc(
+        lambda s, t: str(s) + str(t), 2, 1)(a, b).astype(object)
+
+
+@op("StringSplit")
+def _string_split(ctx, x):
+    """Each string's tokens, padded with ``""`` to the most tokens of any
+    string, and their int64 counts. With a ``delimiter`` the empty tokens
+    between two separators are kept; without one, runs of whitespace
+    separate and no token is empty."""
+    x = _host_strings(x, "StringSplit")
+    delim = ctx.attr("delimiter", None)
+    maxsplit = ctx.attr("maxsplit", None)
+    ms = -1 if maxsplit is None else int(maxsplit)
+    toks = []
+    for s in x.reshape(-1):
+        s = str(s)
+        if delim:
+            toks.append(s.split(delim, ms) if ms >= 0 else s.split(delim))
+        else:
+            toks.append(s.split(None, ms) if ms >= 0 else s.split())
+    width = max((len(t) for t in toks), default=0)
+    out = np.full((len(toks), width), "", dtype=object)
+    for i, t in enumerate(toks):
+        out[i, :len(t)] = t
+    counts = np.asarray([len(t) for t in toks], np.int64).reshape(x.shape)
+    return out.reshape(x.shape + (width,)), counts
+
+
+@op("StringNormalizer")
+def _string_normalizer(ctx, x):
+    """Stop-word filtering, then case folding, of a ``[C]`` or ``[1, C]``
+    string array; an input with every string filtered out gives one empty
+    string. Python's case mapping: ``locale`` is not read."""
+    x = _host_strings(x, "StringNormalizer")
+    two_d = x.ndim == 2
+    if two_d and x.shape[0] != 1:
+        raise ValueError(
+            f"StringNormalizer input must be [C] or [1, C], got {x.shape}")
+    flat = [str(s) for s in x.reshape(-1)]
+    action = str(ctx.attr("case_change_action", "NONE")).upper()
+    stop = ctx.attr("stopwords") or []
+    if stop:
+        if int(ctx.attr("is_case_sensitive", 0)):
+            stops = set(stop)
+            keep = [s for s in flat if s not in stops]
+        else:
+            lowered = {w.lower() for w in stop}
+            keep = [s for s in flat if s.lower() not in lowered]
+    else:
+        keep = flat
+    if action == "LOWER":
+        keep = [s.lower() for s in keep]
+    elif action == "UPPER":
+        keep = [s.upper() for s in keep]
+    out = np.asarray(keep or [""], dtype=object)
+    return out.reshape(1, -1) if two_d else out
+
+
+@op("RegexFullMatch")
+def _regex_full_match(ctx, x):
+    """Whether each string matches ``pattern`` whole, in Python ``re``
+    syntax (the spec's RE2 shares its common subset)."""
+    import re
+
+    x = _host_strings(x, "RegexFullMatch")
+    pattern = ctx.attr("pattern")
+    if pattern is None:
+        raise ValueError("RegexFullMatch needs a pattern attribute")
+    rx = re.compile(pattern)
+    return np.frompyfunc(
+        lambda s: rx.fullmatch(str(s)) is not None, 1, 1)(x).astype(bool)
+
+
+# elements of one [rows, windows, grams] comparison of TfIdfVectorizer
+_TFIDF_PIECE = 1 << 26
+
+
+def _tfidf_plan(ctx) -> dict:
+    """TfIdfVectorizer's host tables, built once a node: per pool level
+    (``n``-grams from ``ngram_counts[n - 1]``) its grams ``[n_grams, n]``
+    and their output columns, and the weight of each output column."""
+    plan = ctx.attrs.get("__tfidf_plan__")
+    if plan is not None:
+        return plan
+    pool = np.asarray(ctx.attr("pool_int64s"), np.int64)
+    starts = [int(v) for v in ctx.attr("ngram_counts")]
+    indexes = np.asarray(ctx.attr("ngram_indexes"), np.int64)
+    n_out = int(indexes.max()) + 1 if indexes.size else 0
+    levels, cursor = [], 0
+    for level, (lo, hi) in enumerate(zip(starts, starts[1:] + [len(pool)])):
+        n = level + 1
+        n_grams = (hi - lo) // n
+        if n_grams == 0:
+            continue
+        levels.append((n, pool[lo:hi].reshape(n_grams, n),
+                       indexes[cursor:cursor + n_grams]))
+        cursor += n_grams
+    weights = np.ones(n_out, np.float32)
+    if ctx.attr("weights") is not None:
+        weights[indexes] = np.asarray(ctx.attr("weights"), np.float32)
+    plan = ctx.attrs["__tfidf_plan__"] = {
+        "levels": levels, "n_out": n_out, "weights": weights}
+    return plan
+
+
+@op("TfIdfVectorizer")
+def _tfidf_vectorizer(ctx, x):
+    """N-gram counts of integer token rows over ``pool_int64s``, on the
+    device. Skip-grams take their items at equal stride ``s + 1`` for each
+    ``s`` up to ``max_skip_count`` (onnxruntime's reading, the
+    reference's). Each (level, skip) is one ``windows == grams``
+    comparison over ``[rows, windows, grams]``, in pieces of at most
+    ``_TFIDF_PIECE`` elements; the counts are integers held in float32,
+    so every piece size gives the same bits. The grams, their columns and
+    the weights go to the device once a node (:func:`_table`): a run
+    copies only the token ids."""
+    mode = str(ctx.attr("mode", "TF"))
+    if ctx.attr("pool_int64s") is None or \
+            ctx.attr("pool_strings") is not None:
+        raise NotImplementedError(
+            "TfIdfVectorizer: only pool_int64s token pools are supported")
+    if mode not in ("TF", "IDF", "TFIDF"):
+        raise ValueError(f"TfIdfVectorizer mode {mode!r}")
+    min_n = int(ctx.attr("min_gram_length", 1))
+    max_n = int(ctx.attr("max_gram_length", 1))
+    max_skip = int(ctx.attr("max_skip_count", 0))
+    plan = _tfidf_plan(ctx)
+    x = _tensor(x)
+    squeeze = x.ndim == 1
+    if squeeze:
+        x = x[None, :]
+    rows, seq = x.shape
+    dev = x.device
+    out = torch.zeros((rows, plan["n_out"]), dtype=torch.float32, device=dev)
+    for n, grams_np, cols_np in plan["levels"]:
+        if not min_n <= n <= max_n:
+            continue
+        grams = _table(ctx, ("tfidf_grams", n), dev, lambda: grams_np)
+        cols = _table(ctx, ("tfidf_cols", n), dev, lambda: cols_np)
+        n_grams = grams.shape[0]
+        counts = torch.zeros((rows, n_grams), dtype=torch.float32,
+                             device=dev)
+        for s in (range(max_skip + 1) if n > 1 else (0,)):
+            span = (n - 1) * (s + 1) + 1
+            if span > seq:
+                continue
+            windows = x.unfold(1, span, 1)[:, :, ::s + 1]   # [rows, W, n]
+            w = windows.shape[1]
+            piece = max(1, min(n_grams, _TFIDF_PIECE // max(rows * w, 1)))
+            for c0 in range(0, n_grams, piece):
+                g = grams[c0:c0 + piece]
+                # matches as float16 0/1, summed in float32: a bool or int
+                # sum would first cast the whole comparison
+                hit = torch.empty((rows, w, g.shape[0]), dtype=torch.float16,
+                                  device=dev)
+                torch.eq(windows[:, :, 0, None], g[None, None, :, 0],
+                         out=hit)
+                for k in range(1, n):
+                    hit.mul_(windows[:, :, k, None] == g[None, None, :, k])
+                counts[:, c0:c0 + piece] += hit.sum(1, dtype=torch.float32)
+        out.index_add_(1, cols, counts)
+    if mode != "TF":
+        wv = _table(ctx, "tfidf_weights", dev, lambda: plan["weights"])
+        out = (torch.where(out > 0, wv, 0.0) if mode == "IDF"
+               else out * wv)
+    return out[0] if squeeze else out
+
+
+# ---------------------------------------------------------------------------
 # Graph import
 # ---------------------------------------------------------------------------
 
@@ -3534,7 +3842,7 @@ def _lower_nodes(nodes, opset: int):
             ctx.attrs["__lowered__"] = (
                 _Subgraph(ctx.attr("then_branch"), opset),
                 _Subgraph(ctx.attr("else_branch"), opset))
-        elif node.op_type in ("Loop", "Scan"):
+        elif node.op_type in ("Loop", "Scan", "SequenceMap"):
             ctx.attrs["__lowered_body__"] = _Subgraph(ctx.attr("body"),
                                                       opset)
         lowered.append((impl, ctx, list(node.input), list(node.output)))

@@ -739,7 +739,9 @@ def _label_encoder(ctx, x):
         default = ctx.attr(
             "default_int64",
             ctx.attr("default_float", ctx.attr("default_string", "_Unused")))
-        lut = dict(zip(keys_s, vals))
+        # built once a node: a text vocabulary's map is ~10^5 keys, and a
+        # SequenceMap body runs the node once a document
+        lut = _cached(ctx, "__string_map__", lambda: dict(zip(keys_s, vals)))
         arr = np.asarray(x, dtype=object).reshape(-1)
         out = np.asarray([lut.get(str(v), default) for v in arr])
         return out.reshape(np.asarray(x, dtype=object).shape)

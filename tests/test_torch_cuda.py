@@ -2190,3 +2190,98 @@ def test_warm_small_vae_encoder_is_bitwise_its_eager_run(card):
                               np.ascontiguousarray(e[:3]).view(np.uint8))
     cpu = graph.bind(device="cpu")(torch.from_numpy(imgs))[0].numpy()
     assert np.abs(eager[0] - cpu).max() <= 1e-4 * np.abs(cpu).max()
+
+
+def _sequence_cases():
+    sys.path.insert(0, FIXTURES)
+    import sequence_string_op_cases
+
+    return sequence_string_op_cases.CASES
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in _sequence_cases()])
+def test_sequence_string_op_on_the_card_equals_the_cpu(card, name):
+    """Every case of ``tests/fixtures/sequence_string_op_cases.py`` on the
+    card against the port's CPU run: strings and host values equal,
+    floats bitwise but sums of products within 1e-5, counts bitwise; a
+    case the reference refuses raises its exception on the card too."""
+    import sequence_string_op_cases as cases
+
+    from synapseml_tpu_torch.onnx import GraphBuilder, import_model
+
+    case = cases.by_name(name)
+    if case["raises"]:
+        with pytest.raises(case["raises"]):
+            cases.run(case, import_model, GraphBuilder, "cuda")
+        return
+    got = cases.run(case, import_model, GraphBuilder, "cuda")
+    torch.cuda.synchronize()
+    res = cases.agree(case, got, cases.run(case, import_model, GraphBuilder,
+                                           "cpu"))
+    assert res["ok"], res
+
+
+def test_sequence_map_graph_captures_with_no_host_copy(card):
+    """``SplitToSequence`` -> ``SequenceMap`` (MatMul by a body
+    initializer, Relu) -> ``ConcatFromSequence`` captured into one
+    ``torch.cuda.CUDAGraph`` after an eager run: a static-length sequence
+    of device values issues no copy and no host read, so the capture
+    holds, and the replay is bitwise the eager forward."""
+    sys.path.insert(0, FIXTURES)
+    import sequence_string_op_cases as cases
+
+    from synapseml_tpu_torch.onnx import GraphBuilder, import_model
+
+    case = cases.by_name("sequence_map_body_initializer_matmul_relu")
+    fn = import_model(cases.graph(case, GraphBuilder)).bind()
+    x = torch.from_numpy(cases.feeds(case)[0]).cuda()
+    eager = fn(x)[0].cpu().numpy()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(x)
+    torch.cuda.current_stream().wait_stream(side)
+    cuda_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(cuda_graph):
+        captured = fn(x)[0]
+    cuda_graph.replay()
+    torch.cuda.synchronize()
+    assert np.array_equal(captured.cpu().numpy().view(np.uint32),
+                          eager.view(np.uint32))
+
+
+def test_string_ops_refuse_a_cuda_tensor(card):
+    sys.path.insert(0, FIXTURES)
+    import sequence_string_op_cases as cases
+
+    from synapseml_tpu_torch.onnx import GraphBuilder, import_model
+
+    for name in ("string_split_device_tensor_raises",
+                 "regex_full_match_device_tensor_raises"):
+        with pytest.raises(NotImplementedError, match="host"):
+            cases.run(cases.by_name(name), import_model, GraphBuilder,
+                      "cuda")
+
+
+def test_small_newsgroups_classifier_on_the_card_equals_the_cpu(card):
+    """``tests/fixtures/newsgroups_classifier.py`` at its small width
+    (5,000 words, 4 classes), 16 documents: counts bitwise, labels equal
+    but at near-ties, scores within 1e-4 of the largest |score| of the
+    port's CPU run."""
+    sys.path.insert(0, FIXTURES)
+    import newsgroups_classifier as news
+
+    from synapseml_tpu_torch.onnx import GraphBuilder, import_model
+
+    graph = import_model(news.classifier_graph(GraphBuilder, news.SMALL))
+    docs = news.documents(news.SMALL, 16)
+    labels, scores = (t.cpu().numpy() for t in graph.bind()(docs))
+    cpu_labels, cpu_scores = (t.numpy() for t in graph.bind(device="cpu")(
+        docs))
+    held = news.held(labels, scores, {"labels": cpu_labels,
+                                      "scores": cpu_scores})
+    assert held["ok"], held
+    head = graph.truncated(2)
+    counts = news.counts_of(head.bind(), docs)
+    cpu_counts = news.counts_of(head.bind(device="cpu"), docs)
+    assert np.array_equal(counts.view(np.uint32), cpu_counts.view(np.uint32))

@@ -17,8 +17,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 FORBIDDEN = ("jax", "jaxlib", "synapseml_tpu")
 PORT_FIXTURES = ("decode_streams.py", "index_op_cases.py", "mlm_head.py",
-                 "random_op_cases.py", "vae_decoder.py", "vae_encoder.py",
-                 "vision_op_cases.py")
+                 "newsgroups_classifier.py", "random_op_cases.py",
+                 "sequence_string_op_cases.py", "vae_decoder.py",
+                 "vae_encoder.py", "vision_op_cases.py")
 
 
 def _port_sources():

@@ -89,16 +89,26 @@ DETECTION = [
 RANDOM = [
     "RandomNormal", "RandomNormalLike", "RandomUniform", "RandomUniformLike",
     "Bernoulli", "Multinomial", "Dropout"]
+# the sequence, optional and string family (torch list and Optional
+# exports, text pipelines' tokenizing and n-gram counting)
+SEQUENCE_AND_STRING = [
+    "SequenceAt", "SequenceConstruct", "SequenceEmpty", "SequenceErase",
+    "SequenceInsert", "SequenceLength", "SplitToSequence",
+    "ConcatFromSequence", "SequenceMap", "Optional", "OptionalGetElement",
+    "OptionalHasElement", "StringConcat", "StringNormalizer", "StringSplit",
+    "RegexFullMatch", "TfIdfVectorizer"]
 PORTED = sorted(RESNET_AND_FIXTURES + TRANSFORMER_AND_RECURRENT
                 + CONTROL_FLOW_AND_ACTIVATIONS + ONNX_ML
-                + INDEXING_AND_LOSSES + DENSE_IMAGE + DETECTION + RANDOM)
+                + INDEXING_AND_LOSSES + DENSE_IMAGE + DETECTION + RANDOM
+                + SEQUENCE_AND_STRING)
 
 
 def test_registry_is_the_ported_op_set():
     assert supported_ops() == PORTED
-    assert len(PORTED) == 199 and len(ONNX_ML) == 19
+    assert len(PORTED) == 216 and len(ONNX_ML) == 19
+    assert len(SEQUENCE_AND_STRING) == 17
     assert set(PORTED) <= set(jax_supported_ops())
-    assert len(set(jax_supported_ops()) - set(PORTED)) == 35
+    assert len(set(jax_supported_ops()) - set(PORTED)) == 18
 
 
 @pytest.mark.parametrize("name", ["torch_cnn", "torch_transformer"])

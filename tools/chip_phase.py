@@ -2,6 +2,10 @@
 
     python3 tools/chip_phase.py mlm_phase          # phase 33
     python3 tools/chip_phase.py decode_phase       # phase 32
+    python3 tools/chip_phase.py onnx_sequence_string_ops   # phase 37
+
+A phase is named by its function or by the ``phase`` its JSON lines carry
+(:data:`PHASES`).
 
 The phase gets the card's ``nvidia-smi`` name and power limit and the
 kernels' launch counters, as ``chip_smoke.main`` passes them; the kernels
@@ -17,6 +21,10 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PHASES = {"onnx_index_ops": "mlm_phase", "onnx_vision_ops": "vae_phase",
+          "onnx_detection_ops": "detection_phase",
+          "onnx_random_ops": "random_phase",
+          "onnx_sequence_string_ops": "sequence_string_phase"}
 
 
 def main(name: str) -> int:
@@ -45,7 +53,7 @@ def main(name: str) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     start = time.perf_counter()
-    getattr(cs, name)(smi, reset, read)
+    getattr(cs, PHASES.get(name, name))(smi, reset, read)
     print(json.dumps({"phase_s": time.perf_counter() - start,
                       "failed": failed}), flush=True)
     return 1 if failed else 0
