@@ -3508,6 +3508,201 @@ def _dropout(ctx, x, ratio=None, training_mode=None):
 
 
 # ---------------------------------------------------------------------------
+# Signal ops: DFT, STFT, HannWindow, HammingWindow, BlackmanWindow,
+# MelWeightMatrix
+# ---------------------------------------------------------------------------
+# A transform is one batched ``torch.fft`` call in complex64, as the
+# reference's ``jnp.fft`` computes it: a half-precision input is widened
+# first (cuFFT has float16 only at power-of-two lengths, the CPU none), a
+# 64-bit one narrowed as JAX's 32-bit mode narrows it, and the spectrum is
+# cast to the type the spec asks for. Where the spec asks for a 64-bit
+# type (a float64 signal, ``output_datatype`` 11) the port keeps it,
+# holding the reference's float32 values. The windows are host numpy
+# constants, as in the reference; ``MelWeightMatrix`` is a device value,
+# built on the host and copied once a node and device (``_table``).
+
+def _spectrum(spec: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """A complex64 spectrum as ``[..., 2]`` (re, im) in ``dt`` (the
+    inverse of a real input comes back as a lazy conjugate: resolved)."""
+    out = torch.view_as_real(spec.resolve_conj())
+    return out if out.dtype == dt else out.to(dt)
+
+
+def _narrow(x: torch.Tensor) -> torch.Tensor:
+    """A float64 tensor as the float32 the reference computes in."""
+    return x.to(torch.float32) if x.dtype == torch.float64 else x
+
+
+@op("DFT")
+def _dft(ctx, x, dft_length=None, axis=None):
+    """Discrete Fourier transform (opset 17's ``axis`` attribute, default
+    1; opset 20's ``axis`` input, default -2): axes count over the full
+    rank, the trailing re/im dimension included. A real ``[..., n, 1]``
+    or complex ``[..., n, 2]`` input; ``[..., m, 2]`` out in the input's
+    float type (float32 for an integer input). The reference's refusals
+    are kept: a complex input that is not float32 or float64
+    (``lax.complex``), inverse with onesided, onesided on a complex
+    input."""
+    x = _tensor(x)
+    if axis is not None:
+        (ax,) = _static_int_list(axis, "DFT axis")
+    else:
+        ax = ctx.attr("axis", -2 if ctx.opset >= 20 else 1)
+    ax = ax % x.ndim
+    if ax == x.ndim - 1:
+        raise ValueError("DFT cannot transform the trailing re/im dim")
+    n_fft = None
+    if dft_length is not None:
+        (n_fft,) = _static_int_list(dft_length, "DFT dft_length")
+    inverse = bool(ctx.attr("inverse", 0))
+    onesided = bool(ctx.attr("onesided", 0))
+    complex_in = x.shape[-1] == 2
+    if complex_in:
+        if x.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"DFT: a complex input must be float32 or "
+                            f"float64, got {x.dtype}")
+        re = _narrow(x)
+        sig = torch.complex(re[..., 0], re[..., 1])
+    elif x.shape[-1] == 1:
+        sig = x[..., 0].to(torch.float32)
+    else:
+        raise ValueError("DFT input must end in a [1|2] re/im dimension")
+    if inverse:
+        if onesided:
+            raise NotImplementedError("DFT: inverse+onesided")
+        spec = torch.fft.ifft(sig, n=n_fft, dim=ax)
+    elif onesided:
+        if complex_in:
+            raise ValueError(
+                "DFT: onesided=1 requires a real signal ([..., 1]); a "
+                "complex input's spectrum is not conjugate-symmetric")
+        spec = torch.fft.rfft(sig, n=n_fft, dim=ax)
+    else:
+        spec = torch.fft.fft(sig, n=n_fft, dim=ax)
+    return _spectrum(spec, x.dtype if x.is_floating_point()
+                     else torch.float32)
+
+
+@op("STFT")
+def _stft(ctx, signal, frame_step, window=None, frame_length=None):
+    """STFT (opset 17): frames of a ``[B, L, 1]`` or ``[B, L]`` signal,
+    ``1 + (L - frame_length) // frame_step`` of them (none where the
+    signal is shorter than a frame), as a strided view, weighted by the
+    window cast to the signal's type (all ones without one) and
+    transformed in one batched (r)fft; ``[B, frames, bins, 2]`` out,
+    float32 but for a float64 signal. The reference's refusals are kept: a
+    complex signal, a window whose length is not ``frame_length``, a
+    half-precision signal with ``onesided`` (``jnp.fft.rfft``)."""
+    (step,) = _static_int_list(frame_step, "STFT frame_step")
+    sig = _tensor(signal)
+    out_dt = torch.float64 if sig.dtype == torch.float64 else torch.float32
+    sig = _narrow(sig)
+    if sig.ndim == 3:  # [B, length, 1]
+        if sig.shape[-1] != 1:
+            raise NotImplementedError(
+                "STFT: complex input signals are not supported")
+        sig = sig[..., 0]
+    if window is not None:
+        flen = int(np.shape(window)[0])
+        if frame_length is not None:
+            (fl2,) = _static_int_list(frame_length, "STFT frame_length")
+            if fl2 != flen:
+                raise ValueError(
+                    f"STFT: window length {flen} != frame_length {fl2}")
+    else:
+        if frame_length is None:
+            raise ValueError("STFT needs window and/or frame_length")
+        (flen,) = _static_int_list(frame_length, "STFT frame_length")
+    if window is None:
+        win = None                  # all ones: x * 1 is x, bit for bit
+    elif _is_host(window):
+        host = np.asarray(window)
+        win = _table(ctx, ("stft_window", host.dtype.str, host.tobytes()),
+                     sig.device, lambda: host, dtype=sig.dtype)
+    else:
+        win = window.to(sig.dtype)
+    onesided = bool(ctx.attr("onesided", 1))
+    if onesided and sig.dtype in (torch.float16, torch.bfloat16):
+        raise ValueError(f"STFT: RFFT input must be float32 or float64, "
+                         f"got {sig.dtype}")          # as jnp.fft.rfft
+    frames = 1 + (sig.shape[-1] - flen) // step
+    if frames <= 0:
+        bins = flen // 2 + 1 if onesided else flen
+        return torch.zeros(*sig.shape[:-1], 0, bins, 2, dtype=out_dt,
+                           device=sig.device)
+    framed = sig.unfold(-1, flen, step)          # [B, frames, flen] view
+    if win is not None:
+        framed = framed * win
+    framed = framed.to(torch.float32)
+    spec = torch.fft.rfft(framed) if onesided else torch.fft.fft(framed)
+    return _spectrum(spec, out_dt)
+
+
+def _cosine_window(name: str, coeffs):
+    """Opset-17 generalized-cosine window family, the reference's host
+    arithmetic: ``periodic=1`` (default) divides by N, symmetric by N - 1
+    (at least 1), in float64, then cast to ``output_datatype``; a host
+    numpy constant."""
+    def impl(ctx, size):
+        (n,) = _static_int_list(size, f"{name} size")
+        dt = proto.TENSOR_DTYPES[int(ctx.attr("output_datatype", 1))]
+        denom = n if int(ctx.attr("periodic", 1)) else n - 1
+        k = 2.0 * np.pi * np.arange(n) / max(denom, 1)
+        w = np.zeros(n, np.float64)
+        for j, a in enumerate(coeffs):
+            w += a * np.cos(j * k) * (-1.0 if j % 2 else 1.0)
+        return np.asarray(w, dt)
+    return impl
+
+
+_REGISTRY["HannWindow"] = _cosine_window("HannWindow", (0.5, 0.5))
+_REGISTRY["HammingWindow"] = _cosine_window(
+    "HammingWindow", (25.0 / 46.0, 21.0 / 46.0))
+_REGISTRY["BlackmanWindow"] = _cosine_window(
+    "BlackmanWindow", (0.42, 0.5, 0.08))
+
+
+def _mel_weights(n_mel: int, n_dft: int, sr: float, lo: float,
+                 hi: float) -> np.ndarray:
+    """The triangular HTK-mel filterbank, ``[n_dft // 2 + 1, n_mel]``
+    float64: edges quantised to bins as ``floor((n_dft + 1) * hz / sr)``,
+    the reference's arithmetic."""
+    def hz_to_mel(f):
+        return 2595.0 * np.log10(1.0 + np.asarray(f) / 700.0)
+
+    def mel_to_hz(m):
+        return 700.0 * (10.0 ** (np.asarray(m) / 2595.0) - 1.0)
+
+    edges_hz = mel_to_hz(
+        np.linspace(hz_to_mel(lo), hz_to_mel(hi), n_mel + 2))
+    bins = np.floor((n_dft + 1) * edges_hz / sr).astype(np.int64)
+    left, center, right = bins[:-2], bins[1:-1], bins[2:]
+    f = np.arange(n_dft // 2 + 1)[:, None].astype(np.float64)
+    up = (f - left) / np.maximum(center - left, 1)
+    down = (right - f) / np.maximum(right - center, 1)
+    return np.maximum(0.0, np.minimum(up, down))
+
+
+@op("MelWeightMatrix")
+def _mel_weight_matrix(ctx, num_mel_bins, dft_length, sample_rate,
+                       lower_edge_hertz, upper_edge_hertz):
+    """MelWeightMatrix (opset 17): ``[dft_length // 2 + 1, num_mel_bins]``
+    on the device, cast to ``output_datatype`` as the reference casts it
+    (float64 rounded through float32; int64 kept where the reference
+    narrows it to int32)."""
+    (n_mel,) = _static_int_list(num_mel_bins, "MelWeightMatrix bins")
+    (n_dft,) = _static_int_list(dft_length, "MelWeightMatrix dft_length")
+    sr, lo, hi = (float(np.asarray(v).reshape(()))
+                  for v in (sample_rate, lower_edge_hertz, upper_edge_hertz))
+    dt = proto.TENSOR_DTYPES[int(ctx.attr("output_datatype", 1))]
+    return _table(
+        ctx, ("mel", n_mel, n_dft, sr, lo, hi, np.dtype(dt).str),
+        _device_of(()),
+        lambda: _mel_weights(n_mel, n_dft, sr, lo, hi).astype(dt),
+        dtype=torch.float64 if np.dtype(dt) == np.float64 else None)
+
+
+# ---------------------------------------------------------------------------
 # Optional, sequence and string ops
 # ---------------------------------------------------------------------------
 # An optional is the value or None, as in the reference. A sequence is a

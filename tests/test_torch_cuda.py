@@ -2285,3 +2285,123 @@ def test_small_newsgroups_classifier_on_the_card_equals_the_cpu(card):
     counts = news.counts_of(head.bind(), docs)
     cpu_counts = news.counts_of(head.bind(device="cpu"), docs)
     assert np.array_equal(counts.view(np.uint32), cpu_counts.view(np.uint32))
+
+
+def _signal_cases():
+    sys.path.insert(0, FIXTURES)
+    import signal_op_cases
+
+    return signal_op_cases.CASES
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in _signal_cases()])
+def test_signal_op_on_the_card_equals_the_cpu(card, name):
+    """Every case of ``tests/fixtures/signal_op_cases.py`` on the card
+    against the port's CPU run: windows and filterbanks bitwise with the
+    same host-ness, spectra within 1e-5 of each output's largest |value|
+    (one step of a half-precision type), the log-mel chain within 1e-3;
+    a case the reference refuses raises its exception on the card too."""
+    import signal_op_cases as cases
+
+    from synapseml_tpu_torch.onnx import GraphBuilder, import_model
+
+    case = cases.by_name(name)
+    if case["raises"]:
+        with pytest.raises(case["raises"]):
+            cases.run(case, import_model, GraphBuilder, "cuda")
+        return
+    got = cases.run(case, import_model, GraphBuilder, "cuda")
+    torch.cuda.synchronize()
+    res = cases.agree(case, got, cases.run(case, import_model, GraphBuilder,
+                                           "cpu"))
+    assert res["ok"], res
+
+
+def _speech_table(n_clips, seconds):
+    sys.path.insert(0, FIXTURES)
+    import speech_clips as sc
+
+    from synapseml_tpu_torch.data.table import Table
+
+    audio = np.empty(n_clips, dtype=object)
+    for i in range(n_clips):
+        audio[i] = sc.clip(i)[:seconds * sc.SAMPLE_RATE]
+    return Table({"audio": audio})
+
+
+def test_audio_featurizer_runs_on_the_card_and_equals_the_cpu(card):
+    """Four 5-s clips at Whisper's geometry (400/160, 80 mel bins): the
+    card's log-mel within rtol = atol = 1e-3 of the port's CPU run, the
+    default device the card."""
+    import speech_clips as sc
+
+    from synapseml_tpu_torch.cognitive import AudioFeaturizer
+
+    table = _speech_table(4, 5)
+    feat = AudioFeaturizer(**sc.WHISPER_FEATURIZER)
+    got = feat.transform(table)["features"]
+    (_, executor), = feat.__dict__["_audio_cache"].values()
+    assert executor.device.type == "cuda"
+    want = AudioFeaturizer(**sc.WHISPER_FEATURIZER).transform(
+        table, device="cpu")["features"]
+    for a, b in zip(got, want):
+        assert a.shape == b.shape == (498, 80)
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-3)
+
+
+def test_warm_audio_featurizer_replays_its_eager_bits(card):
+    """``warmup`` captures the featurization (STFT's strided frames and
+    cuFFT transform, the power, the mel matmul, the log) into a CUDA
+    graph after an eager run of the shape, so cuFFT's plan and work area
+    are made outside the capture; the replay is bitwise the eager
+    featurizer."""
+    import speech_clips as sc
+
+    from synapseml_tpu_torch.cognitive import AudioFeaturizer
+
+    table = _speech_table(8, 5)
+    warm = AudioFeaturizer(**sc.WHISPER_FEATURIZER)
+    rep = warm.warmup([5 * sc.SAMPLE_RATE], buckets=[8])
+    assert [e["status"] for e in rep.entries] == ["compiled"], rep.errors
+    got = warm.transform(table)["features"]
+    (_, executor), = warm.__dict__["_audio_cache"].values()
+    assert executor._aot_hits == 1
+    want = AudioFeaturizer(**sc.WHISPER_FEATURIZER).transform(
+        table)["features"]
+    for a, b in zip(got, want):
+        assert np.array_equal(a.view(np.uint32), b.view(np.uint32))
+
+
+def test_speech_chain_on_the_card_equals_the_cpu(card):
+    """The first 20 s of the seeded recording through
+    ``wav_to_utterance_rows`` (80 mel bins), ``utterance_feature_batch``
+    and the hidden-300 BiLSTM ``CNTKModel`` on the card, held to the
+    port's CPU run where the states are determined
+    (``speech_clips.held_means``) and to the JAX fixture."""
+    sys.path.insert(0, FIXTURES)
+    import speech_clips as sc
+
+    from synapseml_tpu_torch.cognitive import (AudioFeaturizer, pcm_to_wav,
+                                               utterance_feature_batch,
+                                               wav_to_utterance_rows)
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.dl.cntk import CNTKModel
+    from synapseml_tpu_torch.dl.cntk_format import build_optimized_rnn_model
+
+    wav = sc.long_wav(pcm_to_wav, sc.CUT_S)
+    blob = build_optimized_rnn_model(**sc.RNN)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        rows = wav_to_utterance_rows(
+            wav, AudioFeaturizer(num_mel_bins=sc.N_MELS), device=dev)
+        runs[dev] = sc.chain_states(CNTKModel(model_bytes=blob), rows,
+                                    utterance_feature_batch, Table,
+                                    device=dev)
+    (card_means, _, n_frames), (cpu_means, _, cpu_n) = runs["cuda"], \
+        runs["cpu"]
+    np.testing.assert_array_equal(n_frames, cpu_n)
+    held = sc.held_means(card_means, cpu_means, n_frames, 1e-4)
+    assert held["ok"], held
+    fx = np.load(sc.OUT)
+    held = sc.held_means(card_means, fx["chain_means"], n_frames, 1e-4)
+    assert held["ok"], held

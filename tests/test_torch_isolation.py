@@ -18,8 +18,9 @@ FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 FORBIDDEN = ("jax", "jaxlib", "synapseml_tpu")
 PORT_FIXTURES = ("decode_streams.py", "index_op_cases.py", "mlm_head.py",
                  "newsgroups_classifier.py", "random_op_cases.py",
-                 "sequence_string_op_cases.py", "vae_decoder.py",
-                 "vae_encoder.py", "vision_op_cases.py")
+                 "sequence_string_op_cases.py", "signal_op_cases.py",
+                 "speech_clips.py", "vae_decoder.py", "vae_encoder.py",
+                 "vision_op_cases.py")
 
 
 def _port_sources():
@@ -114,7 +115,11 @@ def test_scan_sees_the_port_and_catches_imports():
             "synapseml_tpu_torch/runtime/telemetry.py",
             "synapseml_tpu_torch/runtime/decode.py",
             "synapseml_tpu_torch/runtime/kvcache.py",
-            "synapseml_tpu_torch/runtime/perfwatch.py"} <= rel
+            "synapseml_tpu_torch/runtime/perfwatch.py",
+            "synapseml_tpu_torch/cognitive/__init__.py",
+            "synapseml_tpu_torch/cognitive/speech.py",
+            "tests/fixtures/signal_op_cases.py",
+            "tests/fixtures/speech_clips.py"} <= rel
     assert _forbidden_imports(
         "import jax.numpy as jnp\nfrom jaxlib import xla_client\n"
         "from synapseml_tpu.gbdt import boosting\n"

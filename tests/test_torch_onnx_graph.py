@@ -97,18 +97,29 @@ SEQUENCE_AND_STRING = [
     "ConcatFromSequence", "SequenceMap", "Optional", "OptionalGetElement",
     "OptionalHasElement", "StringConcat", "StringNormalizer", "StringSplit",
     "RegexFullMatch", "TfIdfVectorizer"]
+# the signal family (speech and audio front ends: framing, FFTs, windows
+# and the mel filterbank)
+SIGNAL = [
+    "DFT", "STFT", "HannWindow", "HammingWindow", "BlackmanWindow",
+    "MelWeightMatrix"]
+# what is left: the QLinear and int8 family, which waits for the int8 lane
+QLINEAR = [
+    "QLinearConv", "QLinearMatMul", "QGemm", "QLinearAdd", "QLinearMul",
+    "QLinearConcat", "QLinearSigmoid", "QLinearLeakyRelu",
+    "QLinearGlobalAveragePool", "ConvInteger", "MatMulInteger",
+    "DynamicQuantizeLinear"]
 PORTED = sorted(RESNET_AND_FIXTURES + TRANSFORMER_AND_RECURRENT
                 + CONTROL_FLOW_AND_ACTIVATIONS + ONNX_ML
                 + INDEXING_AND_LOSSES + DENSE_IMAGE + DETECTION + RANDOM
-                + SEQUENCE_AND_STRING)
+                + SEQUENCE_AND_STRING + SIGNAL)
 
 
 def test_registry_is_the_ported_op_set():
     assert supported_ops() == PORTED
-    assert len(PORTED) == 216 and len(ONNX_ML) == 19
-    assert len(SEQUENCE_AND_STRING) == 17
+    assert len(PORTED) == 222 and len(ONNX_ML) == 19
+    assert len(SEQUENCE_AND_STRING) == 17 and len(SIGNAL) == 6
     assert set(PORTED) <= set(jax_supported_ops())
-    assert len(set(jax_supported_ops()) - set(PORTED)) == 18
+    assert set(jax_supported_ops()) - set(PORTED) == set(QLINEAR)
 
 
 @pytest.mark.parametrize("name", ["torch_cnn", "torch_transformer"])
@@ -169,10 +180,10 @@ def test_causal_transformer_needs_an_op_not_ported_yet():
 def test_unsupported_op_raises_at_import():
     """An op outside the port's registry is refused when the graph is
     imported, with the reference's message; nothing falls back."""
-    blob = one_node("DFT", {"x": np.zeros((1, 8, 1), np.float32)},
-                    opset=17)
-    with pytest.raises(NotImplementedError,
-                       match="'DFT'.*not supported by the importer"):
+    blob = one_node("DynamicQuantizeLinear",
+                    {"x": np.zeros((1, 8), np.float32)}, n_out=3, opset=17)
+    with pytest.raises(NotImplementedError, match="'DynamicQuantizeLinear'"
+                       ".*not supported by the importer"):
         import_model(blob)
     jax_import_model(blob)                           # the reference has it
     g = GraphBuilder(opset=17)

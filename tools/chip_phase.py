@@ -3,6 +3,7 @@
     python3 tools/chip_phase.py mlm_phase          # phase 33
     python3 tools/chip_phase.py decode_phase       # phase 32
     python3 tools/chip_phase.py onnx_sequence_string_ops   # phase 37
+    python3 tools/chip_phase.py signal_speech      # phase 38
 
 A phase is named by its function or by the ``phase`` its JSON lines carry
 (:data:`PHASES`).
@@ -24,7 +25,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = {"onnx_index_ops": "mlm_phase", "onnx_vision_ops": "vae_phase",
           "onnx_detection_ops": "detection_phase",
           "onnx_random_ops": "random_phase",
-          "onnx_sequence_string_ops": "sequence_string_phase"}
+          "onnx_sequence_string_ops": "sequence_string_phase",
+          "signal_speech": "speech_phase"}
 
 
 def main(name: str) -> int:
