@@ -395,6 +395,24 @@ before the last line:
    call of each), utterances a second, host and card ms by part (framing,
    FFT, power, mel MatMul, log, LSTM), launches, busy share, peak memory,
    copies to the card a clip. K1 and K2 launch 0 times.
+39. distributed_serving — ``DistributedServer`` (Serving v1's layout: one
+   front end, requests fanned out over channels, a circuit breaker a
+   channel) on the card, every channel a scorer thread sharing it: (a) the
+   Adult fixture model through K2 on 4 channels, 1,024 one-row requests
+   from 16 clients, every reply 200 with its digest and its margin
+   bitwise the fixture's ``raw``, K2 launched once a scored batch and K1
+   not, every channel scoring; (d) ``drain()`` on that server with 64
+   requests held in flight: all 200, a late one 503 with
+   ``Retry-After``, none left parked after ``stop()``; (b) a fresh
+   4-channel server with ``compute.channel1`` failing 3 fires: every
+   reply still 200 and bitwise, at least one trip and one failover,
+   channel 1 OPEN, then re-admitted CLOSED by the half-open probe within
+   5 s of the last fire, the trip's flight-recorder dump written; (c)
+   ResNet-50 224 (``_model_pipeline``, warmed) on 2 channels, 64
+   one-image requests from 8 clients over ``entry()``'s 8 images: 200s
+   with digests, equal images equal bytes, logits within rtol = atol =
+   1e-3 of the JAX fixture, 0 recompiles, one executor. Requests/s,
+   p50/p99, batches and rows a channel, each leg's wall.
 
 Between phases 3 and 4: prng_card_vs_cpu (the threefry key stream on the
 card equal to the CPU's, bitwise) and masked_index (K1 on a
@@ -3290,7 +3308,7 @@ def serving_phase(smi, reset_counts, read_counts) -> dict:
     ``serving_queue_wait_seconds`` and executor stage p50s, the scorer's
     seconds a batch in JSON decode, feature arrays, ``transform`` and
     reply JSON, and each part's wall time. Returns the Adult leg's
-    launch counts."""
+    launch counts (``counts``) and requests/s."""
     sys.path.insert(0, FIXTURES)
     import make_resnet50_fixture as resnet_fx
     from synapseml_tpu_torch.data.table import Table
@@ -3470,7 +3488,7 @@ def serving_phase(smi, reset_counts, read_counts) -> dict:
           "echo_requests_per_s": ECHO_REQUESTS / walls["echo_s"],
           "echo_latency": latency_ms([r[3] for r in echoed]),
           "walls_s": walls, "nvidia_smi": smi})
-    return counts
+    return {"counts": counts, "adult_requests_per_s": ADULT_REQUESTS / adult_s}
 
 
 def close_models(*models) -> None:
@@ -6347,6 +6365,422 @@ def speech_phase(smi, reset_counts, read_counts) -> dict:
     return counts
 
 
+DIST_CHANNELS = 4             # legs (a), (b): scorer threads sharing the card
+DIST_ADULT_REQUESTS = 1024    # leg (a): one-row Adult requests, 16 clients
+DIST_DRAIN_REQUESTS = 64      # leg (d): held in flight when drain() starts
+DIST_CHAOS_REQUESTS = 512     # leg (b), with compute.channel1 armed
+DIST_CHAOS_FIRES = 3          # compute.channel1's injected failures
+DIST_PROBE_S = 0.25           # leg (b)'s half-open probe interval
+READMIT_LIMIT_S = 5.0         # the last fire to channel 1 CLOSED again
+DIST_RESNET_CHANNELS = 2
+DIST_RESNET_REQUESTS = 64     # leg (c): entry()'s 8 images, cycled
+DIST_RESNET_CLIENTS = 8
+DIST_WAIT_S = 60.0            # hard wall of every wait in phase 39
+
+
+def channel_of_thread():
+    """The channel of the calling ``DistributedServer`` scorer thread
+    (``chan-scorer-<server>-<channel>``); None on any other thread (the
+    half-open probe's canary)."""
+    import threading
+
+    m = re.match(r"chan-scorer-.*-(\d+)$", threading.current_thread().name)
+    return int(m.group(1)) if m else None
+
+
+def wait_until(cond, what: str) -> None:
+    """Poll ``cond`` every 10 ms; a failed check after ``DIST_WAIT_S``."""
+    start = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - start < DIST_WAIT_S,
+              f"{what}: not within {DIST_WAIT_S} s")
+        time.sleep(0.01)
+
+
+def adult_channel_pipeline(ds, model, scored, gate=None):
+    """The Adult fixture model scored on ``ds.device_for_channel`` of the
+    calling channel (the card; the probe's canary scores on ``cuda``):
+    ``{"rawPrediction": [...]}`` a row, and ``(channel, rows, transform
+    seconds)`` appended to ``scored`` for every batch that reached K2.
+    ``gate``, when given, holds each batch until it is set."""
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.io import serving
+
+    def pipeline(table):
+        if gate is not None:
+            gate.wait(DIST_WAIT_S)
+        ch = channel_of_thread()
+        dev = str(ds.device_for_channel(ch)) if ch is not None else "cuda"
+        feats = np.asarray([v["features"] for v in table["value"]],
+                           np.float32)
+        t_batch = time.perf_counter()
+        raw = model.transform(Table({"features": feats}),
+                              device=dev)["rawPrediction"]
+        scored.append((ch, len(feats), time.perf_counter() - t_batch))
+        replies = np.empty(table.num_rows, dtype=object)
+        for i in range(table.num_rows):
+            replies[i] = serving.make_reply(
+                {"rawPrediction": raw[i].tolist()})
+        return table.with_column("reply", replies)
+    return pipeline
+
+
+def margins_bitwise(replies, raw) -> bool:
+    margins = np.asarray([json.loads(r[1])["rawPrediction"][1]
+                          for r in replies], np.float32)
+    return bool(np.array_equal(margins, raw[:len(replies)]))
+
+
+def by_channel(scored, n: int) -> dict:
+    return {"batches": [sum(1 for c, _, _ in scored if c == ch)
+                        for ch in range(n)],
+            "rows": [sum(r for c, r, _ in scored if c == ch)
+                     for ch in range(n)]}
+
+
+def transform_times(scored, wall_s: float) -> dict:
+    """The first batch's ``transform`` ms, the later ones' p50/p99, and
+    the thread-seconds in ``transform`` a second of the leg's wall."""
+    secs = [s for _, _, s in scored]
+    return {"first_ms": secs[0] * 1e3 if secs else None,
+            "later": latency_ms(secs[1:]) if len(secs) > 1 else None,
+            "thread_s_per_wall_s": sum(secs) / wall_s}
+
+
+def one_request(port: int, body: bytes) -> tuple:
+    """One POST on its own connection: ``(status, body, digest,
+    Retry-After)``."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=DIST_WAIT_S)
+    try:
+        conn.request("POST", "/", body, {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+        return (resp.status, data, resp.getheader("X-Output-Digest"),
+                resp.getheader("Retry-After"))
+    finally:
+        conn.close()
+
+
+def distributed_serving_phase(smi, reset_counts, read_counts,
+                              continuous_adult_rps=None) -> dict:
+    """Phase 39: ``DistributedServer`` on the card, its channels scorer
+    threads sharing it.
+
+    (a) ``DistributedServer("adult_channels", n_channels=4)`` serving the
+    Adult fixture model through K2 (each channel on its
+    ``device_for_channel``): 1,024 one-row requests from 16 clients, every
+    reply 200 with its digest, the margins bitwise the fixture's ``raw``,
+    K2 launched once a scored batch, K1 not, every channel scoring. (d)
+    ``drain()`` on the same server while 64 requests are held in flight
+    (the pipeline waits on a gate): every accepted one 200 and bitwise, a
+    request after the drain gate 503 with ``Retry-After``, nothing parked
+    after ``stop()``. (b) a fresh 4-channel server (``breaker_threshold=
+    1``, ``probe_interval=0.25``) with ``compute.channel1`` failing its
+    first 3 fires: 512 requests from 16 clients all 200 and bitwise, at
+    least one trip and one failover, channel 1 OPEN, then CLOSED again by
+    the half-open probe within 5 s of the last fire, the trip's
+    flight-recorder dump written. (c) ResNet-50 224 through
+    ``_model_pipeline``, warmed, shared by 2 channels: 64 one-image
+    requests from 8 clients over ``entry()``'s 8 images, 200s with
+    digests, equal images equal bytes, the logits within rtol = atol =
+    1e-3 of the JAX fixture, no recompile during the load, one executor.
+    Prints requests/s, p50/p99, the batches and rows of each channel, the
+    devices, phase 29's ``ContinuousServer`` rate beside leg (a)'s (as
+    context) and each leg's wall. Returns leg (a)'s launch counts."""
+    import threading
+
+    sys.path.insert(0, FIXTURES)
+    import make_resnet50_fixture as resnet_fx
+    from synapseml_tpu_torch.gbdt.estimators import (
+        LightGBMClassificationModel)
+    from synapseml_tpu_torch.io import serving
+    from synapseml_tpu_torch.onnx import zoo
+    from synapseml_tpu_torch.runtime import blackbox as bb
+    from synapseml_tpu_torch.runtime import faults as flt
+
+    walls = {}
+    phase_start = time.perf_counter()
+    model = LightGBMClassificationModel.load_native_model(FIXTURE)
+    io = np.load(FIXTURE_IO)
+    bodies = [json.dumps({"features": row.tolist()}).encode()
+              for row in io["x"][:DIST_ADULT_REQUESTS]]
+
+    # -- (a) the Adult model through K2 on 4 channels ----------------------
+    start = time.perf_counter()
+    scored, gate = [], threading.Event()
+    gate.set()
+    ds = serving.DistributedServer("adult_channels",
+                                   n_channels=DIST_CHANNELS)
+    try:
+        ds.serve(adult_channel_pipeline(ds, model, scored, gate))
+        port = ds.server.port
+        devices = [str(ds.device_for_channel(c))
+                   for c in range(DIST_CHANNELS)]
+        reset_counts()
+        t_load = time.perf_counter()
+        adult = serve_bodies(port, bodies, SERVE_CLIENTS)
+        adult_s = time.perf_counter() - t_load
+        counts = read_counts()
+        batches_a = list(scored)
+        walls["a_adult_s"] = time.perf_counter() - start
+        check(replies_ok(adult), "a channel-served Adult reply was not 200 "
+                                 "with its digest")
+        bitwise = margins_bitwise(adult, io["raw"])
+        check(bitwise, "channel-served Adult margins differ from the "
+                       "fixture's raw")
+        check(counts["forest_traverse"] == len(batches_a)
+              and counts["histogram"] == 0,
+              f"leg (a) launched {counts} for {len(batches_a)} batches")
+        per_channel = by_channel(batches_a, DIST_CHANNELS)
+        check(all(b > 0 for b in per_channel["batches"]),
+              f"a channel scored no batch: {per_channel}")
+        check(sum(per_channel["rows"]) == DIST_ADULT_REQUESTS,
+              f"rows scored {per_channel}")
+
+        # -- (d) drain with requests held in flight -----------------------
+        start = time.perf_counter()
+        gate.clear()
+        scored.clear()
+        reset_counts()
+        held = [None] * DIST_DRAIN_REQUESTS
+        errors = []
+
+        def client(i):
+            try:
+                held[i] = one_request(port, bodies[i])
+            except Exception as e:  # noqa: BLE001 - reported by a check
+                errors.append(repr(e))
+
+        clients = [threading.Thread(target=client, args=(i,))
+                   for i in range(DIST_DRAIN_REQUESTS)]
+        for t in clients:
+            t.start()
+
+        def routed() -> int:
+            with ds.server._lock:
+                return len(ds.server.routing)
+
+        wait_until(lambda: routed() == DIST_DRAIN_REQUESTS,
+                   "the drain leg's requests admitted")
+        drained = {}
+        drainer = threading.Thread(target=lambda: drained.setdefault(
+            "ok", ds.drain(timeout_ms=DIST_WAIT_S * 1e3)))
+        drainer.start()
+        wait_until(lambda: ds.server.draining, "the drain gate")
+        in_flight = routed()
+        late = one_request(port, bodies[0])
+        gate.set()
+        drainer.join(DIST_WAIT_S)
+        for t in clients:
+            t.join(DIST_WAIT_S)
+        counts_d = read_counts()
+        walls["d_drain_s"] = time.perf_counter() - start
+        check(not errors and not drainer.is_alive()
+              and not any(t.is_alive() for t in clients),
+              f"drain leg clients: {errors[:3]}")
+        check(drained.get("ok") is True, "drain() did not converge")
+        check(replies_ok(held) and margins_bitwise(held, io["raw"]),
+              "an accepted request was not answered 200 bitwise in drain")
+        check(late[0] == 503 and late[3] is not None,
+              f"a request after the drain gate got {late[0]}, "
+              f"Retry-After {late[3]}")
+        check(counts_d["forest_traverse"] == len(scored)
+              and counts_d["histogram"] == 0,
+              f"drain leg launched {counts_d} for {len(scored)} batches")
+    finally:
+        gate.set()
+        ds.stop()
+    parked = (len(ds.server.routing) + sum(ds.channels.depths())
+              + ds.server.requests.qsize())
+    check(parked == 0, f"{parked} requests left parked after stop()")
+    emit({"phase": "distributed_serving_adult_k2",
+          "server": "DistributedServer('adult_channels', n_channels=4)",
+          "requests": DIST_ADULT_REQUESTS, "clients": SERVE_CLIENTS,
+          "devices_by_channel": devices,
+          "all_200_with_digest": True, "margins_bitwise_fixture": bitwise,
+          "launches": counts, "batches_scored": len(batches_a),
+          "by_channel": per_channel,
+          "transform": transform_times(batches_a, adult_s),
+          "requests_per_s": DIST_ADULT_REQUESTS / adult_s,
+          "latency": latency_ms([r[3] for r in adult]),
+          "continuous_server_requests_per_s_phase_29": continuous_adult_rps,
+          "drain": {"held_in_flight": in_flight, "drained": True,
+                    "accepted_all_200_bitwise": True,
+                    "late_status": late[0], "late_retry_after": late[3],
+                    "launches": counts_d, "batches": len(scored),
+                    "parked_after_stop": parked},
+          "walls_s": dict(walls), "nvidia_smi": smi})
+
+    # -- (b) chaos: compute.channel1 fails, the breaker and its probe ------
+    start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    scored_b = []
+    prev_dump_dir = bb.dump_dir()
+    bb.set_dump_dir(os.path.join(tmp, "flight"))
+    ds = serving.DistributedServer(
+        "adult_chaos", n_channels=DIST_CHANNELS, breaker_threshold=1,
+        probe_interval=DIST_PROBE_S)
+    try:
+        ds.serve(adult_channel_pipeline(ds, model, scored_b))
+        port = ds.server.port
+        marks, watching = {}, threading.Event()
+
+        def watch():
+            """Timestamps, 2 ms apart: channel 1 first not CLOSED, its
+            last fire spent, and CLOSED again after it."""
+            while not watching.is_set():
+                now = time.perf_counter()
+                closed = ds.channel_state(1) == serving.BREAKER_CLOSED
+                if not closed:
+                    marks.setdefault("opened", now)
+                if "spent" not in marks and flt.active()[
+                        "compute.channel1"]["remaining"] == 0:
+                    marks["spent"] = now
+                elif "spent" in marks and closed:
+                    marks["closed"] = now
+                    return
+                time.sleep(0.002)
+
+        reset_counts()
+        flt.activate("compute.channel1", times=DIST_CHAOS_FIRES)
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        t_load = time.perf_counter()
+        chaos = serve_bodies(port, bodies[:DIST_CHAOS_REQUESTS],
+                             SERVE_CLIENTS)
+        chaos_s = time.perf_counter() - t_load
+        watcher.join(DIST_WAIT_S)
+        watching.set()
+        check("closed" in marks, f"channel 1 never re-admitted: {marks}")
+        readmit_s = marks["closed"] - marks["spent"]
+        check(readmit_s <= READMIT_LIMIT_S,
+              f"channel 1 re-admitted {readmit_s} s after its last fire")
+        counts_b = read_counts()
+        metrics = entry_metrics(port)
+        walls["b_chaos_s"] = time.perf_counter() - start
+    finally:
+        flt.deactivate("compute.channel1")
+        ds.stop()
+        dump = bb.last_dump_path()
+        bb.set_dump_dir(prev_dump_dir)
+    srv = {"server": "adult_chaos"}
+    chaos_counters = {
+        name: prom_total(metrics, f"synapseml_serving_{name}", **srv)
+        for name in ("failover_total", "channel_trips_total",
+                     "redispersed_total")}
+    probes = {o: prom_total(metrics, "synapseml_serving_channel_probe_total",
+                            outcome=o, **srv) for o in ("ok", "fail")}
+    transitions = {st: prom_total(
+        metrics, "synapseml_serving_breaker_transitions_total", channel="1",
+        state=st, **srv) for st in ("open", "half_open", "closed")}
+    check(replies_ok(chaos), "a chaos-leg reply was not 200 with its digest")
+    chaos_bitwise = margins_bitwise(chaos, io["raw"])
+    check(chaos_bitwise, "chaos-leg margins differ from the fixture's raw")
+    check(chaos_counters["channel_trips_total"] >= 1
+          and chaos_counters["failover_total"] >= 1,
+          f"chaos leg: {chaos_counters}")
+    check(transitions["open"] >= 1 and "opened" in marks,
+          f"channel 1 never OPEN: {transitions}")
+    check(dump is not None and dump.startswith(tmp),
+          f"the trip wrote no flight-recorder dump ({dump})")
+    check(counts_b["forest_traverse"] == len(scored_b)
+          and counts_b["histogram"] == 0,
+          f"chaos leg launched {counts_b} for {len(scored_b)} batches")
+    emit({"phase": "distributed_serving_chaos",
+          "server": "DistributedServer('adult_chaos', n_channels=4, "
+                    "breaker_threshold=1, probe_interval=0.25)",
+          "fault": f"compute.channel1 x {DIST_CHAOS_FIRES}",
+          "requests": DIST_CHAOS_REQUESTS, "clients": SERVE_CLIENTS,
+          "all_200_with_digest": True,
+          "margins_bitwise_fixture": chaos_bitwise,
+          **chaos_counters, "probe_outcomes": probes,
+          "channel1_transitions": transitions,
+          "readmit_s_after_last_fire": readmit_s,
+          "readmit_limit_s": READMIT_LIMIT_S,
+          "flight_dump": dump, "launches": counts_b,
+          "batches_scored": len(scored_b),
+          "canary_batches": sum(1 for c, _, _ in scored_b if c is None),
+          "by_channel": by_channel(scored_b, DIST_CHANNELS),
+          "transform": transform_times(scored_b, chaos_s),
+          "requests_per_s": DIST_CHAOS_REQUESTS / chaos_s,
+          "latency": latency_ms([r[3] for r in chaos]),
+          "walls_s": dict(walls), "nvidia_smi": smi})
+
+    # -- (c) ResNet-50 224 on 2 channels sharing one warm model -------------
+    start = time.perf_counter()
+    path = os.path.join(tmp, "resnet50_224.onnx")
+    with open(path, "wb") as fh:
+        fh.write(zoo.resnet50(num_classes=1000, image_size=SERVE_IMAGE,
+                              seed=0))
+    distinct = [json.dumps({"features": im.tolist()}).encode()
+                for im in resnet_fx.images()]
+    pipeline, rmodel = serving._model_pipeline(path)
+    ds = None
+    try:
+        t_warm = time.perf_counter()
+        report = rmodel.warmup()
+        walls["c_warmup_s"] = time.perf_counter() - t_warm
+        ds = serving.DistributedServer("resnet50_channels",
+                                       n_channels=DIST_RESNET_CHANNELS)
+        ds.serve(pipeline)
+        port = ds.server.port
+        recompiles_before = prom_total(
+            entry_metrics(port), "synapseml_executor_recompiles_total")
+        reset_counts()
+        t_load = time.perf_counter()
+        load = serve_bodies(port, [distinct[i % len(distinct)]
+                                   for i in range(DIST_RESNET_REQUESTS)],
+                            DIST_RESNET_CLIENTS)
+        resnet_s = time.perf_counter() - t_load
+        counts_c = read_counts()
+        recompiles = prom_total(entry_metrics(port),
+                                "synapseml_executor_recompiles_total"
+                                ) - recompiles_before
+        executors = len(rmodel._executor_cache)
+    finally:
+        if ds is not None:
+            ds.stop()
+        close_models(rmodel)
+        shutil.rmtree(tmp, ignore_errors=True)
+    walls["c_resnet50_s"] = time.perf_counter() - start
+    check(not report.errors and report.compiled == len(report.entries) > 0,
+          f"ResNet-50 warmup: {report}")
+    check(replies_ok(load), "a channel-served ResNet-50 reply was not 200 "
+                            "with its digest")
+    same = all(load[i][1] == load[i % len(distinct)][1]
+               for i in range(DIST_RESNET_REQUESTS))
+    check(same, "equal images got different reply bytes")
+    fx = np.load(RESNET_FIXTURE)
+    got = np.asarray([json.loads(load[i][1])["output"]
+                      for i in range(len(distinct))], np.float32)
+    f32_err = float(np.abs(got - fx["logits_f32"]).max())
+    check(bool(np.allclose(got, fx["logits_f32"], rtol=LOGITS_TOL,
+                           atol=LOGITS_TOL)),
+          f"channel-served logits {f32_err} from the JAX fixture")
+    check(recompiles == 0, f"{recompiles} recompiles during the load")
+    check(executors == 1, f"{executors} executors for one shared model")
+    check(counts_c["forest_traverse"] == 0 and counts_c["histogram"] == 0,
+          f"the ResNet-50 leg launched {counts_c}")
+    walls["phase_s"] = time.perf_counter() - phase_start
+    emit({"phase": "distributed_serving_resnet50",
+          "server": "DistributedServer('resnet50_channels', n_channels=2)",
+          "model": "zoo.resnet50 seed 0, 224x224, 1,000 classes, float32, "
+                   "one warm ONNXModel shared by the channels",
+          "warmup": str(report), "requests": DIST_RESNET_REQUESTS,
+          "clients": DIST_RESNET_CLIENTS, "distinct_images": len(distinct),
+          "all_200_with_digest": True, "equal_images_equal_bytes": same,
+          "logits_max_abs_err_vs_jax": f32_err, "logits_tol": LOGITS_TOL,
+          "recompiles_during_load": recompiles, "executors": executors,
+          "launches": counts_c,
+          "requests_per_s": DIST_RESNET_REQUESTS / resnet_s,
+          "latency": latency_ms([r[3] for r in load]),
+          "walls_s": dict(walls), "nvidia_smi": smi})
+    return counts
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -7315,7 +7749,8 @@ def main() -> int:
     cntk_counts = cntk_phase(smi, reset_counts, read_counts)
 
     # -- 29. the serving entry: ResNet-50 from warm graphs, K2 served -----
-    serving_counts = serving_phase(smi, reset_counts, read_counts)
+    served = serving_phase(smi, reset_counts, read_counts)
+    serving_counts = served["counts"]
 
     # -- 30. converted LightGBM: the ai.onnx.ml ops, the examples, served -
     resnet_bucket_phase(smi)
@@ -7344,6 +7779,11 @@ def main() -> int:
 
     # -- 38. the ONNX signal ops: Whisper's log-mel, the speech chain -----
     speech_counts = speech_phase(smi, reset_counts, read_counts)
+
+    # -- 39. DistributedServer: channels sharing the card, breakers ------
+    dist_counts = distributed_serving_phase(
+        smi, reset_counts, read_counts,
+        continuous_adult_rps=served["adult_requests_per_s"])
 
     emit({"kernels": [{
         "name": "forest_traverse", "route": "cuda",
@@ -7376,6 +7816,7 @@ def main() -> int:
         "launches_random_path": random_counts["forest_traverse"],
         "launches_sequence_string_path": sequence_counts["forest_traverse"],
         "launches_signal_speech_path": speech_counts["forest_traverse"],
+        "launches_distributed_serving_path": dist_counts["forest_traverse"],
         "max_abs_err": max_err, "bitwise": True,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
@@ -7409,6 +7850,7 @@ def main() -> int:
         "launches_random_path": random_counts["histogram"],
         "launches_sequence_string_path": sequence_counts["histogram"],
         "launches_signal_speech_path": speech_counts["histogram"],
+        "launches_distributed_serving_path": dist_counts["histogram"],
         "max_abs_err": k1_max_err,
         "bitwise": True, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],

@@ -107,16 +107,25 @@ class CNTKModel(ONNXModel):
         if (cache is not None and cache[0] == cut
                 and cache[1] is payload):
             return cache[2]
-        if payload is not None and not _looks_like_onnx(bytes(payload)):
-            # covers every assignment path (model_payload=... via set(),
-            # load), not just __init__ kwargs
-            payload = _coerce_payload(bytes(payload))
-            self.set(model_payload=payload)
-        g = ONNXModel.graph.fget(self)
-        if cut:
-            g = g.truncated(cut)
-        self.__dict__["_cntk_graph"] = (cut, payload, g)
-        return g
+        with self._build_lock():
+            # re-read under the lock: racing first calls import (and
+            # cut) one graph, so their executors share one key
+            payload = self.model_payload
+            cache = self.__dict__.get("_cntk_graph")
+            if (cache is not None and cache[0] == cut
+                    and cache[1] is payload):
+                return cache[2]
+            if payload is not None and not _looks_like_onnx(
+                    bytes(payload)):
+                # covers every assignment path (model_payload=... via
+                # set(), load), not just __init__ kwargs
+                payload = _coerce_payload(bytes(payload))
+                self.set(model_payload=payload)
+            g = ONNXModel.graph.fget(self)
+            if cut:
+                g = g.truncated(cut)
+            self.__dict__["_cntk_graph"] = (cut, payload, g)
+            return g
 
     def _post_copy(self, src):
         super()._post_copy(src)

@@ -39,11 +39,16 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import threading
 from typing import Optional, Tuple
 
 import torch
 
 _BIN_DTYPES = (torch.uint8, torch.uint16)
+
+# the launch counters' lock: ``+= 1`` on a function attribute is a
+# read-modify-write, and scorer threads sharing the card launch at once
+_COUNT_LOCK = threading.Lock()
 
 
 def histogram_reference(binned: torch.Tensor, data: torch.Tensor,
@@ -218,7 +223,8 @@ def histogram(binned: torch.Tensor, data: torch.Tensor, n_bins: int,
     if rc != 0:
         raise RuntimeError(f"histogram: kernel launch failed with CUDA "
                            f"error {rc}")
-    histogram.launches += 1
+    with _COUNT_LOCK:
+        histogram.launches += 1
     return out
 
 
@@ -338,7 +344,8 @@ def forest_traverse(x: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"forest_traverse: kernel launch failed with CUDA "
                            f"error {rc}")
-    forest_traverse.launches += 1
+    with _COUNT_LOCK:
+        forest_traverse.launches += 1
     return out
 
 

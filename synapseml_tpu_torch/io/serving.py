@@ -12,12 +12,16 @@ supervised; coalescing, the deadline shed, transient retry and poison
 bisection), ``POST /generate`` over a
 :class:`~synapseml_tpu_torch.runtime.decode.DecodeScheduler` and the
 container entry ``python -m synapseml_tpu_torch.io.serving`` (``--decode``
-serves a share-buffer decoder graph). Not ported yet:
-``DistributedServer`` and its channels (ROADMAP Queue 1 item 3b),
-incident capture, the trace archive and the
-``/debug/capture``, ``/debug/cost``, ``/debug/memory`` and
-``/debug/profile`` routes (item 6) — those paths answer as unknown
-routes do.
+serves a share-buffer decoder graph), and Serving v1's layout
+(ref: DistributedHTTPSource.scala): :class:`DistributedServer`, one
+shared front end whose requests fan out over worker channels through a
+depth-aware :class:`MultiChannelMap`, each channel with a circuit
+breaker (trip, quarantine, redisperse), a one-shot failover of an
+in-hand batch and a half-open probe that re-admits it, and
+:func:`device_for_channel`. Not ported yet: incident capture, the trace
+archive and the ``/debug/capture``, ``/debug/cost``, ``/debug/memory``
+and ``/debug/profile`` routes (ROADMAP Queue 1 item 6) — those paths
+answer as unknown routes do.
 
 Architecture: an arriving request parks its connection on an event,
 rides the micro-batch as a row, and the reply routed back through
@@ -81,9 +85,14 @@ _SLOW_BATCH_S = float(os.environ.get("SYNAPSEML_SLOW_BATCH_MS",
 # for an in-hand batch except the client's reply_timeout.
 _F_REPLY = _flt.point("reply")
 _F_LAT_SCORE = _flt.point("latency", "score")
+# channel-scoped stall: fires inside EVERY channel's scoring path (the
+# per-channel compute points are resolved lazily — channel counts are a
+# runtime property, see DistributedServer._channel_point)
+_F_LAT_STALL = _flt.point("latency", "channel_stall")
 _F_KILL_SCORER = _flt.point("thread_kill", "scorer")
 _F_KILL_REPLY = _flt.point("thread_kill", "reply")
 _F_KILL_COLLECT = _flt.point("thread_kill", "collector")
+_F_KILL_DIST = _flt.point("thread_kill", "distributor")
 
 
 def _retry_rng(injected=None):
@@ -1022,8 +1031,8 @@ class WorkerServer:
         then wait up to ``timeout_ms`` for every accepted request to
         reach a terminal reply. Observes ``serving_drain_seconds``;
         returns True when nothing in flight remained. Both serving
-        front-ends (:meth:`ContinuousServer.drain`, and the reference's
-        ``DistributedServer.drain``) delegate here — parked
+        front-ends (:meth:`ContinuousServer.drain` and
+        :meth:`DistributedServer.drain`) delegate here — parked
         connections live in THIS routing table until replied, whatever
         queue their requests ride. Call the front-end's ``stop`` after:
         anything still queued past the deadline gets an explicit 503
@@ -1226,6 +1235,729 @@ class HTTPSourceStateHolder:
             srv = cls._servers.pop(name, None)
         if srv is not None:
             srv.stop()
+
+
+class MultiChannelMap:
+    """Depth-aware request distribution across N consumer channels
+    (ref: DistributedHTTPSource.scala MultiChannelMap:27-80 — adds rotate
+    through channel lists; updateNLists disperses orphaned channels on
+    elastic resize).
+
+    Placement is least-loaded-first among ENABLED channels (rotation
+    order breaks ties, so an idle map degrades to exact round-robin):
+    a channel whose consumer backs up sheds new load to its siblings
+    instead of accumulating it — the queue-depth half of the channel
+    circuit breakers. ``set_channel_enabled(i, False)`` quarantines a
+    channel (breaker OPEN): placement never picks it while any enabled
+    channel exists, and its parked requests re-disperse immediately.
+    When EVERY channel is disabled, placement degrades to least-loaded
+    over all of them — availability over purity; the half-open probes
+    re-admit channels as they heal.
+
+    All channel-list access stays under the lock (queue puts included —
+    they never block, so holding the lock is safe): a put outside it
+    could land on a channel a concurrent shrink already drained, losing
+    the request."""
+
+    def __init__(self, n_channels: int):
+        self._lock = threading.Lock()
+        self._channels: List["queue.Queue[CachedRequest]"] = [
+            queue.Queue() for _ in range(max(1, n_channels))
+        ]
+        self._add_index = 0
+        self._disabled: set = set()
+
+    @property
+    def n_channels(self) -> int:
+        with self._lock:
+            return len(self._channels)
+
+    def depths(self) -> List[int]:
+        """Current queue depth per channel (one consistent snapshot)."""
+        with self._lock:
+            return [q.qsize() for q in self._channels]
+
+    def enabled_channels(self) -> List[int]:
+        """Indices placement may currently target (breaker CLOSED)."""
+        with self._lock:
+            return [i for i in range(len(self._channels))
+                    if i not in self._disabled]
+
+    def _place(self, item: CachedRequest):
+        """Least-loaded enabled channel, rotation-order tiebreak —
+        caller holds the lock. With no consumers draining, depths grow
+        uniformly and this IS round-robin; under skewed drain rates the
+        deepest channel stops receiving."""
+        n = len(self._channels)
+        candidates = [i for i in range(n) if i not in self._disabled] \
+            or list(range(n))
+        start = self._add_index
+        best = min(candidates,
+                   key=lambda i: (self._channels[i].qsize(),
+                                  (i - start) % n))
+        self._add_index = (best + 1) % n
+        self._channels[best].put(item)
+
+    def add(self, item: CachedRequest):
+        with self._lock:
+            self._place(item)
+
+    def channel(self, i: int) -> "queue.Queue[CachedRequest]":
+        """Current queue for channel ``i`` (clamped: a concurrent shrink
+        must degrade to serving a live channel, not IndexError)."""
+        with self._lock:
+            return self._channels[i % len(self._channels)]
+
+    def set_channel_enabled(self, i: int, enabled: bool) -> int:
+        """Quarantine (``False``) or re-admit (``True``) channel ``i``.
+        Quarantining re-disperses its parked requests onto enabled
+        channels — a request must never sit on a queue no healthy
+        consumer drains. Returns how many requests moved. The breaker
+        calls this under its own lock (breaker -> map, one way: the map
+        never calls back into the breaker)."""
+        with self._lock:
+            if not 0 <= i < len(self._channels):
+                return 0
+            if enabled:
+                self._disabled.discard(i)
+                return 0
+            self._disabled.add(i)
+            # drain FULLY before re-placing: when every channel is
+            # disabled _place's availability fallback may legitimately
+            # pick this channel again
+            orphaned = _drain_all(self._channels[i])
+            for item in orphaned:
+                self._place(item)
+        if orphaned:
+            # the flight-recorder breadcrumb a trip forensic needs:
+            # WHICH requests moved off the quarantined channel (rids
+            # capped — counts tell the scale, ids tell the story)
+            _bb.record("redisperse", channel=i, level="warn",
+                       n=len(orphaned),
+                       rids=[cr.rid for cr in orphaned[:8]])
+        return len(orphaned)
+
+    def update_n_channels(self, n: int):
+        """Resize; requests parked on removed channels are re-dispersed
+        (ref: updateNLists:39-52). Quarantine state for surviving
+        indices is preserved; removed indices forget theirs."""
+        n = max(1, n)
+        with self._lock:
+            orphaned: List[CachedRequest] = []
+            while len(self._channels) > n:
+                dead = self._channels.pop()
+                self._disabled.discard(len(self._channels))
+                orphaned.extend(_drain_all(dead))
+            while len(self._channels) < n:
+                self._channels.append(queue.Queue())
+            self._add_index %= len(self._channels)
+            for item in orphaned:
+                self._place(item)
+
+
+def device_for_channel(channel: int, devices=None):
+    """Round-robin map of a serving channel index onto a local device.
+
+    Shard i of a :class:`DistributedServer` scores on
+    ``device_for_channel(i)``, so with several cards concurrent channels
+    use distinct ones (ref: one ONNX Runtime instance a Spark partition,
+    ONNXModel.scala:497-508). ``devices`` defaults to every
+    visible CUDA device, as ``torch.device("cuda", i)``; without CUDA and
+    without ``devices`` it raises — it never falls back to the CPU (pass
+    ``devices=[torch.device("cpu")]`` to map channels onto the CPU).
+    torch is imported here, so the front end stays importable without it.
+
+    On one card every channel maps to ``cuda:0``: the channels are
+    scorer threads sharing the device. A channel's failover then re-runs
+    the same work on the same card — it masks a host-side fault of the
+    channel's scoring path (an exception in its thread), not a device
+    fault. A sticky CUDA error (a device-side assert) poisons the
+    process's CUDA context for every channel; no failover can hide it."""
+    import torch
+
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device_for_channel: no CUDA device is available and no "
+                "devices were given; pass devices=[torch.device('cpu')] "
+                "to map channels onto the CPU")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = list(devices)
+    if not devices:
+        raise ValueError("device_for_channel: devices is empty")
+    return devices[channel % len(devices)]
+
+
+# circuit-breaker states, exported on the
+# serving_channel_breaker_state{channel=} gauge. CLOSED = traffic flows
+# (electrical convention: the circuit conducts); OPEN = quarantined;
+# HALF_OPEN = a canary probe is in flight.
+BREAKER_CLOSED, BREAKER_OPEN, BREAKER_HALF_OPEN = 0, 1, 2
+_BREAKER_STATE_NAMES = {BREAKER_CLOSED: "closed", BREAKER_OPEN: "open",
+                        BREAKER_HALF_OPEN: "half_open"}
+
+
+class DistributedServer:
+    """Serving v1 analogue: ONE shared HTTP server per host whose
+    requests distribute across worker channels
+    (ref: DistributedHTTPSource.scala JVMSharedServer:90 shared via
+    SharedSingleton :384, MultiChannelMap :27, DistributedHTTPSink:364).
+    Each shard drains its own channel with ``get_batch(channel=i)`` and
+    replies through the shared server — or :meth:`serve` runs the
+    per-channel scoring loops in-process.
+
+    The CHANNEL is the unit of fault tolerance: each channel carries a
+    circuit breaker. ``breaker_threshold`` consecutive scoring failures —
+    or a score stalled past ``stall_timeout`` — trip it OPEN: the channel
+    is quarantined, its parked requests re-disperse onto healthy
+    channels, and new placement avoids it. A background probe then
+    flips it HALF_OPEN, re-scores a canary under the channel's own
+    fault points, and re-admits (CLOSED) on success. An in-hand batch
+    whose channel breaks mid-score fails over ONCE to a healthy channel
+    (:meth:`score_on_channel`) before any client-visible error —
+    bit-identically, since the failover re-runs the same scoring fn
+    (on one card, on the same device: :func:`device_for_channel`)."""
+
+    def __init__(self, name: str, n_channels: int,
+                 host: str = "127.0.0.1", port: Optional[int] = None,
+                 reply_timeout: float = 60.0,
+                 breaker_threshold: int = 3,
+                 probe_interval: float = 0.25,
+                 stall_timeout: Optional[float] = None,
+                 canary_fn: Optional[Callable[[int], Any]] = None):
+        """``breaker_threshold``: consecutive failures that trip a
+        channel OPEN (1 = first failure quarantines). ``probe_interval``
+        seconds between half-open canary probes of OPEN channels.
+        ``stall_timeout``: a score wall-time past this counts as a
+        breaker failure even though its result still returns (the
+        slow-channel trip condition; None = off). ``canary_fn(ch)``:
+        extra health work the half-open probe runs on the quarantined
+        channel (e.g. re-score a pinned canary batch on its device);
+        when None, :meth:`serve` wires a default that re-scores the
+        first successfully scored row through the real pipeline. The
+        probe always fires the channel's fault points, so injected
+        chaos alone round-trips OPEN -> HALF_OPEN -> CLOSED."""
+        self.server = HTTPSourceStateHolder.get_or_create_server(
+            name, host, port, reply_timeout=reply_timeout)
+        # exactly one distributor may own a server's request queue: a
+        # second consumer would silently steal an arbitrary subset.
+        # check-and-claim happens atomically under the server's lock, so
+        # two concurrent constructors cannot both pass the check
+        with self.server._lock:
+            if getattr(self.server, "_dist_owner", None) is not None:
+                raise ValueError(
+                    f"server {name!r} already has a DistributedServer "
+                    f"attached; reuse that instance or pick another name")
+            self.server._dist_owner = self
+        self.channels = MultiChannelMap(n_channels)
+        self.breaker_threshold = max(1, int(breaker_threshold))
+        self.probe_interval = float(probe_interval)
+        self.stall_timeout = stall_timeout
+        self.canary_fn = canary_fn
+        # breaker state: guarded by its own lock. Lock order is
+        # breaker -> map, ONE direction — state flips and their matching
+        # map enable/disable happen together under the breaker lock
+        # (map calls never block: queue puts only), so a channel can
+        # never be breaker-OPEN yet placement-enabled, which would park
+        # requests on a queue whose consumer loop is idling
+        self._breaker_lock = threading.Lock()
+        self._breaker_state: Dict[int, int] = {}
+        self._breaker_fails: Dict[int, int] = {}
+        # one-row snapshot of the first successfully scored input:
+        # serve()'s default canary re-scores it through the REAL
+        # pipeline so the half-open probe proves the channel scores, not
+        # just that a no-op returns (benign last-write-wins race between
+        # channel loops: every candidate snapshot is known-good)
+        self._canary_table: Optional[Table] = None
+        self._channel_points: Dict[int, "_flt.FaultPoint"] = {}
+        self._m_failover = _tm.counter("serving_failover_total",
+                                       server=name)
+        self._m_redispersed = _tm.counter("serving_redispersed_total",
+                                          server=name)
+        self._m_trips = _tm.counter("serving_channel_trips_total",
+                                    server=name)
+        self._probe_thread: Optional[threading.Thread] = None
+        self._probe_wake = threading.Event()
+        self._serve_threads: List[threading.Thread] = []
+        self._n_channel_gauges = 0
+        self._sync_channel_gauges()
+        self._stop = threading.Event()
+        self._m_dist_restarts = _tm.counter(
+            "serving_thread_restarts_total", server=name,
+            thread="distributor")
+        self._distributor = threading.Thread(
+            target=self._distribute_supervised, name=f"dist-{name}",
+            daemon=True)
+        self._distributor.start()
+
+    def _sync_channel_gauges(self):
+        """One scrape-time depth sampler + breaker-state gauge per live
+        channel (re-synced on elastic resize; samplers beyond the new
+        count are dropped)."""
+        n = self.channels.n_channels
+        for i in range(n):
+            _tm.gauge_fn(
+                "serving_channel_depth",
+                lambda ch=i: self.channels.channel(ch).qsize(),
+                server=self.server.name, channel=str(i))
+            _tm.gauge_fn(
+                "serving_channel_breaker_state",
+                lambda ch=i: self.channel_state(ch),
+                server=self.server.name, channel=str(i))
+        for i in range(n, self._n_channel_gauges):
+            _tm.unregister("serving_channel_depth",
+                           server=self.server.name, channel=str(i))
+            _tm.unregister("serving_channel_breaker_state",
+                           server=self.server.name, channel=str(i))
+        self._n_channel_gauges = n
+
+    @property
+    def url(self) -> str:
+        return self.server.url
+
+    # -- channel circuit breakers ---------------------------------------
+
+    def channel_state(self, channel: int) -> int:
+        """BREAKER_CLOSED / BREAKER_OPEN / BREAKER_HALF_OPEN."""
+        with self._breaker_lock:
+            return self._breaker_state.get(channel, BREAKER_CLOSED)
+
+    def _set_state_locked(self, channel: int, state: int):
+        # caller holds _breaker_lock. Transitions are COUNTED (not just
+        # gauged): a probe's OPEN->HALF_OPEN->OPEN bounce is faster than
+        # any scrape interval, so the chaos check asserts the counter,
+        # the dashboards plot the gauge.
+        prev = self._breaker_state.get(channel, BREAKER_CLOSED)
+        if prev == state:
+            return
+        self._breaker_state[channel] = state
+        _tm.counter("serving_breaker_transitions_total",
+                    server=self.server.name, channel=str(channel),
+                    state=_BREAKER_STATE_NAMES[state]).inc()
+        # ring + log breadcrumb (blackbox.record takes only its own leaf
+        # lock): every state entry, including the OPEN->HALF_OPEN->OPEN
+        # probe bounces no scrape ever sees
+        _bb.record("breaker_transition", channel=channel,
+                   level="warn" if state != BREAKER_CLOSED else "info",
+                   server=self.server.name,
+                   state=_BREAKER_STATE_NAMES[state],
+                   prev=_BREAKER_STATE_NAMES[prev])
+
+    def _channel_point(self, channel: int) -> "_flt.FaultPoint":
+        """The channel's ``compute.channel<N>`` fault point, resolved
+        lazily — channel counts are a runtime property, unlike the
+        import-time module points."""
+        p = self._channel_points.get(channel)
+        if p is None:
+            p = self._channel_points.setdefault(
+                channel, _flt.point("compute", f"channel{channel}"))
+        return p
+
+    def _record_channel_success(self, channel: int):
+        with self._breaker_lock:
+            self._breaker_fails[channel] = 0
+            if self._breaker_state.get(channel,
+                                       BREAKER_CLOSED) != BREAKER_CLOSED:
+                # state flip + map re-enable are ATOMIC under the
+                # breaker lock: a racing trip on another thread cannot
+                # interleave its disable between them and leave the
+                # channel OPEN-but-enabled (a request black hole)
+                self._set_state_locked(channel, BREAKER_CLOSED)
+                self.channels.set_channel_enabled(channel, True)
+
+    def _record_channel_failure(self, channel: int) -> bool:
+        """Count one failure against the channel; returns True when it
+        tripped the breaker just now (quarantine + redisperse done)."""
+        with self._breaker_lock:
+            if self._breaker_state.get(channel,
+                                       BREAKER_CLOSED) == BREAKER_OPEN:
+                return False
+            fails = self._breaker_fails.get(channel, 0) + 1
+            self._breaker_fails[channel] = fails
+            if fails < self.breaker_threshold:
+                return False
+            self._set_state_locked(channel, BREAKER_OPEN)
+            # quarantine atomically with the state flip (breaker -> map
+            # order): re-disperse what was parked on the channel
+            moved = self.channels.set_channel_enabled(channel, False)
+        if moved:
+            self._m_redispersed.inc(moved)
+        self._m_trips.inc()
+        # the incident trigger: the trip event lands in the ring, then
+        # the recorder dumps ring + gauges + thread stacks to the dump
+        # dir (debounced) — the forensic file to pull first. Runs with
+        # no locks held.
+        _bb.trigger("breaker_trip", channel=channel,
+                    server=self.server.name, fails=fails,
+                    redispersed=moved)
+        self._ensure_probe_thread()
+        self._probe_wake.set()
+        return True
+
+    def _channel_score(self, channel: int, score_fn: Callable[[], Any]):
+        """Run one unit of scoring work AS channel ``channel``: fires
+        the shared stall point and the channel's own compute point
+        first, so injected channel faults land exactly here."""
+        _F_LAT_STALL.fire()
+        self._channel_point(channel).fire()
+        return score_fn()
+
+    def _failover_target(self, exclude: int) -> Optional[int]:
+        """Least-loaded healthy channel other than ``exclude`` (depth-
+        aware, same policy as placement), or None when no healthy
+        sibling exists."""
+        depths = self.channels.depths()
+        best, best_depth = None, None
+        for ch in self.channels.enabled_channels():
+            if ch == exclude or self.channel_state(ch) != BREAKER_CLOSED:
+                continue
+            d = depths[ch] if ch < len(depths) else 0
+            if best is None or d < best_depth:
+                best, best_depth = ch, d
+        return best
+
+    def score_on_channel(self, channel: int,
+                         score_fn: Callable[[], Any],
+                         rids: Optional[List[str]] = None,
+                         trace_ids: Optional[List[str]] = None):
+        """Failover dispatch: run ``score_fn`` as channel ``channel``'s
+        scoring work under its fault points and breaker accounting. On
+        failure, the SAME in-hand work is re-dispatched ONCE to a
+        healthy channel before any client-visible error — bit-identical
+        output, because the failover re-runs the identical fn (the
+        channel only selects WHERE it runs). A score stalled past
+        ``stall_timeout`` counts as a breaker failure even though its
+        result still returns. ``rids``: the request ids riding the
+        in-hand work — they ride the flight-recorder failover event so
+        a dump names WHICH requests moved channels."""
+        t0 = time.monotonic()
+        try:
+            out = self._channel_score(channel, score_fn)
+        except Exception as first_err:
+            self._record_channel_failure(channel)
+            target = self._failover_target(exclude=channel)
+            if target is None:
+                raise  # no healthy sibling: the caller's error path
+            self._m_failover.inc()
+            _bb.record("failover", channel=channel, level="warn",
+                       server=self.server.name, to_channel=target,
+                       rids=(rids or [])[:8],
+                       trace_ids=(trace_ids or [])[:8],
+                       error=repr(first_err)[:200])
+            t1 = time.monotonic()
+            try:
+                out = self._channel_score(target, score_fn)
+            except Exception:
+                # the same work failed on a healthy channel too: likely
+                # the BATCH, not the channel — but count it anyway; a
+                # wrongly tripped channel is re-admitted by its probe
+                self._record_channel_failure(target)
+                raise
+            self._record_outcome(target, t1)
+            return out
+        self._record_outcome(channel, t0)
+        return out
+
+    def _record_outcome(self, channel: int, t0: float):
+        """Success-or-stall accounting for one completed score: a score
+        stalled past ``stall_timeout`` counts as a breaker failure even
+        though its result still returns — on the FAILOVER attempt too,
+        or a degraded channel every failover lands on would be recorded
+        as an unconditional success and convoy the cluster."""
+        if (self.stall_timeout is not None
+                and time.monotonic() - t0 > self.stall_timeout):
+            self._record_channel_failure(channel)
+        else:
+            self._record_channel_success(channel)
+
+    def _ensure_probe_thread(self):
+        # check-and-start under the breaker lock: two channels tripping
+        # in the same instant must not each spawn a probe loop (the
+        # loser's thread would double-probe quarantined channels and
+        # escape stop()'s join, which only knows self._probe_thread)
+        with self._breaker_lock:
+            if (self._probe_thread is not None
+                    and self._probe_thread.is_alive()):
+                return
+            self._probe_thread = threading.Thread(
+                target=self._probe_loop_supervised,
+                name=f"breaker-probe-{self.server.name}", daemon=True)
+            self._probe_thread.start()
+
+    def _probe_loop_supervised(self):
+        """:func:`_supervise_loop` around :meth:`_probe_loop`: a dead
+        probe thread would strand every OPEN channel quarantined
+        forever — the breaker re-admits channels through this loop."""
+        def on_restart(e: BaseException):
+            _tm.counter("serving_thread_restarts_total",
+                        server=self.server.name, thread="probe").inc()
+            _bb.record("thread_restart", level="error",
+                       server=self.server.name, thread="probe",
+                       error=repr(e)[:200])
+
+        _supervise_loop(self._probe_loop, self._stop, on_restart)
+
+    def _probe_loop(self):
+        """Half-open probe: every ``probe_interval`` seconds, each OPEN
+        channel goes HALF_OPEN and re-scores a canary under its own
+        fault points (plus ``canary_fn``); success re-admits it CLOSED
+        (and re-enables placement), failure re-opens it."""
+        while not self._stop.is_set():
+            self._probe_wake.wait(self.probe_interval)
+            self._probe_wake.clear()
+            if self._stop.is_set():
+                return
+            with self._breaker_lock:
+                open_chs = [ch for ch, st in self._breaker_state.items()
+                            if st == BREAKER_OPEN]
+            for ch in open_chs:
+                with self._breaker_lock:
+                    self._set_state_locked(ch, BREAKER_HALF_OPEN)
+                t0 = time.monotonic()
+                try:
+                    self._channel_score(
+                        ch, (lambda: self.canary_fn(ch))
+                        if self.canary_fn is not None else lambda: None)
+                except Exception:
+                    ok = False
+                else:
+                    # the canary gets the SAME stall accounting as a
+                    # real score: a channel tripped for slowness must
+                    # not be re-admitted by a canary that itself
+                    # stalled (trip -> re-admit -> trip flapping, with
+                    # a redisperse every cycle)
+                    ok = (self.stall_timeout is None
+                          or time.monotonic() - t0 <= self.stall_timeout)
+                _tm.counter("serving_channel_probe_total",
+                            server=self.server.name,
+                            outcome="ok" if ok else "fail").inc()
+                _bb.record("breaker_probe", channel=ch,
+                           server=self.server.name,
+                           outcome="ok" if ok else "fail")
+                if ok:
+                    self._record_channel_success(ch)
+                else:
+                    with self._breaker_lock:
+                        self._set_state_locked(ch, BREAKER_OPEN)
+
+    def _distribute_supervised(self):
+        """:func:`_supervise_loop` around :meth:`_distribute`: an
+        exception there would otherwise silently stop ALL traffic."""
+        def on_restart(e: BaseException):
+            self._m_dist_restarts.inc()
+            _bb.record("thread_restart", level="error",
+                       server=self.server.name, thread="distributor",
+                       error=repr(e)[:200])
+
+        _supervise_loop(self._distribute, self._stop, on_restart)
+
+    def _distribute(self):
+        while not self._stop.is_set():
+            # kill point BEFORE the get: a dying distributor must never
+            # take an already-dequeued request with it
+            _F_KILL_DIST.fire()
+            try:
+                item = self.server.requests.get(timeout=0.05)
+            except queue.Empty:
+                continue
+            self.channels.add(item)
+
+    def get_batch(self, channel: int, max_rows: int = 64,
+                  timeout: float = 0.1, linger: float = 0.0,
+                  coalesce: float = 0.0) -> List[CachedRequest]:
+        out = _drain_queue(self.channels.channel(channel), max_rows,
+                           timeout, linger, coalesce)
+        # same epoch/history bookkeeping as the direct path, so a shard
+        # that dies mid-batch stays replayable through server.recover()
+        self.server._record_epoch(out)
+        return out
+
+    def device_for_channel(self, channel: int):
+        """Map a serving channel onto a local CUDA device, round-robin —
+        the per-channel scorer scores there, so N channels fan their
+        micro-batches out over N cards instead of convoying on device 0.
+        With more channels than cards, channels share devices
+        round-robin (on one card, all of them); raises without CUDA."""
+        return device_for_channel(channel)
+
+    def reply_to(self, rid: str, response: HTTPResponseData) -> bool:
+        return self.server.reply_to(rid, response)
+
+    def update_n_channels(self, n: int):
+        if self._serve_threads:
+            # serve() snapshots the channel count: growing it now would
+            # route new requests (depth-aware _place prefers the empty
+            # newcomers) onto queues NO scorer loop drains — clients
+            # would park until reply_timeout with no error at the
+            # resize call
+            raise ValueError(
+                f"server {self.server.name!r} has channel scorers "
+                "running; resize while serving is not supported "
+                "(stop, resize, re-serve)")
+        self.channels.update_n_channels(n)
+        self._sync_channel_gauges()
+
+    # -- in-process channel scoring loops -------------------------------
+
+    def serve(self, pipeline_fn: Callable[[Table], Table],
+              max_batch: int = 64, linger: float = 0.0,
+              coalesce: float = 0.0, parse_json: bool = True,
+              reply_col: str = "reply") -> "DistributedServer":
+        """Start one supervised scorer thread per channel — the
+        multi-channel serving query. Each loop drains its own channel
+        and scores through :meth:`score_on_channel`, so a channel whose
+        scoring breaks mid-score fails its in-hand batch over to a
+        healthy sibling (200, bit-identical) instead of 500ing, and a
+        tripped channel idles until its half-open probe re-admits it
+        (its parked requests having re-dispersed at trip time). The
+        channel-count is snapshotted here; resize while serving is not
+        supported (stop, resize, re-serve)."""
+        if self._serve_threads:
+            raise ValueError(
+                f"server {self.server.name!r} already has channel "
+                "scorers running")
+        if self.canary_fn is None:
+            # a no-op canary would re-admit a genuinely broken channel
+            # every probe_interval (trip -> re-admit flapping, one
+            # redisperse per cycle): probe with the real pipeline
+            self.canary_fn = self._pipeline_canary(pipeline_fn)
+        for ch in range(self.channels.n_channels):
+            t = threading.Thread(
+                target=self._channel_loop_supervised,
+                args=(ch, pipeline_fn, max_batch, linger, coalesce,
+                      parse_json, reply_col),
+                name=f"chan-scorer-{self.server.name}-{ch}", daemon=True)
+            t.start()
+            self._serve_threads.append(t)
+        return self
+
+    def _pipeline_canary(self, pipeline_fn) -> Callable[[int], Any]:
+        """Default half-open canary for :meth:`serve`: re-score the
+        captured known-good one-row input through the REAL pipeline, so
+        re-admission proves the channel can score — not just that a
+        no-op returns. Before the first successful score nothing is
+        known-good, so the probe degrades to firing the channel's fault
+        points only (injected chaos still round-trips the breaker)."""
+        def canary(ch: int):
+            table = self._canary_table
+            if table is not None:
+                pipeline_fn(table)
+        return canary
+
+    def _channel_loop_supervised(self, ch: int, *args):
+        def on_restart(e: BaseException):
+            _tm.counter("serving_thread_restarts_total",
+                        server=self.server.name,
+                        thread=f"channel{ch}").inc()
+            _bb.record("thread_restart", channel=ch, level="error",
+                       server=self.server.name,
+                       thread=f"channel{ch}", error=repr(e)[:200])
+
+        _supervise_loop(
+            lambda: self._channel_loop(ch, *args), self._stop,
+            on_restart)
+
+    def _channel_loop(self, ch: int, pipeline_fn, max_batch, linger,
+                      coalesce, parse_json, reply_col):
+        while not self._stop.is_set():
+            if self.channel_state(ch) != BREAKER_CLOSED:
+                # quarantined: parked requests re-dispersed at trip
+                # time and placement avoids this channel — idle until
+                # the probe re-admits it
+                time.sleep(0.02)
+                continue
+            batch = self.get_batch(ch, max_batch, timeout=0.05,
+                                   linger=linger, coalesce=coalesce)
+            if not batch:
+                continue
+            self._score_channel_batch(ch, batch, pipeline_fn,
+                                      parse_json, reply_col)
+
+    def _score_channel_batch(self, ch: int, batch: List[CachedRequest],
+                             pipeline_fn, parse_json, reply_col):
+        """Score one channel's micro-batch (with one-shot failover via
+        :meth:`score_on_channel`) and reply; a batch that failed on TWO
+        channels gets an explicit 500 — never a hang, never a silent
+        drop."""
+        def run():
+            table = requests_to_table(batch)
+            if parse_json:
+                table = parse_request(table)
+            out = pipeline_fn(table)
+            if self._canary_table is None:
+                # first known-good input: one row is all the probe
+                # needs (copied so the slice doesn't pin the batch)
+                snap = Table({c: table[c][:1].copy()
+                              for c in table.columns})
+                with self._breaker_lock:
+                    if self._canary_table is None:
+                        self._canary_table = snap
+            return out
+
+        err: Optional[BaseException] = None
+        t0 = time.monotonic()
+        try:
+            out = self.score_on_channel(
+                ch, run, rids=[cr.rid for cr in batch],
+                trace_ids=[cr.span.trace_id for cr in batch])
+        except Exception as e:  # noqa: BLE001 - channel loop must survive
+            err = e
+        dt = time.monotonic() - t0
+        if _SLOW_BATCH_S and dt > _SLOW_BATCH_S:
+            _bb.record("slow_batch", channel=ch, level="warn",
+                       server=self.server.name, seconds=round(dt, 6),
+                       size=len(batch),
+                       rids=[cr.rid for cr in batch[:8]],
+                       trace_ids=[cr.span.trace_id for cr in batch[:8]])
+        if err is None:
+            try:
+                send_replies(self.server, out, reply_col)
+            except Exception as e:  # noqa: BLE001 - bad reply col etc.
+                err = e
+        if err is not None:
+            for cr in batch:
+                self.server.reply_to(cr.rid, HTTPResponseData(
+                    status_code=500, reason="channel scoring error",
+                    entity=repr(err).encode()))
+        for cr in batch:
+            cr.span.finish("ok" if err is None else "error")
+        for ep in sorted({cr.epoch for cr in batch}):
+            self.server.commit(ep, exact=True)
+
+    def drain(self, timeout_ms: float = 5000.0) -> bool:
+        """Graceful drain across ALL channels — delegates to
+        :meth:`WorkerServer.drain` (requests fanned out onto channel
+        queues still park their connections in the shared server's
+        routing table, so its convergence check covers them). Returns
+        True when fully drained; call :meth:`stop` after either way."""
+        return self.server.drain(timeout_ms)
+
+    def stop(self):
+        self._stop.set()
+        self._probe_wake.set()
+        self._distributor.join(timeout=2)
+        for t in self._serve_threads:
+            t.join(timeout=5)
+        self._serve_threads = []
+        if self._probe_thread is not None:
+            self._probe_thread.join(timeout=2)
+        # requests still parked on channel queues when the scorers exit
+        # get an explicit 503 + Retry-After (counted), never a silent
+        # drop into reply_timeout; the shared server's own intake queue
+        # is shed the same way by server.stop() via the registry
+        # removal below
+        for ch in range(self.channels.n_channels):
+            self.server.fail_queued(q=self.channels.channel(ch))
+        for i in range(self._n_channel_gauges):
+            _tm.unregister("serving_channel_depth",
+                           server=self.server.name, channel=str(i))
+            _tm.unregister("serving_channel_breaker_state",
+                           server=self.server.name, channel=str(i))
+        self._n_channel_gauges = 0
+        with self.server._lock:
+            self.server._dist_owner = None
+        HTTPSourceStateHolder.remove(self.server.name)
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ quietly on one device.
 from __future__ import annotations
 
 import os
+import threading
 from collections import deque
 from typing import Any, Dict, Iterable, Iterator, List, Optional
 
@@ -140,9 +141,21 @@ class ONNXModel(Transformer):
         # graph, and holding the reference rules out CPython id reuse
         if cache is not None and cache[0] is payload:
             return cache[1]
-        g = import_model(payload)
-        self.__dict__["_graph_cache"] = (payload, g)
-        return g
+        with self._build_lock():
+            # re-read under the lock: racing first calls import one graph,
+            # so their executors share one key
+            cache = self.__dict__.get("_graph_cache")
+            if cache is not None and cache[0] is payload:
+                return cache[1]
+            g = import_model(payload)
+            self.__dict__["_graph_cache"] = (payload, g)
+            return g
+
+    def _build_lock(self) -> "threading.RLock":
+        """The model's lock over its graph import and executor builds
+        (``dict.setdefault`` hands racing first callers the same one).
+        Re-entrant: a build reads :attr:`graph`."""
+        return self.__dict__.setdefault("_executor_lock", threading.RLock())
 
     def model_metadata(self) -> Dict[str, Any]:
         g = self.graph
@@ -239,59 +252,67 @@ class ONNXModel(Transformer):
         dev = device_policy.resolve(device)
         key = (id(g), self.mini_batch_size, cd, norm_key, dev,
                self.compile_cache_dir, tp, None)
-        if key not in cache:
-            dtype = _DTYPES[cd]
-            compute = None if cd == "float32" else dtype
-            # the one-time cast and move: params land on the device in the
-            # compute dtype here, never per batch, BatchNorm folded
-            forward = g.bind(cast_dtype=compute, device=dev)
+        hit = cache.get(key)
+        if hit is not None:  # the steady path takes no lock
+            return hit
+        # concurrent first calls (scorer threads sharing one model) build
+        # ONE executor: the check, the build and the insert under the
+        # model's lock — each extra build would bind its own device copy
+        # of the weights and keep its threads for as long as it is held
+        with self._build_lock():
+            if key not in cache:
+                dtype = _DTYPES[cd]
+                compute = None if cd == "float32" else dtype
+                # the one-time cast and move: params land on the device in the
+                # compute dtype here, never per batch, BatchNorm folded
+                forward = g.bind(cast_dtype=compute, device=dev)
 
-            # Integer feeds bound for float graph inputs are cast (and
-            # optionally normalized) ON DEVICE: the host->device wire then
-            # carries 1-byte uint8 pixels instead of 2-byte bf16. Mirrors
-            # the reference's marshalling stage, where ORT converts on the
-            # accelerator side of PCIe (ref: ONNXModel.scala:357-402).
-            names = list(g.input_names)
-            info = g.input_info
-            tgt = dtype if compute is not None else torch.float32
-            stats = {
-                name: tuple(torch.as_tensor(np.asarray(spec.get(k, d)),
-                                            device=dev).to(tgt)
-                            for k, d in (("mean", 0.0), ("scale", 1.0)))
-                for name, spec in norm.items()}
+                # Integer feeds bound for float graph inputs are cast (and
+                # optionally normalized) ON DEVICE: the host->device wire then
+                # carries 1-byte uint8 pixels instead of 2-byte bf16. Mirrors
+                # the reference's marshalling stage, where ORT converts on the
+                # accelerator side of PCIe (ref: ONNXModel.scala:357-402).
+                names = list(g.input_names)
+                info = g.input_info
+                tgt = dtype if compute is not None else torch.float32
+                stats = {
+                    name: tuple(torch.as_tensor(np.asarray(spec.get(k, d)),
+                                                device=dev).to(tgt)
+                                for k, d in (("mean", 0.0), ("scale", 1.0)))
+                    for name, spec in norm.items()}
 
-            def apply_fn(*args, _names=names, _stats=stats, _tgt=tgt):
-                staged = []
-                for name, a in zip(_names, args):
-                    spec = _stats.get(name)
-                    if not a.is_floating_point():
-                        want, _ = info.get(name, (None, None))
-                        if spec is not None or _is_float(want):
-                            a = a.to(_tgt)
-                    if spec is not None:
-                        a = (a - spec[0]) * spec[1]
-                    staged.append(a)
-                return forward(*staged)
-            # each executor pins a device copy of the weights: evict the
-            # ones built for graphs that are no longer current (payload or
-            # cut_layers swaps), and cap live-graph configs (a batch-size
-            # sweep must not accumulate unbounded weight copies)
-            for stale in [kk for kk in cache if kk[0] != id(g)]:
-                del cache[stale]
-            while len(cache) >= 4:
-                cache.pop(next(iter(cache)))
-            # content hash over graph+weights config: the store key's
-            # ingredient that misses on changed model bytes. The graph's
-            # node count + outputs disambiguate truncated subgraphs
-            # sharing a payload
-            cache_key = _cc.content_hash(
-                self.model_payload or b"", len(g._nodes),
-                tuple(g.output_names), cd, norm_key)
-            cache[key] = BatchedExecutor(
-                apply_fn, device=dev, compute_dtype=compute,
-                max_bucket=self.mini_batch_size, cache_key=cache_key,
-                cache_dir=self.compile_cache_dir)
-        return cache[key]
+                def apply_fn(*args, _names=names, _stats=stats, _tgt=tgt):
+                    staged = []
+                    for name, a in zip(_names, args):
+                        spec = _stats.get(name)
+                        if not a.is_floating_point():
+                            want, _ = info.get(name, (None, None))
+                            if spec is not None or _is_float(want):
+                                a = a.to(_tgt)
+                        if spec is not None:
+                            a = (a - spec[0]) * spec[1]
+                        staged.append(a)
+                    return forward(*staged)
+                # each executor pins a device copy of the weights: evict the
+                # ones built for graphs that are no longer current (payload or
+                # cut_layers swaps), and cap live-graph configs (a batch-size
+                # sweep must not accumulate unbounded weight copies)
+                for stale in [kk for kk in cache if kk[0] != id(g)]:
+                    del cache[stale]
+                while len(cache) >= 4:
+                    cache.pop(next(iter(cache)))
+                # content hash over graph+weights config: the store key's
+                # ingredient that misses on changed model bytes. The graph's
+                # node count + outputs disambiguate truncated subgraphs
+                # sharing a payload
+                cache_key = _cc.content_hash(
+                    self.model_payload or b"", len(g._nodes),
+                    tuple(g.output_names), cd, norm_key)
+                cache[key] = BatchedExecutor(
+                    apply_fn, device=dev, compute_dtype=compute,
+                    max_bucket=self.mini_batch_size, cache_key=cache_key,
+                    cache_dir=self.compile_cache_dir)
+            return cache[key]
 
     def warmup(self, buckets=None, example_feeds=None,
                device=device_policy.DEFAULT_DEVICE):

@@ -75,6 +75,44 @@ def test_kernel_bitwise_equals_plain_version(card, t, m, f, k, n, strict,
     assert torch.equal(got, want)
 
 
+def test_launch_counter_is_exact_under_threads(card):
+    """8 threads x 200 K2 calls at once (scorer threads sharing the card)
+    count exactly 1,600 launches: the counter's increment is locked."""
+    import threading
+
+    planes = [p.to(card) for p in _forest(np.random.default_rng(3),
+                                          10, 15, 4)]
+    xd = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(64, 4)).astype(np.float32)).to(card)
+    kernels.forest_traverse(xd, *planes)  # built before the race
+    torch.cuda.synchronize()
+    barrier = threading.Barrier(8)
+    errors = []
+
+    def caller():
+        try:
+            barrier.wait(timeout=60)
+            for _ in range(200):
+                kernels.forest_traverse(xd, *planes)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    before = kernels.forest_traverse.launches
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)  # switch threads inside the increment
+    try:
+        threads = [threading.Thread(target=caller) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    torch.cuda.synchronize()
+    assert not errors and not any(t.is_alive() for t in threads), errors
+    assert kernels.forest_traverse.launches - before == 1600
+
+
 def test_wrapper_raises_on_what_the_kernel_does_not_take(card):
     planes = [p.to(card) for p in _forest(np.random.default_rng(0), 3, 7, 4)]
     x = torch.zeros((5, 4), device=card)

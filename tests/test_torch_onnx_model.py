@@ -14,6 +14,7 @@ directory the JAX package wrote), ``transform_stream``, the reference's
 ``NotImplementedError``.
 """
 import os
+import time
 
 import numpy as np
 import pytest
@@ -271,3 +272,51 @@ def test_transform_defaults_to_cuda_and_raises_without_it(resnet):
     with pytest.raises(RuntimeError, match="CUDA"):
         next(ONNXModel(model_bytes=blob).transform_stream(
             [Table({"data": x[:2]})]))
+
+
+def test_concurrent_first_transforms_build_one_executor(monkeypatch):
+    """Scorer threads sharing one fresh model (a ``DistributedServer``'s
+    channels, ``ContinuousServer(scoring_workers > 1)``): their first
+    ``transform`` calls, released together, bind the weights once and
+    build one executor, and score the same rows alike."""
+    import threading
+
+    from synapseml_tpu_torch.onnx.importer import ImportedGraph
+
+    binds = []
+    real_bind = ImportedGraph.bind
+
+    def counting_bind(self, *args, **kwargs):
+        binds.append(threading.get_ident())
+        time.sleep(0.05)  # widen the window a racing build would use
+        return real_bind(self, *args, **kwargs)
+
+    monkeypatch.setattr(ImportedGraph, "bind", counting_bind)
+    model = ONNXModel(model_bytes=zoo.mlp([6, 16], num_classes=4, seed=5))
+    x = np.random.default_rng(0).normal(size=(5, 6)).astype(np.float32)
+    barrier = threading.Barrier(4)
+    outs, errors = [None] * 4, []
+
+    def first_call(i):
+        try:
+            barrier.wait(timeout=30)
+            out = model.transform(Table({"input": x}), "cpu")
+            outs[i] = np.asarray(out[model.graph.output_names[0]])
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=first_call, args=(i,))
+               for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    try:
+        assert not errors and not any(t.is_alive() for t in threads), errors
+        assert len(binds) == 1, f"{len(binds)} binds"
+        assert len(model._executor_cache) == 1
+        for out in outs[1:]:
+            np.testing.assert_array_equal(out, outs[0])
+    finally:
+        for ex in model._executor_cache.values():
+            ex.close()

@@ -3,16 +3,21 @@
 coalescing, and the container entry ``python -m
 synapseml_tpu_torch.io.serving``.
 
-The single-server tests of the reference's ``tests/test_serving.py``
-are ported one for one (its ``DistributedServer`` tests wait on ROADMAP
-Queue 1 item 3b). Then the cross-package tests: the JAX package's
-``ContinuousServer`` and the port's serve the same request sequence —
-plain rows, malformed JSON, an expired deadline, a ``max_queue`` shed
-and a coalesced batch with a poison row — and must give the same status
-codes, the same reply bytes and ``X-Output-Digest`` (echo and Adult
-margins: exact), replies within 1e-5 (a small zoo MLP, float32), and the
-same ``serving_*`` series and counter values on ``/metrics``. Every
-server binds port 0; every blocking wait has a hard wall (``HARD``).
+The tests of the reference's ``tests/test_serving.py`` are ported one
+for one, its ``DistributedServer`` tests with them (and the attach race
+of its ``tests/test_lock_discipline.py``). Then the cross-package tests:
+the JAX package's ``ContinuousServer`` and the port's serve the same
+request sequence — plain rows, malformed JSON, an expired deadline, a
+``max_queue`` shed and a coalesced batch with a poison row — and must
+give the same status codes, the same reply bytes and ``X-Output-Digest``
+(echo and Adult margins: exact), replies within 1e-5 (a small zoo MLP,
+float32), and the same ``serving_*`` series and counter values on
+``/metrics``. Both packages' ``MultiChannelMap`` place one seeded
+sequence of requests alike, and both packages' ``DistributedServer``
+give the same statuses, reply bytes and ``serving_*`` series (the
+channel, breaker, failover and trip families included) under one
+``compute.channel1`` fault schedule. Every server binds port 0; every
+blocking wait has a hard wall (``HARD``).
 """
 import hashlib
 import http.client
@@ -40,11 +45,14 @@ from synapseml_tpu.onnx import ONNXModel as JONNXModel
 import synapseml_tpu_torch.io.serving as serving_mod
 from synapseml_tpu_torch.data.table import Table
 from synapseml_tpu_torch.gbdt.estimators import LightGBMClassificationModel
-from synapseml_tpu_torch.io.serving import (ContinuousServer,
+from synapseml_tpu_torch.io.serving import (BREAKER_CLOSED,
+                                            ContinuousServer,
+                                            DistributedServer,
                                             HTTPSourceStateHolder,
                                             WorkerServer, make_reply,
                                             parse_request, requests_to_table,
                                             send_replies)
+from synapseml_tpu_torch.runtime import faults as flt
 from synapseml_tpu_torch.onnx import ONNXModel, zoo
 
 HARD = 30.0  # hard wall for any blocking wait: hang -> fast red X
@@ -531,6 +539,147 @@ def test_drain_queue_coalesce_backlog_still_sweeps():
     assert elapsed < 0.15, f"expired-window sweep waited {elapsed:.3f}s"
 
 
+# -- DistributedServer: Serving v1's shared front end over channels -----------
+
+def test_distributed_server_round_robin_and_resize():
+    """Serving v1 analogue: one shared server, requests round-robin
+    across channels; resize disperses orphaned requests
+    (ref: DistributedHTTPSource.scala MultiChannelMap:27-80)."""
+    ds = DistributedServer("t_dist", n_channels=3)
+    try:
+        results = {}
+        threads = []
+
+        def client(i):
+            results[i] = _post(ds.url, {"i": i})
+
+        # 8 requests: rotates _add_index to 2, so the follow-up request
+        # lands on channel 2 — the one the shrink below removes
+        for i in range(8):
+            th = threading.Thread(target=client, args=(i,))
+            th.start()
+            threads.append(th)
+
+        # wait until the distributor has fanned out all 8 requests
+        deadline = time.monotonic() + 5.0
+        while time.monotonic() < deadline and sum(
+                ds.channels.channel(c).qsize() for c in range(3)) < 8:
+            time.sleep(0.01)
+
+        # round-robin: channels get 3 / 3 / 2 of the 8 requests
+        per_channel = []
+        got = []
+        for c in range(3):
+            batch = ds.get_batch(c, max_rows=10, timeout=5.0)
+            per_channel.append(len(batch))
+            got.extend(batch)
+        assert per_channel == [3, 3, 2]
+
+        for cr in got:
+            body = json.loads(cr.request.entity.decode())
+            ds.reply_to(cr.rid, make_reply({"ok": body["i"]}))
+        for th in threads:
+            th.join(timeout=5)
+        assert sorted(r[1]["ok"] for r in results.values()) == list(range(8))
+
+        # elastic shrink: request 99 parks on channel 2, which the resize
+        # removes — it must re-disperse to a surviving channel, not drop
+        t2 = threading.Thread(target=client, args=(99,))
+        t2.start()
+        deadline = time.monotonic() + 5.0
+        while time.monotonic() < deadline and \
+                ds.channels.channel(2).qsize() < 1:
+            time.sleep(0.01)
+        assert ds.channels.channel(2).qsize() == 1
+        ds.update_n_channels(1)
+        batch = ds.get_batch(0, max_rows=4, timeout=5.0)
+        assert len(batch) == 1
+        ds.reply_to(batch[0].rid, make_reply({"ok": 99}))
+        t2.join(timeout=5)
+        assert results[99][1]["ok"] == 99
+    finally:
+        ds.stop()
+
+
+def test_distributed_server_replay_and_ownership():
+    """Channel consumption records epochs, so a dead shard's batch is
+    replayable; a second DistributedServer on the same name is refused."""
+    ds = DistributedServer("t_dist2", n_channels=2)
+    try:
+        with pytest.raises(ValueError, match="already has"):
+            DistributedServer("t_dist2", n_channels=2)
+
+        results = {}
+
+        def client():
+            results["r"] = _post(ds.url, {"v": 7}, timeout=30)
+
+        th = threading.Thread(target=client)
+        th.start()
+        batch = ds.get_batch(0, max_rows=4, timeout=5.0) or \
+            ds.get_batch(1, max_rows=4, timeout=5.0)
+        assert len(batch) == 1
+        # shard "dies" before replying: recover() replays through the
+        # distributor back onto a channel
+        assert ds.server.recover() == 1
+        batch2 = ds.get_batch(0, max_rows=4, timeout=5.0) or \
+            ds.get_batch(1, max_rows=4, timeout=5.0)
+        assert len(batch2) == 1 and batch2[0].rid == batch[0].rid
+        ds.reply_to(batch2[0].rid, make_reply({"done": True}))
+        th.join(timeout=10)
+        assert results["r"] == (200, {"done": True})
+    finally:
+        ds.stop()
+
+
+def test_distributed_server_attach_race_single_owner():
+    """Four constructors racing for one server name: exactly one owns its
+    request queue, the others raise (the check and the claim are one
+    step under the server's lock)."""
+    winners, losers = [], []
+    start = threading.Barrier(4)
+
+    def attach():
+        start.wait(timeout=10)
+        try:
+            winners.append(DistributedServer("lockdisc-owner", 2))
+        except ValueError:
+            losers.append(1)
+
+    threads = [threading.Thread(target=attach) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    try:
+        assert len(winners) == 1 and len(losers) == 3
+    finally:
+        for w in winners:
+            w.stop()
+
+
+def test_device_for_channel_round_robin_and_no_fallback():
+    """Channels map onto the given devices round-robin; with no devices
+    given and no CUDA it raises rather than scoring on the CPU."""
+    from synapseml_tpu_torch.io.serving import device_for_channel
+
+    devs = [torch.device("cpu"), torch.device("meta")]
+    assert [device_for_channel(c, devs) for c in range(5)] == [
+        devs[0], devs[1], devs[0], devs[1], devs[0]]
+    if torch.cuda.is_available():
+        n = torch.cuda.device_count()
+        assert device_for_channel(n + 1) == torch.device("cuda", 1 % n)
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            device_for_channel(0)
+        ds = DistributedServer("t_dist_dev", n_channels=2)
+        try:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                ds.device_for_channel(1)
+        finally:
+            ds.stop()
+
+
 # -- the JAX package's ContinuousServer beside the port's ----------------------
 
 def _echo_or_poison(mod):
@@ -760,6 +909,142 @@ def test_converted_lightgbm_file_replies_byte_identical_to_the_jax_server(
     labels = (booster.predict(x, device="cpu") > 0.5).astype(np.int64)
     for i, row in {0: 0, 1: 1, 2: 2, 6: 3, 7: 4, 9: 6}.items():
         assert json.loads(got[i][1]) == {"output": int(labels[row])}
+
+
+def _placement_trace(mod):
+    """One seeded sequence of adds, partial drains, quarantines,
+    re-admits and resizes on ``mod``'s ``MultiChannelMap(3)``: after each
+    operation the depths, the enabled channels and what it moved or
+    drained (rid by channel); at the end every channel's rids in order."""
+    rng = np.random.default_rng(0)
+    m = mod.MultiChannelMap(3)
+    trace, n_added = [], 0
+    for _ in range(240):
+        op = rng.choice(["add"] * 6 + ["drain", "off", "on", "resize"])
+        n = m.n_channels
+        if op == "add":
+            m.add(mod.CachedRequest(f"r{n_added}", mod.HTTPRequestData(
+                url="/", method="POST", headers={}, entity=b"{}")))
+            n_added += 1
+            step = ("add",)
+        elif op == "drain":
+            ch, k = int(rng.integers(0, n)), int(rng.integers(1, 4))
+            q, took = m.channel(ch), []
+            while len(took) < k and not q.empty():
+                took.append(q.get_nowait().rid)
+            step = ("drain", ch, took)
+        elif op in ("off", "on"):
+            ch = int(rng.integers(0, n))
+            step = (op, ch, m.set_channel_enabled(ch, op == "on"))
+        else:
+            k = int(rng.integers(1, 5))
+            m.update_n_channels(k)
+            step = ("resize", k)
+        trace.append((step, m.depths(), m.enabled_channels()))
+    final = []
+    for ch in range(m.n_channels):
+        q, rids = m.channel(ch), []
+        while not q.empty():
+            rids.append(q.get_nowait().rid)
+        final.append(rids)
+    return trace, final
+
+
+def test_multichannelmap_places_like_the_jax_package():
+    want = _placement_trace(jserving)
+    got = _placement_trace(serving_mod)
+    assert got == want
+    trace, final = got
+    ops = {step[0] for step, _, _ in trace}
+    assert ops == {"add", "drain", "off", "on", "resize"}
+    assert any(step[0] == "off" and step[2] > 0 for step, _, _ in trace)
+    assert sum(map(len, final)) > 0
+
+
+def _distributed_sequence(mod, faults, pipeline, bodies, name):
+    """``mod``'s ``DistributedServer(n_channels=2, breaker_threshold=1)``
+    over ``pipeline``: one client sends ``bodies`` in turn while
+    ``compute.channel1`` fails its first two fires, waiting after each
+    reply until every channel's breaker is CLOSED again (the probe's
+    re-admission), so placement does not race the probe. Returns the
+    replies and the ``serving_*`` series."""
+    ds = mod.DistributedServer(name, n_channels=2, breaker_threshold=1,
+                               probe_interval=0.05)
+    ds.serve(pipeline, max_batch=8)
+    port = ds.server.port
+    faults.activate("compute.channel1", times=2)
+    try:
+        replies = []
+        for body in bodies:
+            replies.append(_send(port, body))
+            deadline = time.monotonic() + HARD
+            while any(ds.channel_state(c) != mod.BREAKER_CLOSED
+                      for c in (0, 1)):
+                assert time.monotonic() < deadline, "never re-admitted"
+                time.sleep(0.01)
+        return replies, _serving_series(port, name)
+    finally:
+        faults.deactivate()
+        ds.stop()
+
+
+def test_distributed_adult_replies_and_series_equal_the_jax_server(
+        tmp_path):
+    """Both packages' ``DistributedServer`` over the Adult fixture model
+    (the port on ``device="cpu"``), one client, one fault schedule: the
+    same statuses, byte-identical replies and digests, margins bitwise
+    the fixture's, and equal ``serving_*`` counter series — the channel
+    gauges, breaker transitions, probes, failovers, trips and
+    redispersals included. Row 8 is a poison row (13 features): it fails
+    on both channels, so it is a 500 and trips both."""
+    from synapseml_tpu.runtime import blackbox as jbb
+    from synapseml_tpu.runtime import faults as jflt
+    from synapseml_tpu_torch.runtime import blackbox as bb
+
+    io = np.load(ADULT_IO)
+    x = io["x"][:11]
+    bodies = [json.dumps({"features": row.tolist()}).encode() for row in x]
+    bodies[8] = json.dumps({"features": x[8, :13].tolist()}).encode()
+    jmodel = JLightGBMClassificationModel.load_native_model(ADULT_MODEL)
+    pmodel = LightGBMClassificationModel.load_native_model(ADULT_MODEL)
+    jbb.set_dump_dir(str(tmp_path / "jax_flight"))
+    bb.set_dump_dir(str(tmp_path / "port_flight"))
+    try:
+        want, want_series = _distributed_sequence(
+            jserving, jflt, _adult_pipeline(jserving, JTable, jmodel),
+            bodies, "xpkg_dist_adult")
+        got, got_series = _distributed_sequence(
+            serving_mod, flt, _adult_pipeline(serving_mod, Table, pmodel,
+                                              device="cpu"),
+            bodies, "xpkg_dist_adult")
+    finally:
+        jbb.set_dump_dir(None)
+        bb.set_dump_dir(None)
+    _assert_same_replies(got, want)
+    assert [r[0] for r in got] == [200] * 8 + [500, 200, 200]
+    assert got_series == want_series
+    for i in (0, 1, 2, 3, 4, 5, 6, 7, 9, 10):
+        margin = np.float32(json.loads(got[i][1])["rawPrediction"][1])
+        assert margin == io["raw"][i]
+
+    def total(family, **labels):
+        return sum(v for k, v in got_series.items()
+                   if k.startswith(f"synapseml_serving_{family}{{")
+                   and all(f'{lk}="{lv}"' in k for lk, lv in labels.items()))
+
+    # channel 1's two fires: a trip with a failover, then a failed probe;
+    # the poison row: a trip on each channel, one failover between them
+    assert total("channel_trips_total") == 3.0
+    assert total("failover_total") == 2.0
+    assert total("channel_probe_total", outcome="fail") == 1.0
+    assert total("channel_probe_total", outcome="ok") == 3.0
+    assert total("breaker_transitions_total", channel="1",
+                 state="open") == 3.0
+    assert total("redispersed_total") == 0.0
+    assert any(k.startswith("synapseml_serving_channel_depth{")
+               for k in got_series)
+    assert any(k.startswith("synapseml_serving_channel_breaker_state{")
+               for k in got_series)
 
 
 # -- the container entry ---------------------------------------------------------

@@ -3,9 +3,13 @@ deadline and queue sheds, transient retry, supervised serving threads,
 the bind retry, and the single-server lifecycle (live/ready, the drain
 gate, drain then stop, 503 on stop, ``Retry-After`` on every shed).
 
-Ported from the serving half of the reference's ``tests/test_faults.py``
-and the single-server tests of ``tests/test_channel_failover.py``; the
-``DistributedServer`` tests beside them wait on ROADMAP Queue 1 item 3b.
+Then the channel layer, ``DistributedServer``: depth-aware placement,
+quarantine and redisperse, the circuit breakers with their failover and
+half-open probes, the stall accounting, the default canary, stop's 503s
+and the supervised distributor.
+
+Ported one for one from the serving half of the reference's
+``tests/test_faults.py`` and from ``tests/test_channel_failover.py``.
 Every server binds port 0 (the bind-retry tests excepted, which probe
 the retry itself); every blocking wait has a hard wall (``HARD``).
 """
@@ -23,9 +27,11 @@ import pytest
 
 from synapseml_tpu_torch.data.table import Table
 from synapseml_tpu_torch.io.http import HTTPRequestData
-from synapseml_tpu_torch.io.serving import (CachedRequest, ContinuousServer,
-                                            WorkerServer, _retry_rng,
-                                            make_reply)
+from synapseml_tpu_torch.io.serving import (BREAKER_CLOSED, CachedRequest,
+                                            ContinuousServer,
+                                            DistributedServer,
+                                            MultiChannelMap, WorkerServer,
+                                            _retry_rng, make_reply)
 from synapseml_tpu_torch.runtime import faults as flt
 from synapseml_tpu_torch.runtime import telemetry as tm
 from synapseml_tpu_torch.runtime.faults import PipelineBrokenError
@@ -484,3 +490,456 @@ def test_retry_rng_seedable_and_injectable(monkeypatch):
         assert cs._retry_rng is inj
     finally:
         cs.stop()
+
+
+# -- the channel layer: MultiChannelMap ---------------------------------------
+
+def _cr(rid):
+    return CachedRequest(rid, HTTPRequestData(
+        url="/", method="POST", headers={}, entity=b"{}"))
+
+
+def test_depth_aware_placement_prefers_least_loaded():
+    """A backed-up channel sheds NEW load to its siblings instead of
+    accumulating it; with uniform depths placement stays round-robin."""
+    m = MultiChannelMap(3)
+    for i in range(6):
+        m.add(_cr(f"rr{i}"))
+    assert m.depths() == [2, 2, 2]
+    # channel 0 backs up (its consumer stalled): new adds avoid it
+    for i in range(4):
+        m.channel(0).put(_cr(f"deep{i}"))
+    assert m.depths() == [6, 2, 2]
+    for i in range(4):
+        m.add(_cr(f"new{i}"))
+    assert m.depths()[0] == 6  # nothing new landed on the deep channel
+    assert sum(m.depths()) == 14
+
+
+def test_placement_never_picks_quarantined_channel():
+    m = MultiChannelMap(3)
+    m.set_channel_enabled(0, False)
+    assert m.enabled_channels() == [1, 2]
+    for i in range(8):
+        m.add(_cr(f"q{i}"))
+    assert m.depths()[0] == 0
+    assert sum(m.depths()) == 8
+    # ALL channels quarantined: availability over purity — placement
+    # degrades to least-loaded over everything rather than dropping
+    m.set_channel_enabled(1, False)
+    m.set_channel_enabled(2, False)
+    m.add(_cr("last"))
+    assert sum(m.depths()) == 9
+
+
+def test_quarantine_redisperses_parked_requests():
+    """A request must never sit on a queue no healthy consumer drains:
+    tripping a channel moves its parked work onto enabled siblings."""
+    m = MultiChannelMap(3)
+    for i in range(5):
+        m.channel(0).put(_cr(f"p{i}"))
+    moved = m.set_channel_enabled(0, False)
+    assert moved == 5
+    d = m.depths()
+    assert d[0] == 0 and d[1] + d[2] == 5
+    # re-admitting moves nothing back (placement just may pick it again)
+    assert m.set_channel_enabled(0, True) == 0
+    assert m.enabled_channels() == [0, 1, 2]
+
+
+def test_multichannelmap_concurrent_add_resize_quarantine():
+    """No request lost or duplicated under concurrent add() +
+    update_n_channels() + breaker-style quarantine/re-admit churn."""
+    m = MultiChannelMap(3)
+    N = 300
+    stop = threading.Event()
+
+    def adder():
+        for i in range(N):
+            m.add(_cr(f"r{i}"))
+
+    def resizer():
+        rng = random.Random(7)
+        while not stop.is_set():
+            m.update_n_channels(rng.randint(1, 4))
+            time.sleep(0.001)
+
+    def quarantiner():
+        rng = random.Random(11)
+        while not stop.is_set():
+            ch = rng.randint(0, 3)
+            m.set_channel_enabled(ch, False)
+            time.sleep(0.001)
+            m.set_channel_enabled(ch, True)
+
+    threads = [threading.Thread(target=f)
+               for f in (adder, resizer, quarantiner)]
+    for t in threads:
+        t.start()
+    threads[0].join(timeout=HARD)
+    assert not threads[0].is_alive(), "adder wedged"
+    stop.set()
+    for t in threads[1:]:
+        t.join(timeout=HARD)
+        assert not t.is_alive()
+    m.update_n_channels(3)
+    # re-enable everything, then drain all queues: exactly N unique rids
+    for ch in range(3):
+        m.set_channel_enabled(ch, True)
+    seen = []
+    for ch in range(3):
+        q = m.channel(ch)
+        while True:
+            try:
+                seen.append(q.get_nowait().rid)
+            except Exception:  # noqa: BLE001 - queue.Empty
+                break
+    assert len(seen) == N, f"lost/duplicated: {len(seen)} != {N}"
+    assert len(set(seen)) == N
+
+
+# -- circuit breakers + failover dispatch -------------------------------------
+
+def test_breaker_trips_quarantines_and_probe_readmits():
+    """threshold consecutive failures trip OPEN (quarantine + placement
+    avoidance); disarming the fault lets the half-open probe re-admit
+    the channel CLOSED — the full state round trip, counted."""
+    ds = DistributedServer("t_cf_brk", n_channels=2, breaker_threshold=2,
+                           probe_interval=0.05)
+    try:
+        flt.activate("compute.channel0", prob=1.0)
+        for _ in range(2):
+            # failover: the same fn lands on channel 1 and succeeds
+            assert ds.score_on_channel(0, lambda: 42) == 42
+        # the trip wakes the probe, which may already be mid-pass
+        # (HALF_OPEN) when we look: quarantined means NOT CLOSED
+        assert ds.channel_state(0) != BREAKER_CLOSED
+        assert ds.channels.enabled_channels() == [1]
+        assert _ctr("serving_failover_total", server="t_cf_brk") >= 2
+        assert _ctr("serving_channel_trips_total", server="t_cf_brk") >= 1
+
+        flt.deactivate("compute.channel0")
+        deadline = time.monotonic() + HARD
+        while time.monotonic() < deadline and \
+                ds.channel_state(0) != BREAKER_CLOSED:
+            time.sleep(0.01)
+        assert ds.channel_state(0) == BREAKER_CLOSED
+        assert ds.channels.enabled_channels() == [0, 1]
+        # the probe's bounce is faster than a scrape: transitions are
+        # COUNTED per state, so the round trip is provable after the fact
+        for state in ("open", "half_open", "closed"):
+            assert _ctr("serving_breaker_transitions_total",
+                        server="t_cf_brk", channel="0",
+                        state=state) >= 1, state
+    finally:
+        ds.stop()
+
+
+def test_breaker_trip_redisperses_parked_requests():
+    """Requests parked on the tripping channel move to healthy siblings
+    at trip time (counted in serving_redispersed_total)."""
+    ds = DistributedServer("t_cf_redis", n_channels=2,
+                           breaker_threshold=1, probe_interval=30.0)
+    try:
+        for i in range(4):
+            ds.channels.channel(0).put(_cr(f"park{i}"))
+        flt.activate("compute.channel0", prob=1.0)
+        assert ds.score_on_channel(0, lambda: 1) == 1  # fails over
+        # trip-woken probe may be mid-pass (HALF_OPEN); the armed fault
+        # fails its canary, so the channel never returns to CLOSED
+        assert ds.channel_state(0) != BREAKER_CLOSED
+        assert ds.channels.depths()[0] == 0
+        assert ds.channels.depths()[1] == 4
+        assert _ctr("serving_redispersed_total", server="t_cf_redis") >= 4
+    finally:
+        ds.stop()
+
+
+def test_no_healthy_sibling_raises_to_caller():
+    """Failover needs a healthy target: with every other channel OPEN
+    the original error propagates (the caller's explicit-error path —
+    never a hang, never a silent drop)."""
+    ds = DistributedServer("t_cf_alone", n_channels=2,
+                           breaker_threshold=1, probe_interval=30.0)
+    try:
+        flt.activate("compute.channel0", prob=1.0)
+        flt.activate("compute.channel1", prob=1.0)
+        # channel0 fails -> trips OPEN -> fails over to channel1, whose
+        # own fault fails the retry too: the error surfaces (explicitly)
+        with pytest.raises(flt.FaultInjected):
+            ds.score_on_channel(0, lambda: 1)
+        # probe passes (woken at trip) fail on the armed faults: both
+        # channels stay quarantined (OPEN, transiently HALF_OPEN)
+        assert ds.channel_state(0) != BREAKER_CLOSED
+        assert ds.channel_state(1) != BREAKER_CLOSED
+        # both quarantined: no failover target exists, the error propagates
+        with pytest.raises(flt.FaultInjected):
+            ds.score_on_channel(1, lambda: 1)
+    finally:
+        ds.stop()
+
+
+def test_stall_counts_as_breaker_failure():
+    """A score stalled past stall_timeout counts against the channel
+    even though its result still returns (the slow-channel trip)."""
+    ds = DistributedServer("t_cf_stall", n_channels=2,
+                           breaker_threshold=1, probe_interval=30.0,
+                           stall_timeout=0.005)
+    try:
+        flt.activate("latency.channel_stall", prob=1.0, latency_ms=25.0)
+        assert ds.score_on_channel(0, lambda: 7) == 7
+        # the result returned, but the stall tripped the breaker
+        assert _ctr("serving_channel_trips_total",
+                    server="t_cf_stall") >= 1
+    finally:
+        ds.stop()
+
+
+def test_probe_canary_stall_does_not_readmit():
+    """A channel tripped for slowness must not be re-admitted by a
+    canary that itself stalled — that would flap trip->re-admit->trip
+    with a redisperse every cycle. The probe times its canary against
+    stall_timeout like any real score."""
+    ds = DistributedServer("t_cf_probestall", n_channels=2,
+                           breaker_threshold=1, probe_interval=0.03,
+                           stall_timeout=0.005)
+    try:
+        flt.activate("latency.channel_stall", prob=1.0, latency_ms=25.0)
+        assert ds.score_on_channel(0, lambda: 3) == 3  # stall trips it
+        deadline = time.monotonic() + HARD
+        while time.monotonic() < deadline and _ctr(
+                "serving_channel_probe_total", server="t_cf_probestall",
+                outcome="fail") < 2:
+            time.sleep(0.01)
+        # probes ran and FAILED on the still-stalling canary; the
+        # channel was never re-admitted
+        assert _ctr("serving_channel_probe_total",
+                    server="t_cf_probestall", outcome="fail") >= 2
+        assert ds.channel_state(0) != BREAKER_CLOSED
+        # disarm: the next canary is fast -> re-admitted CLOSED
+        flt.deactivate("latency.channel_stall")
+        deadline = time.monotonic() + HARD
+        while time.monotonic() < deadline and \
+                ds.channel_state(0) != BREAKER_CLOSED:
+            time.sleep(0.01)
+        assert ds.channel_state(0) == BREAKER_CLOSED
+    finally:
+        ds.stop()
+
+
+def test_stall_on_failover_attempt_counts_against_target():
+    """The failover attempt gets the same stall accounting as a direct
+    score: a degraded channel every failover lands on must accrue
+    breaker failures, not be recorded as an unconditional success."""
+    ds = DistributedServer("t_cf_fostall", n_channels=2,
+                           breaker_threshold=1, probe_interval=30.0,
+                           stall_timeout=0.005)
+    try:
+        flt.activate("compute.channel0", prob=1.0)
+
+        def slow():
+            time.sleep(0.02)
+            return 9
+
+        # channel0 fails -> trips; failover to channel1 returns 9 but
+        # stalls past stall_timeout -> channel1 trips too. Assert via
+        # the monotonic trips counter: channel1's healthy canary may
+        # legitimately re-admit it before state is observed (channel0
+        # stays OPEN — its armed fault fails every probe)
+        assert ds.score_on_channel(0, slow) == 9
+        assert ds.channel_state(0) != BREAKER_CLOSED
+        assert _ctr("serving_channel_trips_total",
+                    server="t_cf_fostall") >= 2
+    finally:
+        ds.stop()
+
+
+def test_serve_failover_bit_identical_e2e():
+    """End to end over HTTP: with channel0's compute fault armed at
+    prob 1.0, every request still gets 200 with the SAME numbers a
+    healthy channel computes — failover is invisible to clients."""
+    ds = DistributedServer("t_cf_e2e", n_channels=2, breaker_threshold=2,
+                           probe_interval=0.05)
+    ds.serve(_linear_pipeline, max_batch=8, linger=0.002)
+    try:
+        flt.activate("compute.channel0", prob=1.0)
+        for k in range(8):
+            st, body = _post(ds.url, {"x": [float(k), 2.0]})
+            assert st == 200
+            assert body["y"] == [k * 3.0 + 1.0, 7.0]
+        assert ds.channel_state(0) != BREAKER_CLOSED
+        flt.deactivate("compute.channel0")
+        deadline = time.monotonic() + HARD
+        while time.monotonic() < deadline and \
+                ds.channel_state(0) != BREAKER_CLOSED:
+            time.sleep(0.01)
+        assert ds.channel_state(0) == BREAKER_CLOSED
+        st, body = _post(ds.url, {"x": [1.0, 1.0]})
+        assert (st, body["y"]) == (200, [4.0, 4.0])
+    finally:
+        ds.stop()
+
+
+def test_default_canary_scores_real_pipeline_no_flap():
+    """serve() wires a REAL-pipeline canary by default: a channel broken
+    by a genuine (non-injected) fault is NOT re-admitted while the fault
+    persists — a no-op canary would flap it OPEN->CLOSED->OPEN with a
+    redisperse every probe cycle — and re-admission happens once the
+    pipeline actually scores again."""
+    broken = threading.Event()
+
+    def pipeline(table: Table) -> Table:
+        if broken.is_set():
+            raise RuntimeError("device wedged")
+        return _linear_pipeline(table)
+
+    ds = DistributedServer("t_cf_canary", n_channels=2,
+                           breaker_threshold=1, probe_interval=0.05)
+    ds.serve(pipeline, max_batch=4, linger=0.002)
+    try:
+        # first success captures the known-good canary row
+        st, body = _post(ds.url, {"x": [2.0]})
+        assert (st, body["y"]) == (200, [7.0])
+        deadline = time.monotonic() + HARD
+        while time.monotonic() < deadline and ds._canary_table is None:
+            time.sleep(0.01)
+        assert ds._canary_table is not None
+        assert ds.canary_fn is not None
+
+        # a genuine fault (invisible to fault points) trips both
+        # channels: the original score fails, so does the failover
+        broken.set()
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            _post(ds.url, {"x": [1.0]})
+        assert ei.value.code == 500
+        ei.value.read()
+        deadline = time.monotonic() + HARD
+        while time.monotonic() < deadline and not all(
+                ds.channel_state(c) != BREAKER_CLOSED for c in (0, 1)):
+            time.sleep(0.01)
+        # the probe re-scores the canary through the REAL pipeline,
+        # which still fails: channels must STAY quarantined (>= several
+        # probe intervals — a no-op canary re-admits within one;
+        # HALF_OPEN mid-probe still counts as quarantined)
+        time.sleep(ds.probe_interval * 6)
+        assert ds.channel_state(0) != BREAKER_CLOSED
+        assert ds.channel_state(1) != BREAKER_CLOSED
+        probe_fails = _ctr("serving_channel_probe_total",
+                           server="t_cf_canary", outcome="fail")
+        assert probe_fails >= 1
+
+        # heal: the canary scores for real and re-admits both channels
+        broken.clear()
+        deadline = time.monotonic() + HARD
+        while time.monotonic() < deadline and not all(
+                ds.channel_state(c) == BREAKER_CLOSED for c in (0, 1)):
+            time.sleep(0.01)
+        assert ds.channel_state(0) == BREAKER_CLOSED
+        assert ds.channel_state(1) == BREAKER_CLOSED
+        st, body = _post(ds.url, {"x": [3.0]})
+        assert (st, body["y"]) == (200, [10.0])
+    finally:
+        ds.stop()
+
+
+def test_resize_while_serving_is_refused():
+    """serve() snapshots the channel count: a live resize would route
+    depth-aware placement onto queues no scorer drains (clients park
+    until reply_timeout) — it must raise, not silently strand."""
+    ds = DistributedServer("t_cf_resize", n_channels=2)
+    ds.serve(_linear_pipeline, max_batch=4)
+    try:
+        with pytest.raises(ValueError, match="resize while serving"):
+            ds.update_n_channels(4)
+        assert ds.channels.n_channels == 2
+    finally:
+        ds.stop()
+    # stopped: resize is supported again (stop, resize, re-serve)
+    assert ds.channels.n_channels == 2
+
+
+def test_distributed_stop_fails_parked_channel_requests():
+    """stop() with requests still parked on channel queues replies an
+    explicit 503 + Retry-After — clients never wait out reply_timeout."""
+    ds = DistributedServer("t_cf_stop", n_channels=2, reply_timeout=HARD)
+    results = {}
+
+    def client():
+        try:
+            results["r"] = _post(ds.url, {"v": 1}) + ({},)
+        except urllib.error.HTTPError as e:
+            results["r"] = (e.code, None, dict(e.headers))
+            e.read()
+
+    th = threading.Thread(target=client)
+    th.start()
+    # wait for the distributor to fan the request onto a channel
+    deadline = time.monotonic() + HARD
+    while time.monotonic() < deadline and sum(ds.channels.depths()) < 1:
+        time.sleep(0.01)
+    assert sum(ds.channels.depths()) == 1
+    ds.stop()
+    th.join(timeout=HARD)
+    assert not th.is_alive(), "client hung through stop()"
+    st, _, hdrs = results["r"]
+    assert st == 503
+    assert hdrs.get("Retry-After") == "1"
+
+
+def test_concurrent_trips_spawn_single_probe_thread():
+    """_ensure_probe_thread under a thundering herd: N channels tripping
+    in the same instant start exactly ONE probe loop (a second loop
+    would double-probe quarantined channels and escape stop()'s join)."""
+    ds = DistributedServer("t_cf_oneprobe", n_channels=2,
+                           breaker_threshold=1, probe_interval=30.0)
+    try:
+        barrier = threading.Barrier(8)
+
+        def racer():
+            barrier.wait()
+            ds._ensure_probe_thread()
+
+        threads = [threading.Thread(target=racer) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=HARD)
+        alive = [t for t in threading.enumerate()
+                 if t.name == "breaker-probe-t_cf_oneprobe" and t.is_alive()]
+        assert len(alive) == 1, f"{len(alive)} probe loops running"
+        assert ds._probe_thread in alive
+    finally:
+        ds.stop()
+
+
+def test_distributor_thread_kill_recovery():
+    """An exception in DistributedServer._distribute would silently stop
+    ALL traffic; supervision restarts the thread and requests keep
+    routing."""
+    ds = DistributedServer("t_kill_dist", n_channels=2)
+    try:
+        flt.activate("thread_kill.distributor", times=1)
+        deadline = time.monotonic() + HARD
+        while _ctr("serving_thread_restarts_total", server="t_kill_dist",
+                   thread="distributor") < 1:
+            assert time.monotonic() < deadline, "no restart recorded"
+            time.sleep(0.02)
+        result = {}
+
+        def client():
+            result["r"] = _post(ds.url, {"x": 7})
+
+        ct = threading.Thread(target=client)
+        ct.start()
+        got = []
+        deadline = time.monotonic() + HARD
+        while not got and time.monotonic() < deadline:
+            for ch in range(2):
+                got.extend(ds.get_batch(ch, timeout=0.2))
+        assert got, "request never routed after distributor restart"
+        ds.reply_to(got[0].rid, make_reply({"ok": True}))
+        ct.join(timeout=HARD)
+        assert not ct.is_alive()
+        assert result["r"] == (200, {"ok": True})
+    finally:
+        ds.stop()

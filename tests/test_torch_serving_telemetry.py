@@ -6,11 +6,11 @@ structured log (``runtime/structlog.py``), the SLO math
 (``runtime/slo.py``) and the ``/debug`` routes.
 
 Ported from the serving, blackbox, structlog and SLO tests of the
-reference's ``tests/test_telemetry.py`` and ``tests/test_blackbox.py``;
+reference's ``tests/test_telemetry.py`` and ``tests/test_blackbox.py``
+(with its redisperse and breaker-trip events of ``DistributedServer``);
 the executor runs with ``device="cpu"``. Left out with the code they
-test: the breaker and redisperse events (``DistributedServer``, ROADMAP
-Queue 1 item 3b), ``/debug/profile`` and the profiler helpers, the
-loadgen tool and the 8-device dispatch counters (item 6 and item 1e).
+test: ``/debug/profile`` and the profiler helpers, the loadgen tool and
+the 8-device dispatch counters (ROADMAP Queue 1 items 6 and 1e).
 Every server binds port 0; every blocking wait has a hard wall.
 """
 import glob
@@ -29,7 +29,9 @@ import pytest
 from synapseml_tpu_torch.data.table import Table
 from synapseml_tpu_torch.io.http import HTTPRequestData
 from synapseml_tpu_torch.io.serving import (CachedRequest, ContinuousServer,
-                                            WorkerServer, make_reply)
+                                            DistributedServer,
+                                            MultiChannelMap, WorkerServer,
+                                            make_reply)
 from synapseml_tpu_torch.runtime import blackbox as bb
 from synapseml_tpu_torch.runtime import faults as flt
 from synapseml_tpu_torch.runtime import slo
@@ -500,6 +502,61 @@ def test_trigger_dumps_and_debounces(tmp_path):
     assert bb.trigger("unit_trip") is None
     assert len(glob.glob(str(tmp_path / "flight" / "flight-*"))) == 1
     assert bb.last_dump_path() == path
+
+
+def _cr(rid: str) -> CachedRequest:
+    return CachedRequest(rid, HTTPRequestData(url="/", method="POST"))
+
+
+# -- breaker trip -> auto dump, redisperse rids -------------------------------
+
+def test_redisperse_records_rids():
+    m = MultiChannelMap(3)
+    rids = [f"p{i}" for i in range(5)]
+    for r in rids:
+        m.channel(0).put(_cr(r))
+    assert m.set_channel_enabled(0, False) == 5
+    evs = [e for e in bb.snapshot(stacks=False)["events"]
+           if e["event"] == "redisperse"]
+    assert evs and evs[-1]["channel"] == 0 and evs[-1]["n"] == 5
+    assert set(evs[-1]["rids"]) <= set(rids)
+
+
+def test_breaker_trip_auto_dumps_with_thread_stacks():
+    flt.activate("compute.channel0", prob=1.0)
+    ds = DistributedServer("bb_trip", n_channels=2,
+                           breaker_threshold=1, probe_interval=5.0)
+    ds.serve(_echo_pipeline, max_batch=4)
+    try:
+        # first scored batch on channel 0 fails -> trip (threshold 1)
+        # -> failover to channel 1 -> the client still sees 200
+        st, hdrs, body = _post(ds.url, {"x": [1.0]})
+        assert st == 200, (st, body)
+        deadline = time.monotonic() + HARD
+        while bb.last_dump_path() is None and \
+                time.monotonic() < deadline:
+            time.sleep(0.02)
+        path = bb.last_dump_path()
+        assert path, "breaker trip produced no flight dump"
+        with open(path) as fh:
+            d = json.load(fh)
+        kinds = [e["event"] for e in d["events"]]
+        assert "breaker_trip" in kinds
+        assert "breaker_transition" in kinds
+        trip = next(e for e in d["events"]
+                    if e["event"] == "breaker_trip")
+        assert trip["channel"] == 0 and trip["server"] == "bb_trip"
+        names = {t["name"] for t in d["threads"]}
+        assert any(n.startswith("chan-scorer-bb_trip") for n in names)
+        # the failover for the SAME batch lands in the ring right
+        # after the trip dump; the live snapshot must carry its rid
+        live = [e for e in bb.snapshot(stacks=False)["events"]
+                if e["event"] == "failover"]
+        assert live and live[-1]["channel"] == 0
+        assert hdrs["X-Request-Id"] in live[-1]["rids"]
+    finally:
+        flt.deactivate()
+        ds.stop()
 
 
 def test_executor_pipeline_break_records_event():
