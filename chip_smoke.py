@@ -414,6 +414,21 @@ before the last line:
    1e-3 of the JAX fixture, 0 recompiles, one executor. Requests/s,
    p50/p99, batches and rows a channel, each leg's wall.
 
+40. dp_layouts — ``devices=`` data parallelism over slots sharing the
+   card (``dp_layouts_phase``): ResNet-50 224 through a warm
+   ``ONNXModel(mini_batch_size=128)`` on 512 images under ``devices=None``,
+   ``1``, ``"all"`` (the pinned path), ``["cuda:0"] * 2`` (sharded) and
+   ``["cuda:0"] * 3`` (round robin): round-robin logits bitwise one slot's,
+   sharded ones within 1e-3 of the JAX fixture (rows 0-7) and 1e-2 of one
+   slot's (all rows), warm graphs = slots x
+   buckets, dispatch counters summing to the batches, 0 recompiles;
+   ``ImageFeaturizer`` over two slots against one; ``DecodeScheduler``
+   over two slots at phase 32's geometry, ids equal to one slot's but at
+   near-ties, 0 KV copies; the serving entry with ``--devices 1`` (digests
+   equal) and ``--devices 9`` (exit 2). Images/s, warmup seconds and
+   memory a slot, busy share; not scaling figures. K1 and K2 launch 0
+   times.
+
 Between phases 3 and 4: prng_card_vs_cpu (the threefry key stream on the
 card equal to the CPU's, bitwise) and masked_index (K1 on a
 feature_fraction index equal to K1 on a fresh index of the moved bins and
@@ -1919,7 +1934,7 @@ def onnx_model_phase(smi, reset_counts, read_counts) -> dict:
     ex = enc._executor("cuda")
     seen = []
     inner = ex._fn
-    ex._fn = lambda *a: (seen.append(a[0].dtype), inner(*a))[1]
+    ex._fn = lambda *a: (seen.append(a[-1].dtype), inner(*a))[1]
     enc_got = np.asarray(enc.transform(Table({enc_in: ids}))[enc_out])
     ex._fn = inner
     enc_want = enc.graph.bind()(torch.from_numpy(ids).cuda())[0].cpu().numpy()
@@ -1997,9 +2012,9 @@ def warm_model(model, transfers, **kw) -> dict:
     ex = model._executor("cuda")
     capture = ex._capture
 
-    def counted(sig):
+    def counted(*args):
         with transfers.mode:
-            return capture(sig)
+            return capture(*args)
 
     ex._capture = counted
     torch.cuda.synchronize()
@@ -2142,7 +2157,7 @@ def onnx_model_warmup_phase(smi, reset_counts, read_counts, eager) -> dict:
         for name in ("float32", "bf16")}
     ex = models["bf16"]._executor("cuda")
     sig8 = (((8, 3, 224, 224), "bfloat16"),)
-    graph8 = ex._aot[sig8].graph
+    graph8 = ex._aot[(sig8, "single", 0)].graph
     torch.cuda.synchronize()
     replay8 = {"host_issue_ms": host_ms(graph8.replay, calls=50),
                "card_ms": cuda_ms(graph8.replay, reps=5, inner=10)}
@@ -6781,6 +6796,348 @@ def distributed_serving_phase(smi, reset_counts, read_counts,
     return counts
 
 
+# -- 40. devices= data parallelism: slots sharing the one card ---------------
+DP_IMAGES = 512               # ResNet-50 images a layout (4 buckets of 128)
+DP_LAYOUTS = (("none", None), ("int_1", 1), ("all", "all"),
+              ("shard_2", ["cuda:0"] * 2), ("rr_3", ["cuda:0"] * 3))
+DP_FEATURE_IMAGES = 128       # ImageFeaturizer images over two slots
+DP_FEATURE_TOL = 1e-3         # features against the one-slot featurizer
+DP_SHARD_GAP_TOL = 1e-2       # sharded logits against one slot, all rows
+DP_DECODE_SEQS, DP_DECODE_NEW = 8, 32
+DP_EXIT_TIMEOUT_S = 120       # the --devices 9 child's exit
+
+
+def dispatch_series(tm) -> dict:
+    """``{device label: count}`` of ``executor_dispatch_total``."""
+    return {labels["device"]: m.value
+            for labels, m in tm.series("executor_dispatch_total")}
+
+
+def dp_layouts_phase(smi, reset_counts, read_counts) -> dict:
+    """Phase 40: ``devices=`` data parallelism, its slots sharing the one
+    card (each slot its own streams, warm graphs, static buffers and graph
+    pool). No figure here is a scaling figure: every slot runs on the same
+    H100, and each is printed beside the one-slot figure.
+
+    1. ResNet-50 224 (``zoo.resnet50`` seed 0, float32) through a warm
+       ``ONNXModel(mini_batch_size=128)`` on 512 images (rows 0-7
+       ``entry()``'s) under ``devices=None``, ``1`` and ``"all"`` (each
+       the pinned path, one slot), ``["cuda:0"] * 2`` (sharded: two 64-row
+       graphs a bucket of 128) and ``["cuda:0"] * 3`` (round robin, as 128
+       % 3 != 0): every target ``compiled``, warm graphs = slots x 5
+       buckets; the round-robin and one-slot logits bitwise the
+       ``devices=None`` model's; the sharded logits' rows 0-7 within
+       rtol=atol=1e-3 of the JAX fixture, and all 512 rows within 1e-2
+       of one slot's (not bitwise: cuBLAS and cuDNN pick kernels by the
+       batch), the gap printed; the dispatch
+       counters' deltas sum to the batches, AOT hits equal them, 0
+       recompiles after warmup, 0 copies between devices. Images/s (median
+       of 3 after a warm call), warmup seconds and memory reserved a slot,
+       the card's busy share (union of kernel intervals) in one transform.
+    2. ``ImageFeaturizer(cut_output_layers=1, devices=["cuda:0"] * 2)``
+       over the same network on 128 images of 224 x 224: features bitwise
+       or within 1e-3 of the one-slot featurizer's, the gap printed.
+    3. ``DecodeScheduler(devices=["cuda:0"] * 2)`` over phase 23's wide
+       decoder at phase 32's geometry (``max_batch=8``: sharded, 4 rows a
+       slot), warmed (10 signatures, 20 graphs): 8 sequences of
+       ``decode_work`` with 32 new tokens, the ids equal to the one-slot
+       scheduler's but at counted near-ties (``greedy_check``), 0
+       recompiles, 0 KV copies between devices.
+    4. The serving entry with ``--devices 1 --warmup auto``: 8 one-image
+       requests from one client, each reply's digest the ``devices=None``
+       model's for the same image; ``--devices 9`` exits 2 with the
+       reference's message shape.
+    K1 and K2 launch 0 times. Returns the launch counts."""
+    import make_resnet50_fixture as resnet_fx
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.image.featurizer import ImageFeaturizer
+    from synapseml_tpu_torch.io import serving
+    from synapseml_tpu_torch.onnx import ONNXModel, import_model, zoo
+    from synapseml_tpu_torch.runtime import telemetry as tm
+    from synapseml_tpu_torch.runtime.decode import DecodeScheduler
+
+    reset_counts()
+    phase_start = time.perf_counter()
+    walls = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    blob = zoo.resnet50(num_classes=1000)
+    path = os.path.join(tmp, "resnet50_224.onnx")
+    with open(path, "wb") as fh:
+        fh.write(blob)
+    # the refused spec's child boots while the layouts run
+    bad = subprocess.Popen(
+        [sys.executable, "-m", "synapseml_tpu_torch.io.serving", "--port",
+         "0", "--model", path, "--devices", "9"], cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=HERE), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    moved = tm.counter("executor_cross_device_copies_total")
+    moved0 = moved.value
+    x = np.empty((DP_IMAGES, 3, 224, 224), np.float32)
+    x[:8] = resnet_fx.images()
+    x[8:] = np.random.default_rng(3).standard_normal(
+        (DP_IMAGES - 8, 3, 224, 224), dtype=np.float32)
+    table = Table({"data": x})
+    batches = DP_IMAGES // MODEL_BATCH
+    layouts, logits = {}, {}
+    one_slot = None
+    try:
+        # -- 1. ResNet-50 under each layout ---------------------------------
+        for name, spec in DP_LAYOUTS:
+            start = time.perf_counter()
+            model = ONNXModel(model_bytes=blob, mini_batch_size=MODEL_BATCH,
+                              devices=spec)
+            ex = model._executor("cuda")
+            out_name = model.graph.output_names[0]
+            slots = ex.n_devices
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved0 = torch.cuda.memory_reserved()
+            t0 = time.perf_counter()
+            rep = model.warmup()
+            warm_s = time.perf_counter() - t0
+            reserved = torch.cuda.memory_reserved() - reserved0
+            rec0 = sum(recompiles(tm).values())
+            disp0 = dispatch_series(tm)
+            hits0 = ex._aot_hits
+            wall, out = wall_median(lambda: model.transform(table))
+            busy = copy_overlap(lambda: model.transform(table))
+            disp = {k: v - disp0.get(k, 0.0)
+                    for k, v in dispatch_series(tm).items()
+                    if v - disp0.get(k, 0.0)}
+            rec = sum(recompiles(tm).values()) - rec0
+            logits[name] = np.asarray(out[out_name])
+            layouts[name] = {
+                "devices": spec, "slots": slots,
+                "pinned_one_device": ex.devices is None,
+                "layout_by_bucket": {b: ex._layout(b) for b in WARM_BUCKETS},
+                "warmup": str(rep), "warmup_s": warm_s,
+                "warm_graphs": len(ex._aot),
+                "reserved_by_warmup_bytes": reserved,
+                "reserved_a_slot_bytes": reserved / slots,
+                "images_per_s": DP_IMAGES / wall, "wall_s": wall,
+                "dispatch_deltas": disp,
+                "aot_hits": ex._aot_hits - hits0,
+                "recompiles_after_warmup": rec, "timeline": busy,
+                "seconds": time.perf_counter() - start}
+            check(not rep.errors and rep.compiled == len(rep.entries),
+                  f"{name}: warmup {rep} {rep.errors[:2]}")
+            check(len(ex._aot) == slots * len(WARM_BUCKETS),
+                  f"{name}: {len(ex._aot)} warm graphs for {slots} slots")
+            want_slots = (torch.cuda.device_count() if spec == "all"
+                          else 1 if spec in (None, 1) else len(spec))
+            check(slots == want_slots and (slots > 1) == (
+                ex.devices is not None), f"{name}: {slots} slots")
+            calls = 5  # wall_median's warm call and 3, copy_overlap's 1
+            check(sum(disp.values()) == calls * batches
+                  and ex._aot_hits - hits0 == calls * batches,
+                  f"{name}: dispatches {disp}, hits "
+                  f"{ex._aot_hits - hits0} for {calls * batches} batches")
+            check(rec == 0, f"{name}: {rec} recompiles after warmup")
+            if name == "none":
+                one_slot = model
+            else:
+                close_models(model)
+        walls["resnet50_s"] = time.perf_counter() - phase_start
+        base = logits["none"]
+        gaps = {name: float(np.abs(v - base).max())
+                for name, v in logits.items()}
+        bitwise = {name: bool(np.array_equal(v, base))
+                   for name, v in logits.items()}
+        fx = np.load(RESNET_FIXTURE)
+        fixture_err = {name: float(np.abs(v[:8] - fx["logits_f32"]).max())
+                       for name, v in logits.items()}
+        check(all(bitwise[n] for n in ("int_1", "all", "rr_3")),
+              f"one-slot and round-robin logits not bitwise: {bitwise}")
+        check(bool(np.allclose(logits["shard_2"][:8], fx["logits_f32"],
+                               rtol=LOGITS_TOL, atol=LOGITS_TOL)),
+              f"sharded logits {fixture_err['shard_2']} from the fixture")
+        check(np.isfinite(logits["shard_2"]).all()
+              and logits["shard_2"].shape == (DP_IMAGES, 1000),
+              "sharded logits not finite or misshapen")
+        # every row, so a fault of slot 1's half (rows 64-127 of each
+        # bucket) fails too; one slot's |logit| is printed for scale
+        check(gaps["shard_2"] <= DP_SHARD_GAP_TOL,
+              f"sharded logits {gaps['shard_2']} from one slot's")
+        rate0 = layouts["none"]["images_per_s"]
+        emit({"phase": "dp_layouts", "part": "resnet50_onnx_model",
+              "model": "zoo.resnet50 seed 0, 224x224, 1,000 classes, "
+                       "float32, ONNXModel(mini_batch_size=128) warmed",
+              "images": DP_IMAGES, "layouts": layouts,
+              "logits_bitwise_one_slot": bitwise,
+              "logits_max_abs_gap_one_slot": gaps,
+              "shard_gap_tol": DP_SHARD_GAP_TOL,
+              "one_slot_max_abs_logit": float(np.abs(base).max()),
+              "rows0_7_max_abs_err_vs_jax": fixture_err,
+              "logits_tol": LOGITS_TOL,
+              "images_per_s_over_one_slot": {
+                  n: v["images_per_s"] / rate0 for n, v in layouts.items()},
+              "note": "slots share one H100: not a scaling figure",
+              "nvidia_smi": smi})
+
+        # -- 2. ImageFeaturizer over two slots -----------------------------
+        start = time.perf_counter()
+        rng = np.random.default_rng(4)
+        imgs = np.empty(DP_FEATURE_IMAGES, dtype=object)
+        imgs[:] = [rng.integers(0, 256, (224, 224, 3)).astype(np.float32)
+                   for _ in range(DP_FEATURE_IMAGES)]
+        kw = dict(model_bytes=blob, cut_output_layers=1, image_size=224,
+                  input_col="image", output_col="feats")
+        feats = {}
+        for name, spec in (("one_slot", None), ("two_slots",
+                                                ["cuda:0"] * 2)):
+            feat = ImageFeaturizer(devices=spec, **kw)
+            feat.transform(Table({"image": imgs[:8]}))
+            t0 = time.perf_counter()
+            feats[name] = np.stack(list(feat.transform(
+                Table({"image": imgs}))["feats"]))
+            feats[name + "_images_per_s"] = DP_FEATURE_IMAGES / (
+                time.perf_counter() - t0)
+            feats[name + "_slots"] = feat._pieces("cuda").n_devices
+            feat._pieces("cuda").close()
+        a, b = feats.pop("one_slot"), feats.pop("two_slots")
+        feat_gap = float(np.abs(a - b).max())
+        feat_ok = bool(np.array_equal(a, b) or np.allclose(
+            b, a, rtol=DP_FEATURE_TOL, atol=DP_FEATURE_TOL))
+        check(feat_ok and feats["two_slots_slots"] == 2
+              and b.shape == a.shape and np.isfinite(b).all(),
+              f"two-slot features {feat_gap} from one slot's")
+        walls["featurizer_s"] = time.perf_counter() - start
+        emit({"phase": "dp_layouts", "part": "image_featurizer",
+              "featurizer": "ImageFeaturizer(cut_output_layers=1, "
+                            "devices=['cuda:0'] * 2), mini_batch_size 64",
+              "images": DP_FEATURE_IMAGES, "shape": list(b.shape),
+              "bitwise_one_slot": bool(np.array_equal(a, b)),
+              "max_abs_gap_one_slot": feat_gap,
+              "largest_abs_feature": float(np.abs(a).max()),
+              "tolerance": DP_FEATURE_TOL, **feats, "nvidia_smi": smi})
+
+        # -- 3. DecodeScheduler over two slots ------------------------------
+        start = time.perf_counter()
+        graph = import_model(zoo.tiny_decoder(**DECODER_WIDE))
+        work = decode_work(DP_DECODE_SEQS, DECODER_WIDE["vocab"], seed=6,
+                           new=DP_DECODE_NEW)
+        one = DecodeScheduler(graph, name="dp_decode_one",
+                              **DECODE_GEOMETRY)
+        try:
+            one.start()
+            one_run = run_decode(one, work)
+        finally:
+            one.close()
+        two = DecodeScheduler(graph, name="dp_decode_two",
+                              devices=["cuda:0"] * 2, **DECODE_GEOMETRY)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved0 = torch.cuda.memory_reserved()
+            t0 = time.perf_counter()
+            rep = two.warmup()
+            decode_warm_s = time.perf_counter() - t0
+            decode_reserved = torch.cuda.memory_reserved() - reserved0
+            statuses = [e for sig in rep["signatures"]
+                        for e in sig["entries"]]
+            rec0 = sum(recompiles(tm).values())
+            moved1 = moved.value
+            two.start()
+            two_run = run_decode(two, work)
+            decode_rec = sum(recompiles(tm).values()) - rec0
+            kv_moves = moved.value - moved1
+            layout, graphs = two._ex._layout(two.B), len(two._ex._aot)
+            greedy = greedy_check(two._fn, work, two_run["streams"],
+                                  len(two._kv_names), two.kv_heads,
+                                  two.head_dim, DECODE_GEOMETRY["max_seq"])
+        finally:
+            two.close()
+        ties = greedy.pop("ties")
+        vs_one = diverge_at_ties(two_run["streams"], one_run["streams"],
+                                 ties)
+        check(layout == "shard" and graphs == 20
+              and statuses == ["compiled"] * 10,
+              f"two-slot decode warmup: {layout}, {graphs} graphs, "
+              f"{statuses}")
+        check(not vs_one["differ_elsewhere"] and greedy["mismatches"] == 0,
+              f"two-slot ids against one slot's: {vs_one}, "
+              f"{greedy['first_mismatches']}")
+        check(decode_rec == 0 and kv_moves == 0,
+              f"two-slot decode: {decode_rec} recompiles, {kv_moves} "
+              "copies between devices")
+        walls["decode_s"] = time.perf_counter() - start
+        for run in (one_run, two_run):
+            run.pop("streams")
+        emit({"phase": "dp_layouts", "part": "decode_two_slots",
+              "decoder": "zoo.tiny_decoder at BERT-base width (phase 23)",
+              "geometry": DECODE_GEOMETRY, "devices": ["cuda:0"] * 2,
+              "layout": layout, "warm_graphs": graphs,
+              "warmup_s": decode_warm_s,
+              "reserved_by_warmup_bytes": decode_reserved,
+              "sequences": DP_DECODE_SEQS, "new_tokens": DP_DECODE_NEW,
+              "vs_one_slot": vs_one, "greedy": greedy,
+              "recompiles_after_warmup": decode_rec,
+              "kv_copies_between_devices": kv_moves,
+              "one_slot_eager": one_run, "two_slots_warm": two_run,
+              "note": "slots share one H100: not a scaling figure",
+              "nvidia_smi": smi})
+
+        # -- 4. the serving entry with --devices ----------------------------
+        start = time.perf_counter()
+        out_name = one_slot.graph.output_names[0]
+        bodies, digests = [], []
+        for im in resnet_fx.images():
+            bodies.append(json.dumps({"features": im.tolist()}).encode())
+            row = np.asarray(one_slot.transform(
+                Table({"data": im[None]}))[out_name])[0]
+            digests.append(hashlib.sha256(serving.make_reply(
+                {"output": row.tolist()}).entity).hexdigest())
+        entry = launch_entry(path, "dp_devices_1", tmp,
+                             mode=("--warmup", "auto", "--devices", "1"))
+        try:
+            announce = [ln for ln in entry["lines"]
+                        if ln.startswith("serving [")]
+            replies = serve_bodies(entry["port"], bodies, 1)
+        except BaseException:
+            kill_entry(entry)
+            raise
+        stopped = stop_entry(entry, len(bodies))
+        try:
+            bad_out, _ = bad.communicate(timeout=DP_EXIT_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            bad.kill()
+            bad_out, _ = bad.communicate()
+        check(replies_ok(replies)
+              and [r[2] for r in replies] == digests,
+              "--devices 1 replies differ from the one-slot model's")
+        check(bool(announce) and "devices=1" in announce[0],
+              f"--devices 1 not announced: {announce}")
+        check(bad.returncode == 2
+              and "error: --devices '9': devices=9 but" in bad_out,
+              f"--devices 9 exited {bad.returncode}: {bad_out[-400:]}")
+        walls["serving_s"] = time.perf_counter() - start
+        emit({"phase": "dp_layouts", "part": "serving_devices",
+              "entry": "python -m synapseml_tpu_torch.io.serving --model "
+                       "<resnet50 224> --warmup auto --devices 1",
+              "announce": announce[0], "warmup": entry["warmup"],
+              "announce_s": entry["announce_s"],
+              "requests": len(bodies), "digests_equal_one_slot": True,
+              **stopped, "devices_9_exit_code": bad.returncode,
+              "devices_9_said": bad_out.strip()[-200:],
+              "nvidia_smi": smi})
+    finally:
+        if bad.poll() is None:
+            bad.kill()
+            bad.communicate()
+        if one_slot is not None:
+            close_models(one_slot)
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = read_counts()
+    check(counts["forest_traverse"] == 0 and counts["histogram"] == 0,
+          f"the data-parallel path launched {counts}")
+    check(moved.value == moved0,
+          f"{moved.value - moved0} copies between devices on one card")
+    walls["phase_s"] = time.perf_counter() - phase_start
+    emit({"phase": "dp_layouts", "part": "summary", "launches": counts,
+          "walls_s": walls, "nvidia_smi": smi})
+    return counts
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -7785,6 +8142,9 @@ def main() -> int:
         smi, reset_counts, read_counts,
         continuous_adult_rps=served["adult_requests_per_s"])
 
+    # -- 40. devices= data parallelism: slots sharing the card -------------
+    dp_layout_counts = dp_layouts_phase(smi, reset_counts, read_counts)
+
     emit({"kernels": [{
         "name": "forest_traverse", "route": "cuda",
         "source": "synapseml_tpu_torch/csrc/forest_traverse.cu",
@@ -7817,6 +8177,7 @@ def main() -> int:
         "launches_sequence_string_path": sequence_counts["forest_traverse"],
         "launches_signal_speech_path": speech_counts["forest_traverse"],
         "launches_distributed_serving_path": dist_counts["forest_traverse"],
+        "launches_dp_layouts_path": dp_layout_counts["forest_traverse"],
         "max_abs_err": max_err, "bitwise": True,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
@@ -7851,6 +8212,7 @@ def main() -> int:
         "launches_sequence_string_path": sequence_counts["histogram"],
         "launches_signal_speech_path": speech_counts["histogram"],
         "launches_distributed_serving_path": dist_counts["histogram"],
+        "launches_dp_layouts_path": dp_layout_counts["histogram"],
         "max_abs_err": k1_max_err,
         "bitwise": True, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],

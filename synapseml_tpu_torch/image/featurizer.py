@@ -17,8 +17,9 @@ and flattened — all inside the
 so staging of mini-batch k+1 overlaps the card's work on k.
 :meth:`ImageFeaturizer.warmup` captures each bucket as a CUDA graph.
 
-``devices=`` (data parallelism, ROADMAP Queue 1 item 1e) is not ported:
-setting it raises ``NotImplementedError`` when the featurizer runs.
+``devices=`` runs each mini-batch bucket data-parallel over a device list
+(the executor's shard and round-robin layouts); images are resized on the
+first entry's device.
 """
 from __future__ import annotations
 
@@ -36,7 +37,8 @@ from synapseml_tpu_torch.image import ops
 from synapseml_tpu_torch.image.reader import decode_image
 from synapseml_tpu_torch.onnx.importer import ImportedGraph, import_model
 from synapseml_tpu_torch.runtime import compile_cache as _cc
-from synapseml_tpu_torch.runtime.executor import BatchedExecutor
+from synapseml_tpu_torch.runtime.executor import (BatchedExecutor,
+                                                  resolve_devices)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -63,8 +65,9 @@ class ImageFeaturizer(Transformer, HasInputCol, HasOutputCol):
     compute_dtype = Param("float32|bfloat16", default="float32")
     mini_batch_size = Param("max rows per device batch", default=64)
     devices = Param(
-        "data-parallel device spec of the reference (None, 'all', an int "
-        "or a device sequence); only None (one device) is ported",
+        "data-parallel device spec: None, 'all', int N (the first N CUDA "
+        "devices), or a device sequence (entries may repeat: each is a "
+        "slot) — buckets are sharded or run round robin by the executor",
         default=None)
     compile_cache_dir = Param(
         "directory of the executable store warmup() records each bucket's "
@@ -88,15 +91,16 @@ class ImageFeaturizer(Transformer, HasInputCol, HasOutputCol):
         self.__dict__.pop("_feat_cache", None)
 
     def _pieces(self, device) -> BatchedExecutor:
-        if self.devices is not None:
-            raise NotImplementedError(
-                "devices= (data parallelism over several devices) is not "
-                "ported yet: ROADMAP Queue 1 item 1e")
         dev = device_policy.resolve(device)
+        devs = resolve_devices(self.devices)
+        if devs is not None and any(d.type != dev.type for d in devs):
+            raise ValueError(
+                f"devices={self.devices!r} name {[str(d) for d in devs]}, "
+                f"but this call runs on {dev.type!r}")
         cache = self.__dict__.get("_feat_cache")
         key = (self.cut_output_layers, self.compute_dtype,
                self.mini_batch_size, tuple(self.mean), tuple(self.std),
-               self.channels, hash(self.model_payload), dev,
+               self.channels, hash(self.model_payload), dev, devs,
                self.compile_cache_dir)
         if cache is not None and cache[0] == key:
             return cache[1]
@@ -122,11 +126,11 @@ class ImageFeaturizer(Transformer, HasInputCol, HasOutputCol):
                 f"{what} has {len(vals)} entries but channels={c}; "
                 f"provide one value per channel (or a single scalar)")
 
-        mean, std = (torch.tensor(per_channel(v, what), dtype=torch.float32,
-                                  device=dev).reshape(1, -1, 1, 1)
+        mean, std = (torch.tensor(per_channel(v, what), dtype=torch.float32
+                                  ).reshape(1, -1, 1, 1)
                      for v, what in ((self.mean, "mean"), (self.std, "std")))
 
-        def fn(p, imgs_nchw):
+        def fn(p, mean, std, imgs_nchw):
             x = (imgs_nchw.to(torch.float32) / 255.0 - mean) / std
             (out,) = graph.apply(p, x.to(compute))
             return out.reshape(out.shape[0], -1).to(torch.float32)
@@ -136,9 +140,11 @@ class ImageFeaturizer(Transformer, HasInputCol, HasOutputCol):
         cache_key = _cc.content_hash(
             self.model_payload, self.cut_output_layers, self.compute_dtype,
             tuple(self.mean), tuple(self.std), c)
-        executor = BatchedExecutor(fn, device=dev,
+        executor = BatchedExecutor(fn, device=None if devs else dev,
+                                   devices=devs,
                                    max_bucket=self.mini_batch_size,
-                                   bound_args=(params,), cache_key=cache_key,
+                                   bound_args=(params, mean, std),
+                                   cache_key=cache_key,
                                    cache_dir=self.compile_cache_dir)
         self.__dict__["_feat_cache"] = (key, executor)
         return executor

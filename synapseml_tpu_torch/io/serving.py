@@ -2582,13 +2582,16 @@ class ContinuousServer:
         HTTPSourceStateHolder.remove(self.name)
 
 
-def _model_pipeline(model_path: str, cache_dir=None, device: str = "cuda"):
+def _model_pipeline(model_path: str, cache_dir=None, device: str = "cuda",
+                    devices=None):
     """JSON {"features": [...]} -> ONNX-scored reply — the deployment
     entry's default pipeline. ``cache_dir`` enables the executable store
     (--cache-dir / SYNAPSEML_COMPILE_CACHE); ``device`` is where
     ``ONNXModel.transform`` runs (the card unless the caller asks for
-    the CPU). Returns ``(pipeline, model)`` so ``main`` can drive
-    ``model.warmup`` before the readiness gate.
+    the CPU); ``devices`` runs each scored micro-batch data-parallel over
+    that device spec (``ONNXModel.devices`` -> runtime/executor.py).
+    Returns ``(pipeline, model)`` so ``main`` can drive ``model.warmup``
+    before the readiness gate.
 
     The scorer thread's seconds a batch land in
     ``model_pipeline_seconds{part=}``: ``features`` (the parsed rows'
@@ -2598,6 +2601,8 @@ def _model_pipeline(model_path: str, cache_dir=None, device: str = "cuda"):
     from synapseml_tpu_torch.onnx import ONNXModel
 
     model = ONNXModel(model_path=model_path)
+    if devices is not None:
+        model.set(devices=devices)
     if cache_dir is not None:
         model.set(compile_cache_dir=cache_dir)
     feed = model.graph.input_names[0]
@@ -2679,8 +2684,10 @@ def main(argv=None):
              "server (no --model) runs nothing on a device")
     ap.add_argument("--devices", default=os.environ.get(
         "SYNAPSEML_DEVICES"),
-        help="data-parallel device spec of the reference; not ported "
-             "yet (ROADMAP Queue 1 item 1e): any value exits 2")
+        help="data-parallel device spec: 'all' or an int N (the first N "
+             "CUDA devices); each scored micro-batch is sharded over them "
+             "or run whole on the next one (ONNXModel.devices). A spec "
+             "that does not resolve exits 2")
     ap.add_argument("--tensor-parallel", type=int,
                     default=int(os.environ.get(
                         "SYNAPSEML_TENSOR_PARALLEL", "1")),
@@ -2748,11 +2755,18 @@ def main(argv=None):
     # the reference's options whose machinery is not ported fail fast,
     # naming the ROADMAP item that ports each — never a pod that goes
     # Ready while ignoring its configuration
-    if args.devices:
-        print(f"error: --devices {args.devices!r}: data parallelism over "
-              "several devices is not ported yet (ROADMAP Queue 1 item "
-              "1e)", flush=True)
-        return 2
+    devices = args.devices or None  # unset env var arrives as ""
+    if devices is not None:
+        # fail fast on a bad spec — discovering it per request would
+        # leave a "healthy" pod 500-ing every score
+        from synapseml_tpu_torch.runtime.executor import resolve_devices
+        try:
+            if devices != "all":
+                devices = int(devices)
+            resolve_devices(devices)
+        except (ValueError, RuntimeError) as e:
+            print(f"error: --devices {args.devices!r}: {e}", flush=True)
+            return 2
     if int(args.tensor_parallel or 1) > 1:
         print(f"error: --tensor-parallel {args.tensor_parallel}: tensor "
               "parallelism is not ported yet (ROADMAP Queue 1 item 4)",
@@ -2785,9 +2799,13 @@ def main(argv=None):
         from synapseml_tpu_torch import device as device_policy
 
         try:
-            device_policy.resolve(args.device)
+            dev = device_policy.resolve(args.device)
         except (RuntimeError, ValueError) as e:
             print(f"error: --device {args.device!r}: {e}", flush=True)
+            return 2
+        if devices is not None and dev.type != "cuda":
+            print(f"error: --devices {args.devices!r} names CUDA devices "
+                  f"but --device is {args.device!r}", flush=True)
             return 2
     if args.decode:
         from synapseml_tpu_torch.onnx.importer import import_model
@@ -2809,8 +2827,10 @@ def main(argv=None):
                 f"kv_pages={decode_sched.kv.capacity_pages}]")
     elif args.model:
         pipeline, model = _model_pipeline(
-            args.model, cache_dir=args.cache_dir, device=args.device)
-        what = f"scoring {args.model} [device={args.device}]"
+            args.model, cache_dir=args.cache_dir, device=args.device,
+            devices=devices)
+        what = f"scoring {args.model} [device={args.device}" + (
+            "]" if devices is None else f" devices={devices}]")
     else:
         pipeline = _echo_pipeline
         what = "echo (no SYNAPSEML_MODEL_PATH)"

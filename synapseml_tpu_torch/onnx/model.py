@@ -17,9 +17,13 @@ CUDA graph before traffic (``BatchedExecutor.warmup``); with
 under a content hash of the model bytes and config, so a changed model
 misses (runtime/compile_cache.py).
 
+``devices`` runs each mini-batch bucket data-parallel over a device list
+(the executor's shard and round-robin layouts); the executor binds the
+weights once a distinct device of the list.
+
 Not ported yet, each under its ROADMAP Queue 1 item: ``compute_dtype=
 "auto"``, ``preferred_wire`` and ``routed_compute_dtype`` (1d: the autotune
-lanes), ``devices`` (1e), ``tensor_parallel``/``partition_rules`` and
+lanes), ``tensor_parallel``/``partition_rules`` and
 ``partition_coverage`` (4), ``decode_scheduler`` (3). Setting one of those
 Params raises ``NotImplementedError`` when the model runs; none runs
 quietly on one device.
@@ -41,7 +45,9 @@ from synapseml_tpu_torch.data.table import Table
 from synapseml_tpu_torch.onnx import proto as _proto
 from synapseml_tpu_torch.onnx.importer import ImportedGraph, import_model
 from synapseml_tpu_torch.runtime import compile_cache as _cc
-from synapseml_tpu_torch.runtime.executor import BatchedExecutor
+from synapseml_tpu_torch.runtime.executor import (BatchedExecutor,
+                                                  PerDevice,
+                                                  resolve_devices)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -93,9 +99,11 @@ class ONNXModel(Transformer):
         "carries uint8 pixels (1 byte/px vs 2 for bf16) and the fused "
         "(x - mean) * scale runs on the card", default=None)
     devices = Param(
-        "data-parallel device spec of the reference (None, 'all', an int "
-        "or a device sequence); only None (one device) is ported",
-        default=None)
+        "data-parallel device spec: None (one device), 'all', an int N "
+        "(the first N CUDA devices) or a device sequence, which may repeat "
+        "a device (each entry is a slot) — each mini-batch bucket is "
+        "sharded over the slots, or run whole on the next one, by the "
+        "executor (runtime/executor.py)", default=None)
     tensor_parallel = Param(
         "tensor-parallel ways of the reference; only 1 is ported",
         default=1)
@@ -203,10 +211,6 @@ class ONNXModel(Transformer):
         if cd not in _DTYPES:
             raise ValueError(f"compute_dtype {cd!r} (expected one of "
                              f"{sorted(_DTYPES)})")
-        if self.devices is not None:
-            raise NotImplementedError(
-                "devices= (data parallelism over several devices) is not "
-                "ported yet: ROADMAP Queue 1 item 1e")
         tp = int(self.tensor_parallel or 1)
         if tp < 1:
             raise ValueError(f"tensor_parallel must be >= 1, got {tp}")
@@ -250,8 +254,13 @@ class ONNXModel(Transformer):
         cd = self.compute_dtype
         tp = self._refuse_unported(cd)
         dev = device_policy.resolve(device)
+        devs = resolve_devices(self.devices)
+        if devs is not None and any(d.type != dev.type for d in devs):
+            raise ValueError(
+                f"devices={self.devices!r} name {[str(d) for d in devs]}, "
+                f"but this call runs on {dev.type!r}")
         key = (id(g), self.mini_batch_size, cd, norm_key, dev,
-               self.compile_cache_dir, tp, None)
+               self.compile_cache_dir, tp, devs)
         hit = cache.get(key)
         if hit is not None:  # the steady path takes no lock
             return hit
@@ -263,9 +272,6 @@ class ONNXModel(Transformer):
             if key not in cache:
                 dtype = _DTYPES[cd]
                 compute = None if cd == "float32" else dtype
-                # the one-time cast and move: params land on the device in the
-                # compute dtype here, never per batch, BatchNorm folded
-                forward = g.bind(cast_dtype=compute, device=dev)
 
                 # Integer feeds bound for float graph inputs are cast (and
                 # optionally normalized) ON DEVICE: the host->device wire then
@@ -275,16 +281,24 @@ class ONNXModel(Transformer):
                 names = list(g.input_names)
                 info = g.input_info
                 tgt = dtype if compute is not None else torch.float32
-                stats = {
-                    name: tuple(torch.as_tensor(np.asarray(spec.get(k, d)),
-                                                device=dev).to(tgt)
-                                for k, d in (("mean", 0.0), ("scale", 1.0)))
-                    for name, spec in norm.items()}
 
-                def apply_fn(*args, _names=names, _stats=stats, _tgt=tgt):
+                def placed(d):
+                    # the one-time cast and move: params land on the
+                    # device in the compute dtype here, never per batch,
+                    # BatchNorm folded
+                    return g.bind(cast_dtype=compute, device=d), {
+                        name: tuple(
+                            torch.as_tensor(np.asarray(spec.get(k, v)),
+                                            device=d).to(tgt)
+                            for k, v in (("mean", 0.0), ("scale", 1.0)))
+                        for name, spec in norm.items()}
+
+                def apply_fn(bound, *args, _names=names, _tgt=tgt):
+                    # the forward and stats bound on this slot's device
+                    forward, stats = bound
                     staged = []
                     for name, a in zip(_names, args):
-                        spec = _stats.get(name)
+                        spec = stats.get(name)
                         if not a.is_floating_point():
                             want, _ = info.get(name, (None, None))
                             if spec is not None or _is_float(want):
@@ -309,9 +323,10 @@ class ONNXModel(Transformer):
                     self.model_payload or b"", len(g._nodes),
                     tuple(g.output_names), cd, norm_key)
                 cache[key] = BatchedExecutor(
-                    apply_fn, device=dev, compute_dtype=compute,
-                    max_bucket=self.mini_batch_size, cache_key=cache_key,
-                    cache_dir=self.compile_cache_dir)
+                    apply_fn, device=None if devs else dev, devices=devs,
+                    bound_args=(PerDevice(placed),),
+                    compute_dtype=compute, max_bucket=self.mini_batch_size,
+                    cache_key=cache_key, cache_dir=self.compile_cache_dir)
             return cache[key]
 
     def warmup(self, buckets=None, example_feeds=None,

@@ -88,6 +88,7 @@ reference's warmup fails on a shape error).
 """
 from __future__ import annotations
 
+import functools
 import os
 import queue
 import threading
@@ -105,7 +106,9 @@ from synapseml_tpu_torch.runtime import blackbox as _bb
 from synapseml_tpu_torch.runtime import kvcache as _kvc
 from synapseml_tpu_torch.runtime import structlog as _slog
 from synapseml_tpu_torch.runtime import telemetry as _tm
-from synapseml_tpu_torch.runtime.executor import BatchedExecutor
+from synapseml_tpu_torch.runtime.executor import (BatchedExecutor,
+                                                  PerDevice,
+                                                  resolve_devices)
 
 __all__ = ["DecodeScheduler", "DecodeHandle"]
 
@@ -113,6 +116,8 @@ __all__ = ["DecodeScheduler", "DecodeHandle"]
 # fast; the default latency buckets top out too coarse at the low end
 _STEP_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
                  0.25, 0.5, 1.0, 2.5)
+# the executor's counter of card tensors moved between devices
+_M_XDEV = _tm.counter("executor_cross_device_copies_total")
 
 
 class DecodeHandle:
@@ -222,8 +227,13 @@ class DecodeScheduler:
     ``device`` is "cuda" by default and raises without CUDA; the CPU
     runs only when asked for (``device="cpu"``). The graph's float
     parameters go to it once, here (``ImportedGraph.bind``).
-    ``devices=`` (data parallelism over several devices) is not ported
-    yet and raises ``ValueError``."""
+    ``devices=`` (a spec of :func:`~synapseml_tpu_torch.runtime.executor.resolve_devices`
+    whose entries are on ``device``'s type) runs every step data-parallel:
+    a slot count that divides ``max_batch`` shards the static batch (the
+    present buffers come back joined in row order on the first slot's
+    device), any other runs each step whole on the next slot; the
+    parameters are bound once a distinct device. A buffer that must move
+    to another card is counted in ``executor_cross_device_copies_total``."""
 
     def __init__(self, graph, *, name: str = "decode",
                  max_batch: Optional[int] = None,
@@ -236,10 +246,6 @@ class DecodeScheduler:
                  devices=None, cache_key: Optional[str] = None,
                  cache_dir: Optional[str] = None,
                  device: str | torch.device = device_policy.DEFAULT_DEVICE):
-        if devices is not None:
-            raise ValueError(
-                "devices= (data parallelism over several devices) is not "
-                "ported yet: ROADMAP Queue 1 item 1e")
         self.name = name
         self.B = int(max_batch if max_batch is not None
                      else os.environ.get(
@@ -282,10 +288,39 @@ class DecodeScheduler:
         dev = device_policy.resolve(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
+        devs = resolve_devices(devices)
+        if devs is not None and any(d.type != dev.type for d in devs):
+            raise ValueError(
+                f"devices={devices!r} name {[str(d) for d in devs]}, but "
+                f"the scheduler runs on {dev.type!r}")
+        if devs is not None:
+            dev = devs[0]
         self.device = dev
-        # the weights go to the device first: the KV budget below reads
+        order = {nm: i for i, nm in enumerate(graph.input_names)}
+        names = [self._ids_name, self._seqlens_name] + self._kv_names
+        missing = [nm for nm in graph.input_names if nm not in names]
+        if missing:
+            raise ValueError(f"missing graph inputs: {missing}")
+        slots = [order[nm] for nm in names]
+
+        def _apply(forward, ids, seqlens, *kv):
+            args: List[Any] = [None] * len(slots)
+            for i, a in zip(slots, (ids, seqlens) + kv):
+                args[i] = a
+            return forward(*args)
+
+        n_out = 1 + len(self._kv_names)
+        # the weights go to the device first (the executor binds them on
+        # each distinct device of its slots): the KV budget below reads
         # the device's memory, and a CUDA process is initialised by then
-        forward = graph.bind(device=dev)
+        self._ex = BatchedExecutor(
+            _apply, device=None if devs else dev, devices=devs,
+            bound_args=(PerDevice(lambda d: graph.bind(device=d)),),
+            static_batch=self.B, cache_key=cache_key, cache_dir=cache_dir,
+            device_outputs=range(1, n_out))
+        # one step on the first device's weights, outside the executor
+        self._fn = functools.partial(_apply,
+                                     *self._ex._bound_for_device(dev))
         kv_itemsize = 4  # f32 buffers (graph dtype)
         bytes_per_token = (len(self._kv_names) * self.kv_heads
                            * self.head_dim * kv_itemsize)
@@ -301,26 +336,6 @@ class DecodeScheduler:
             t <<= 1
         ladder.append(self.max_seq)
         self.t_ladder = ladder
-
-        order = {nm: i for i, nm in enumerate(graph.input_names)}
-        names = [self._ids_name, self._seqlens_name] + self._kv_names
-        missing = [nm for nm in graph.input_names if nm not in names]
-        if missing:
-            raise ValueError(f"missing graph inputs: {missing}")
-        slots = [order[nm] for nm in names]
-
-        def _apply(ids, seqlens, *kv):
-            args: List[Any] = [None] * len(slots)
-            for i, a in zip(slots, (ids, seqlens) + kv):
-                args[i] = a
-            return forward(*args)
-
-        self._fn = _apply
-        n_out = 1 + len(self._kv_names)
-        self._ex = BatchedExecutor(
-            _apply, device=dev, static_batch=self.B,
-            cache_key=cache_key, cache_dir=cache_dir,
-            device_outputs=range(1, n_out))
 
         # live batch state (loop thread only)
         self._slots: List[Optional[_Seq]] = [None] * self.B
@@ -441,12 +456,23 @@ class DecodeScheduler:
         others keep the buffers from before the call."""
         if mask.all():
             return list(new_kv)
+        # a round-robin step over several cards returns its buffers on
+        # its slot's card: the old rows follow them there
+        dev = new_kv[0].device
         m = torch.from_numpy(mask)
-        if self.device.type == "cuda":
-            m = m.pin_memory().to(self.device, non_blocking=True)
+        if dev.type == "cuda":
+            m = m.pin_memory().to(dev, non_blocking=True)
         m = m[:, None, None, None]
         with torch.inference_mode():
-            return [torch.where(m, n, o) for n, o in zip(new_kv, old_kv)]
+            return [torch.where(m, n, self._moved(o, dev))
+                    for n, o in zip(new_kv, old_kv)]
+
+    @staticmethod
+    def _moved(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+        if t.device == dev:
+            return t
+        _M_XDEV.inc()
+        return t.to(dev)
 
     # -- lifecycle -------------------------------------------------------
     def warmup(self) -> Dict[str, Any]:

@@ -40,17 +40,31 @@ table of warm programs (``_aot``), its hit counter and the recompile
 sentinel (``executor_recompiles_total{reason=}``) are the reference's; the
 persistent store keeps each signature's record (runtime/compile_cache.py).
 
+**Data parallelism** (``devices=``, :func:`resolve_devices`): each entry
+of the device list is a *slot* with its own compute, copy-in and copy-out
+streams, its own warm graphs, static inputs and graph pool, and its own
+dispatch counter. A bucket that the slot count divides is **sharded**:
+slot ``i`` copies rows ``i*k:(i+1)*k`` of the staged bucket in on its
+copy-in stream and replays its graph of the ``k``-row signature on its
+compute stream, and the outputs are reassembled in row order (the port's
+counterpart of the reference's one GSPMD-sharded call, counted once under
+the mesh label ``dp{n}``). Any other bucket lands whole on the next slot,
+round robin. A list may repeat a device: slots on one card share its
+replica of the bound args (a :class:`PerDevice` arg made once a device)
+and nothing else, so the layouts run on one card and, over
+``["cpu"] * n``, on the CPU.
+
 The reference donates a bucket's input buffers to XLA; PyTorch has no
 donation, and its caching allocator reuses a bucket's device blocks from
 one batch to the next, so there is no ``donate`` parameter and the
-sentinel's ``donation_mask`` series stays at 0. Multi-device layouts
-(``devices=``), tensor parallelism, the autotuned H2D lane and the cost
-model's records are not ported yet (ROADMAP Queue 1 items 1e, 1d, 4 and
-6).
+sentinel's ``donation_mask`` series stays at 0. Tensor parallelism, the
+autotuned H2D lane and the cost model's records are not ported yet
+(ROADMAP Queue 1 items 4, 1d and 6).
 """
 from __future__ import annotations
 
 import atexit
+import contextlib
 import math
 import os
 import queue as _queue
@@ -87,6 +101,10 @@ _M_PIPE_RESTARTS = _tm.counter("executor_pipeline_restarts_total")
 _M_AOT_HIT = _tm.counter("executor_aot_hits_total")
 _M_AOT_MISS = _tm.counter("executor_aot_misses_total")
 _M_AOT_RETIRED = _tm.counter("executor_aot_retired_total")
+# card tensors moved between two devices by the data-parallel layouts (a
+# caller's input or a device_outputs leaf on another slot's card); 0
+# while every slot names one card
+_M_XDEV = _tm.counter("executor_cross_device_copies_total")
 
 # -- recompile sentinel ------------------------------------------------------
 # After warmup() has warmed the executor's full signature set, an eager
@@ -180,6 +198,50 @@ def coerce_host_array(arr, compute_dtype: Any = None) -> torch.Tensor:
     return t
 
 
+def resolve_devices(spec) -> Optional[Tuple[torch.device, ...]]:
+    """Normalize a user-facing device spec to a tuple of ``torch.device``s.
+
+    ``None`` -> None (one device); ``"all"`` -> every visible CUDA device
+    (raises without CUDA, as every entry point does: never the CPU); an
+    int ``n`` -> the first n CUDA devices; a sequence of devices (or
+    names) passes through. A sequence may repeat a device: each position
+    is a slot of its own (the reference's JAX mesh cannot repeat one).
+    Raises on anything else, so a typo'd spec fails at construction, not
+    as a quiet one-device run."""
+    if spec is None:
+        return None
+    if isinstance(spec, bool):
+        # devices=True would satisfy the int branch and resolve to ONE
+        # device — the opposite of what the caller meant
+        raise ValueError("devices=True/False is ambiguous — use 'all', "
+                         "an int, or a device sequence")
+    if isinstance(spec, str):
+        if spec != "all":
+            raise ValueError(
+                f"devices spec {spec!r} not understood (use None, 'all', "
+                "an int, or a sequence of torch devices)")
+        device_policy.resolve("cuda")
+        return tuple(torch.device("cuda", i)
+                     for i in range(torch.cuda.device_count()))
+    if isinstance(spec, int):
+        count = local_device_count()
+        if not 0 < spec <= count:
+            raise ValueError(
+                f"devices={spec} but {count} CUDA devices exist")
+        return tuple(torch.device("cuda", i) for i in range(spec))
+    devs = []
+    for d in spec:
+        dev = device_policy.resolve(d)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        devs.append(dev)
+    if not devs:
+        raise ValueError("devices sequence is empty")
+    if len({d.type for d in devs}) > 1:
+        raise ValueError(f"devices {devs} mix the CPU and CUDA devices")
+    return tuple(devs)
+
+
 def _leaves(out) -> list:
     """The leaves of an output tree in the reference's order (``jax``'s
     pytree: tuples and lists in order, dicts by sorted key)."""
@@ -190,7 +252,21 @@ def _leaves(out) -> list:
     return [out]
 
 
+class PerDevice:
+    """A bound arg made by ``make(device)`` once a distinct device of an
+    executor's slots, where moving a tensor tree is not enough: a graph
+    bound to a device (``ImportedGraph.bind``) closes over its weights
+    there. Slots on one device share what it made."""
+
+    __slots__ = ("make",)
+
+    def __init__(self, make: Callable[[torch.device], Any]):
+        self.make = make
+
+
 def _to_device(tree, dev: torch.device):
+    if isinstance(tree, PerDevice):
+        return tree.make(dev)
     if isinstance(tree, (tuple, list)):
         return type(tree)(_to_device(t, dev) for t in tree)
     if isinstance(tree, dict):
@@ -206,6 +282,45 @@ def _concat(parts: list):
     if isinstance(parts[0], torch.Tensor):
         return torch.cat(parts)
     return np.concatenate(parts)
+
+
+def _check_rows(pieces: list, rows: int):
+    """A sharded bucket's slices of one output leaf each carry ``rows``
+    rows on axis 0, or they cannot be joined in row order."""
+    for p in pieces:
+        if np.ndim(p) == 0 or len(p) != rows:
+            raise ValueError(
+                "a sharded bucket's outputs must carry its batch axis: a "
+                f"slot of {rows} rows returned a leaf of shape "
+                f"{tuple(np.shape(p))} — batch-align it in-graph, or use "
+                "a slot count that does not divide the bucket (round "
+                "robin runs whole buckets)")
+
+
+def _join_rows(parts: List[list], rows: int) -> list:
+    """The output leaves of a sharded bucket, ``parts`` being each slot's
+    leaves in slot order: every leaf joined in row order (a tensor on the
+    first slot's device, anything else as numpy)."""
+    return [_join_leaf([p[j] for p in parts], rows)
+            for j in range(len(parts[0]))]
+
+
+def _join_leaf(pieces: list, rows: int):
+    """One output leaf of a sharded bucket from its slots' pieces."""
+    _check_rows(pieces, rows)
+    if all(isinstance(p, torch.Tensor) for p in pieces):
+        dev = pieces[0].device
+        return torch.cat([p.to(dev) for p in pieces])
+    return np.concatenate([np.asarray(p) for p in pieces])
+
+
+def _column_sig(col) -> tuple:
+    """The (shape, dtype name) of one staged column of a bucket."""
+    if isinstance(col, _Rows):
+        host = col.batch.host
+        return ((col.stop - col.start,) + tuple(host.shape[1:]),
+                _cc.dtype_name(host.dtype))
+    return tuple(col.shape), _cc.dtype_name(col.dtype)
 
 
 _SHUTDOWN = object()
@@ -338,28 +453,71 @@ class _Rows:
 
 class _Flight:
     """One dispatched batch: its output leaves (pinned host copies in
-    flight, or card tensors for ``device_outputs``), the event recorded
-    after its last copy (None on the CPU) and the staged inputs it holds."""
+    flight, or card tensors for ``device_outputs``), the events recorded
+    after its last copies, one a slot it ran on (none on the CPU), and the
+    staged inputs it holds."""
 
-    __slots__ = ("leaves", "event", "leases")
+    __slots__ = ("leaves", "events", "leases")
 
-    def __init__(self, leaves: list, event, leases: List[_HostBatch]):
+    def __init__(self, leaves: list, events: list,
+                 leases: List[_HostBatch]):
         self.leaves = leaves
-        self.event = event
+        self.events = events
         self.leases = leases
 
 
+class _Slot:
+    """One entry of the executor's device list (or its pinned device): the
+    device, the compute, copy-in and copy-out streams the dispatch thread
+    issues a batch's work for it on, and the state of its warm graphs —
+    their memory pool, capture stream, replay lock and ``released``, the
+    event after the last batch's copies out of its graphs' static
+    outputs. Slots on one card share no stream, graph, static buffer or
+    pool, so two of them may replay at once."""
+
+    __slots__ = ("index", "device", "streams", "pool", "capture_stream",
+                 "replay_lock", "released")
+
+    def __init__(self, index: int, device: torch.device):
+        self.index = index
+        self.device = device
+        self.streams = (tuple(torch.cuda.Stream(device) for _ in range(3))
+                        if device.type == "cuda" else (None, None, None))
+        self.pool = None
+        self.capture_stream: Optional[torch.cuda.Stream] = None
+        self.replay_lock = threading.Lock()
+        self.released: Optional[torch.cuda.Event] = None
+
+    @property
+    def compute(self) -> Optional[torch.cuda.Stream]:
+        return self.streams[0]
+
+    def on_compute(self):
+        """Issue on this slot's compute stream (and its device)."""
+        if self.streams[0] is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.streams[0])
+
+    def join(self):
+        """Wait until every stream of the slot has run dry."""
+        for s in self.streams:
+            if s is not None:
+                s.synchronize()
+
+
 class _Warm:
-    """One warm program of the AOT table. On the card: a CUDA graph, its
-    static inputs (zero-filled at capture, in the staged dtype) and its
-    static output leaves. On the CPU ``graph`` is None and the eager
-    ``fn`` runs bound to the signature."""
+    """One warm program of the AOT table, on one slot. On the card: a CUDA
+    graph, its static inputs (zero-filled at capture, in the staged dtype)
+    and its static output leaves. On the CPU ``graph`` is None and the
+    eager ``fn`` runs bound to the signature."""
 
-    __slots__ = ("graph", "inputs", "outputs")
+    __slots__ = ("slot", "graph", "inputs", "outputs")
 
-    def __init__(self, graph: Optional["torch.cuda.CUDAGraph"] = None,
+    def __init__(self, slot: _Slot,
+                 graph: Optional["torch.cuda.CUDAGraph"] = None,
                  inputs: Sequence[torch.Tensor] = (),
                  outputs: Sequence[Any] = ()):
+        self.slot = slot
         self.graph = graph
         self.inputs = list(inputs)
         self.outputs = list(outputs)
@@ -408,11 +566,10 @@ class _PipelineState:
 
     __slots__ = ("stage_q", "dispatch_q", "inflight_q", "depth_sem",
                  "stage_slots", "lock", "closed", "broken", "pending",
-                 "threads", "device", "stream", "__weakref__")
+                 "threads", "slots", "__weakref__")
 
     def __init__(self, depth: int, stage_workers: int,
-                 device: torch.device = torch.device("cpu"),
-                 stream: Optional[torch.cuda.Stream] = None):
+                 slots: Sequence[_Slot] = ()):
         self.stage_q: "_queue.Queue" = _queue.Queue()
         self.dispatch_q: "_queue.Queue" = _queue.Queue()
         # unbounded queue + explicit semaphore: "in flight" counts
@@ -431,9 +588,9 @@ class _PipelineState:
         # can fail ALL in-flight work wherever it sits in the pipeline
         self.pending: set = set()
         self.threads: List[threading.Thread] = []
-        # the dispatch thread's device and compute stream (None on the CPU)
-        self.device = device
-        self.stream = stream
+        # the executor's slots: the dispatch thread issues on their
+        # streams, the supervisor joins them after a break
+        self.slots = tuple(slots)
 
 
 def _untrack_future(state: _PipelineState, fut: Future):
@@ -509,11 +666,12 @@ def _stage_worker(state: _PipelineState):
 
 
 def _dispatch_loop(state: _PipelineState):
-    if state.stream is not None:
-        # once for this thread: its kernels go to the executor's compute
-        # stream (the copies name their own streams)
-        torch.cuda.set_device(state.device)
-        torch.cuda.set_stream(state.stream)
+    home = state.slots[0]
+    if home.compute is not None:
+        # once for this thread: its kernels go to the first slot's
+        # compute stream unless a slot's own stream is named
+        torch.cuda.set_device(home.device)
+        torch.cuda.set_stream(home.compute)
     while True:
         unit = state.dispatch_q.get()
         if unit is _SHUTDOWN:
@@ -533,7 +691,8 @@ def _dispatch_loop(state: _PipelineState):
                     _fut_resolve(f, error=unit.error)
                 continue
             if unit.after is not None:
-                state.stream.wait_event(unit.after)
+                for slot in state.slots:
+                    slot.compute.wait_event(unit.after)
             ex = unit.ex
             for (arrays, n, bucket), fut in zip(unit.staged, unit.futs):
                 if not _acquire_or_broken(state.depth_sem, state):
@@ -652,8 +811,9 @@ def _reap_broken_pipeline(state: _PipelineState):
     """Post-break cleanup, run on the dying thread: wait for the surviving
     loops to drain to their sentinels, then empty the dead queues —
     stranded in-flight records would otherwise pin card outputs and the
-    executor for the life of the process. Sentinels are re-put afterwards
-    so a straggler that outlived the join timeout still exits."""
+    executor for the life of the process — then re-put the sentinels, so
+    a straggler that outlived the join timeout still exits, and join
+    every slot's streams."""
     me = threading.current_thread()
     for t in state.threads:
         if t is not me:
@@ -667,6 +827,18 @@ def _reap_broken_pipeline(state: _PipelineState):
     state.stage_q.put(_SHUTDOWN)
     state.dispatch_q.put(_SHUTDOWN)
     state.inflight_q.put(_SHUTDOWN)
+    # the stranded batches' copies and graph replays are still queued on
+    # the slots' streams: let every slot's streams run dry before the
+    # staging buffers and events they use are dropped. A break often
+    # comes from a sticky CUDA error, which the join raises again: it is
+    # recorded, never raised out of supervision
+    for slot in state.slots:
+        try:
+            slot.join()
+        except Exception as e:  # noqa: BLE001 - supervision boundary
+            _bb.record("pipeline_reap_join_failed", level="error",
+                       slot=slot.index, device=str(slot.device),
+                       error=repr(e)[:200])
 
 
 def _pipeline_thread(target, state: _PipelineState):
@@ -723,7 +895,7 @@ class BatchedExecutor:
     def __init__(
         self,
         fn: Callable[..., Any],
-        device: Union[str, torch.device] = device_policy.DEFAULT_DEVICE,
+        device: Union[str, torch.device, None] = None,
         compute_dtype: Any = None,
         min_bucket: int = 8,
         max_bucket: Optional[int] = None,
@@ -735,16 +907,28 @@ class BatchedExecutor:
         device_outputs: Optional[Sequence[int]] = None,
         cache_key: Optional[str] = None,
         cache_dir: Optional[str] = None,
+        devices: Union[None, str, int, Sequence[Any]] = None,
     ):
         """``device`` is "cuda" by default and raises without CUDA; the
         CPU runs only when asked for (``device="cpu"``).
 
+        ``devices`` turns on data parallelism: ``"all"``, an int, or a
+        device sequence (:func:`resolve_devices`), exclusive with
+        ``device``. Each entry is a slot (see the module docstring): a
+        bucket the slot count divides is sharded over the slots, any other
+        lands whole on the next slot, round robin. A one-entry list is the
+        pinned one-device path. ``pipeline_depth`` then defaults to the
+        slot count + 1, so every slot can hold a round-robin bucket while
+        the oldest drains.
+
         ``bound_args`` are prepended to every call unpadded — use for a
-        weights tree (dicts, tuples, lists of arrays or tensors): it goes
-        to ``device`` once, here, shared by every bucket. Construction
+        weights tree (dicts, tuples, lists of arrays or tensors) or a
+        :class:`PerDevice`: it goes to the device once, here, shared by
+        every bucket; a slot on another device gets its own replica at its
+        first use, and slots on one device share it. Construction
         then waits for the caller's current stream, so the bound args and
         anything the caller placed on the card before (weights ``fn``
-        closes over) are ready for the executor's stream.
+        closes over) are ready for the executor's streams.
 
         ``compute_dtype`` (a torch dtype or "bfloat16", "float16",
         "float32") is the dtype floating host columns are staged in; the
@@ -754,7 +938,9 @@ class BatchedExecutor:
 
         ``transfer_batches`` groups that many buckets into ONE host-to-card
         copy (compute then runs per bucket on card-side slices);
-        ``"auto"`` sizes the group to ~32 MB per copy. Default 1.
+        ``"auto"`` sizes the group to ~32 MB per copy. Default 1. Over
+        several slots the group shares one staging buffer and each bucket
+        copies its own rows in on its slot's stream.
 
         ``stage_workers`` bounds the host-staging pool: that many batches'
         coerce+pad host work can proceed concurrently with dispatch and
@@ -763,12 +949,13 @@ class BatchedExecutor:
         ``device_outputs`` lists output-leaf indices (position in the
         flattened output tree) that stay on the card: they resolve as
         card tensors, row-sliced lazily, ready to be fed back into the
-        next ``submit``. The drain still waits for the batch's event, so
-        a resolved future means the leaf is computed. Such a leaf is
-        marked used on the card's default stream (``record_stream``), so
-        the caching allocator does not hand its block to the executor's
-        stream while a caller's kernel on the default stream still reads
-        it.
+        next ``submit`` (a sharded bucket's slices are joined in row order
+        on the first slot's device). The drain still waits for the batch's
+        events, so a resolved future means the leaf is computed. Such a
+        leaf is marked used on the card's default stream
+        (``record_stream``), so the caching allocator does not hand its
+        block to the executor's stream while a caller's kernel on the
+        default stream still reads it.
 
         ``cache_dir`` (default: the ``SYNAPSEML_COMPILE_CACHE`` env var)
         together with ``cache_key``, the caller's content hash over
@@ -777,20 +964,37 @@ class BatchedExecutor:
         its warm programs reproduce the persisted ones
         (runtime/compile_cache.py). Any miss, skew or corrupt entry
         silently degrades to a fresh capture."""
-        dev = device_policy.resolve(device)
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
+        devs = resolve_devices(devices)
+        if devs is not None and device is not None:
+            raise ValueError("pass either device= or devices=, not both")
+        if devs is not None and len(devs) == 1:
+            device, devs = devs[0], None
+        if devs is None:
+            dev = device_policy.resolve(
+                device_policy.DEFAULT_DEVICE if device is None else device)
+            if dev.type == "cuda" and dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+        else:
+            dev = devs[0]
+        # the pinned device, or the first slot's: the bound args, the
+        # store and the joined device_outputs live there
         self._device = dev
+        self._devices = devs
         self._cuda = dev.type == "cuda"
         self._compute_dtype = _torch_dtype(compute_dtype)
         self._min_bucket = min_bucket
         self._max_bucket = max_bucket
         self._static_batch = static_batch
-        self._depth = max(1, int(2 if pipeline_depth is None
-                                 else pipeline_depth))
+        if pipeline_depth is None:
+            pipeline_depth = 2 if devs is None else len(devs) + 1
+        self._depth = max(1, int(pipeline_depth))
         self._stage_workers = max(1, int(stage_workers))
         self._fn = fn
         self._bound = tuple(_to_device(b, dev) for b in bound_args)
+        # what makes a PerDevice arg on another device (None: a tree the
+        # first replica is copied from)
+        self._makers = tuple(b if isinstance(b, PerDevice) else None
+                             for b in bound_args)
         if self._cuda:
             torch.cuda.current_stream(dev).synchronize()
         if transfer_batches is None:
@@ -805,16 +1009,27 @@ class BatchedExecutor:
         # workers units) plus the batches in flight (depth)
         self._pool = (_PinnedPool(2 * self._depth + self._stage_workers)
                       if self._cuda else None)
-        # compute, copy-in and copy-out streams of the dispatch thread
-        self._streams = (tuple(torch.cuda.Stream(dev) for _ in range(3))
-                         if self._cuda else (None, None, None))
+        self._slots = tuple(_Slot(i, d)
+                            for i, d in enumerate(devs or (dev,)))
         self._pipeline: Optional[_PipelineState] = None
         self._pipeline_init_lock = threading.Lock()
         # user-initiated close(): permanent, unlike a supervision break
         self._closed = False
         self._finalizer = None
+        # dispatch counters: one series a round-robin slot, and one for
+        # the pinned device or, over slots, the mesh label a sharded
+        # bucket counts under once — the series sum to the batches. A
+        # slot's label is "<device>#<slot>", so slots on one card differ
+        if devs is not None:
+            self._mesh_label = f"dp{len(devs)}"
+            self._m_disp_rr = tuple(
+                _tm.counter("executor_dispatch_total", device=f"{d}#{i}")
+                for i, d in enumerate(devs))
+        else:
+            self._mesh_label = str(dev)
+            self._m_disp_rr = ()
         self._m_disp_one = _tm.counter("executor_dispatch_total",
-                                       device=str(dev))
+                                       device=self._mesh_label)
         self._m_bucket: Dict[int, _tm.Counter] = {}
         # -- the store and the warm programs --------------------------------
         resolved_dir = cache_dir if cache_dir is not None \
@@ -828,36 +1043,35 @@ class BatchedExecutor:
                     os.path.join(resolved_dir, "executables"), device=dev)
         # _tables_lock guards the tables below: warmup() writes them on
         # the caller's thread, _dispatch reads and retires on the dispatch
-        # thread. Slow work (capture, a run on zeros) happens OUTSIDE it.
+        # thread. Slow work (capture, a run on zeros, a replica's copy)
+        # happens OUTSIDE it.
         self._tables_lock = threading.Lock()
-        # warm programs from warmup(), keyed by the staged input signature
-        # (shape and dtype name of each batch argument)
+        # one replica of the bound args a distinct device of the slots
+        # (lazy), and the round-robin cursor
+        self._bound_rr: Dict[torch.device, tuple] = {dev: self._bound}
+        self._rr_next = 0
+        # warm programs from warmup(), keyed by (staged input signature of
+        # the bucket, layout, slot index)
         self._aot: Dict[tuple, _Warm] = {}
         self._aot_hits = 0
         # recompile-sentinel state: warmup() flips _warmed and records
-        # the call arities it warmed; _lazy_seen holds every signature the
-        # eager path has already run (only FIRST runs are timed and
-        # counted)
+        # the call arities it warmed; _lazy_seen holds every (signature,
+        # layout, slot) the eager path has already run (only FIRST runs
+        # are timed and counted)
         self._warmed = False
         self._warm_arities: set = set()
         self._lazy_seen: set = set()
-        # CUDA graphs: one memory pool per executor, shared by its
+        # CUDA graphs: one memory pool a slot, shared by the slot's
         # buckets' graphs. A graph captured later may hold its static
         # outputs in blocks that an earlier graph's capture used for
         # temporaries, so replaying ANY graph of the pool may overwrite
         # ANY graph's static outputs. Sharing is therefore safe only
         # while every graph's static outputs stay alive (the table holds
-        # them), replays run on the one compute stream, and each replay
-        # waits for _released: the event after the last batch's copies
-        # out of static outputs. The copy-out stream runs in order, so
-        # that one event covers every earlier batch of every graph.
-        # _replay_lock keeps a capture (and its check replay and digest
-        # copy) from interleaving with a replay call; dispatch holds it
-        # only around the replay call.
-        self._graph_pool = None
-        self._capture_stream: Optional[torch.cuda.Stream] = None
-        self._replay_lock = threading.Lock()
-        self._released: Optional[torch.cuda.Event] = None
+        # them), the slot's replays run on its one compute stream, and
+        # each replay waits for the slot's ``released`` event. Two slots
+        # replaying at once never share a pool, a graph or a static
+        # buffer. A slot's replay lock keeps a capture (and its check
+        # replay and digest copy) from interleaving with a replay call.
 
     @property
     def pipeline_depth(self) -> int:
@@ -865,7 +1079,16 @@ class BatchedExecutor:
 
     @property
     def device(self) -> torch.device:
+        """The pinned device, or the first slot's under ``devices=``."""
         return self._device
+
+    @property
+    def devices(self) -> Optional[Tuple[torch.device, ...]]:
+        return self._devices
+
+    @property
+    def n_devices(self) -> int:
+        return len(self._devices) if self._devices is not None else 1
 
     def _bucket(self, n: int) -> int:
         if self._static_batch is not None:
@@ -874,6 +1097,32 @@ class BatchedExecutor:
         if self._max_bucket is not None:
             b = min(b, self._max_bucket)
         return b
+
+    # -- data-parallel layout --------------------------------------------
+    def _layout(self, bucket: int) -> str:
+        """The layout of one bucket: ``"single"`` without ``devices``;
+        ``"shard"`` when the bucket splits evenly over the slots (each
+        slot runs ``bucket / n`` rows); ``"rr"`` otherwise (the whole
+        bucket on the next slot, round robin)."""
+        if self._devices is None:
+            return "single"
+        return "shard" if bucket % len(self._devices) == 0 else "rr"
+
+    def _bound_for_device(self, dev: torch.device) -> tuple:
+        """The bound args on ``dev``: one replica a distinct device, made
+        at its first use. The copy runs outside the lock; a racing
+        warmup/dispatch pair may both copy, ``setdefault`` crowns one
+        winner so every caller shares the same tensors."""
+        with self._tables_lock:
+            got = self._bound_rr.get(dev)
+        if got is None:
+            got = tuple(_to_device(m or b, dev)
+                        for b, m in zip(self._bound, self._makers))
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+            with self._tables_lock:
+                got = self._bound_rr.setdefault(dev, got)
+        return got
 
     # -- pipeline plumbing ----------------------------------------------
     def _ensure_pipeline(self) -> _PipelineState:
@@ -893,7 +1142,7 @@ class BatchedExecutor:
                 self._pipeline = state = None
             if state is None:
                 state = _PipelineState(self._depth, self._stage_workers,
-                                       self._device, self._streams[0])
+                                       self._slots)
                 threads = [threading.Thread(
                     target=_pipeline_thread, args=(_stage_worker, state),
                     name=f"executor-stage-{i}", daemon=True)
@@ -1137,9 +1386,9 @@ class BatchedExecutor:
         return out
 
     def _mesh_shape(self) -> Tuple[int, ...]:
-        """Folded into every store key; one device until ``devices=``
-        is ported (ROADMAP Queue 1 item 1e)."""
-        return (1,)
+        """Folded into every store key: the slot count, so a 4-slot and
+        an 8-slot warmup under one ``cache_key`` miss each other."""
+        return (1,) if self._devices is None else (len(self._devices),)
 
     def _device_kind(self) -> str:
         if self._cuda:
@@ -1164,9 +1413,10 @@ class BatchedExecutor:
 
     def warmup(self, args_like: Sequence[Any],
                buckets: Optional[Sequence[int]] = None) -> "_cc.WarmupReport":
-        """Warm every bucket signature this executor will serve, so no
-        caller ever lands on a cold program — the reference's AOT
-        precompile, rebuilt for the card as one CUDA graph a bucket.
+        """Warm every bucket signature this executor will serve, on every
+        slot, so no caller ever lands on a cold program — the reference's
+        AOT precompile, rebuilt for the card as one CUDA graph a bucket
+        and slot.
 
         ``args_like``: one entry per batch argument — an example array or
         tensor (leading dim = batch, any size; only ``shape[1:]`` and its
@@ -1174,14 +1424,18 @@ class BatchedExecutor:
         rules) or a ``(row_shape, dtype)`` pair. ``buckets`` defaults to
         the executor's full bucket ladder.
 
-        Each signature's graph is captured after one eager run on a side
-        stream, then replayed once on zero-filled inputs; with a
-        configured store (``cache_dir`` + ``cache_key``) that replay's
-        digest is checked against the persisted record (``loaded``) or
-        persisted (``compiled``). Never raises for cache or capture
-        problems — a signature that fails serves eagerly, and the
+        Each target gets one report entry: a bucket of the ``"single"``
+        layout, a sharded bucket (``"shard"``: one graph of ``bucket / n``
+        rows on each slot, their outputs joined in row order), or a
+        round-robin bucket on one slot (``"rr{i}"``: one graph of the
+        whole bucket). Each graph is captured after one eager run on the
+        slot's capture stream, then replayed once on zero-filled inputs;
+        with a configured store (``cache_dir`` + ``cache_key``) the
+        target's digest is checked against the persisted record
+        (``loaded``) or persisted (``compiled``). Never raises for cache or
+        capture problems — a target that fails serves eagerly, and the
         returned :class:`~synapseml_tpu_torch.runtime.compile_cache.WarmupReport`
-        records each signature's disposition (warm / loaded / compiled /
+        records each target's disposition (warm / loaded / compiled /
         error). From here on, an eager first run on the dispatch path is
         a counted recompile."""
         report = _cc.WarmupReport()
@@ -1197,99 +1451,118 @@ class BatchedExecutor:
         buckets = (self._bucket_ladder() if buckets is None
                    else sorted({int(b) for b in buckets}))
         for bucket in buckets:
+            layout = self._layout(bucket)
             sig = tuple(((bucket,) + row, _cc.dtype_name(dt))
                         for row, dt in specs)
-            entry: Dict[str, Any] = {"bucket": bucket, "layout": "single",
-                                     "sig": sig}
-            report.entries.append(entry)
-            with self._tables_lock:
-                warm = sig in self._aot
-            if warm:
-                entry["status"] = "warm"
-                self._note_warm_sig(sig)
-                continue
-            try:
-                skey = record = None
-                if self._store is not None:
-                    skey = _cc.executable_key(
-                        self._cache_key, bucket=bucket, sig=sig,
-                        layout="single", mesh_shape=self._mesh_shape(),
-                        device_kind=self._device_kind(),
-                        fingerprint=self._store.fingerprint())
-                    record = self._store.load(skey)
-                t0 = time.monotonic()
-                program, leaves = self._capture(sig)
-                fresh = _cc.signature_record(sig, leaves,
-                                             _cc.output_digest(leaves))
-                seconds = time.monotonic() - t0
-                loaded = (record is not None
-                          and self._store.matches(skey, record, fresh))
-                (_cc._M_DESER_S if loaded
-                 else _M_COMPILE_WARM_S).observe(seconds)
+            if layout == "shard":
+                k = bucket // len(self._slots)
+                targets = [("shard", self._slots,
+                            tuple(((k,) + row, _cc.dtype_name(dt))
+                                  for row, dt in specs))]
+            elif layout == "rr":
+                targets = [(f"rr{s.index}", (s,), sig) for s in self._slots]
+            else:
+                targets = [("single", self._slots, sig)]
+            for store_layout, slots, slot_sig in targets:
+                keys = [(sig, layout, s.index) for s in slots]
+                entry: Dict[str, Any] = {"bucket": bucket,
+                                         "layout": store_layout, "sig": sig}
+                report.entries.append(entry)
                 with self._tables_lock:
-                    self._aot[sig] = program
-                entry["status"] = "loaded" if loaded else "compiled"
-                entry["seconds"] = seconds
-                self._note_warm_sig(sig)
-                if skey is not None and not loaded:
-                    entry["persisted"] = self._store.save(skey, fresh)
-            except Exception as e:  # noqa: BLE001 - degrade to eager
-                entry["status"] = "error"
-                report.errors.append(f"bucket={bucket} single: {e!r}")
+                    warm = all(key in self._aot for key in keys)
+                if warm:
+                    entry["status"] = "warm"
+                    self._note_warm_sig(sig)
+                    continue
+                try:
+                    skey = record = None
+                    if self._store is not None:
+                        skey = _cc.executable_key(
+                            self._cache_key, bucket=bucket, sig=sig,
+                            layout=store_layout,
+                            mesh_shape=self._mesh_shape(),
+                            device_kind=self._device_kind(),
+                            fingerprint=self._store.fingerprint())
+                        record = self._store.load(skey)
+                    t0 = time.monotonic()
+                    captured = [self._capture(slot_sig, s) for s in slots]
+                    leaves = (captured[0][1] if len(captured) == 1
+                              else _join_rows([c[1] for c in captured],
+                                              bucket // len(captured)))
+                    fresh = _cc.signature_record(sig, leaves,
+                                                 _cc.output_digest(leaves))
+                    seconds = time.monotonic() - t0
+                    loaded = (record is not None
+                              and self._store.matches(skey, record, fresh))
+                    (_cc._M_DESER_S if loaded
+                     else _M_COMPILE_WARM_S).observe(seconds)
+                    with self._tables_lock:
+                        for key, (program, _) in zip(keys, captured):
+                            self._aot[key] = program
+                    entry["status"] = "loaded" if loaded else "compiled"
+                    entry["seconds"] = seconds
+                    self._note_warm_sig(sig)
+                    if skey is not None and not loaded:
+                        entry["persisted"] = self._store.save(skey, fresh)
+                except Exception as e:  # noqa: BLE001 - degrade to eager
+                    entry["status"] = "error"
+                    report.errors.append(
+                        f"bucket={bucket} {store_layout}: {e!r}")
         # the sentinel arms HERE: from now on an eager first run on the
         # dispatch path is a counted, classified recompile incident
         with self._tables_lock:
             self._warmed = True
         return report
 
-    def _capture(self, sig: tuple) -> Tuple[_Warm, list]:
-        """Build the warm program of one signature; returns it and the
-        output leaves of its run on zero-filled inputs.
+    def _capture(self, sig: tuple, slot: _Slot) -> Tuple[_Warm, list]:
+        """Build the warm program of one signature on one slot; returns it
+        and the output leaves of its run on zero-filled inputs.
 
         On the card: zero-filled static inputs, one eager run on the
-        capture stream (lazy initialisation, cuDNN and cuBLAS plans and
-        workspaces happen outside the capture), the capture into the
-        executor's pool (``thread_local``: the dispatch thread may be
-        issuing meanwhile), then one replay on the compute stream, after
-        whatever is queued there and after the last batch's copies out of
-        static outputs. The leaves returned are clones of that replay's
-        outputs, taken on the compute stream before any later replay can
-        overwrite them. The forward enters ``_ieee_float32`` while it is
-        captured, so a float32 graph keeps TF32 off in every replay
-        whatever the flags are then."""
+        slot's capture stream (lazy initialisation, cuDNN and cuBLAS plans
+        and workspaces happen outside the capture), the capture into the
+        slot's pool (``thread_local``: the dispatch thread may be issuing
+        meanwhile), then one replay on the slot's compute stream, after
+        whatever is queued there and after the slot's last batch's copies
+        out of static outputs. The leaves returned are clones of that
+        replay's outputs, taken on the compute stream before any later
+        replay can overwrite them. The forward enters ``_ieee_float32``
+        while it is captured, so a float32 graph keeps TF32 off in every
+        replay whatever the flags are then."""
         shapes = [(shape, getattr(torch, name)) for shape, name in sig]
+        bound = self._bound_for_device(slot.device)
         if not self._cuda:
             with torch.inference_mode():
                 inputs = [torch.zeros(s, dtype=d) for s, d in shapes]
-                leaves = _leaves(self._fn(*self._bound, *inputs))
-            return _Warm(), leaves
-        dev = self._device
+                leaves = _leaves(self._fn(*bound, *inputs))
+            return _Warm(slot), leaves
+        dev = slot.device
         with torch.cuda.device(dev), torch.inference_mode():
-            side = self._capture_stream
+            side = slot.capture_stream
             if side is None:
-                side = self._capture_stream = torch.cuda.Stream(dev)
+                side = slot.capture_stream = torch.cuda.Stream(dev)
             inputs = [torch.zeros(s, dtype=d, device=dev) for s, d in shapes]
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                self._fn(*self._bound, *inputs)
+                self._fn(*bound, *inputs)
             graph = torch.cuda.CUDAGraph()
-            with self._replay_lock:
-                if self._graph_pool is None:
-                    self._graph_pool = torch.cuda.graph_pool_handle()
+            with slot.replay_lock:
+                if slot.pool is None:
+                    slot.pool = torch.cuda.graph_pool_handle()
                 try:
                     with torch.cuda.graph(
-                            graph, pool=self._graph_pool, stream=side,
+                            graph, pool=slot.pool, stream=side,
                             capture_error_mode="thread_local"):
-                        out = self._fn(*self._bound, *inputs)
+                        out = self._fn(*bound, *inputs)
                 except BaseException:
                     # a failed capture may leave its stream unusable
-                    self._capture_stream = None
+                    slot.capture_stream = None
                     raise
                 statics = _leaves(out)
-                compute = self._streams[0]
+                compute = slot.compute
                 compute.wait_stream(side)
-                if self._released is not None:
-                    compute.wait_event(self._released)
+                if slot.released is not None:
+                    compute.wait_event(slot.released)
                 with torch.cuda.stream(compute):
                     graph.replay()
                     leaves = [leaf.clone() if isinstance(leaf, torch.Tensor)
@@ -1297,22 +1570,24 @@ class BatchedExecutor:
                 done = torch.cuda.Event()
                 done.record(compute)
             done.synchronize()
-        return _Warm(graph, inputs, statics), leaves
+        return _Warm(slot, graph, inputs, statics), leaves
 
     def _replay(self, warm: _Warm, padded: List[torch.Tensor]) -> list:
-        """Run a warm program on one staged batch; returns its output
-        leaves. On the card: after the last batch's copies out of static
-        outputs (``_released``, whichever graph that batch replayed),
-        copy the batch into the static inputs on the compute stream (card
-        to card) and replay."""
+        """Run a warm program on one staged batch (or a slot's rows of
+        it); returns its output leaves. On the card: after the slot's last
+        batch's copies out of static outputs (``released``, whichever of
+        the slot's graphs that batch replayed), copy the rows into the
+        static inputs on the current stream (card to card) and replay."""
+        slot = warm.slot
         if warm.graph is None:
-            return _leaves(self._fn(*self._bound, *padded))
+            return _leaves(self._fn(*self._bound_for_device(slot.device),
+                                    *padded))
         stream = torch.cuda.current_stream()
-        if self._released is not None:
-            stream.wait_event(self._released)
+        if slot.released is not None:
+            stream.wait_event(slot.released)
         for static, a in zip(warm.inputs, padded):
             static.copy_(a)
-        with self._replay_lock:
+        with slot.replay_lock:
             warm.graph.replay()
         return list(warm.outputs)
 
@@ -1358,116 +1633,247 @@ class BatchedExecutor:
         returns without waiting for the card. A tensor made on one stream
         and read on another is marked used there (``record_stream``), so
         the caching allocator does not reuse its block early. Raw host
-        arrays (not staged by the pool) are staged here."""
+        arrays (not staged by the pool) are staged here.
+
+        Under ``devices=`` the streams are the slots': a sharded bucket
+        runs slot ``i``'s rows on slot ``i`` (copy in, replay, copy out,
+        one event a slot) and is joined in row order; a round-robin bucket
+        runs whole on the next slot. Either way this method stays ordered
+        and non-blocking, so submission order, depth backpressure and
+        :meth:`stream`'s order are untouched."""
         _F_LAT_DISPATCH.fire()
-        self._m_disp_one.inc()
+        layout = self._layout(bucket)
+        if layout == "rr":
+            with self._tables_lock:
+                i = self._rr_next % len(self._slots)
+                self._rr_next += 1
+            self._m_disp_rr[i].inc()
+            parts = [(self._slots[i], 0, bucket)]
+        else:
+            self._m_disp_one.inc()
+            k = bucket // len(self._slots)
+            parts = [(s, s.index * k, k) for s in self._slots]
         mc = self._m_bucket.get(bucket)
         if mc is None:  # first batch at this bucket: register the series
             mc = self._m_bucket.setdefault(bucket, _tm.counter(
                 "executor_bucket_total", bucket=str(bucket)))
         mc.inc()
         _F_H2D.fire()
-        padded: List[torch.Tensor] = []
+        columns: list = []
         leases: List[_HostBatch] = []
         for a in arrays:
             if not isinstance(a, _Rows):
                 if self._on_device(a):
-                    padded.append(self._stage_device_array(a, bucket))
+                    columns.append(self._stage_device_array(a, bucket))
                     continue
                 rows = bucket if n < bucket and len(a) < bucket else len(a)
                 hb = self._stage_host(a, rows)
                 a = _Rows(hb, 0, len(hb.host))
-            hb = a.batch
-            if hb.device is None and not self._cuda:
-                hb.device = hb.host
-            elif hb.device is None:
-                copy_in = self._streams[1]
-                with torch.cuda.stream(copy_in):
-                    hb.device = hb.host.to(self._device, non_blocking=True)
-                    hb.ready = torch.cuda.Event()
-                    hb.ready.record(copy_in)
-                hb.device.record_stream(torch.cuda.current_stream())
-            if hb.ready is not None:
-                torch.cuda.current_stream().wait_event(hb.ready)
-            padded.append(hb.device[a.start:a.stop])
-            leases.append(hb)
+            columns.append(a)
+            leases.append(a.batch)
         _F_COMPUTE.fire()
-        sig = tuple((tuple(a.shape), _cc.dtype_name(a.dtype)) for a in padded)
-        with self._tables_lock:
-            warm = self._aot.get(sig)
-        retired = False
-        leaves = None
+        sig = tuple(_column_sig(c) for c in columns)
+        home = self._slots[0]
+        # a caller's card tensor was padded and cast on the first slot's
+        # stream: the other slots wait for it there
+        padded_on_home = None
+        if self._cuda and len(self._slots) > 1 and any(
+                isinstance(c, torch.Tensor) for c in columns):
+            padded_on_home = torch.cuda.Event()
+            padded_on_home.record(home.compute)
+        ran = []
+        outcomes = set()
         with torch.inference_mode():
-            if warm is not None:
-                # warmup()'s program: one replay, no per-node launches
-                try:
-                    leaves = self._replay(warm, padded)
-                    with self._tables_lock:
-                        self._aot_hits += 1
-                    _M_AOT_HIT.inc()
-                except Exception:  # noqa: BLE001 - degrade, never error
-                    # retire the program and run eagerly: a genuine
-                    # program error re-raises from the eager call
-                    with self._tables_lock:
-                        self._aot.pop(sig, None)
-                    _M_AOT_RETIRED.inc()
-                    retired, warm = True, None
-            else:
+            for slot, start, rows in parts:
+                with slot.on_compute():
+                    if padded_on_home is not None and slot is not home:
+                        slot.compute.wait_event(padded_on_home)
+                    padded = [self._slot_rows(c, slot, start, rows)
+                              for c in columns]
+                    leaves, warm, outcome = self._run_slot(
+                        sig, layout, slot, padded, bucket)
+                ran.append((slot, start, rows, leaves, warm))
+                outcomes.add(outcome)
+            if outcomes == {"hit"}:
+                with self._tables_lock:
+                    self._aot_hits += 1
+                _M_AOT_HIT.inc()
+            elif "miss" in outcomes:
                 _M_AOT_MISS.inc()
-            if leaves is None:
-                leaves = self._run_cold(sig, padded, retired, bucket)
-            elif warm.graph is not None:
-                # a caller keeps a device_outputs leaf past the next
-                # replay, which overwrites the static outputs
-                for i in self._device_outputs:
-                    if i < len(leaves) and isinstance(leaves[i],
-                                                      torch.Tensor):
-                        leaves[i] = leaves[i].clone()
-            event = None
-            if self._cuda:
-                computed = torch.cuda.Event()
-                computed.record()
-                copy_out = self._streams[2]
-                with torch.cuda.stream(copy_out):
-                    copy_out.wait_event(computed)
-                    for i, leaf in enumerate(leaves):
-                        if (i in self._device_outputs
-                                or not isinstance(leaf, torch.Tensor)
-                                or not leaf.is_cuda):
-                            continue
-                        host = torch.empty(leaf.shape, dtype=leaf.dtype,
-                                           pin_memory=True)
-                        host.copy_(leaf, non_blocking=True)
-                        leaf.record_stream(copy_out)
-                        leaves[i] = host
-                    event = torch.cuda.Event()
-                    event.record(copy_out)
-                if warm is not None:
-                    self._released = event
-        return _Flight(leaves, event, leases), n, bucket
+            if not self._cuda:
+                leaves = (ran[0][3] if len(ran) == 1 else
+                          _join_rows([r[3] for r in ran], ran[0][2]))
+                return _Flight(leaves, [], leases), n, bucket
+            return self._copy_out(ran, bucket, leases), n, bucket
 
-    def _run_cold(self, sig: tuple, padded: List[torch.Tensor],
-                  retired: bool, bucket: int) -> list:
-        """The eager path of a signature without a warm program. Its
-        first run is timed into ``executor_compile_seconds{phase=
-        "dispatch"}``; after :meth:`warmup` it is also counted in
-        ``executor_recompiles_total`` by reason — an incident, not a
-        mystery latency spike."""
+    def _slot_rows(self, col, slot: _Slot, start: int, rows: int):
+        """Rows ``start:start + rows`` of one staged column, on the slot's
+        device, ready on its compute stream (the current stream). A staged
+        host column crosses on the slot's copy-in stream: with one slot
+        the whole staging buffer once (the chunks of a ``transfer_batches``
+        group share that copy), over several slots each slot only its own
+        rows. A card column is sliced, and moved (counted) only when the
+        slot is on another card."""
+        if isinstance(col, _Rows):
+            hb = col.batch
+            lo = col.start + start
+            if not self._cuda:
+                return hb.host[lo:lo + rows]
+            copy_in = slot.streams[1]
+            if self._devices is None:
+                if hb.device is None:
+                    with torch.cuda.stream(copy_in):
+                        hb.device = hb.host.to(slot.device,
+                                               non_blocking=True)
+                        hb.ready = torch.cuda.Event()
+                        hb.ready.record(copy_in)
+                    hb.device.record_stream(slot.compute)
+                slot.compute.wait_event(hb.ready)
+                return hb.device[lo:lo + rows]
+            with torch.cuda.stream(copy_in):
+                mine = hb.host[lo:lo + rows].to(slot.device,
+                                                non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(copy_in)
+            mine.record_stream(slot.compute)
+            slot.compute.wait_event(ready)
+            return mine
+        mine = col if rows == len(col) else col[start:start + rows]
+        if mine.device != slot.device:
+            _M_XDEV.inc()
+            return mine.to(slot.device, non_blocking=True)
+        if self._cuda and slot is not self._slots[0]:
+            mine.record_stream(slot.compute)
+        return mine
+
+    def _run_slot(self, sig: tuple, layout: str, slot: _Slot,
+                  padded: List[torch.Tensor], bucket: int):
+        """One slot's share of a bucket: its warm program if it has one
+        (``"hit"``), else the eager ``fn`` (``"miss"``); a program whose
+        replay raises is retired and the rows run eagerly
+        (``"retired"``). Returns the output leaves, the program replayed
+        and that outcome."""
+        key = (sig, layout, slot.index)
         with self._tables_lock:
-            unseen = sig not in self._lazy_seen
+            warm = self._aot.get(key)
+        if warm is None:
+            return self._run_cold(key, padded, False, bucket), None, "miss"
+        try:
+            # warmup()'s program: one replay, no per-node launches
+            return self._replay(warm, padded), warm, "hit"
+        except Exception:  # noqa: BLE001 - degrade, never error
+            # retire the program and run eagerly: a genuine program error
+            # re-raises from the eager call
+            with self._tables_lock:
+                self._aot.pop(key, None)
+            _M_AOT_RETIRED.inc()
+        return self._run_cold(key, padded, True, bucket), None, "retired"
+
+    def _copy_out(self, ran: list, bucket: int,
+                  leases: List[_HostBatch]) -> _Flight:
+        """After each slot's compute, start the card-to-host copy of its
+        host output leaves into its rows of one pinned buffer a leaf, on
+        its copy-out stream, and record its event. The ``device_outputs``
+        leaves are made on the compute stream of the first slot the bucket
+        ran on, after every slot's compute: a sharded bucket's slices
+        joined in row order (a
+        slice on another card moved there, counted), a whole bucket's
+        replayed leaf cloned (a later replay overwrites the static
+        outputs). Each slot's copy-out waits for that, so its event — the
+        slot's ``released`` when it replayed a graph, and what the drain
+        waits on — covers every read of its outputs."""
+        lead = ran[0][0]
+        sharded = len(ran) > 1
+        computed = []
+        for slot, *_ in ran:
+            ev = torch.cuda.Event()
+            ev.record(slot.compute)
+            computed.append(ev)
+        leaves_out = list(ran[0][3])
+        to_make = []
+        for j in range(len(leaves_out)):
+            pieces = [r[3][j] for r in ran]
+            if not all(isinstance(p, torch.Tensor) and p.is_cuda
+                       for p in pieces):
+                if sharded:
+                    leaves_out[j] = _join_leaf(pieces, ran[0][2])
+                continue
+            if sharded:
+                _check_rows(pieces, ran[0][2])
+            if j in self._device_outputs:
+                if sharded or ran[0][4] is not None:
+                    to_make.append(j)
+            else:
+                shape = ((bucket,) + tuple(pieces[0].shape[1:]) if sharded
+                         else pieces[0].shape)
+                leaves_out[j] = torch.empty(shape, dtype=pieces[0].dtype,
+                                            pin_memory=True)
+        made = None
+        if to_make:
+            with lead.on_compute():
+                for ev in computed[1:]:
+                    lead.compute.wait_event(ev)
+                for j in to_make:
+                    parts = []
+                    for slot, _, _, leaves, _ in ran:
+                        piece = leaves[j]
+                        if piece.device != lead.device:
+                            _M_XDEV.inc()
+                            piece = piece.to(lead.device, non_blocking=True)
+                        elif slot is not lead:
+                            piece.record_stream(lead.compute)
+                        parts.append(piece)
+                    leaves_out[j] = (torch.cat(parts) if sharded
+                                     else parts[0].clone())
+                made = torch.cuda.Event()
+                made.record(lead.compute)
+        events = []
+        for (slot, start, rows, leaves, warm), ev in zip(ran, computed):
+            copy_out = slot.streams[2]
+            with torch.cuda.stream(copy_out):
+                copy_out.wait_event(ev)
+                if made is not None:
+                    copy_out.wait_event(made)
+                for j, leaf in enumerate(leaves):
+                    if (j in self._device_outputs
+                            or not isinstance(leaf, torch.Tensor)
+                            or not leaf.is_cuda):
+                        continue
+                    host = (leaves_out[j][start:start + rows] if sharded
+                            else leaves_out[j])
+                    host.copy_(leaf, non_blocking=True)
+                    leaf.record_stream(copy_out)
+                done = torch.cuda.Event()
+                done.record(copy_out)
+            events.append(done)
+            if warm is not None:
+                slot.released = done
+        return _Flight(leaves_out, events, leases)
+
+    def _run_cold(self, key: tuple, padded: List[torch.Tensor],
+                  retired: bool, bucket: int) -> list:
+        """The eager path of a (signature, layout, slot) without a warm
+        program. Its first run is timed into ``executor_compile_seconds
+        {phase="dispatch"}``; after :meth:`warmup` it is also counted in
+        ``executor_recompiles_total`` by reason — an incident, not a
+        mystery latency spike. A sharded bucket counts once a slot."""
+        sig, layout, index = key
+        slot = self._slots[index]
+        with self._tables_lock:
+            unseen = key not in self._lazy_seen
             if unseen:
-                self._lazy_seen.add(sig)
+                self._lazy_seen.add(key)
             reason = (self._classify_recompile(sig, retired)
                       if unseen and self._warmed else None)
         t0 = time.monotonic()
         try:
-            out = self._fn(*self._bound, *padded)
+            out = self._fn(*self._bound_for_device(slot.device), *padded)
         except BaseException:
             if unseen:
                 # a first run that RAISED is not a warm signature: the
                 # retry is still counted and timed
                 with self._tables_lock:
-                    self._lazy_seen.discard(sig)
+                    self._lazy_seen.discard(key)
             raise
         if unseen:
             dt = time.monotonic() - t0
@@ -1476,21 +1882,23 @@ class BatchedExecutor:
                 _M_RECOMPILE[reason].inc()
                 _bb.record(
                     "recompile", level="warn", reason=reason,
-                    bucket=bucket, layout="single", device=str(self._device),
-                    seconds=round(dt, 6), signature=repr(sig)[:240])
+                    bucket=bucket, layout=layout, device=str(slot.device),
+                    slot=index, seconds=round(dt, 6),
+                    signature=repr(sig)[:240])
         return _leaves(out)
 
     def _fetch(self, out: _Flight, n: int, bucket: int):
-        """Wait for one batch (its event: the drain thread's only wait on
-        the card), give its staging buffers back, and slice the padding
+        """Wait for one batch (its events, one a slot it ran on: the
+        drain thread's only wait on the card), give its staging buffers
+        back, and slice the padding
         off each output leaf. A leaf whose leading dim is NOT the batch
         axis cannot be row-sliced, and doing it silently would mis-assign
         rows — fail with a recipe instead.
 
         Leaves listed in ``device_outputs`` stay card tensors, row-sliced
         lazily when the bucket padded."""
-        if out.event is not None:
-            out.event.synchronize()
+        for event in out.events:
+            event.synchronize()
         for hb in out.leases:
             hb.release()
         leaves = []

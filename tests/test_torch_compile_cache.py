@@ -589,7 +589,7 @@ def test_sentinel_cache_skew_retires_a_warm_program_that_raises():
     try:
         pair.warmup([ROW])
         sig = (((8, 6), "float32"),)
-        assert sig in pair.port._aot
+        assert (sig, "single", 0) in pair.port._aot
 
         def boom(*a, **k):
             raise RuntimeError("replay failed")
@@ -600,7 +600,7 @@ def test_sentinel_cache_skew_retires_a_warm_program_that_raises():
         _agree(got, want)
         del pair.port._replay
         pair.port(_x(5))
-        assert sig not in pair.port._aot
+        assert (sig, "single", 0) not in pair.port._aot
         assert _value(port_tm, "executor_aot_retired_total") == 1
         assert _value(port_tm, "executor_recompiles_total",
                       reason="cache_skew") == 1

@@ -838,6 +838,166 @@ def test_float32_and_bf16_executors_on_two_threads_stay_bitwise(card):
 
 # -- warm programs: CUDA graphs captured per bucket at warmup() -----------
 
+@pytest.mark.parametrize("slots", [2, 3])
+def test_dp_slots_replay_concurrently_bitwise_their_one_slot_runs(card,
+                                                                  slots):
+    """Slots on the one card (``devices=["cuda:0"] * n``), each with its
+    own graph, static buffers, pool and streams, replay at once through
+    200 submits in flight together: 2 slots shard each 128-row batch (a
+    64-row graph a slot), 3 run it whole round robin. Every output is
+    bitwise its one-slot run: the same rows through a one-slot executor
+    warmed at the slot's batch."""
+    from synapseml_tpu_torch.runtime.executor import BatchedExecutor
+
+    gen = torch.Generator().manual_seed(0)
+    w1 = torch.randn(512, 2048, generator=gen) / 512 ** 0.5
+    w2 = torch.randn(2048, 256, generator=gen) / 2048 ** 0.5
+
+    def fn(p1, p2, x):
+        return torch.tanh(x @ p1) @ p2, x.sum(1)
+
+    rows = 128 // 2 if slots == 2 else 128
+    multi = BatchedExecutor(fn, devices=[card] * slots, static_batch=128,
+                            bound_args=(w1, w2))
+    one = BatchedExecutor(fn, device=card, static_batch=rows,
+                          bound_args=(w1, w2))
+    try:
+        rep = multi.warmup([((512,), np.float32)])
+        assert rep.errors == [] and len(multi._aot) == slots
+        assert one.warmup([((512,), np.float32)]).errors == []
+        assert len({s.pool for s in multi._slots}) == slots
+        assert len({s.streams for s in multi._slots}) == slots
+        rng = np.random.default_rng(0)
+        xs = [rng.standard_normal((int(rng.integers(1, 129)), 512)).astype(
+            np.float32) for _ in range(200)]
+        futs = [multi.submit(x) for x in xs]
+        outs = [f.result(timeout=120) for f in futs]
+        assert multi._aot_hits == 200
+        for x, got in zip(xs, outs):
+            pad = np.zeros((128, 512), np.float32)
+            pad[:len(x)] = x
+            parts = [one(pad[s0:s0 + rows]) for s0 in range(0, 128, rows)]
+            for leaf, g in enumerate(got):
+                want = np.concatenate([p[leaf] for p in parts])[:len(x)]
+                np.testing.assert_array_equal(g, want)
+    finally:
+        multi.close()
+        one.close()
+
+
+@pytest.mark.parametrize("slots", [2, 3])
+def test_dp_device_outputs_are_bitwise_their_one_slot_runs(card, slots):
+    """``device_outputs`` over slots on the one card, warmed, 200 submits
+    in flight: 2 slots join each bucket's slices, 3 clone each whole
+    bucket's static outputs on the slot that replayed it. Every leaf is
+    held to the end, past later replays of the same graphs, and is
+    bitwise its one-slot run."""
+    from synapseml_tpu_torch.runtime.executor import BatchedExecutor
+
+    gen = torch.Generator().manual_seed(1)
+    w1 = torch.randn(256, 1024, generator=gen) / 256 ** 0.5
+    w2 = torch.randn(1024, 128, generator=gen) / 1024 ** 0.5
+
+    def fn(p1, p2, x):
+        h = torch.tanh(x @ p1)
+        return h @ p2, h, x * 2.0
+
+    rows = 128 // 2 if slots == 2 else 128
+    multi = BatchedExecutor(fn, devices=[card] * slots, static_batch=128,
+                            bound_args=(w1, w2), device_outputs=(1, 2))
+    one = BatchedExecutor(fn, device=card, static_batch=rows,
+                          bound_args=(w1, w2), device_outputs=(1, 2))
+    try:
+        assert multi.warmup([((256,), np.float32)]).errors == []
+        assert one.warmup([((256,), np.float32)]).errors == []
+        rng = np.random.default_rng(1)
+        xs = [rng.standard_normal((int(rng.integers(1, 129)), 256)).astype(
+            np.float32) for _ in range(200)]
+        futs = [multi.submit(x) for x in xs]
+        outs = [f.result(timeout=120) for f in futs]
+        assert multi._aot_hits == 200
+        torch.cuda.synchronize()
+        for x, got in zip(xs, outs):
+            pad = np.zeros((128, 256), np.float32)
+            pad[:len(x)] = x
+            parts = [one(pad[s0:s0 + rows]) for s0 in range(0, 128, rows)]
+            np.testing.assert_array_equal(
+                got[0], np.concatenate([p[0] for p in parts])[:len(x)])
+            for leaf in (1, 2):
+                assert got[leaf].is_cuda
+                want = torch.cat([p[leaf] for p in parts])[:len(x)]
+                assert torch.equal(got[leaf], want), leaf
+    finally:
+        multi.close()
+        one.close()
+
+
+def test_dp_warm_decode_over_three_slots_gives_the_one_slot_streams(card):
+    """A warmed ``DecodeScheduler`` over three slots of the one card
+    (max_batch 4, so every step runs whole on the next slot, its present
+    buffers cloned there): the continuous batch's token streams equal
+    the one-slot scheduler's, and no buffer moves between devices."""
+    from synapseml_tpu_torch.onnx import import_model, zoo
+    from synapseml_tpu_torch.runtime import telemetry as tm
+    from synapseml_tpu_torch.runtime.decode import DecodeScheduler
+    from synapseml_tpu_torch.runtime.kvcache import PagedKVCache
+
+    sys.path.insert(0, FIXTURES)
+    import decode_streams as decode_fx
+
+    graph = import_model(zoo.tiny_decoder())
+    batch = decode_fx.prompts(decode_fx.CONTINUOUS_LENS,
+                              decode_fx.CONTINUOUS_SEED)
+    moved = tm.counter("executor_cross_device_copies_total")
+    res = {}
+    for slots in (None, 3):
+        kw = {} if slots is None else {"devices": [card] * slots}
+        s = decode_fx.maker(DecodeScheduler, PagedKVCache, graph,
+                            device="cuda", **kw)(
+            f"t_cuda_dec_dp{slots}", capacity_bytes=10 ** 9)
+        try:
+            before = moved.value
+            if slots is not None:
+                assert s._ex._layout(s.B) == "rr"
+            res[slots] = decode_fx.run_batch(s, batch, max_new=32)
+            assert moved.value == before
+        finally:
+            s.close()
+    assert res[3] == res[None] and all(t for t, _ in res[3])
+
+
+def test_dp_devices_all_resolves_to_the_pinned_path(card):
+    """On one card ``devices="all"`` and ``devices=1`` are the pinned
+    one-device path, in the executor and through ``ONNXModel``."""
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.onnx import ONNXModel, zoo
+    from synapseml_tpu_torch.runtime.executor import BatchedExecutor
+
+    count = torch.cuda.device_count()
+    ex = BatchedExecutor(lambda x: (x * 2.0,), devices="all")
+    try:
+        assert ex.n_devices == count
+        if count == 1:
+            assert ex.devices is None and ex.device == card
+            assert ex._layout(8) == "single" and ex.pipeline_depth == 2
+        x = np.arange(24, dtype=np.float32).reshape(8, 3)
+        np.testing.assert_array_equal(ex(x)[0], x * 2.0)
+    finally:
+        ex.close()
+    blob = zoo.mlp([16, 32], num_classes=4, seed=0)
+    feats = np.random.default_rng(0).standard_normal(
+        (9, 16)).astype(np.float32)
+    want = ONNXModel(model_bytes=blob).transform(Table({"input": feats}))
+    for spec in ("all", 1):
+        m = ONNXModel(model_bytes=blob, devices=spec)
+        got = m.transform(Table({"input": feats}))
+        assert m._executor("cuda").n_devices == (count if spec == "all"
+                                                 else 1)
+        for col in want.columns:
+            np.testing.assert_array_equal(got[col], want[col])
+        m._executor("cuda").close()
+
+
 def _warm_resnet(compute, batch=8, image=64, **params):
     from synapseml_tpu_torch.onnx import ONNXModel, zoo
 
@@ -1763,9 +1923,9 @@ def test_warm_tree_ensemble_buckets_are_bitwise_eager_with_no_host_copy(
     ex = warm._executor("cuda")
     capture = ex._capture
 
-    def counted(sig):
+    def counted(*args):
         with H2D():
-            return capture(sig)
+            return capture(*args)
     ex._capture = counted
     rep = warm.warmup()
     assert rep.errors == [] and rep.compiled == len(rep.entries) == 3

@@ -28,6 +28,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from synapseml_tpu.onnx import zoo as jzoo
 from synapseml_tpu.onnx.importer import import_model as jimport_model
@@ -253,10 +254,40 @@ def test_prefill_chunk_above_page_is_refused_where_the_reference_fails_warmup(
                         page_size=8, max_seq=16, device="cpu")
 
 
-def test_devices_is_refused_naming_its_roadmap_item(graph):
-    with pytest.raises(ValueError, match="item 1e"):
-        DecodeScheduler(graph, name="t_pdev", devices=2, device="cpu",
+@pytest.mark.parametrize("slots", [2, 3])
+def test_devices_slots_give_the_one_slot_ids(graph, fixture, slots):
+    """``devices=["cpu"] * n`` over the continuous stream: 2 slots shard
+    the static batch of 4 (the present buffers joined in row order before
+    the merge), 3 run each step whole round robin; the ids equal the JAX
+    fixture's, which the one-slot scheduler reproduces
+    (``test_streams_equal_the_jax_fixture``), with no copy between
+    devices."""
+    moved = _tm.counter("executor_cross_device_copies_total")
+    before = moved.value
+    s = decode_fx.maker(DecodeScheduler, PagedKVCache, graph, device="cpu",
+                        devices=["cpu"] * slots)(
+        f"t_pdev{slots}", capacity_bytes=10 ** 9)
+    try:
+        assert s._ex.n_devices == slots
+        assert s._ex._layout(s.B) == ("shard" if slots == 2 else "rr")
+        res = decode_fx.run_batch(s, decode_fx.prompts(
+            decode_fx.CONTINUOUS_LENS, decode_fx.CONTINUOUS_SEED))
+    finally:
+        s.close()
+    np.testing.assert_array_equal(np.array([t for t, _ in res], np.int64),
+                                  fixture["continuous"])
+    assert moved.value == before
+
+
+def test_bad_devices_spec_is_refused(graph, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(ValueError, match="devices=2 but 0 CUDA devices"):
+        DecodeScheduler(graph, name="t_pdev_bad", devices=2, device="cpu",
                         **decode_fx.GEOMETRY)
+    with pytest.raises(ValueError, match="not understood"):
+        DecodeScheduler(graph, name="t_pdev_bad", devices="some",
+                        device="cpu", **decode_fx.GEOMETRY)
 
 
 def test_admission_queue_full_raises(sched):

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 from synapseml_tpu.runtime import executor as jax_executor
+from synapseml_tpu_torch.runtime import blackbox as _bb
 from synapseml_tpu_torch.runtime import executor as exmod
 from synapseml_tpu_torch.runtime import faults as flt
 from synapseml_tpu_torch.runtime import telemetry as tm
@@ -200,6 +201,78 @@ def test_break_reaps_dead_pipeline_state():
                 "dead pipeline state never became collectible"
             gc.collect()
             time.sleep(0.02)
+    finally:
+        ex.close(wait=False)
+
+
+@pytest.mark.parametrize("slots", [2, 3])
+def test_break_reaps_dead_pipeline_state_over_two_slots(slots):
+    """The same reaping over several slots (2: every bucket sharded, 3:
+    round robin): the dead state holds every slot, whose streams the
+    supervisor joins; the fresh pipeline runs over the same slots, and
+    the dead state becomes collectible."""
+    ex = BatchedExecutor(lambda x: (x + 1.0,), devices=["cpu"] * slots,
+                         min_bucket=8, pipeline_depth=4)
+    try:
+        x = np.arange(8, dtype=np.float32).reshape(8, 1)
+        _run(ex, x)
+        state0 = ex._pipeline
+        assert state0.slots == ex._slots and len(state0.slots) == slots
+        flt.activate("thread_kill.drain", times=1)
+        futs = [ex.submit(x) for _ in range(4)]
+        for f in futs:
+            f.exception(timeout=HARD)
+        assert np.array_equal(_run(ex, x)[0], x + 1.0)  # fresh pipeline
+        assert ex._pipeline is not state0
+        assert ex._pipeline.slots == ex._slots
+        deadline = time.monotonic() + HARD
+        while any(t.is_alive() for t in state0.threads):
+            assert time.monotonic() < deadline, "dead threads never exited"
+            time.sleep(0.02)
+        for q in (state0.stage_q, state0.dispatch_q, state0.inflight_q):
+            assert all(item is exmod._SHUTDOWN for item in list(q.queue))
+        wr = weakref.ref(state0)
+        del state0, futs, f
+        deadline = time.monotonic() + HARD
+        while wr() is not None:
+            assert time.monotonic() < deadline, \
+                "dead pipeline state never became collectible"
+            gc.collect()
+            time.sleep(0.02)
+    finally:
+        ex.close(wait=False)
+
+
+def test_break_survives_a_slot_join_that_raises(monkeypatch):
+    """A break from a sticky CUDA error: joining the slots' streams
+    raises again in the reap. The error is recorded, never raised out of
+    supervision, and the sentinels are back in the dead queues first, so
+    every dead thread still exits and the next submit runs."""
+    def sticky(slot):
+        raise RuntimeError("CUDA error: an illegal memory access")
+
+    monkeypatch.setattr(exmod._Slot, "join", sticky)
+    ex = BatchedExecutor(lambda x: (x + 1.0,), devices=["cpu"] * 2,
+                         min_bucket=8, pipeline_depth=4)
+    try:
+        x = np.arange(8, dtype=np.float32).reshape(8, 1)
+        _run(ex, x)
+        state0 = ex._pipeline
+        flt.activate("thread_kill.drain", times=1)
+        futs = [ex.submit(x) for _ in range(4)]
+        for f in futs:
+            assert isinstance(f.exception(timeout=HARD), PipelineBrokenError)
+        deadline = time.monotonic() + HARD
+        while any(t.is_alive() for t in state0.threads):
+            assert time.monotonic() < deadline, "dead threads never exited"
+            time.sleep(0.02)
+        for q in (state0.stage_q, state0.dispatch_q, state0.inflight_q):
+            assert all(item is exmod._SHUTDOWN for item in list(q.queue))
+        failed = [e for e in _bb.snapshot(stacks=False)["events"]
+                  if e.get("event") == "pipeline_reap_join_failed"]
+        assert [e["slot"] for e in failed[-2:]] == [0, 1]
+        assert "illegal memory access" in failed[-1]["error"]
+        assert np.array_equal(_run(ex, x)[0], x + 1.0)  # fresh pipeline
     finally:
         ex.close(wait=False)
 

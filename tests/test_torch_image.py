@@ -368,10 +368,28 @@ def test_featurizer_mean_std_must_match_channels(tiny):
                 feat.transform(JaxTable({"image": _obj_col([_img(32, 32)])}))
 
 
-def test_featurizer_devices_is_not_ported(tiny):
+def test_featurizer_devices_matches_one_slot(tiny):
+    """``devices=["cpu"] * 2`` shards each bucket of 8 images over two
+    slots: the features equal the one-slot featurizer's and the JAX
+    featurizer's."""
+    imgs = _obj_col([_img(32, 32, seed=s) for s in range(11)])
+    ref, one = _feat_pair(tiny)
+    multi = image.ImageFeaturizer(model_bytes=tiny, image_size=32,
+                                  input_col="image", output_col="features",
+                                  mini_batch_size=8, devices=["cpu"] * 2)
+    got = multi.transform(Table({"image": imgs}), "cpu")["features"]
+    assert multi._pieces("cpu").n_devices == 2
+    _feats_close(got, one.transform(Table({"image": imgs}),
+                                    "cpu")["features"])
+    _feats_close(got, ref.transform(JaxTable({"image": imgs}))["features"])
+
+
+def test_featurizer_bad_devices_spec_is_refused(tiny, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     feat = image.ImageFeaturizer(model_bytes=tiny, image_size=32,
                                  input_col="image", devices=1)
-    with pytest.raises(NotImplementedError, match="1e"):
+    with pytest.raises(ValueError, match="devices=1 but 0 CUDA devices"):
         feat.transform(Table({"image": _obj_col([_img(32, 32)])}), "cpu")
 
 

@@ -10,7 +10,8 @@ output. Also: feed/fetch dicts, the softmax and argmax columns, a ragged
 37-row tail at ``mini_batch_size=8``, the uint8 wire under ``input_norm``,
 ``model_path`` with external data, save/load (the port's own and a
 directory the JAX package wrote), ``transform_stream``, the reference's
-``input_norm`` errors, and the Params that are not ported raising
+``input_norm`` errors, ``devices=`` over repeated CPU slots (and its bad
+specs refused), and the Params that are not ported raising
 ``NotImplementedError``.
 """
 import os
@@ -134,7 +135,7 @@ def test_integer_graph_input_is_coerced_not_cast(encoder):
     seen = []
     ex = pair[1]._executor("cpu")
     orig = ex._fn
-    ex._fn = lambda *a: (seen.append(a[0].dtype), orig(*a))[1]
+    ex._fn = lambda *a: (seen.append(a[-1].dtype), orig(*a))[1]
     got, want = _score(pair, {name: ids})
     assert seen and set(seen) == {torch.int32}
     _close(got[out], want[out])
@@ -250,8 +251,6 @@ def test_input_norm_on_an_integer_input_is_the_references_type_error(
 
 @pytest.mark.parametrize("params, item", [
     ({"compute_dtype": "auto"}, "1d"),
-    ({"devices": "all"}, "1e"),
-    ({"devices": 1}, "1e"),
     ({"tensor_parallel": 2}, "item 4"),
     ({"partition_rules": "megatron"}, "item 4"),
 ])
@@ -261,6 +260,47 @@ def test_unported_params_raise_naming_their_roadmap_item(resnet, params,
     m = ONNXModel(model_bytes=blob, **params)
     with pytest.raises(NotImplementedError, match=item):
         m.transform(Table({"data": x[:2]}), "cpu")
+
+
+@pytest.mark.parametrize("slots", [2, 3])
+def test_devices_runs_the_slots_and_matches_one_slot(resnet, slots):
+    """``devices=["cpu"] * n``: 2 slots shard each bucket of 8 rows, 3 run
+    every bucket whole round robin (37 rows: 4 buckets and a 5-row tail).
+    The columns equal the one-slot model's (bitwise round robin: the same
+    program on the same rows) and the JAX model's."""
+    blob, x = resnet
+    ref, port = _pair(blob, mini_batch_size=8)
+    multi = ONNXModel(model_bytes=blob, mini_batch_size=8,
+                      devices=["cpu"] * slots)
+    one = port.transform(Table({"data": x}), "cpu")
+    got = multi.transform(Table({"data": x}), "cpu")
+    want = ref.transform(JaxTable({"data": x}))
+    ex = multi._executor("cpu")
+    assert ex.n_devices == slots
+    assert ex._layout(8) == ("shard" if slots == 2 else "rr")
+    for col in one.columns:
+        if slots == 3:
+            np.testing.assert_array_equal(got[col], one[col])
+        _close(got[col], one[col])
+        if col in want.columns:
+            _close(got[col], want[col])
+    ex.close()
+
+
+@pytest.mark.parametrize("spec, err, said", [
+    ("all", RuntimeError, "CUDA"),
+    (1, ValueError, "devices=1 but 0 CUDA devices"),
+    ("everything", ValueError, "not understood"),
+])
+def test_bad_devices_spec_is_refused(resnet, monkeypatch, spec, err, said):
+    """Without CUDA, ``"all"`` raises as every entry point does and an int
+    finds no CUDA device; an unknown spec raises as the reference's."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    blob, x = resnet
+    with pytest.raises(err, match=said):
+        ONNXModel(model_bytes=blob, devices=spec).transform(
+            Table({"data": x[:2]}), "cpu")
 
 
 def test_transform_defaults_to_cuda_and_raises_without_it(resnet):

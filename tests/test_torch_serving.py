@@ -1107,7 +1107,9 @@ def test_entry_serves_on_the_cpu_and_drains_on_sigterm(tmp_path):
 
 
 @pytest.mark.parametrize("argv, said", [
-    (["--devices", "2"], "(ROADMAP Queue 1 item 1e)"),
+    # a --devices spec that does not resolve exits 2 as the reference's
+    (["--devices", "9"], "error: --devices '9': devices=9 but"),
+    (["--devices", "many"], "error: --devices 'many': invalid literal"),
     (["--tensor-parallel", "2"], "(ROADMAP Queue 1 item 4)"),
     (["--partition-rules", "megatron"], "(ROADMAP Queue 1 item 4)"),
     # decode is ported: without a model to decode it exits 2 with the
@@ -1118,10 +1120,37 @@ def test_entry_serves_on_the_cpu_and_drains_on_sigterm(tmp_path):
 def test_entry_refuses_unported_options(argv, said, capsys):
     """The reference's options whose machinery is not ported exit 2
     naming the ROADMAP item that ports each; ``--decode`` without
-    ``--model`` exits 2 as the reference does."""
+    ``--model`` and a ``--devices`` spec that does not resolve exit 2 as
+    the reference does."""
     assert serving_mod.main(["--port", "0"] + argv) == 2
     out = capsys.readouterr().out
     assert out.startswith("error: ") and said in out
+
+
+def test_model_pipeline_over_device_slots_replies_as_one_slot(tmp_path):
+    """``_model_pipeline(devices=)`` reaches ``ONNXModel.devices``: over
+    two CPU slots the replies are the one-slot pipeline's, byte for byte,
+    and the JAX pipeline's over 2 devices within the MLP bound."""
+    blob = zoo.mlp([16, 32], num_classes=4, seed=0)
+    path = tmp_path / "mlp.onnx"
+    path.write_bytes(blob)
+    feats = np.random.default_rng(0).standard_normal((5, 16))
+    values = np.empty(5, dtype=object)
+    values[:] = [{"features": f.tolist()} for f in feats]
+    one, _ = serving_mod._model_pipeline(str(path), device="cpu")
+    two, model = serving_mod._model_pipeline(str(path), device="cpu",
+                                             devices=["cpu"] * 2)
+    ref, _ = jserving._model_pipeline(str(path), devices=2)
+    got = two(Table({"value": values}))["reply"]
+    assert model._executor("cpu").n_devices == 2
+    want = one(Table({"value": values}))["reply"]
+    jwant = ref(JTable({"value": values}))["reply"]
+    assert [r.entity for r in got] == [r.entity for r in want]
+    for g, w in zip(got, jwant):
+        np.testing.assert_allclose(json.loads(g.entity)["output"],
+                                   json.loads(w.entity)["output"],
+                                   rtol=MLP_TOL, atol=MLP_TOL)
+    model._executor("cpu").close()
 
 
 def test_entry_decodes_on_the_cpu_and_drains_on_sigterm(tmp_path):

@@ -4,6 +4,7 @@
     python3 tools/chip_phase.py decode_phase       # phase 32
     python3 tools/chip_phase.py onnx_sequence_string_ops   # phase 37
     python3 tools/chip_phase.py signal_speech      # phase 38
+    python3 tools/chip_phase.py dp_layouts         # phase 40
 
 A phase is named by its function or by the ``phase`` its JSON lines carry
 (:data:`PHASES`).
@@ -26,7 +27,7 @@ PHASES = {"onnx_index_ops": "mlm_phase", "onnx_vision_ops": "vae_phase",
           "onnx_detection_ops": "detection_phase",
           "onnx_random_ops": "random_phase",
           "onnx_sequence_string_ops": "sequence_string_phase",
-          "signal_speech": "speech_phase"}
+          "signal_speech": "speech_phase", "dp_layouts": "dp_layouts_phase"}
 
 
 def main(name: str) -> int:
