@@ -429,6 +429,28 @@ before the last line:
    memory a slot, busy share; not scaling figures. K1 and K2 launch 0
    times.
 
+41. quantized — the int8 QOperator ops and the measured lanes
+   (``quantized_phase``), from cold verdict tables: (a) the statically
+   quantized ResNet-50 224 (``tests/fixtures/qresnet50.py``) through a
+   warm ``ONNXModel(mini_batch_size=128)`` on 512 images under the
+   measured int8 verdicts, its uint8 logits bitwise the port's CPU run
+   (8 images), the JAX fixture (2 images; the jitted reference within one
+   step, the count printed) and the same model warmed under
+   ``SYNAPSEML_ONNX_INT8=0``; the stem's accumulator's sha256 the
+   fixture's; every int8 class verified exact, none poisoned or memoized
+   as a crash, the int8 route counter above 0, 0 recompiles; images/s
+   under the verdicts and under the kill switch in turn, probe seconds,
+   memory reserved, busy share; (b) BERT-base's FFN block dynamically
+   quantized (``tests/fixtures/bert_ffn_int8.py``), 1,024 tokens, two
+   host inputs, warm: every integer stage bitwise the CPU's on the same
+   inputs, the output within 1e-2 of the CPU's largest |value|, the
+   ``coalesced`` and ``per_arg`` H2D stagings bitwise, the verdicts
+   printed; (c) float ResNet-50 224 at 128 under ``compute_dtype="auto"``
+   within its resolved dtype's gate of the JAX fixture, and
+   ``preferred_wire("data")``; (d) every case of
+   ``tests/fixtures/quant_op_cases.py`` on the card, bitwise the CPU. K1
+   and K2 launch 0 times.
+
 Between phases 3 and 4: prng_card_vs_cpu (the threefry key stream on the
 card equal to the CPU's, bitwise) and masked_index (K1 on a
 feature_fraction index equal to K1 on a fresh index of the moved bins and
@@ -7138,6 +7160,397 @@ def dp_layouts_phase(smi, reset_counts, read_counts) -> dict:
     return counts
 
 
+QUANT_IMAGES = 512            # QOperator ResNet-50 images (4 buckets of 128)
+QUANT_CPU_IMAGES = 8          # the port's CPU run the card is held to, bitwise
+QUANT_FFN_CPU_TOL = 1e-2      # the FFN block's output vs the CPU's, of its largest |value|
+QUANT_LANES = ("onnx_int8_conv", "onnx_int8_matmul")
+
+
+def probe_seconds(tm, lanes) -> dict:
+    """``{lane: (probes, seconds)}`` of ``autotune_probe_seconds``."""
+    return {ln: (tm.histogram("autotune_probe_seconds", lane=ln).count,
+                 tm.histogram("autotune_probe_seconds", lane=ln).sum)
+            for ln in lanes}
+
+
+def quant_probes(quant_route, autotune) -> dict:
+    """The int8 lanes' probes: every record (parts, exact, seconds,
+    verdict), and whether each lane's served decisions are its probes'
+    verdicts (a poisoned class serves "dequant" after an "int8" verdict)
+    and every probe left a record (a crashed probe leaves none)."""
+    recs = list(quant_route.PROBES)
+    verdicts = {(r["kind"], "|".join(str(p) for p in r["parts"])):
+                r["verdict"] for r in recs}
+    poisoned, unprobed = [], []
+    for kind, lane in (("conv", quant_route._CONV_LANE),
+                       ("matmul", quant_route._MM_LANE)):
+        for key, choice in lane.decisions.items():
+            parts = key.split(f"|{kind}|", 1)[1]
+            want = verdicts.get((kind, parts))
+            if want is None:
+                unprobed.append(parts[:120])
+            elif want != choice:
+                poisoned.append(parts[:120])
+    probes = sum(autotune.lane(n).probes for n in QUANT_LANES)
+    return {"probes": probes, "records": len(recs),
+            "all_exact": all(r["exact"] for r in recs),
+            "int8_verdicts": sum(r["verdict"] == "int8" for r in recs),
+            "dequant_verdicts": sum(r["verdict"] == "dequant" for r in recs),
+            "poisoned": poisoned, "without_probe": unprobed,
+            "classes": [{"kind": r["kind"], "parts": "|".join(
+                str(p) for p in r["parts"][:-1]), "verdict": r["verdict"],
+                "exact": r["exact"], "int8_ms": None if r["int8_s"] is None
+                else r["int8_s"] * 1e3, "dequant_ms": None
+                if r["dequant_s"] is None else r["dequant_s"] * 1e3}
+                for r in recs]}
+
+
+def quantized_phase(smi, reset_counts, read_counts) -> dict:
+    """Phase 41: the int8 QOperator ops and the measured lanes on the
+    card, from cold verdict tables (``SYNAPSEML_TPU_CACHE_DIR`` a fresh
+    directory, every lane's memo cleared).
+
+    (a) The statically quantized ResNet-50 224
+    (``tests/fixtures/qresnet50.py``: ``zoo.resnet50`` seed 0, BatchNorm
+    folded, MinMax-calibrated, the zoo int8 model's QOperator layout) at
+    the fixture's stored calibration: its bytes are the JAX fixture's graph
+    (sha256); the fixture's 2 images through ``bind()`` on the card give
+    the fixture's stem accumulator (sha256) and uint8 logits; a warm
+    ``ONNXModel(mini_batch_size=128)`` on 512 images (rows 0-7
+    ``entry()``'s) under the measured verdicts: uint8 logits bitwise the
+    port's CPU run on rows 0-7, the JAX eager fixture on rows 0-1 (its
+    jitted forward within one step, the differing count printed), and the
+    same model warmed under ``SYNAPSEML_ONNX_INT8=0`` on every row; every
+    probed int8 class verified exact, none poisoned, none memoized as a
+    crash, the int8 route counter above 0, each model's warmup all
+    ``compiled``, 0 recompiles. Images/s of the two models in turn (A B A
+    B after a warm call each), probe seconds, memory reserved by each
+    warmup, the busy share of one transform.
+    (b) BERT-base's FFN block dynamically quantized
+    (``tests/fixtures/bert_ffn_int8.py``), 1,024 tokens, two host inputs,
+    through a warm ``ONNXModel(mini_batch_size=1024)`` (warmup probes
+    ``executor_h2d``): its outputs under the ``per_arg`` and ``coalesced``
+    stagings bitwise each other; on ``bind()`` with the stages exposed,
+    the first ``DynamicQuantizeLinear``'s (y, scale, zp) and the first
+    accumulator bitwise the CPU's, the second's and the second accumulator
+    bitwise the CPU's ops on the card's GELU output; the block's output
+    within 1e-2 of the CPU's largest |value| (GELU's erf and
+    LayerNorm's reductions round differently on the card; the gap and
+    bitwise-ness printed). Tokens/s, the H2D and matmul verdicts.
+    (c) Float ResNet-50 224 (seed 0) at batch 128 under
+    ``compute_dtype="auto"``: the lane's verdict, rows 0-7 within its
+    dtype's gate of the JAX fixture (float32 rtol = atol = 1e-3, bf16 5%
+    of the largest |logit|); ``preferred_wire("data")`` under the
+    phases' ImageNet ``input_norm``.
+    (d) Every case of ``tests/fixtures/quant_op_cases.py`` on the card,
+    bitwise the CPU.
+    K1 and K2 launch 0 times. Returns the launch counts."""
+    import bert_ffn_int8 as ffn
+    import make_resnet50_fixture as resnet_fx
+    import qresnet50 as qr
+    import quant_op_cases
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.onnx import (GraphBuilder, ONNXModel,
+                                          import_model, importer,
+                                          quant_route, zoo)
+    from synapseml_tpu_torch.onnx import model as model_mod
+    from synapseml_tpu_torch.runtime import autotune
+    from synapseml_tpu_torch.runtime import executor as ex_mod
+    from synapseml_tpu_torch.runtime import telemetry as tm
+
+    reset_counts()
+    phase_start = time.perf_counter()
+    walls = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_quant_")
+    env_keys = ("SYNAPSEML_TPU_CACHE_DIR", "SYNAPSEML_ONNX_INT8",
+                "SYNAPSEML_AUTOTUNE")
+    saved = {k: os.environ.get(k) for k in env_keys}
+    os.environ["SYNAPSEML_TPU_CACHE_DIR"] = tmp
+    os.environ.pop("SYNAPSEML_ONNX_INT8", None)
+    os.environ.pop("SYNAPSEML_AUTOTUNE", None)
+    autotune.clear()
+    quant_route.clear_cache()
+    int8_served = tm.counter("onnx_int8_route_total", backend="int8")
+    int8_0 = int8_served.value
+    probes0 = probe_seconds(tm, QUANT_LANES)
+    models = []
+    try:
+        # -- (a) the QOperator ResNet-50 ----------------------------------
+        start = time.perf_counter()
+        calibrated = qr.stored_ranges()
+        blob = qr.graph(GraphBuilder, qr.FULL, calibrated=calibrated)
+        blob_acc = qr.graph(GraphBuilder, qr.FULL, accumulator=True,
+                            calibrated=calibrated)
+        fx = np.load(qr.OUT)
+        check(hashlib.sha256(blob_acc).hexdigest() == str(fx["graph_sha256"]),
+              "the rebuilt quantized ResNet-50 is not the fixture's graph")
+        x = np.empty((QUANT_IMAGES, 3, 224, 224), np.float32)
+        x[:8] = resnet_fx.images()
+        x[8:] = np.random.default_rng(3).standard_normal(
+            (QUANT_IMAGES - 8, 3, 224, 224), dtype=np.float32)
+        table = Table({"data": x})
+        cpu_q = import_model(blob).bind(device="cpu")(
+            torch.from_numpy(x[:QUANT_CPU_IMAGES]))[1].numpy()
+        walls["cpu_8_images_s"] = time.perf_counter() - start
+        fwd = import_model(blob_acc).bind(device="cuda")
+        _, bind_q, stem_acc = (o.cpu().numpy() for o in fwd(
+            torch.from_numpy(x[:2]).cuda()))
+        del fwd
+        stem_ok = (hashlib.sha256(stem_acc.tobytes()).hexdigest()
+                   == str(fx["stem_acc_sha256"]))
+        check(stem_ok and np.array_equal(
+            stem_acc.astype(np.int64).sum(axis=(2, 3)),
+            fx["stem_acc_channel_sums"]),
+            "the stem's int32 accumulator is not the JAX fixture's")
+        check(np.array_equal(bind_q, fx["logits_q"]),
+              "bind() uint8 logits are not the JAX fixture's")
+
+        def warm(int8_off):
+            if int8_off:
+                os.environ["SYNAPSEML_ONNX_INT8"] = "0"
+            try:
+                m = ONNXModel(model_bytes=blob, mini_batch_size=MODEL_BATCH)
+                models.append(m)
+                m._executor("cuda")
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                r0 = torch.cuda.memory_reserved()
+                t0 = time.perf_counter()
+                rep = m.warmup()
+                return m, rep, {"warmup_s": time.perf_counter() - t0,
+                                "reserved_by_warmup_bytes":
+                                torch.cuda.memory_reserved() - r0}
+            finally:
+                os.environ.pop("SYNAPSEML_ONNX_INT8", None)
+
+        routed, rep_r, info_r = warm(False)
+        widened, rep_w, info_w = warm(True)
+        lanes_a = quant_probes(quant_route, autotune)
+        for name, rep in (("routed", rep_r), ("int8_off", rep_w)):
+            check(not rep.errors and rep.compiled == len(rep.entries) == 5,
+                  f"quantized ResNet-50 {name} warmup {rep} {rep.errors[:2]}")
+        rec0 = sum(recompiles(tm).values())
+
+        def scored(m, int8_off):
+            if int8_off:
+                os.environ["SYNAPSEML_ONNX_INT8"] = "0"
+            try:
+                t0 = time.perf_counter()
+                out = m.transform(table)
+                return time.perf_counter() - t0, out
+            finally:
+                os.environ.pop("SYNAPSEML_ONNX_INT8", None)
+
+        scored(routed, False)
+        scored(widened, True)
+        turns = []
+        for m, off in ((routed, False), (widened, True), (routed, False),
+                       (widened, True)):
+            wall, out = scored(m, off)
+            turns.append({"int8_off": off, "wall_s": wall,
+                          "images_per_s": QUANT_IMAGES / wall})
+            if off:
+                q_widened = np.asarray(out["logits_q"])
+            else:
+                q_routed = np.asarray(out["logits_q"])
+        busy = copy_overlap(lambda: routed.transform(table))
+        rec = sum(recompiles(tm).values()) - rec0
+        jit_gap = np.abs(q_routed[:2].astype(int) - fx["logits_q_jit"])
+        int8_n = int8_served.value - int8_0
+        check(np.array_equal(q_routed[:QUANT_CPU_IMAGES], cpu_q),
+              "quantized logits rows 0-7 not bitwise the port's CPU run")
+        check(np.array_equal(q_routed[:2], fx["logits_q"]),
+              "quantized logits rows 0-1 not bitwise the JAX fixture")
+        check(int(jit_gap.max()) <= 1,
+              f"quantized logits {int(jit_gap.max())} steps from JAX's jit")
+        check(np.array_equal(q_routed, q_widened),
+              "int8 verdicts and SYNAPSEML_ONNX_INT8=0 differ")
+        check(lanes_a["all_exact"] and not lanes_a["poisoned"]
+              and not lanes_a["without_probe"]
+              and lanes_a["records"] == lanes_a["probes"] > 0,
+              f"int8 classes: {lanes_a['probes']} probes, "
+              f"{lanes_a['records']} records, poisoned "
+              f"{lanes_a['poisoned'][:3]}, unprobed "
+              f"{lanes_a['without_probe'][:3]}")
+        check(int8_n > 0, "the int8 lane served nothing")
+        check(rec == 0, f"{rec} recompiles after warmup")
+        counts_a = read_counts()
+        check(counts_a["forest_traverse"] == 0
+              and counts_a["histogram"] == 0, f"kernels ran: {counts_a}")
+        walls["resnet50_s"] = time.perf_counter() - start
+        emit({"phase": "quantized", "part": "qoperator_resnet50",
+              "model": "zoo.resnet50 seed 0, 224, BatchNorm folded, "
+                       "QOperator (QLinearConv x53, QLinearAdd x16, "
+                       "QLinearGlobalAveragePool, QGemm), MinMax over 4 "
+                       "seeded images, ONNXModel(mini_batch_size=128) warm",
+              "images": QUANT_IMAGES, "turns": turns,
+              "routed": {**info_r, "warmup": str(rep_r)},
+              "int8_off": {**info_w, "warmup": str(rep_w)},
+              "logits_q_bitwise_cpu_rows": QUANT_CPU_IMAGES,
+              "logits_q_bitwise_jax_eager_rows": 2,
+              "logits_q_differing_from_jax_jit": int((jit_gap != 0).sum()),
+              "stem_acc_sha256_is_fixtures": bool(stem_ok),
+              "int8_route_served": int8_n,
+              "recompiles_after_warmup": rec, "timeline": busy,
+              "probes": {k: v for k, v in lanes_a.items()
+                         if k != "classes"},
+              "nvidia_smi": smi})
+        emit({"phase": "quantized", "part": "int8_classes",
+              "classes": lanes_a["classes"], "nvidia_smi": smi})
+        close_models(*models)
+        models.clear()
+
+        # -- (b) BERT-base's FFN block, dynamically quantized -------------
+        start = time.perf_counter()
+        cfg = ffn.FULL
+        h, r = ffn.inputs(cfg)
+        fmodel = ONNXModel(model_bytes=ffn.graph(GraphBuilder, cfg),
+                           mini_batch_size=cfg["tokens"])
+        models.append(fmodel)
+        fex = fmodel._executor("cuda")
+        rep_f = fmodel.warmup(buckets=[cfg["tokens"]])
+        check(not rep_f.errors and rep_f.compiled == 1,
+              f"FFN warmup {rep_f} {rep_f.errors[:2]}")
+        sig = tuple(((cfg["tokens"], cfg["hidden"]), "float32")
+                    for _ in range(2))
+        h2d = ex_mod._h2d_lane().cached(sig, torch.device("cuda", 0))
+        ftable = Table({"hidden": h, "residual": r})
+        outs = {}
+        for choice in ("per_arg", "coalesced", "per_arg"):
+            fex._h2d_choice = {sig: choice}
+            t0 = time.perf_counter()
+            outs[choice] = np.asarray(fmodel.transform(ftable)["out"])
+            outs[choice + "_s"] = time.perf_counter() - t0
+        fex._h2d_choice = {}
+        check(np.array_equal(outs["per_arg"], outs["coalesced"]),
+              "FFN outputs differ between the coalesced and per_arg stagings")
+        sblob = ffn.graph(GraphBuilder, cfg, stages=True)
+        names = ("out",) + ffn.STAGES
+        card = dict(zip(names, (o.cpu().numpy() for o in import_model(
+            sblob).bind(device="cuda")(torch.from_numpy(h).cuda(),
+                                       torch.from_numpy(r).cuda()))))
+        sgraph = import_model(sblob)
+        cpu = dict(zip(names, (o.numpy() for o in sgraph.bind(device="cpu")(
+            torch.from_numpy(h), torch.from_numpy(r)))))
+        w2q = torch.from_numpy(sgraph.static_params["w2_q"])
+        y2, s2, z2 = importer._dynamic_quantize_linear(
+            None, torch.from_numpy(card["g"]))
+        acc2 = importer._matmul_wide_core(y2, w2q, z2, np.int8(0))
+        first_ok = all(np.array_equal(card[k], cpu[k])
+                       for k in ("hq", "hs", "hz", "acc1"))
+        second_ok = (np.array_equal(card["gq"], y2.numpy())
+                     and np.array_equal(card["gs"], s2.numpy())
+                     and np.array_equal(card["gz"], z2.numpy())
+                     and np.array_equal(card["acc2"], acc2.numpy()))
+        gap = float(np.abs(card["out"] - cpu["out"]).max())
+        span = float(np.abs(cpu["out"]).max())
+        check(first_ok, "FFN: the first DynamicQuantizeLinear or "
+              "accumulator differs from the CPU's")
+        check(second_ok, "FFN: the second DynamicQuantizeLinear or "
+              "accumulator differs from the CPU's on the card's GELU")
+        check(gap <= QUANT_FFN_CPU_TOL * span,
+              f"FFN output {gap} from the CPU's (largest |value| {span})")
+        check(np.array_equal(outs["per_arg"], card["out"]),
+              "FFN through ONNXModel differs from its bind() forward")
+        mm = quant_probes(quant_route, autotune)
+        check(mm["all_exact"] and not mm["poisoned"]
+              and mm["records"] == mm["probes"],
+              f"int8 matmul classes: {mm}")
+        counts_b = read_counts()
+        walls["ffn_s"] = time.perf_counter() - start
+        emit({"phase": "quantized", "part": "bert_ffn_dynamic_int8",
+              "model": "BERT-base FFN 768 -> 3,072 -> 768, erf GELU, bias, "
+                       "residual, LayerNorm; quantize_dynamic layout; "
+                       "ONNXModel(mini_batch_size=1024) warm",
+              "tokens": cfg["tokens"], "h2d_verdict": h2d,
+              "tokens_per_s": {k: cfg["tokens"] / outs[k + "_s"]
+                               for k in ("per_arg", "coalesced")},
+              "staging_bitwise": True,
+              "first_stages_bitwise_cpu": first_ok,
+              "second_stages_bitwise_cpu_on_card_gelu": second_ok,
+              "gelu_bitwise_cpu": bool(np.array_equal(card["g"], cpu["g"])),
+              "out_bitwise_cpu": bool(np.array_equal(card["out"],
+                                                     cpu["out"])),
+              "out_max_abs_gap_cpu": gap, "out_largest_abs": span,
+              "out_tol_share": QUANT_FFN_CPU_TOL,
+              "matmul_classes": [c for c in mm["classes"]
+                                 if c["kind"] == "matmul"],
+              "nvidia_smi": smi})
+        close_models(*models)
+        models.clear()
+
+        # -- (c) float ResNet-50 under compute_dtype="auto" ---------------
+        start = time.perf_counter()
+        fblob = zoo.resnet50(num_classes=1000)
+        auto = ONNXModel(model_bytes=fblob, compute_dtype="auto",
+                         mini_batch_size=MODEL_BATCH)
+        models.append(auto)
+        t0 = time.perf_counter()
+        cd = model_mod.routed_compute_dtype(auto.graph, fblob, MODEL_BATCH,
+                                            "cuda")
+        dtype_probe_s = time.perf_counter() - t0
+        name = auto.graph.output_names[0]
+        logits = np.asarray(auto.transform(
+            Table({"data": x[:MODEL_BATCH]}))[name])
+        want = np.load(RESNET_FIXTURE)["logits_f32"]
+        err = float(np.abs(logits[:8] - want).max())
+        limit = (BF16_SPAN_SHARE * float(np.abs(want).max())
+                 if cd == "bfloat16" else LOGITS_TOL)
+        ok = (err <= limit if cd == "bfloat16" else bool(np.allclose(
+            logits[:8], want, rtol=LOGITS_TOL, atol=LOGITS_TOL)))
+        check(ok and np.isfinite(logits).all(),
+              f"auto ({cd}) logits {err} from the JAX fixture")
+        check(next(iter(auto._executor_cache))[2] == cd,
+              "the resolved dtype does not key the executor cache")
+        auto.set(input_norm={"data": IMAGENET_NORM})
+        t0 = time.perf_counter()
+        wire = auto.preferred_wire("data")
+        wire_probe_s = time.perf_counter() - t0
+        walls["auto_s"] = time.perf_counter() - start
+        emit({"phase": "quantized", "part": "compute_dtype_auto_wire",
+              "model": "zoo.resnet50 seed 0, 224, float graph",
+              "batch": MODEL_BATCH, "compute_dtype_verdict": cd,
+              "dtype_probe_s": dtype_probe_s, "rows0_7_max_abs_err_vs_jax":
+              err, "gate": "bf16 5% of largest |logit|" if cd == "bfloat16"
+              else "float32 rtol = atol = 1e-3", "limit": limit,
+              "preferred_wire": wire, "wire_probe_s": wire_probe_s,
+              "nvidia_smi": smi})
+        close_models(*models)
+        models.clear()
+
+        # -- (d) the 12 ops' one-node cases -------------------------------
+        start = time.perf_counter()
+        summary = cases_on_card(quant_op_cases, lambda case, dev:
+                                quant_op_cases.run(case, import_model,
+                                                   GraphBuilder, dev))
+        check(not summary["failed"] and summary["exact"] ==
+              summary["cases"] == len(quant_op_cases.CASES),
+              f"quant cases on the card: {summary['failed'][:3]}")
+        walls["cases_s"] = time.perf_counter() - start
+    finally:
+        close_models(*models)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = read_counts()
+    check(counts["forest_traverse"] == 0 and counts["histogram"] == 0,
+          f"kernels ran on the quantized paths: {counts}")
+    probes1 = probe_seconds(tm, QUANT_LANES)
+    emit({"phase": "quantized", "part": "summary", "cases": summary,
+          "probe_seconds": {ln: {"probes": probes1[ln][0] - probes0[ln][0],
+                                 "s": probes1[ln][1] - probes0[ln][1]}
+                            for ln in QUANT_LANES},
+          "snapshot_lanes": {n: {"probes": v["probes"],
+                                 "decisions": len(v["decisions"])}
+                             for n, v in autotune.snapshot()["lanes"].items()},
+          "launches": counts, "walls": walls,
+          "phase_s": time.perf_counter() - phase_start, "nvidia_smi": smi})
+    return counts
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -8145,6 +8558,9 @@ def main() -> int:
     # -- 40. devices= data parallelism: slots sharing the card -------------
     dp_layout_counts = dp_layouts_phase(smi, reset_counts, read_counts)
 
+    # -- 41. the int8 QOperator ops and the measured lanes ----------------
+    quant_counts = quantized_phase(smi, reset_counts, read_counts)
+
     emit({"kernels": [{
         "name": "forest_traverse", "route": "cuda",
         "source": "synapseml_tpu_torch/csrc/forest_traverse.cu",
@@ -8178,6 +8594,7 @@ def main() -> int:
         "launches_signal_speech_path": speech_counts["forest_traverse"],
         "launches_distributed_serving_path": dist_counts["forest_traverse"],
         "launches_dp_layouts_path": dp_layout_counts["forest_traverse"],
+        "launches_quantized_path": quant_counts["forest_traverse"],
         "max_abs_err": max_err, "bitwise": True,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
@@ -8213,6 +8630,7 @@ def main() -> int:
         "launches_signal_speech_path": speech_counts["histogram"],
         "launches_distributed_serving_path": dist_counts["histogram"],
         "launches_dp_layouts_path": dp_layout_counts["histogram"],
+        "launches_quantized_path": quant_counts["histogram"],
         "max_abs_err": k1_max_err,
         "bitwise": True, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],

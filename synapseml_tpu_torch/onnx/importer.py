@@ -562,6 +562,501 @@ def _dequantize_linear(ctx, x, scale, zero_point=None):
     return _bin(operator.mul, y, scale)
 
 
+# ---------------------------------------------------------------------------
+# Integer contractions and the QOperator family
+# ---------------------------------------------------------------------------
+#
+# Two formulations of every integer contraction, routed by
+# onnx/quant_route.py: the widened one (zero points subtracted first, the
+# contraction in float64 — exact, as every partial sum of products of at
+# most 255**2 is an integer far below 2**53 — then cast to int32) and the
+# int8 one (int8 operands into torch._int_mm, zero points as exact int32
+# corrections after it). Both give the reference's int32 accumulator bit
+# for bit. Integer initializers (int8 weights, int32 biases, zero points)
+# are host values: each goes to the device once a node (_const).
+
+def _const(ctx, slot: str, x, dev: torch.device) -> torch.Tensor:
+    """``x`` as a tensor on ``dev``: a tensor as it is; a host value (an
+    integer initializer) copied to ``dev`` once a node, slot and device
+    and kept on the node's context, so a bound forward and a CUDA-graph
+    capture copy nothing. The entry holds the host array it was made from
+    and is made anew when another one arrives in the slot."""
+    if isinstance(x, torch.Tensor):
+        return x
+    tables = ctx.attrs.setdefault("__tables__", {})
+    k = ("const", slot, str(dev))
+    hit = tables.get(k)
+    if hit is None or hit[0] is not x:
+        with _TABLE_LOCK, torch.inference_mode(False):
+            hit = tables.get(k)
+            if hit is None or hit[0] is not x:
+                hit = tables[k] = (x, _tensor(x, dev))
+    return hit[1]
+
+
+def _f32(v, dev: torch.device) -> torch.Tensor:
+    """``jnp.asarray(v, float32)`` on ``dev``."""
+    return _tensor(v, dev).to(torch.float32)
+
+
+def _zp_dtype(zp) -> np.dtype:
+    if isinstance(zp, torch.Tensor):
+        return _NUMPY_OF[zp.dtype]
+    return np.asarray(zp).dtype
+
+
+def _matmul_wide_core(a, b, a_zp=None, b_zp=None):
+    """Widened integer matmul: zero points subtracted BEFORE the
+    contraction (a 1-D ``a_zp`` per row, a 1-D ``b_zp`` per column), the
+    contraction in float64 and cast to int32 — the always-correct
+    reference formulation (and the fallback lane of the int8 router).
+    Operands are tensors on one device."""
+    a64 = a.to(torch.float64)
+    b64 = b.to(torch.float64)
+    if a_zp is not None:
+        zp = _f64_zp(a_zp)
+        if getattr(zp, "ndim", 0) == 1:  # per-ROW: broadcast down the rows
+            zp = zp[:, None]
+        a64 = a64 - zp
+    if b_zp is not None:  # 1-D b_zp is per-column: trailing-axis broadcast
+        b64 = b64 - _f64_zp(b_zp)
+    return torch.matmul(a64, b64).to(torch.int32)
+
+
+def _to_int8(x: torch.Tensor):
+    """(int8 view, offset) with ``x == view + offset`` elementwise: int8
+    passes through, uint8 rides an exact -128 shift (its top bit flipped,
+    read as int8)."""
+    if x.dtype == torch.uint8:
+        return torch.bitwise_xor(x, 128).view(torch.int8), 128
+    return x, 0
+
+
+def _zero_shift(zp, off: int):
+    """The zero point of an int8 view, ``zp - off`` (``-off`` when there
+    is none): a Python int for a host scalar, else an int32 tensor."""
+    if zp is None:
+        return -off
+    if isinstance(zp, torch.Tensor):
+        return zp.to(torch.int32) - off
+    return int(np.asarray(zp)) - off
+
+
+def _minus(acc, z, s):
+    """``acc - z * s``, one launch where ``z`` is a Python int."""
+    if isinstance(z, int):
+        return torch.sub(acc, s, alpha=z)
+    return acc - z * s
+
+
+def _f64_zp(zp):
+    """A zero point to subtract from a float64 operand: a Python float
+    for a host scalar, else a float64 tensor."""
+    if isinstance(zp, torch.Tensor):
+        return zp.to(torch.float64)
+    return float(np.asarray(zp))
+
+
+def _zp_arg(ctx, slot: str, zp, dev: torch.device):
+    """A zero point as the cores take it: absent, a tensor, a host scalar
+    (read on the host, never from the card), or a host vector copied to
+    ``dev`` once a node (:func:`_const`)."""
+    if zp is None or isinstance(zp, torch.Tensor) or np.ndim(zp) == 0:
+        return zp
+    return _const(ctx, slot, zp, dev)
+
+
+def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch._int_mm``, with ``a``'s rows zero-padded to a multiple of
+    32 on the card where K < 128: there cuBLASLt (CUDA 12.8, H100) refuses
+    an s8 GEMM of 32 or more columns whose row count is not a multiple of
+    32 (``CUBLAS_STATUS_NOT_SUPPORTED``; ROADMAP Queue 3). The padded rows'
+    results are dropped."""
+    rows, k = a.shape
+    if a.is_cuda and k < 128 and rows % 32 and b.shape[1] >= 32:
+        return torch._int_mm(F.pad(a, (0, 0, 0, 32 - rows % 32)), b)[:rows]
+    return torch._int_mm(a, b)
+
+
+def _matmul_int8_core(a, b, a_zp=None, b_zp=None):
+    """TRUE int8 matmul lane: ``torch._int_mm`` consumes the int8
+    operands (cuBLASLt's s8 x s8 -> s32 GEMM on the card); zero points
+    become EXACT integer correction terms after the product:
+
+        (a - za)·(b - zb) = a·b - za*colsum(b) - zb*rowsum(a) + K*za*zb
+
+    (with the uint8 -128 shift folded into za/zb). Bit-identical to
+    :func:`_matmul_wide_core` — the router's probe asserts exactly that
+    before this lane ever serves. 2-D x 2-D, and on the card only the
+    shapes ``_int_mm`` takes (router-gated)."""
+    a8, a_off = _to_int8(a)
+    b8, b_off = _to_int8(b)
+    acc = _int_mm(a8, b8)                                      # [N, M]
+    kdim = a8.shape[1]
+    za = _zero_shift(a_zp, a_off)
+    zb = _zero_shift(b_zp, b_off)
+    za_col = za[:, None] if getattr(za, "ndim", 0) == 1 else za
+    zb_row = zb[None, :] if getattr(zb, "ndim", 0) == 1 else zb
+    need_za = a_zp is not None or a_off
+    need_zb = b_zp is not None or b_off
+    if need_za:
+        acc = _minus(acc, za_col, b8.sum(0, dtype=torch.int32)[None, :])
+    if need_zb:
+        acc = _minus(acc, zb_row, a8.sum(1, dtype=torch.int32)[:, None])
+    if need_za and need_zb:
+        acc = acc + kdim * za_col * zb_row
+    return acc
+
+
+@op("MatMulInteger")
+def _matmul_integer(ctx, a, b, a_zp=None, b_zp=None):
+    """int8 matmul accumulating in int32 (quantized-model compute).
+    Routed (onnx/quant_route.py): the true-int8 lane where the measured
+    prober verified it exact and faster, the widened formulation
+    everywhere else — a lane failure silently falls back."""
+    from synapseml_tpu_torch.onnx import quant_route
+
+    dev = _device_of((a, b))
+    a = _const(ctx, "a", a, dev)
+    b = _const(ctx, "b", b, dev)
+    za = _zp_arg(ctx, "a_zp", a_zp, dev)
+    zb = _zp_arg(ctx, "b_zp", b_zp, dev)
+    if quant_route.route_matmul(a, b, za, zb, do_count=False) == "int8":
+        try:
+            out = _matmul_int8_core(a, b, za, zb)
+            quant_route.count("int8")
+            return out
+        except Exception:  # noqa: BLE001 - silent fallback is the contract
+            quant_route.poison_matmul(a, b, za, zb)
+    # served-by honesty: the routed-away case AND an int8-leg failure
+    # both count the widened lane
+    quant_route.count("dequant")
+    return _matmul_wide_core(a, b, za, zb)
+
+
+@op("DynamicQuantizeLinear")
+def _dynamic_quantize_linear(ctx, x):
+    """x -> (uint8 y, scale, zero_point), ONNX spec formula: the range is
+    extended to include 0 so zero stays exactly representable."""
+    x = _tensor(x).to(torch.float32)
+    zero = x.new_zeros(())
+    mn = torch.minimum(x.min(), zero)
+    mx = torch.maximum(x.max(), zero)
+    # a tensor divisor: CUDA divides by a Python scalar as a product with
+    # its reciprocal, which is not the reference's quotient
+    scale = (mx - mn) / x.new_full((), 255.0)
+    scale = torch.where(scale <= 0, x.new_ones(()), scale)  # constant input
+    zp = torch.clamp(torch.round(-mn / scale), 0, 255)
+    y = torch.clamp(torch.round(x / scale) + zp, 0, 255).to(torch.uint8)
+    return y, scale, zp.to(torch.uint8)
+
+
+def _conv_params(ctx, x_shape, w_shape):
+    rank = len(x_shape) - 2
+    strides = ctx.attr("strides", [1] * rank)
+    dilations = ctx.attr("dilations", [1] * rank)
+    group = ctx.attr("group", 1)
+    kernel = ctx.attr("kernel_shape", list(w_shape[2:]))
+    pads = _resolve_pads(ctx, x_shape[2:], kernel, strides, dilations)
+    return rank, strides, dilations, group, pads
+
+
+def _conv_out_shape(sp, kernel, strides, dilations, pads) -> List[int]:
+    return [(s + lo + hi - (k - 1) * d - 1) // st + 1 for s, k, st, d, (lo, hi)
+            in zip(sp, kernel, strides, dilations, pads)]
+
+
+def _conv_wide_core(ctx, x, w, x_zp=None, w_zp=None):
+    """Widened integer conv: zero points subtracted BEFORE the conv (a
+    1-D ``w_zp`` per output channel), the shifted activations padded with
+    zero, the conv in float64 (cuDNN has no FFT or Winograd algorithm for
+    float64, so each output is its exact integer sum) and cast to int32 —
+    the reference formulation (and the fallback lane of the int8
+    router)."""
+    x64 = x.to(torch.float64)
+    w64 = w.to(torch.float64)
+    if x_zp is not None:
+        x64 = x64 - _f64_zp(x_zp)  # scalar per spec
+    if w_zp is not None:
+        zp = _f64_zp(w_zp)
+        if getattr(zp, "ndim", 0) == 1:  # per-output-channel
+            zp = zp.reshape((-1,) + (1,) * (w64.ndim - 1))
+        w64 = w64 - zp
+    rank, strides, dilations, group, pads = _conv_params(
+        ctx, x64.shape, w64.shape)
+    padding = _symmetric(pads)
+    if padding is None:  # F.conv* pads both sides alike: pad first
+        x64, padding = _pad(x64, pads), [0] * rank
+    return _CONV[rank](x64, w64, None, strides, padding, dilations,
+                       group).to(torch.int32)
+
+
+def _im2col(x: torch.Tensor, kernel, strides, dilations, pads):
+    """``[N, C, *spatial]`` -> (``[N * L, C * prod(kernel)]`` with columns
+    in (channel, kernel offsets) order, the output's spatial shape): zero
+    padding (negative pads crop), then one ``Tensor.unfold`` window view a
+    spatial dim (any dtype, int8 included), strided by the dilation."""
+    rank = len(kernel)
+    x = _pad(x, pads)
+    for i in range(rank):
+        x = x.unfold(2 + i, (kernel[i] - 1) * dilations[i] + 1, strides[i])
+    if any(d > 1 for d in dilations):
+        x = x[(slice(None),) * (2 + rank)
+              + tuple(slice(None, None, d) for d in dilations)]
+    n, c = x.shape[:2]
+    out = list(x.shape[2:2 + rank])
+    perm = ([0] + list(range(2, 2 + rank)) + [1]
+            + list(range(2 + rank, 2 + 2 * rank)))
+    cols = x.permute(perm).reshape(n * math.prod(out),
+                                   c * math.prod(kernel))
+    return cols, out
+
+
+def _conv_int8_core(ctx, x, w, x_zp=None, w_zp=None):
+    """TRUE int8 conv lane: an int8 im2col (:func:`_im2col`) of the
+    zero-padded int8 activations, K padded with zero columns to a multiple
+    of 8, one ``torch._int_mm`` a group against the int8 weights; the
+    activation zero point becomes ONE exact correction after it:
+
+        conv(x - zx, w) = conv(x, w) - zx * conv(ones_like(x), w)
+
+    where both share the zero padding, so the correction's ones-conv
+    (an exact float64 product of the 0/1 im2col of ones with the weights)
+    gives each output position's valid-window weight sum — the border
+    behaviour of shifting before padding. The uint8 -128 shift folds into
+    zx. Weights must be int8 with a zero (or absent) zero point — the
+    router gates on exactly that. Bit-identical to :func:`_conv_wide_core`;
+    the router's probe asserts it. Returns the accumulator as an
+    ``[N, Cout, *out]`` view of the GEMM's ``[N * L, Cout]`` result."""
+    x8, x_off = _to_int8(x)
+    rank, strides, dilations, group, pads = _conv_params(
+        ctx, x8.shape, w.shape)
+    kernel = list(w.shape[2:])
+    cols, out = _im2col(x8, kernel, strides, dilations, pads)
+    n, cout = x8.shape[0], w.shape[0]
+    cg, kg = cout // group, w.shape[1] * math.prod(kernel)
+    kp = -(-kg // 8) * 8
+    wmat = w.reshape(cout, kg)
+    shifted = x_zp is not None or x_off
+    if shifted:
+        zx = _zero_shift(x_zp, x_off)
+        ones = torch.ones((1,) + tuple(x8.shape[1:]), dtype=torch.float64,
+                          device=x8.device)
+        mask, _ = _im2col(ones, kernel, strides, dilations, pads)
+    parts = []
+    for g in range(group):
+        cols_g = cols[:, g * kg:(g + 1) * kg]
+        w_g = wmat[g * cg:(g + 1) * cg]
+        a, b = cols_g, w_g
+        if kp != kg:
+            a, b = F.pad(cols_g, (0, kp - kg)), F.pad(w_g, (0, kp - kg))
+        acc = _int_mm(a.contiguous(), b.t())                # [N * L, cg]
+        if shifted:
+            corr = (mask[:, g * kg:(g + 1) * kg]
+                    @ w_g.t().to(torch.float64)).to(torch.int32)
+            acc = _minus(acc.view(n, -1, cg), zx, corr).view(-1, cg)
+        parts.append(acc)
+    acc = parts[0] if group == 1 else torch.cat(parts, 1)
+    return acc.view(n, *out, cout).permute(0, rank + 1, *range(1, rank + 1))
+
+
+def _int_conv_core(ctx, x, w, x_zp=None, w_zp=None):
+    """Integer conv accumulating in int32 — the shared engine of
+    ConvInteger and QLinearConv, routed (onnx/quant_route.py): the
+    true-int8 lane where the measured prober verified it exact and
+    faster, the widened formulation everywhere else."""
+    from synapseml_tpu_torch.onnx import quant_route
+
+    x = _tensor(x)
+    dev = x.device
+    w = _const(ctx, "w", w, dev)
+    xz = _zp_arg(ctx, "x_zp", x_zp, dev)
+    attrs = _conv_attr_key(ctx, x, w)
+    if quant_route.route_conv(x, w, xz, w_zp, attrs,
+                              do_count=False) == "int8":
+        try:
+            out = _conv_int8_core(ctx, x, w, xz, None)
+            quant_route.count("int8")
+            return out
+        except Exception:  # noqa: BLE001 - silent fallback is the contract
+            quant_route.poison_conv(x, w, xz, attrs)
+    quant_route.count("dequant")
+    return _conv_wide_core(ctx, x, w, xz, _zp_arg(ctx, "w_zp", w_zp, dev))
+
+
+def _conv_attr_key(ctx, x, w) -> str:
+    """The conv attributes that change the computation, as a stable JSON
+    key fragment for the router (also how the probe reconstructs an
+    equivalent ctx outside a real graph)."""
+    import json
+
+    rank = x.ndim - 2
+    return json.dumps({
+        "strides": list(ctx.attr("strides", [1] * rank)),
+        "dilations": list(ctx.attr("dilations", [1] * rank)),
+        "group": ctx.attr("group", 1),
+        "kernel_shape": list(ctx.attr("kernel_shape",
+                                      list(w.shape[2:]))),
+        "pads": ctx.attr("pads"),
+        "auto_pad": ctx.attr("auto_pad", "NOTSET"),
+    }, sort_keys=True)
+
+
+@op("ConvInteger")
+def _conv_integer(ctx, x, w, x_zp=None, w_zp=None):
+    """int8/uint8 conv -> raw int32 accumulator (the integer half of a
+    dynamically-quantized conv; requantization happens in the graph)."""
+    return _int_conv_core(ctx, x, w, x_zp, w_zp)
+
+
+def _requantize(acc32, combined_scale, y_zp):
+    """int32 accumulator -> affine-quantized output: scale in float32,
+    round-half-to-even, shift by the output zero point, saturate to the
+    zero point's dtype (onnxruntime's requantization semantics)."""
+    out_dt = _zp_dtype(y_zp)
+    info = np.iinfo(out_dt)
+    q = (torch.round(acc32.to(torch.float32) * combined_scale)
+         + _f32(y_zp, acc32.device))
+    return torch.clamp(q, info.min, info.max).to(_torch_dtype(out_dt))
+
+
+@op("QLinearConv")
+def _qlinear_conv(ctx, x, x_scale, x_zp, w, w_scale, w_zp, y_scale, y_zp,
+                  b=None):
+    """Statically-quantized conv: int32 accumulation, then
+    requantization. Bias is int32 at scale x_scale*w_scale per spec;
+    w_scale may be per-output-channel."""
+    acc = _int_conv_core(ctx, x, w, x_zp, w_zp)
+    dev = acc.device
+    rank = acc.ndim - 2
+    if b is not None:
+        acc = acc + _const(ctx, "b", b, dev).to(torch.int32).reshape(
+            (1, -1) + (1,) * rank)
+    w_s = _f32(w_scale, dev)
+    if w_s.ndim == 1:
+        w_s = w_s.reshape((1, -1) + (1,) * rank)
+    combined = _f32(x_scale, dev) * w_s / _f32(y_scale, dev)
+    return _requantize(acc, combined, y_zp)
+
+
+@op("QLinearMatMul")
+def _qlinear_matmul(ctx, a, a_scale, a_zp, b, b_scale, b_zp, y_scale,
+                    y_zp):
+    """Statically-quantized matmul: MatMulInteger accumulation + the
+    shared requantization. 1-D a_scale is per-row, 1-D b_scale is
+    per-column (ONNX spec broadcast)."""
+    acc = _matmul_integer(ctx, a, b, a_zp, b_zp)
+    dev = acc.device
+    a_s = _f32(a_scale, dev)
+    if a_s.ndim == 1:
+        a_s = a_s[:, None]
+    combined = a_s * _f32(b_scale, dev) / _f32(y_scale, dev)
+    return _requantize(acc, combined, y_zp)
+
+
+def _dq(x, scale, zp, dev):
+    """Affine dequantize to f32 (per-tensor, the com.microsoft contrib
+    ops' convention)."""
+    return ((_tensor(x, dev).to(torch.float32) - _f32(zp, dev))
+            * _f32(scale, dev))
+
+
+def _q(val, y_scale, y_zp):
+    """Affine quantize f32 -> the zero point's dtype, saturating."""
+    info = np.iinfo(_zp_dtype(y_zp))
+    q = (torch.round(val / _f32(y_scale, val.device))
+         + _f32(y_zp, val.device))
+    return torch.clamp(q, info.min, info.max).to(
+        _torch_dtype(_zp_dtype(y_zp)))
+
+
+# com.microsoft QOperator contrib family — what onnxruntime's static
+# quantizer (quant_format=QOperator) emits between the QLinearConv/
+# QLinearMatMul nodes. Dispatch is by op_type (domains carry no semantics
+# here); compute is dequant -> f32 op -> requant, each step its own
+# rounded op, as in the reference.
+def _qlinear_binary(fn):
+    def impl(ctx, a, a_scale, a_zp, b, b_scale, b_zp, c_scale, c_zp):
+        dev = _device_of((a, b))
+        return _q(fn(_dq(a, a_scale, a_zp, dev), _dq(b, b_scale, b_zp, dev)),
+                  c_scale, c_zp)
+    return impl
+
+
+_REGISTRY["QLinearAdd"] = _qlinear_binary(torch.add)
+_REGISTRY["QLinearMul"] = _qlinear_binary(torch.mul)
+
+
+@op("QLinearSigmoid")
+def _qlinear_sigmoid(ctx, x, x_scale, x_zp, y_scale, y_zp):
+    dev = _device_of((x,))
+    return _q(torch.sigmoid(_dq(x, x_scale, x_zp, dev)), y_scale, y_zp)
+
+
+@op("QLinearLeakyRelu")
+def _qlinear_leaky_relu(ctx, x, x_scale, x_zp, y_scale, y_zp):
+    dev = _device_of((x,))
+    v = _dq(x, x_scale, x_zp, dev)
+    alpha = _scalar(np.float64(ctx.attr("alpha", 0.01)), torch.float32)
+    return _q(torch.where(v >= 0, v, alpha * v), y_scale, y_zp)
+
+
+@op("QLinearGlobalAveragePool")
+def _qlinear_global_avg_pool(ctx, x, x_scale, x_zp, y_scale, y_zp):
+    x = _tensor(x)
+    axes = (tuple(range(1, x.ndim - 1)) if ctx.attr("channels_last", 0)
+            else tuple(range(2, x.ndim)))
+    # the mean over the integer values first (a float32 sum, then one
+    # division by the count as a tensor — CUDA turns a division by a Python
+    # scalar into a product with its reciprocal — as jnp.mean), then one
+    # affine rescale
+    count = float(math.prod(x.shape[a] for a in axes))
+    m = (x.to(torch.float32).sum(axes, keepdim=True)
+         / torch.full((), count, device=x.device))
+    dev = x.device
+    return _q((m - _f32(x_zp, dev)) * _f32(x_scale, dev), y_scale, y_zp)
+
+
+@op("QLinearConcat")
+def _qlinear_concat(ctx, y_scale, y_zp, *parts):
+    axis = ctx.attr("axis")
+    if axis is None:
+        raise ValueError("QLinearConcat needs an axis attribute")
+    if len(parts) % 3:
+        raise ValueError("QLinearConcat inputs must be (X, scale, zp) "
+                         "triplets after (Y_scale, Y_zp)")
+    dev = _device_of(parts[0::3])
+    deq = [_dq(parts[i], parts[i + 1], parts[i + 2], dev)
+           for i in range(0, len(parts), 3)]
+    return _q(torch.cat(deq, dim=int(axis)), y_scale, y_zp)
+
+
+@op("QGemm")
+def _qgemm(ctx, a, a_scale, a_zp, b, b_scale, b_zp, c=None, y_scale=None,
+           y_zp=None):
+    """com.microsoft QGemm: integer gemm (the widened formulation; the
+    reference does not route it) with optional int32 bias; float output
+    when y_scale is absent, requantized otherwise."""
+    alpha = _scalar(np.float64(ctx.attr("alpha", 1.0)), torch.float32)
+    dev = _device_of((a, b))
+    a64 = _const(ctx, "a", a, dev).to(torch.float64)
+    b64 = _const(ctx, "b", b, dev).to(torch.float64)
+    if ctx.attr("transA", 0):
+        a64 = a64.T
+    if ctx.attr("transB", 0):
+        b64 = b64.T
+    a64 = a64 - _const(ctx, "a_zp", a_zp, dev).to(torch.float64)
+    bz = _const(ctx, "b_zp", b_zp, dev).to(torch.float64)
+    b64 = b64 - (bz if bz.ndim == 0 else bz[None, :])
+    acc = (a64 @ b64).to(torch.int32)
+    if c is not None:
+        acc = acc + _const(ctx, "c", c, dev).to(torch.int32)
+    combined = alpha * _f32(a_scale, dev) * _f32(b_scale, dev)
+    if y_scale is None:
+        return acc.to(torch.float32) * combined
+    return _requantize(acc, combined / _f32(y_scale, dev), y_zp)
+
+
 @op("Where")
 def _where(ctx, cond, a, b):
     if _all_host((cond, a, b)):

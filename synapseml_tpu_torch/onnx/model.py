@@ -21,12 +21,17 @@ misses (runtime/compile_cache.py).
 (the executor's shard and round-robin layouts); the executor binds the
 weights once a distinct device of the list.
 
-Not ported yet, each under its ROADMAP Queue 1 item: ``compute_dtype=
-"auto"``, ``preferred_wire`` and ``routed_compute_dtype`` (1d: the autotune
-lanes), ``tensor_parallel``/``partition_rules`` and
-``partition_coverage`` (4), ``decode_scheduler`` (3). Setting one of those
-Params raises ``NotImplementedError`` when the model runs; none runs
-quietly on one device.
+Two measured lanes (runtime/autotune.py): ``compute_dtype="auto"``
+resolves to the ``onnx_compute_dtype`` lane's float32-vs-bfloat16 verdict
+for the model's content and batch bucket (:func:`routed_compute_dtype`),
+and :meth:`ONNXModel.preferred_wire` is the ``onnx_hostfeed_wire`` lane's
+verdict on which side of the host-to-card copy dequantizes uint8 pixels.
+
+Not ported yet, each under its ROADMAP Queue 1 item:
+``tensor_parallel``/``partition_rules`` and ``partition_coverage`` (4),
+``decode_scheduler`` (3). Setting one of those Params raises
+``NotImplementedError`` when the model runs; none runs quietly on one
+device.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from synapseml_tpu_torch.core.pipeline import Transformer
 from synapseml_tpu_torch.data.table import Table
 from synapseml_tpu_torch.onnx import proto as _proto
 from synapseml_tpu_torch.onnx.importer import ImportedGraph, import_model
+from synapseml_tpu_torch.runtime import autotune
 from synapseml_tpu_torch.runtime import compile_cache as _cc
 from synapseml_tpu_torch.runtime.executor import (BatchedExecutor,
                                                   PerDevice,
@@ -51,6 +57,167 @@ from synapseml_tpu_torch.runtime.executor import (BatchedExecutor,
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+
+
+# -- autotuned lanes ------------------------------------------------------
+#
+# Lane "onnx_compute_dtype": compute_dtype="auto" resolves to a MEASURED
+# float32-vs-bfloat16 verdict per (model content, batch bucket, device).
+# Params are cast once at executor build (never per batch); the bf16
+# candidate casts floating inputs on the device inside the timed call so
+# the verdict prices the full formulation, and the float32 candidate runs
+# in IEEE float32 (every graph run is inside importer._ieee_float32).
+# Verification is reference-relative: 5% of the float32 output's largest
+# |value| absorbs bf16 rounding drift through a deep stack while still
+# failing a broken cast.
+
+def _dtype_probe_args(g, token, batch, dev):
+    rng = np.random.default_rng(0)
+    bp = max(1, min(int(batch), 8))
+    args = []
+    for name in g.input_names:
+        want, shape = g.input_info.get(name, (None, None))
+        row = list(shape)[1:] if shape is not None else None
+        if row is None or any(not isinstance(d, int) or d <= 0
+                              for d in row):
+            # crash semantics: dynamic inputs fall back to the float32
+            # reference, memoized in-process only
+            raise ValueError(
+                f"graph input {name!r} has dynamic non-batch dims {shape}")
+        dt = np.dtype(want) if want is not None else np.dtype(np.float32)
+        if np.issubdtype(dt, np.floating):
+            a = rng.standard_normal((bp, *row)).astype(dt)
+        else:
+            a = rng.integers(0, 2, (bp, *row)).astype(dt)
+        args.append(torch.from_numpy(a).to(dev))
+    return tuple(args)
+
+
+def _dtype_candidate(cast):
+    def make(rargs, args):
+        g, dev = rargs[0], rargs[3]
+        fn = g.bind(cast_dtype=cast, device=dev)
+        if cast is None:
+            return autotune.aot(fn, *args)
+
+        def run(*a):
+            return fn(*[x.to(cast) if x.is_floating_point() else x
+                        for x in a])
+        return autotune.aot(run, *args)
+    return make
+
+
+def _dtype_verify(got, want):
+    gs = got if isinstance(got, tuple) else (got,)
+    ws = want if isinstance(want, tuple) else (want,)
+    if len(gs) != len(ws):
+        return False
+    for g_, w_ in zip(gs, ws):
+        if tuple(g_.shape) != tuple(w_.shape):
+            return False
+        if np.issubdtype(np.asarray(w_).dtype, np.floating):
+            g64 = np.asarray(g_, np.float64)
+            w64 = np.asarray(w_, np.float64)
+            if not w64.size:
+                continue
+            span = max(1e-6, float(np.max(np.abs(w64))))
+            if float(np.max(np.abs(g64 - w64))) > 0.05 * span:
+                return False
+        elif not np.array_equal(np.asarray(g_), np.asarray(w_)):
+            return False
+    return True
+
+
+_DTYPE_LANE = autotune.register_lane(
+    "onnx_compute_dtype",
+    key_fn=lambda g, token, batch, dev: (
+        autotune.key_prefix("onnx_dtype", dev)
+        + f"|{token}|b{autotune.pow2(int(batch), 1, 4096)}"),
+    candidates={"float32": _dtype_candidate(None),
+                "bfloat16": _dtype_candidate(torch.bfloat16)},
+    verify_fn=_dtype_verify,
+    reference="float32",
+    args_fn=_dtype_probe_args,
+    groups=("resnet50", "resnet50_fast"),
+)
+
+
+def routed_compute_dtype(graph, payload, batch: int,
+                         device=device_policy.DEFAULT_DEVICE) -> str:
+    """Measured compute-dtype verdict ("float32" | "bfloat16") for this
+    graph at this batch bucket on ``device`` — what
+    ``compute_dtype="auto"`` resolves to. Persisted like every lane
+    verdict."""
+    token = _cc.content_hash(payload or b"", len(graph._nodes),
+                             tuple(graph.output_names))[:12]
+    return _DTYPE_LANE.route(graph, token, int(batch),
+                             device_policy.resolve(device))
+
+
+# Lane "onnx_hostfeed_wire": which side of the host-to-card copy
+# dequantizes uint8 pixels. The uint8 wire (1 byte a pixel + the on-card
+# (x - mean) * scale) is the reference; the float wire (host dequant, the
+# compute dtype over the wire) can win where the copy is not the
+# bottleneck. Candidates move REAL bytes: the uint8 leg copies the pinned
+# uint8 rows to the card and dequantizes there, the float leg dequantizes
+# on the host and copies the compute dtype; both legs' results stay on
+# the card (best_of waits for them there).
+
+def _wire_uint8(rargs, args):
+    mean, scale, _row, _b, compute, dev = rargs
+    tgt = _DTYPES[compute]
+    m = torch.as_tensor(mean, device=dev).to(tgt)
+    s = torch.as_tensor(scale, device=dev).to(tgt)
+
+    def run(u8):
+        return (u8.to(dev, non_blocking=True).to(tgt) - m) * s
+    return autotune.aot(run, *args)
+
+
+def _wire_float(rargs, args):
+    mean, scale, _row, _b, compute, dev = rargs
+    tgt = _DTYPES[compute]
+
+    def run(u8):
+        v = (u8.numpy().astype(np.float32) - mean) * scale
+        return torch.from_numpy(v).to(tgt).to(dev)
+    return autotune.aot(run, *args)
+
+
+def _wire_verify(got, want):
+    g64 = np.asarray(got, np.float64)
+    w64 = np.asarray(want, np.float64)
+    if g64.shape != w64.shape:
+        return False
+    span = max(1e-6, float(np.max(np.abs(w64))))
+    return float(np.max(np.abs(g64 - w64))) <= 0.02 * span
+
+
+def _wire_key(mean, scale, row, b, compute, dev):
+    import hashlib
+    tok = hashlib.sha1(np.asarray(mean, np.float32).tobytes()
+                       + np.asarray(scale, np.float32).tobytes()
+                       ).hexdigest()[:8]
+    return (autotune.key_prefix("onnx_wire", dev)
+            + f"|{tok}|r{'x'.join(str(d) for d in row)}"
+            + f"|b{autotune.pow2(int(b), 1, 4096)}|{compute}")
+
+
+def _wire_args(mean, scale, row, b, compute, dev):
+    u8 = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (max(1, min(int(b), 32)), *row), dtype=np.uint8))
+    return (u8.pin_memory() if dev.type == "cuda" else u8,)
+
+
+_WIRE_LANE = autotune.register_lane(
+    "onnx_hostfeed_wire",
+    key_fn=_wire_key,
+    candidates={"uint8": _wire_uint8, "float": _wire_float},
+    verify_fn=_wire_verify,
+    reference="uint8",
+    args_fn=_wire_args,
+    groups=("resnet50", "resnet50_fast"),
+)
 
 
 def _is_float(dtype) -> bool:
@@ -88,8 +255,10 @@ class ONNXModel(Transformer):
     fetch_dict = Param("output column -> graph output name", default=None)
     mini_batch_size = Param("max rows per device batch", default=128)
     compute_dtype = Param(
-        "device compute dtype: float32|bfloat16|float16 ('auto', the "
-        "reference's measured f32-vs-bf16 verdict, is not ported yet)",
+        "device compute dtype: float32|bfloat16|float16, or 'auto' for "
+        "the autotuner's measured f32-vs-bf16 verdict (routed per model "
+        "content + batch bucket + device, persisted — runtime/autotune.py "
+        "lane 'onnx_compute_dtype')",
         default="float32")
     softmax_output_col = Param("column for softmax of first output", default=None)
     argmax_output_col = Param("column for argmax of first output", default=None)
@@ -204,10 +373,6 @@ class ONNXModel(Transformer):
     def _refuse_unported(self, cd) -> int:
         """The Params whose machinery is not ported raise, naming the
         ROADMAP item that ports it."""
-        if cd == "auto":
-            raise NotImplementedError(
-                "compute_dtype='auto' (the measured f32-vs-bf16 autotune "
-                "lane) is not ported yet: ROADMAP Queue 1 item 1d")
         if cd not in _DTYPES:
             raise ValueError(f"compute_dtype {cd!r} (expected one of "
                              f"{sorted(_DTYPES)})")
@@ -252,8 +417,14 @@ class ONNXModel(Transformer):
                 for k, v in spec.items())))
             for name, spec in sorted(norm.items()))
         cd = self.compute_dtype
-        tp = self._refuse_unported(cd)
         dev = device_policy.resolve(device)
+        if cd == "auto":
+            # the measured verdict (probed once a content, batch and
+            # device class, then a table hit); the resolved dtype keys the
+            # executor cache, so a verdict flip cannot serve stale weights
+            cd = routed_compute_dtype(g, self.model_payload,
+                                      self.mini_batch_size, dev)
+        tp = self._refuse_unported(cd)
         devs = resolve_devices(self.devices)
         if devs is not None and any(d.type != dev.type for d in devs):
             raise ValueError(
@@ -328,6 +499,35 @@ class ONNXModel(Transformer):
                     compute_dtype=compute, max_bucket=self.mini_batch_size,
                     cache_key=cache_key, cache_dir=self.compile_cache_dir)
             return cache[key]
+
+    def preferred_wire(self, input_name: str,
+                       batch: Optional[int] = None,
+                       device=device_policy.DEFAULT_DEVICE) -> str:
+        """Routed hostfeed wire for ``input_name``: "uint8" (ship raw
+        pixels, dequantize on the card via ``input_norm`` — the
+        reference) or "float" (dequantize on the host, ship the compute
+        dtype). A measured verdict from the "onnx_hostfeed_wire" lane,
+        persisted per (norm content, row shape, batch bucket, compute
+        dtype, device); "float" unconditionally when the input has no
+        ``input_norm`` spec (there is no uint8 wire without one)."""
+        g = self.graph
+        norm = (self.input_norm or {}).get(input_name)
+        if norm is None:
+            return "float"
+        _want, shape = g.input_info.get(input_name, (None, None))
+        row = list(shape)[1:] if shape is not None else None
+        if row is None or any(not isinstance(d, int) or d <= 0
+                              for d in row):
+            return "uint8"
+        b = int(batch or self.mini_batch_size)
+        dev = device_policy.resolve(device)
+        compute = self.compute_dtype
+        if compute == "auto":
+            compute = routed_compute_dtype(g, self.model_payload, b, dev)
+        mean = np.asarray(norm.get("mean", 0.0), np.float32)
+        scale = np.asarray(norm.get("scale", 1.0), np.float32)
+        return _WIRE_LANE.route(mean, scale, tuple(int(d) for d in row),
+                                b, compute, dev)
 
     def warmup(self, buckets=None, example_feeds=None,
                device=device_policy.DEFAULT_DEVICE):

@@ -54,12 +54,20 @@ replica of the bound args (a :class:`PerDevice` arg made once a device)
 and nothing else, so the layouts run on one card and, over
 ``["cpu"] * n``, on the CPU.
 
+**The H2D lane** (lane ``executor_h2d``, runtime/autotune.py): whether a
+multi-argument bucket's staged host columns cross to the card one copy a
+column (``per_arg``, the reference) or ``coalesced`` — one pinned staging
+buffer a dtype group, one copy on the slot's copy-in stream, views out. A
+measured verdict keyed by the bucket's staged signature and the card,
+probed in :meth:`BatchedExecutor.warmup` only; the dispatch path reads the
+persisted verdict through a per-executor memo and never probes. Never
+used under the shard layout.
+
 The reference donates a bucket's input buffers to XLA; PyTorch has no
 donation, and its caching allocator reuses a bucket's device blocks from
 one batch to the next, so there is no ``donate`` parameter and the
-sentinel's ``donation_mask`` series stays at 0. Tensor parallelism, the
-autotuned H2D lane and the cost model's records are not ported yet
-(ROADMAP Queue 1 items 4, 1d and 6).
+sentinel's ``donation_mask`` series stays at 0. Tensor parallelism and the
+cost model's records are not ported yet (ROADMAP Queue 1 items 4 and 6).
 """
 from __future__ import annotations
 
@@ -1061,6 +1069,9 @@ class BatchedExecutor:
         self._warmed = False
         self._warm_arities: set = set()
         self._lazy_seen: set = set()
+        # the H2D lane's verdict a host-column signature, read from the
+        # lane's table on first sight (dispatch never probes)
+        self._h2d_choice: Dict[tuple, str] = {}
         # CUDA graphs: one memory pool a slot, shared by the slot's
         # buckets' graphs. A graph captured later may hold its static
         # outputs in blocks that an earlier graph's capture used for
@@ -1454,6 +1465,11 @@ class BatchedExecutor:
             layout = self._layout(bucket)
             sig = tuple(((bucket,) + row, _cc.dtype_name(dt))
                         for row, dt in specs)
+            if len(sig) > 1 and layout != "shard":
+                # probe the H2D staging formulation for this signature
+                # NOW — warmup is the pay-once moment; _dispatch only ever
+                # reads the persisted verdict
+                _h2d_lane().route(sig, self._slots[0].device)
             if layout == "shard":
                 k = bucket // len(self._slots)
                 targets = [("shard", self._slots,
@@ -1508,11 +1524,46 @@ class BatchedExecutor:
                     entry["status"] = "error"
                     report.errors.append(
                         f"bucket={bucket} {store_layout}: {e!r}")
-        # the sentinel arms HERE: from now on an eager first run on the
-        # dispatch path is a counted, classified recompile incident
+        # verdicts may have landed above: drop any dispatch-path H2D memo
+        # taken before they did. The sentinel arms HERE: from now on an
+        # eager first run on the dispatch path is a counted, classified
+        # recompile incident
         with self._tables_lock:
+            self._h2d_choice = {}
             self._warmed = True
         return report
+
+    def _h2d_choice_for(self, hkey: tuple) -> str:
+        """Dispatch-path verdict for one host-column signature: memoized
+        per executor, filled from the lane's persisted table (a lookup
+        only — a missing verdict serves ``per_arg``, it never probes under
+        a live dispatch)."""
+        got = self._h2d_choice.get(hkey)
+        if got is None:
+            got = _h2d_lane().cached(hkey, self._slots[0].device) \
+                or "per_arg"
+            with self._tables_lock:
+                self._h2d_choice[hkey] = got
+        return got
+
+    def _coalesced_in(self, host: List[torch.Tensor], slot: _Slot,
+                      leases: List["_HostBatch"]) -> List[torch.Tensor]:
+        """The ``coalesced`` H2D formulation of one bucket's host columns
+        on ``slot``: :func:`_coalesced_put` on the slot's copy-in stream,
+        its staging buffers leased to the batch (back to the pool once it
+        drains), the compute stream waiting for the copies."""
+        if not self._cuda:
+            return _coalesced_put(host, slot.device)[0]
+        copy_in = slot.streams[1]
+        with torch.cuda.stream(copy_in):
+            views, held = _coalesced_put(host, slot.device, self._pool.take)
+            ready = torch.cuda.Event()
+            ready.record(copy_in)
+        leases.extend(_HostBatch(buf, 1, self._pool) for buf in held)
+        slot.compute.wait_event(ready)
+        for v in views:
+            v.record_stream(slot.compute)
+        return views
 
     def _capture(self, sig: tuple, slot: _Slot) -> Tuple[_Warm, list]:
         """Build the warm program of one signature on one slot; returns it
@@ -1683,13 +1734,28 @@ class BatchedExecutor:
             padded_on_home.record(home.compute)
         ran = []
         outcomes = set()
+        # the routed H2D formulation (lane "executor_h2d"): its verdict is
+        # read from the memo / the persisted table — NEVER probed here;
+        # warmup() is where the probe runs
+        coalesced = {}
+        host_idx = [i for i, c in enumerate(columns) if isinstance(c, _Rows)]
+        if len(host_idx) > 1 and layout != "shard":
+            host = [columns[i].batch.host[columns[i].start:
+                                          columns[i].start + bucket]
+                    for i in host_idx]
+            hkey = tuple((tuple(h.shape), _cc.dtype_name(h.dtype))
+                         for h in host)
+            if self._h2d_choice_for(hkey) == "coalesced":
+                coalesced = dict(zip(host_idx, self._coalesced_in(
+                    host, parts[0][0], leases)))
         with torch.inference_mode():
             for slot, start, rows in parts:
                 with slot.on_compute():
                     if padded_on_home is not None and slot is not home:
                         slot.compute.wait_event(padded_on_home)
-                    padded = [self._slot_rows(c, slot, start, rows)
-                              for c in columns]
+                    padded = [coalesced[i] if i in coalesced
+                              else self._slot_rows(c, slot, start, rows)
+                              for i, c in enumerate(columns)]
                     leaves, warm, outcome = self._run_slot(
                         sig, layout, slot, padded, bucket)
                 ran.append((slot, start, rows, leaves, warm))
@@ -1937,6 +2003,110 @@ class BatchedExecutor:
                     "NonMaxSuppression's [B*C*max_out, 3] output to "
                     "[B, C*max_out, 3] before the graph output.")
         return tuple(trimmed)
+
+
+# -- autotuned H2D staging lane ---------------------------------------------
+#
+# Lane "executor_h2d": whether a multi-argument bucket's host columns ride
+# one copy a dtype group (a host memcpy into one pinned staging buffer, one
+# copy to the card, views out) or the per-column copy loop. Per-column pays
+# one copy launch a column; the coalesced form pays one host memcpy + one
+# launch — which side wins is a property of the column count, sizes and the
+# box's transfer path, so it is a MEASURED verdict keyed by the full staged
+# signature and the card. Probed from warmup() only; _dispatch consults the
+# persisted verdict via a per-executor memo. Verification is bit-exact per
+# element and dtype — pure data movement. Both candidates' results stay on
+# the card: best_of waits for them there and never copies them back.
+
+def _coalesced_put(arrays: Sequence[torch.Tensor], device: torch.device,
+                   take: Optional[Callable] = None):
+    """One copy a dtype group of host tensors to ``device``; a group of one
+    goes direct. Returns (the device tensors, views of one packed copy a
+    group, in order; the staging buffers, which must outlive the copies).
+    ``take(shape, dtype)`` gives a staging buffer (pinned, from the
+    executor's pool on the card); by default a fresh one, pinned where
+    ``device`` is a card."""
+    out: List[Optional[torch.Tensor]] = [None] * len(arrays)
+    groups: Dict[torch.dtype, List[int]] = {}
+    for i, a in enumerate(arrays):
+        groups.setdefault(a.dtype, []).append(i)
+    held = []
+    for dt, idxs in groups.items():
+        if len(idxs) == 1:
+            out[idxs[0]] = arrays[idxs[0]].to(device, non_blocking=True)
+            continue
+        total = sum(arrays[i].numel() for i in idxs)
+        if take is not None:
+            buf = take((total,), dt)
+        else:
+            buf = torch.empty((total,), dtype=dt,
+                              pin_memory=device.type == "cuda")
+        off = 0
+        for i in idxs:
+            size = arrays[i].numel()
+            buf[off:off + size].copy_(arrays[i].reshape(-1))
+            off += size
+        packed = buf.to(device, non_blocking=True)
+        held.append(buf)
+        off = 0
+        for i in idxs:
+            size = arrays[i].numel()
+            out[i] = packed[off:off + size].view(arrays[i].shape)
+            off += size
+    return out, held
+
+
+def _h2d_args(sig, dev: torch.device):
+    rng = np.random.default_rng(0)
+    out = []
+    for shape, name in sig:
+        td = getattr(torch, name)
+        if td.is_floating_point:
+            a = torch.from_numpy(rng.standard_normal(shape)).to(td)
+        else:
+            a = torch.from_numpy(rng.integers(0, 2, shape)).to(td)
+        out.append(a.pin_memory() if dev.type == "cuda" else a)
+    return (out,)
+
+
+def _h2d_verify(got, want) -> bool:
+    if len(got) != len(want):
+        return False
+    return all(g.dtype == w.dtype and g.shape == w.shape
+               and np.array_equal(g, w) for g, w in zip(got, want))
+
+
+_H2D_LANE = None
+_H2D_LOCK = threading.Lock()
+
+
+def _h2d_lane():
+    """Lazy registration — the lane costs nothing until an executor with
+    a multi-argument signature warms up. Route args: (signature, device)."""
+    global _H2D_LANE
+    with _H2D_LOCK:
+        if _H2D_LANE is None:
+            from synapseml_tpu_torch.runtime import autotune as _at
+
+            _H2D_LANE = _at.register_lane(
+                "executor_h2d",
+                key_fn=lambda sig, dev: (
+                    _at.key_prefix("h2d", dev) + "|" + ";".join(
+                        f"{'x'.join(str(d) for d in s)}:{t}"
+                        for s, t in sig)),
+                candidates={
+                    "per_arg": lambda rargs, args: (
+                        lambda arrs: tuple(a.to(rargs[1], non_blocking=True)
+                                           for a in arrs)),
+                    "coalesced": lambda rargs, args: (
+                        lambda arrs: tuple(
+                            _coalesced_put(arrs, rargs[1])[0])),
+                },
+                verify_fn=_h2d_verify,
+                reference="per_arg",
+                args_fn=_h2d_args,
+            )
+        return _H2D_LANE
 
 
 class JitCache:

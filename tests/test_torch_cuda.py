@@ -7,6 +7,7 @@ skips where there is none. Run on the GPU machine with
 """
 import os
 import sys
+import zlib
 
 import numpy as np
 import pytest
@@ -2603,3 +2604,224 @@ def test_speech_chain_on_the_card_equals_the_cpu(card):
     fx = np.load(sc.OUT)
     held = sc.held_means(card_means, fx["chain_means"], n_frames, 1e-4)
     assert held["ok"], held
+
+
+def _quant_cases():
+    sys.path.insert(0, FIXTURES)
+    import quant_op_cases
+
+    return quant_op_cases.CASES
+
+
+@pytest.fixture
+def quant_cache(tmp_path, monkeypatch):
+    """Fresh verdict tables: every int8 class probes anew."""
+    from synapseml_tpu_torch.onnx import quant_route
+
+    monkeypatch.setenv("SYNAPSEML_TPU_CACHE_DIR", str(tmp_path))
+    monkeypatch.delenv("SYNAPSEML_ONNX_INT8", raising=False)
+    monkeypatch.delenv("SYNAPSEML_AUTOTUNE", raising=False)
+    quant_route.clear_cache()
+    yield tmp_path
+    quant_route.clear_cache()
+
+
+@pytest.mark.parametrize("forced", [False, True], ids=["routed", "int8"])
+@pytest.mark.parametrize("name", [c["name"] for c in _quant_cases()])
+def test_quant_op_on_the_card_equals_the_cpu(card, quant_cache, monkeypatch,
+                                            name, forced):
+    """Every case of ``tests/fixtures/quant_op_cases.py`` on the card,
+    bitwise the port's CPU run (itself bitwise the JAX importer): under
+    the measured verdicts, and with every probe's verdict forced to
+    ``"int8"``, when exactly the cases ``INT8_LANE`` names take the int8
+    lane."""
+    import quant_op_cases as cases
+
+    from synapseml_tpu_torch.onnx import GraphBuilder, import_model, quant_route
+    from synapseml_tpu_torch.runtime import telemetry as tm
+
+    if forced:
+        monkeypatch.setattr(quant_route, "_probe_matmul", lambda *r: "int8")
+        monkeypatch.setattr(quant_route, "_probe_conv", lambda *r: "int8")
+    case = cases.by_name(name)
+    int8 = tm.counter("onnx_int8_route_total", backend="int8")
+    before = int8.value
+    got = cases.run(case, import_model, GraphBuilder, "cuda")
+    torch.cuda.synchronize()
+    if forced:
+        assert (int8.value > before) == (name in cases.INT8_LANE)
+    res = cases.agree(case, got, cases.run(case, import_model, GraphBuilder,
+                                           "cpu"))
+    assert res["ok"], res
+    assert all(r["exact"] for r in quant_route.PROBES), quant_route.PROBES
+
+
+def _resnet50_classes():
+    sys.path.insert(0, FIXTURES)
+    import qresnet50
+
+    return qresnet50.conv_classes()
+
+
+@pytest.mark.parametrize("batch", [8, 128])
+@pytest.mark.parametrize("cls", _resnet50_classes(), ids=str)
+def test_quant_int8_lane_is_bitwise_the_widened_lane_at_resnet50(card,
+                                                                 cls, batch):
+    """The int8 cores against the widened cores on the card, bitwise, at
+    every convolution class of ResNet-50 224 (uint8 activations with a
+    host zero point, per-output-channel int8 weights) and at the head's
+    matmul (uint8 rows, int8 weights with a per-column zero point), at
+    buckets 8 and 128."""
+    from synapseml_tpu_torch.onnx import importer, quant_route
+
+    rng = np.random.default_rng(zlib.crc32(repr(cls).encode()))
+
+    def q(shape, dt):
+        info = np.iinfo(dt)
+        return torch.from_numpy(rng.integers(info.min, info.max + 1,
+                                             shape).astype(dt)).to(card)
+
+    if cls[0] == "head":
+        a = q((batch, cls[1]), np.uint8)
+        b = q((cls[1], cls[2]), np.int8)
+        zb = q((cls[2],), np.int8)
+        want = importer._matmul_wide_core(a, b, np.uint8(7), zb)
+        if not quant_route.int_mm_eligible(batch, cls[1], cls[2]):
+            with pytest.raises(RuntimeError, match="greater than 16"):
+                importer._matmul_int8_core(a, b, np.uint8(7), zb)
+            return
+        got = importer._matmul_int8_core(a, b, np.uint8(7), zb)
+    else:
+        c_in, h, c_out, k, stride, pad = cls
+        x = q((batch, c_in, h, h), np.uint8)
+        w = q((c_out, c_in, k, k), np.int8)
+        ctx = quant_route._Attrs(strides=[stride] * 2, pads=[pad] * 4)
+        got = importer._conv_int8_core(ctx, x, w, np.uint8(114), None)
+        want = importer._conv_wide_core(ctx, x, w, np.uint8(114), None)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.int32
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+def test_quant_capture_after_a_cold_route_probes_nothing_inside(
+        card, quant_cache, monkeypatch):
+    """A quantized ``zoo.tiny_resnet`` warmed through ``ONNXModel`` from
+    cold tables: every probe runs in the eager pass before each capture,
+    none inside a capture; the replayed forward is bitwise the CPU's."""
+    sys.path.insert(0, FIXTURES)
+    import qresnet50 as qr
+
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.onnx import GraphBuilder, ONNXModel, quant_route
+    from synapseml_tpu_torch.runtime import autotune
+
+    inside = []
+    real = autotune.Lane._probe_guarded
+
+    def spy(self, rargs):
+        inside.append(torch.cuda.is_current_stream_capturing())
+        return real(self, rargs)
+
+    monkeypatch.setattr(autotune.Lane, "_probe_guarded", spy)
+    blob = qr.graph(GraphBuilder, qr.TINY)
+    x = qr.images(32, qr.TINY, seed=5)
+    m = ONNXModel(model_bytes=blob, mini_batch_size=32)
+    rep = m.warmup(buckets=[8, 32], device="cuda")
+    assert not rep.errors and rep.compiled == 2, rep
+    assert inside and not any(inside)
+    probes = quant_route._CONV_LANE.probes
+    assert probes > 0
+    got = m.transform(Table({"data": x}), "cuda")
+    assert quant_route._CONV_LANE.probes == probes
+    want = ONNXModel(model_bytes=blob, mini_batch_size=32).transform(
+        Table({"data": x}), "cpu")
+    for col in ("logits", "logits_q"):
+        assert np.array_equal(got[col], want[col]), col
+    assert all(r["exact"] for r in quant_route.PROBES)
+    m._executor("cuda").close()
+
+
+def test_quant_int_mm_ineligible_shape_routes_dequant_without_poison(
+        card, quant_cache):
+    """The ResNet head's matmul at bucket 8 (8 rows, which
+    ``torch._int_mm`` refuses on the card) routes to the widened lane by
+    eligibility: no probe, no verdict, no poison; at bucket 128 it probes
+    and its verdict is the measured one, verified exact."""
+    from synapseml_tpu_torch.onnx import quant_route
+
+    head = torch.zeros((2048, 1000), dtype=torch.int8, device=card)
+    a8 = torch.zeros((8, 2048), dtype=torch.uint8, device=card)
+    assert quant_route.route_matmul(a8, head, np.uint8(3), None) == "dequant"
+    assert quant_route._MM_LANE.probes == 0
+    assert not quant_route._MM_LANE.decisions and not quant_route.PROBES
+    a128 = torch.zeros((128, 2048), dtype=torch.uint8, device=card)
+    got = quant_route.route_matmul(a128, head, np.uint8(3), None)
+    assert quant_route._MM_LANE.probes == 1
+    rec = quant_route.PROBES[-1]
+    assert rec["exact"] and rec["verdict"] == got
+    assert list(quant_route._MM_LANE.decisions.values()) == [got]
+
+
+def test_autotune_lanes_on_the_card(card, quant_cache):
+    """The measured lanes probe on the card: ``compute_dtype="auto"``
+    resolves and scores as its verdict's explicit dtype (bitwise),
+    ``preferred_wire`` returns a verdict of the wire lane, and
+    ``best_of`` waits for a card result without copying it."""
+    from synapseml_tpu_torch.data.table import Table
+    from synapseml_tpu_torch.onnx import ONNXModel, zoo
+    from synapseml_tpu_torch.onnx import model as model_mod
+    from synapseml_tpu_torch.runtime import proberoute
+
+    blob = zoo.tiny_resnet()
+    x = np.random.default_rng(0).standard_normal(
+        (16, 3, 32, 32)).astype(np.float32)
+    auto = ONNXModel(model_bytes=blob, compute_dtype="auto",
+                     mini_batch_size=16)
+    got = auto.transform(Table({"data": x}), "cuda")
+    cd = model_mod.routed_compute_dtype(auto.graph, blob, 16, "cuda")
+    assert cd in ("float32", "bfloat16")
+    same = ONNXModel(model_bytes=blob, compute_dtype=cd,
+                     mini_batch_size=16).transform(Table({"data": x}),
+                                                   "cuda")
+    assert np.array_equal(got[auto.graph.output_names[0]],
+                          same[auto.graph.output_names[0]])
+    auto.set(input_norm={"data": {"mean": 127.5, "scale": 1 / 64.0}})
+    assert auto.preferred_wire("data", device="cuda") in ("uint8", "float")
+    a = torch.randn(4096, 4096, device=card)
+    t = proberoute.best_of(lambda: a @ a, (), reps=2)
+    assert 0 < t < 1.0
+
+
+@pytest.mark.parametrize("choice", ["per_arg", "coalesced"])
+def test_autotune_h2d_lane_stages_bitwise_on_the_card(card, quant_cache,
+                                                      monkeypatch, choice):
+    """Three host columns (two float32, one int32) through a card
+    executor under each H2D verdict: bitwise the CPU executor, pinned
+    staging buffers back in the pool; the lane's own probe verifies
+    ``coalesced`` bitwise."""
+    from synapseml_tpu_torch.runtime import executor as ex_mod
+
+    monkeypatch.setattr(ex_mod.BatchedExecutor, "_h2d_choice_for",
+                        lambda self, hkey: choice)
+    rng = np.random.default_rng(1)
+    a = rng.standard_normal((100, 64)).astype(np.float32)
+    b = rng.standard_normal((100, 64)).astype(np.float32)
+    c = rng.integers(0, 5, (100, 64)).astype(np.int32)
+
+    def fn(x, y, z):
+        return (x * y + z, x - y)
+
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        ex = ex_mod.BatchedExecutor(fn, device=dev, max_bucket=32)
+        outs[dev] = ex(a, b, c)
+        ex.close()
+    for g, w in zip(outs["cuda"], outs["cpu"]):
+        assert np.array_equal(g, w)
+    ln = ex_mod._h2d_lane()
+    ln.reset()
+    sig = (((32, 64), "float32"), ((32, 64), "float32"),
+           ((32, 64), "int32"))
+    assert ln.route(sig, card) in ("per_arg", "coalesced")
+    assert ln.probes == 1
+    ln.reset()

@@ -102,7 +102,8 @@ SEQUENCE_AND_STRING = [
 SIGNAL = [
     "DFT", "STFT", "HannWindow", "HammingWindow", "BlackmanWindow",
     "MelWeightMatrix"]
-# what is left: the QLinear and int8 family, which waits for the int8 lane
+# the QLinear and int8 family (the quantized-model compute, over the int8
+# lane of onnx/quant_route.py)
 QLINEAR = [
     "QLinearConv", "QLinearMatMul", "QGemm", "QLinearAdd", "QLinearMul",
     "QLinearConcat", "QLinearSigmoid", "QLinearLeakyRelu",
@@ -111,15 +112,15 @@ QLINEAR = [
 PORTED = sorted(RESNET_AND_FIXTURES + TRANSFORMER_AND_RECURRENT
                 + CONTROL_FLOW_AND_ACTIVATIONS + ONNX_ML
                 + INDEXING_AND_LOSSES + DENSE_IMAGE + DETECTION + RANDOM
-                + SEQUENCE_AND_STRING + SIGNAL)
+                + SEQUENCE_AND_STRING + SIGNAL + QLINEAR)
 
 
 def test_registry_is_the_ported_op_set():
     assert supported_ops() == PORTED
-    assert len(PORTED) == 222 and len(ONNX_ML) == 19
+    assert len(PORTED) == 234 and len(ONNX_ML) == 19
     assert len(SEQUENCE_AND_STRING) == 17 and len(SIGNAL) == 6
-    assert set(PORTED) <= set(jax_supported_ops())
-    assert set(jax_supported_ops()) - set(PORTED) == set(QLINEAR)
+    assert len(QLINEAR) == 12
+    assert supported_ops() == jax_supported_ops()
 
 
 @pytest.mark.parametrize("name", ["torch_cnn", "torch_transformer"])
@@ -179,13 +180,20 @@ def test_causal_transformer_needs_an_op_not_ported_yet():
 
 def test_unsupported_op_raises_at_import():
     """An op outside the port's registry is refused when the graph is
-    imported, with the reference's message; nothing falls back."""
-    blob = one_node("DynamicQuantizeLinear",
+    imported, with the reference's message; nothing falls back. Every op
+    of the reference is in the registry now, so the refused op is one
+    neither package has."""
+    blob = one_node("NoSuchQuantizeLinear",
                     {"x": np.zeros((1, 8), np.float32)}, n_out=3, opset=17)
-    with pytest.raises(NotImplementedError, match="'DynamicQuantizeLinear'"
-                       ".*not supported by the importer"):
+    with pytest.raises(NotImplementedError) as want:
+        jax_import_model(blob)
+    with pytest.raises(NotImplementedError, match="'NoSuchQuantizeLinear'"
+                       ".*not supported by the importer") as got:
         import_model(blob)
-    jax_import_model(blob)                           # the reference has it
+    assert str(got.value) == str(want.value)
+    import_model(one_node("DynamicQuantizeLinear",   # the 12th QLinear op
+                          {"x": np.zeros((1, 8), np.float32)}, n_out=3,
+                          opset=17))
     g = GraphBuilder(opset=17)
     g.add_input("x", np.float32, [2])
     y = g.add_node("Relu", ["x"])

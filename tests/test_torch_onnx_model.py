@@ -11,8 +11,9 @@ output. Also: feed/fetch dicts, the softmax and argmax columns, a ragged
 ``model_path`` with external data, save/load (the port's own and a
 directory the JAX package wrote), ``transform_stream``, the reference's
 ``input_norm`` errors, ``devices=`` over repeated CPU slots (and its bad
-specs refused), and the Params that are not ported raising
-``NotImplementedError``.
+specs refused), the Params that are not ported raising
+``NotImplementedError``, and ``compute_dtype="auto"`` (ported) scoring as
+the dtype its measured lane resolves to.
 """
 import os
 import time
@@ -254,12 +255,31 @@ def test_input_norm_on_an_integer_input_is_the_references_type_error(
     ({"tensor_parallel": 2}, "item 4"),
     ({"partition_rules": "megatron"}, "item 4"),
 ])
-def test_unported_params_raise_naming_their_roadmap_item(resnet, params,
-                                                         item):
+def test_unported_params_raise_naming_their_roadmap_item(
+        resnet, params, item, tmp_path, monkeypatch):
+    """Item 4's Params raise, naming the item. Item 1d's case is ported:
+    ``compute_dtype="auto"`` runs, scoring bitwise as the dtype the
+    ``onnx_compute_dtype`` lane resolves it to, and the JAX model's
+    columns within that dtype's tolerance."""
     blob, x = resnet
     m = ONNXModel(model_bytes=blob, **params)
-    with pytest.raises(NotImplementedError, match=item):
-        m.transform(Table({"data": x[:2]}), "cpu")
+    if item != "1d":
+        with pytest.raises(NotImplementedError, match=item):
+            m.transform(Table({"data": x[:2]}), "cpu")
+        return
+    from synapseml_tpu_torch.onnx.model import routed_compute_dtype
+
+    monkeypatch.setenv("SYNAPSEML_TPU_CACHE_DIR", str(tmp_path))
+    got = m.transform(Table({"data": x[:2]}), "cpu")
+    cd = routed_compute_dtype(m.graph, blob, m.mini_batch_size, "cpu")
+    assert cd in ("float32", "bfloat16")
+    same = ONNXModel(model_bytes=blob, compute_dtype=cd).transform(
+        Table({"data": x[:2]}), "cpu")
+    want = JaxONNXModel(model_bytes=blob).transform(JaxTable({"data": x[:2]}))
+    for col in got.columns:
+        assert np.array_equal(got[col], same[col]), col
+        if col != "data":
+            _close(got[col], want[col], bf16=cd == "bfloat16")
 
 
 @pytest.mark.parametrize("slots", [2, 3])

@@ -5,6 +5,7 @@
     python3 tools/chip_phase.py onnx_sequence_string_ops   # phase 37
     python3 tools/chip_phase.py signal_speech      # phase 38
     python3 tools/chip_phase.py dp_layouts         # phase 40
+    python3 tools/chip_phase.py quantized          # phase 41
 
 A phase is named by its function or by the ``phase`` its JSON lines carry
 (:data:`PHASES`).
@@ -27,7 +28,8 @@ PHASES = {"onnx_index_ops": "mlm_phase", "onnx_vision_ops": "vae_phase",
           "onnx_detection_ops": "detection_phase",
           "onnx_random_ops": "random_phase",
           "onnx_sequence_string_ops": "sequence_string_phase",
-          "signal_speech": "speech_phase", "dp_layouts": "dp_layouts_phase"}
+          "signal_speech": "speech_phase", "dp_layouts": "dp_layouts_phase",
+          "quantized": "quantized_phase"}
 
 
 def main(name: str) -> int:
