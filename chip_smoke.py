@@ -451,6 +451,24 @@ before the last line:
    ``tests/fixtures/quant_op_cases.py`` on the card, bitwise the CPU. K1
    and K2 launch 0 times.
 
+42. sequence_parallel — sequence parallelism over ranks
+   (``sequence_parallel_phase``): four gloo ranks sharing the card in one
+   launch. (a) Ring (causal and not) and Ulysses attention over
+   ``{"sp": 4}`` and the serving ring over ``{"dp": 2, "tp": 2}``, at B =
+   2, S = 8,192, H = 4, D = 16 in float32 and bf16: gathered outputs and
+   gradients of ``(out ** 2).sum()`` against dense attention on the card
+   (float32 rtol = atol = 2e-4, bf16 5% of the largest |value|); each
+   rank's peak allocation beside dense's, forward and backward ms, the
+   rotations' and all-to-alls' calls, bytes and seconds. (b) The tagger at
+   ``TaggerConfig()`` width, float32 and bf16, ring and Ulysses, over
+   ``{"sp": 4}`` and ``{"dp": 2, "sp": 2}``: three AdamW steps of phase
+   31's 32 x 512 batch against the port's one-rank run on the card
+   (float32 losses rtol 1e-5, leaf sums within 0.01·lr a parameter; bf16
+   5%), parameters bitwise equal on every rank; step ms, global tokens/s,
+   the gradient exchange's seconds and bytes, peak allocation a rank.
+   (c) Float32 against the JAX fixture of the same meshes
+   (``tagger_sp_io.npz``). Not a scaling figure. K1 and K2 launch 0 times.
+
 Between phases 3 and 4: prng_card_vs_cpu (the threefry key stream on the
 card equal to the CPU's, bitwise) and masked_index (K1 on a
 feature_fraction index equal to K1 on a fresh index of the moved bins and
@@ -7551,6 +7569,335 @@ def quantized_phase(smi, reset_counts, read_counts) -> dict:
     return counts
 
 
+SP_FIXTURE = os.path.join(FIXTURES, "tagger_sp_io.npz")
+SP_RANKS = 4                  # gloo ranks sharing the card, one launch
+SP_TIMEOUT_S = 300            # that launch's hard wall
+SP_ATTN_SHAPE = (2, 8192, 4, 16)   # B, S, H, D: the tagger's heads
+SP_ATTN_LEGS = (("ring", {"sp": 4}, False), ("ring", {"sp": 4}, True),
+                ("ulysses", {"sp": 4}, False),
+                ("serving_ring", {"dp": 2, "tp": 2}, True))
+SP_ATTN_F32_TOL = 2e-4        # rtol = atol vs dense (tests/test_parallel.py)
+SP_BF16_GATE = 0.05           # bf16: of the largest |value| (losses: of the
+                              # first; leaves: of each leaf's |sum|)
+SP_MESHES = {"sp4": {"sp": 4}, "dp2_sp2": {"dp": 2, "sp": 2}}
+SP_LOSS_RTOL = 1e-5           # float32 losses vs the one-rank run
+SP_LEAF_LR = 1e-2             # float32 leaf sums, in lr a parameter
+SP_JAX_LOSS_RTOL = 1e-3       # float32 losses after an update vs the JAX
+                              # fixture: the port's one-rank CPU run is
+                              # 3.8e-4 from JAX's one-device run at step 3
+                              # of that batch (tests/fixtures/
+                              # witness_tagger_drift.py)
+
+
+@contextlib.contextmanager
+def ieee_float32():
+    """Float32 matmuls without TF32 (an earlier phase may turn it on)."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def leaf_gaps(got_sum, got_abs, want_sum, want_abs, sizes, lr) -> dict:
+    """Each leaf's sum and |sum| gap: in lr a parameter, and relative."""
+    return {"sum_in_lr_a_param": max(abs(got_sum[n] - want_sum[n])
+                                     / (sizes[n] * lr) for n in sizes),
+            "abs_sum_in_lr_a_param": max(abs(got_abs[n] - want_abs[n])
+                                         / (sizes[n] * lr) for n in sizes),
+            "abs_sum_rel": max(abs(got_abs[n] - want_abs[n]) / want_abs[n]
+                               for n in sizes)}
+
+
+def sequence_parallel_phase(smi, reset_counts, read_counts) -> dict:
+    """Phase 42: sequence parallelism over ranks (``parallel/mesh.py``,
+    ``parallel/ring_attention.py``, the tagger's dp × sp path), four gloo
+    ranks sharing the card in one launch (``tests/torch_dp_worker.py``
+    running ``tests/torch_sp_cases.py``; the ranks share one card, so no
+    figure here is a scaling figure).
+
+    a. Attention at the tagger's head geometry, B = 2, S = 8,192, H = 4,
+       D = 16, float32 and bf16: the ring (causal and not) and Ulysses
+       over ``{"sp": 4}``, the serving ring over ``{"dp": 2, "tp": 2}``
+       (causal). Each rank's output block and the gradients of
+       ``(out ** 2).sum()`` are gathered and held to the port's dense
+       attention on the card (float32 within rtol = atol = 2e-4, bf16
+       within 5% of the largest |value|); each rank's peak allocation
+       beside dense attention's, forward and backward ms, the rotations'
+       and all-to-alls' calls, bytes and seconds.
+    b. The tagger at ``TaggerConfig()`` width (427,840 parameters), float32
+       and bf16, ring and Ulysses, over ``{"sp": 4}`` and ``{"dp": 2,
+       "sp": 2}``: three AdamW steps of phase 31's 32 × 512 batch held to
+       the port's one-rank run on the card (float32 losses within rtol
+       1e-5 and each leaf's sum and |sum| within 0.01·lr a parameter;
+       bf16 losses within 5% of the first and each leaf's |sum| within
+       5%), every rank's parameters bitwise equal; step ms, global
+       tokens/s, the gradient exchange's seconds and bytes, each rank's
+       peak allocation.
+    c. Float32, both meshes and both paths, against the JAX fixture of
+       the same meshes (``tagger_sp_io.npz``, 4 × 512): the forward's
+       gathered logits within rtol = atol = 1e-3 and the aux shares'
+       sum within rtol 1e-4, the first loss within rtol 1e-5, the later
+       ones within 1e-3, each leaf's update sum within 0.01·lr a
+       parameter; ranks bitwise equal.
+    K1 and K2 launch 0 times, here and in every rank."""
+    import make_tagger_fixture as tfx
+    from synapseml_tpu_torch.dl import tagger
+    from synapseml_tpu_torch.parallel import ring_attention as ra
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_dp_worker import run_ranks
+    from torch_sp_cases import gather as gather_blocks
+
+    phase_start = time.perf_counter()
+    reset_counts()
+    fx = np.load(SP_FIXTURE)
+    lr, seed = float(fx["lr"]), int(fx["seed"])
+    rng = np.random.default_rng(42)
+    q, k, v = (rng.standard_normal(SP_ATTN_SHAPE).astype(np.float32)
+               for _ in range(3))
+    rng = np.random.default_rng(31)   # phase 31's global batch
+    big = rng.integers(0, 4096, (SEQ_BATCH, SEQ_LEN)).astype(np.int32)
+    big_labels = rng.integers(0, 16, (SEQ_BATCH, SEQ_LEN)).astype(np.int32)
+    big_mask = rng.random((SEQ_BATCH, SEQ_LEN)) < 0.9
+    small = (fx["tokens"], fx["labels"], fx["mask"])
+    dtypes = ("float32", "bfloat16")
+
+    def case(name, fn, args):
+        return {"name": name, "kind": "call",
+                "fn": f"torch_sp_cases:{fn}", "args": [args] * SP_RANKS}
+
+    cases = [case(f"attn_{kind}_{causal}_{d}", "attention",
+                  [kind, shape, causal, q, k, v, d, "cuda", True])
+             for kind, shape, causal in SP_ATTN_LEGS for d in dtypes]
+    for m, shape in SP_MESHES.items():
+        for att in ("ring", "ulysses"):
+            cases += [case(f"tagger_{m}_{att}_{d}", "tagger",
+                           [{}, shape, att, d, big, big_labels, big_mask, 3,
+                            lr, seed, "cuda", None, False, 3])
+                      for d in dtypes]
+            cases.append(case(f"fixture_{m}_{att}", "tagger",
+                              [{}, shape, att, "float32", *small, 3, lr,
+                               seed, "cuda", fx["tokens"], False, 0]))
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        try:
+            ranks = run_ranks(work, SP_RANKS, cases, timeout=SP_TIMEOUT_S,
+                              threads=2)
+        except RuntimeError as exc:
+            raise SystemExit(
+                f"chip_smoke: FAILED: sequence-parallel ranks: {exc}")
+    launch_s = time.perf_counter() - start
+    for c in cases:
+        for r, res in enumerate(ranks):
+            check("error" not in res[c["name"]],
+                  f"{c['name']} failed on rank {r}: "
+                  f"{res[c['name']].get('error')}")
+    rank_launches = [res[c["name"]]["launches"] for res in ranks
+                     for c in cases]
+
+    # -- a. attention against dense on the card ------------------------
+    attn, failed = [], []
+    for kind, shape, causal in SP_ATTN_LEGS:
+        seq = "tp" if kind == "serving_ring" else "sp"
+        for d in dtypes:
+            name = f"attn_{kind}_{causal}_{d}"
+            per_rank = [res[name] for res in ranks]
+            dt = getattr(torch, d)
+            blocks = [torch.tensor(a, device="cuda").to(dt).requires_grad_()
+                      for a in (q, k, v)]
+            with ieee_float32():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                resident = torch.cuda.memory_allocated()
+                want = ra.dense_attention(*blocks, causal=causal)
+                (want.float() ** 2).sum().backward()
+                torch.cuda.synchronize()
+                dense_peak = torch.cuda.max_memory_allocated()
+
+                def dense_fwd():
+                    with torch.no_grad():
+                        ra.dense_attention(*blocks, causal=causal)
+                    torch.cuda.synchronize()
+
+                def dense_fwd_bwd():
+                    for b in blocks:
+                        b.grad = None
+                    (ra.dense_attention(*blocks, causal=causal).float()
+                     ** 2).sum().backward()
+                    torch.cuda.synchronize()
+
+                fwd_s, _ = wall_median(dense_fwd)
+                both_s, _ = wall_median(dense_fwd_bwd)
+            wants = [want] + [b.grad for b in blocks]
+            gaps, ok = [], True
+            for i, w in enumerate(wants):
+                w = w.detach().float().cpu().numpy()
+                got = gather_blocks(per_rank, "out" if i == 0 else "grads",
+                                    ("dp", seq), SP_ATTN_SHAPE,
+                                    None if i == 0 else i - 1)
+                gap = float(np.abs(got - w).max())
+                top = float(np.abs(w).max())
+                gaps.append({"max_abs": gap, "of_largest": gap / top})
+                ok &= (np.allclose(got, w, rtol=SP_ATTN_F32_TOL,
+                                   atol=SP_ATTN_F32_TOL) if d == "float32"
+                       else gap <= SP_BF16_GATE * top)
+            del want, wants, blocks
+            torch.cuda.empty_cache()
+            timed = per_rank[0]["collectives_timed"]
+            leg = {"leg": name, "kind": kind, "mesh": shape,
+                   "causal": causal, "dtype": d,
+                   "gaps_out_dq_dk_dv": gaps, "within_tol": bool(ok),
+                   "rank_peak_bytes": [r["peak_bytes"] for r in per_rank],
+                   "rank_resident_bytes": [r["resident_bytes"]
+                                           for r in per_rank],
+                   "dense_peak_bytes": dense_peak,
+                   "dense_resident_bytes": resident,
+                   "forward_ms": max(r["forward_ms"] for r in per_rank),
+                   "backward_ms": max(r["backward_ms"] for r in per_rank),
+                   "dense_forward_ms": fwd_s * 1e3,
+                   "dense_backward_ms": (both_s - fwd_s) * 1e3,
+                   "collectives_fwd_bwd": timed,
+                   "staged_bytes": per_rank[0]["staged_bytes"]}
+            attn.append(leg)
+            if not ok:
+                failed.append(name)
+            if kind == "ulysses":
+                ok_calls = timed.get("all_to_all", {}).get("calls") == 4
+            else:
+                ok_calls = timed.get("rotate", {}).get("calls") == 2 * (
+                    shape.get(seq, 1) - 1)
+            if not ok_calls:
+                failed.append(f"{name} exchanges {timed}")
+    emit({"phase": "sequence_parallel", "part": "attention",
+          "shape": list(SP_ATTN_SHAPE), "ranks": SP_RANKS,
+          "legs": attn, "launch_s": launch_s, "nvidia_smi": smi})
+    check(not failed, f"sequence-parallel attention outside its gate: "
+          f"{failed}")
+
+    # -- b. the tagger over dp x sp ranks against one rank ---------------
+    p0 = tagger.init_params(tagger.TaggerConfig(), seed)
+    names = [str(n) for n in fx["leaf_names"]]
+    sizes = {n: int(tfx.leaf(p0, n).size) for n in names}
+    one, train, failed = {}, [], []
+    for att in ("ring", "ulysses"):
+        for d in dtypes:
+            cfg = tagger.TaggerConfig(dtype=getattr(torch, d), attention=att)
+            step, init_state, place = tagger.make_train_step(cfg, None, lr)
+            params, opt = init_state(seed)
+            batch = [place(a) for a in (big, big_labels, big_mask)]
+            with ieee_float32():
+                losses = [float(step(params, opt, *batch)[2])
+                          for _ in range(3)]
+                named = dict(params.named_parameters())
+                one[(att, d)] = {
+                    "losses": losses,
+                    "sum": {n: float(named[n].detach().double().sum())
+                            for n in names},
+                    "abs": {n: float(named[n].detach().double().abs().sum())
+                            for n in names}}
+
+                def one_step():
+                    step(params, opt, *batch)
+                    torch.cuda.synchronize()
+
+                one[(att, d)]["step_ms"] = wall_median(one_step)[0] * 1e3
+    for m, shape in SP_MESHES.items():
+        for att in ("ring", "ulysses"):
+            for d in dtypes:
+                name = f"tagger_{m}_{att}_{d}"
+                per_rank = [res[name] for res in ranks]
+                r0, base = per_rank[0], one[(att, d)]
+                loss_gap = max(abs(a - b) for a, b in zip(r0["losses"],
+                                                          base["losses"]))
+                gaps = leaf_gaps(r0["leaf_sum"], r0["leaf_abs_sum"],
+                                 base["sum"], base["abs"], sizes, lr)
+                bitwise = len({r["digest"] for r in per_rank}) == 1
+                if d == "float32":
+                    ok = (np.allclose(r0["losses"], base["losses"],
+                                      rtol=SP_LOSS_RTOL, atol=0)
+                          and gaps["sum_in_lr_a_param"] <= SP_LEAF_LR
+                          and gaps["abs_sum_in_lr_a_param"] <= SP_LEAF_LR)
+                else:
+                    ok = (loss_gap <= SP_BF16_GATE * abs(base["losses"][0])
+                          and gaps["abs_sum_rel"] <= SP_BF16_GATE)
+                ok = bool(ok and bitwise)
+                timed = r0["collectives_timed"]
+                step_ms = max(r["step_ms"] for r in per_rank)
+                train.append({
+                    "run": name, "mesh": shape, "attention": att,
+                    "dtype": d, "losses": r0["losses"],
+                    "one_rank_losses": base["losses"], "loss_gap": loss_gap,
+                    "leaf_gaps": gaps, "ranks_bitwise_equal": bitwise,
+                    "within_tol": ok, "step_ms": step_ms,
+                    "one_rank_step_ms": base["step_ms"],
+                    "global_tokens_per_s": SEQ_BATCH * SEQ_LEN
+                    / (step_ms / 1e3),
+                    "collectives_a_step": timed,
+                    "staged_bytes_a_step": r0["staged_bytes"],
+                    "rank_step_peak_bytes": [r["step_peak_bytes"]
+                                             for r in per_rank]})
+                if not ok:
+                    failed.append(name)
+    emit({"phase": "sequence_parallel", "part": "tagger",
+          "batch": [SEQ_BATCH, SEQ_LEN], "lr": lr, "runs": train,
+          "note": "ranks share one card: not a scaling figure",
+          "nvidia_smi": smi})
+    check(not failed, f"sequence-parallel tagger outside its gate: {failed}")
+
+    # -- c. float32 against the JAX fixture of the same meshes -----------
+    vs_jax, failed = [], []
+    for m, shape in SP_MESHES.items():
+        for att in ("ring", "ulysses"):
+            key = f"{m}_{att}"
+            per_rank = [res[f"fixture_{key}"] for res in ranks]
+            r0 = per_rank[0]
+            want = fx[f"logits_{key}"]
+            got = gather_blocks(per_rank, "logits", ("dp", "sp"), want.shape)
+            aux = 0.0
+            for r in per_rank:
+                aux += r["aux"]
+            jl = [float(x) for x in fx[f"losses_{key}"]]
+            upd = max(abs(r0["leaf_sum"][n] - float(
+                tfx.leaf(p0, n).astype(np.float64).sum())
+                - float(fx[f"update_sum_{key}"][i])) / (sizes[n] * lr)
+                for i, n in enumerate(names))
+            bitwise = len({r["digest"] for r in per_rank}) == 1
+            ok = (np.allclose(got, want, rtol=SEQ_F32_JAX_TOL,
+                              atol=SEQ_F32_JAX_TOL)
+                  and abs(aux - float(fx[f"aux_{key}"]))
+                  <= 1e-4 * abs(float(fx[f"aux_{key}"]))
+                  and abs(r0["losses"][0] - jl[0]) <= SP_LOSS_RTOL * abs(jl[0])
+                  and np.allclose(r0["losses"], jl, rtol=SP_JAX_LOSS_RTOL,
+                                  atol=0)
+                  and upd <= SP_LEAF_LR and bitwise)
+            vs_jax.append({"run": key, "mesh": shape, "attention": att,
+                           "logit_max_abs_gap": float(np.abs(got - want)
+                                                      .max()),
+                           "aux": aux, "jax_aux": float(fx[f"aux_{key}"]),
+                           "losses": r0["losses"], "jax_losses": jl,
+                           "update_sum_gap_in_lr_a_param": upd,
+                           "ranks_bitwise_equal": bitwise,
+                           "within_tol": bool(ok)})
+            if not ok:
+                failed.append(key)
+    counts = read_counts()
+    emit({"phase": "sequence_parallel", "part": "tagger_vs_jax",
+          "batch": list(small[0].shape),
+          "fixture_jax_version": str(fx["jax_version"]), "runs": vs_jax,
+          "launches": counts, "rank_launches_max": {
+              k: max(r[k] for r in rank_launches)
+              for k in ("histogram", "forest_traverse")},
+          "seconds": time.perf_counter() - phase_start, "nvidia_smi": smi})
+    check(not failed, f"sequence-parallel tagger vs the JAX fixture: "
+          f"{failed}")
+    check(counts["forest_traverse"] == 0 and counts["histogram"] == 0
+          and all(r["histogram"] == 0 and r["forest_traverse"] == 0
+                  for r in rank_launches),
+          f"the sequence-parallel path launched K1/K2: {counts}")
+    return counts
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -8561,6 +8908,9 @@ def main() -> int:
     # -- 41. the int8 QOperator ops and the measured lanes ----------------
     quant_counts = quantized_phase(smi, reset_counts, read_counts)
 
+    # -- 42. sequence parallelism: ranks sharing the card ----------------
+    sp_counts = sequence_parallel_phase(smi, reset_counts, read_counts)
+
     emit({"kernels": [{
         "name": "forest_traverse", "route": "cuda",
         "source": "synapseml_tpu_torch/csrc/forest_traverse.cu",
@@ -8595,6 +8945,7 @@ def main() -> int:
         "launches_distributed_serving_path": dist_counts["forest_traverse"],
         "launches_dp_layouts_path": dp_layout_counts["forest_traverse"],
         "launches_quantized_path": quant_counts["forest_traverse"],
+        "launches_sequence_parallel_path": sp_counts["forest_traverse"],
         "max_abs_err": max_err, "bitwise": True,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
@@ -8631,6 +8982,7 @@ def main() -> int:
         "launches_distributed_serving_path": dist_counts["histogram"],
         "launches_dp_layouts_path": dp_layout_counts["histogram"],
         "launches_quantized_path": quant_counts["histogram"],
+        "launches_sequence_parallel_path": sp_counts["histogram"],
         "max_abs_err": k1_max_err,
         "bitwise": True, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],

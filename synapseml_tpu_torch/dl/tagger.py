@@ -1,10 +1,11 @@
-"""Sequence tagger on one card: the port of the pod-scale sequence model.
+"""Sequence tagger: the port of the pod-scale sequence model.
 
 Counterpart of ``synapseml_tpu/dl/tagger.py`` (BASELINE.json config #5,
 "BiLSTM Medical Entity Extraction"). The reference replaces CNTK's BiLSTM
 with a transformer encoder tagger built to shard over a five-axis mesh:
 dp (batch), sp (sequence, ring attention), tp (heads, ffn), ep (MoE
-experts), pp (stacked pipeline stages). This module runs it on one rank:
+experts), pp (stacked pipeline stages). This module runs it on one rank
+or over a mesh of dp × sp ranks:
 
 - :class:`TaggerConfig` and ``for_mesh`` as in the reference, with a
   ``torch.dtype`` for the activations (bf16 by default);
@@ -21,11 +22,23 @@ experts), pp (stacked pipeline stages). This module runs it on one rank:
   optax's defaults, updating the parameters and the optimizer state in
   place (the reference donates them).
 
+Over a mesh with dp or sp above 1 every rank holds the whole model and
+its ``(dp, sp)`` block of the batch, as the reference's ``P("dp", "sp")``
+places it: ``batch_placement`` cuts the block, ``apply`` and ``step``
+take and return blocks, rope reads the block's global positions, and
+attention is the mesh's ring or Ulysses path. Each rank's loss is its
+share of the reference's: ``Σ_local nll·mask / Σ_global mask`` plus the
+aux weight times its MoE shares (``moe_ffn(token_group=)``), so the
+shares sum to the reference's loss. The gradients of the shares are
+flattened into one buffer, exchanged once a step and summed in rank
+order (``collectives.all_reduce_sum``), so every rank applies the same
+AdamW update to the same bits: the parameters stay bitwise equal on
+every rank. The reported loss is the shares' rank-ordered sum.
+
 Token ids outside ``[0, vocab)`` raise ``ValueError`` before the gather:
 JAX clamps such an index, and on the card it would be a device-side
-assert that ends the process. A mesh of more than one rank raises and
-names ROADMAP item 4b (sequence parallelism) or 4c (tensor, pipeline,
-expert parallelism).
+assert that ends the process. tp, pp or ep above 1 raises naming ROADMAP
+item 4c; a mesh wider than the process's world raises ``RuntimeError``.
 """
 from __future__ import annotations
 
@@ -39,8 +52,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from synapseml_tpu_torch import device as device_policy
+from synapseml_tpu_torch.parallel import collectives
 from synapseml_tpu_torch.parallel.mesh import (
-    Mesh, require_one_rank, single_device_mesh)
+    Mesh, require_axes, single_device_mesh)
 from synapseml_tpu_torch.parallel.moe import moe_ffn
 from synapseml_tpu_torch.parallel.ring_attention import (
     dense_attention, make_ring_attention, make_ulysses_attention)
@@ -204,10 +218,14 @@ def _rope(x, positions):
     return out.reshape(x.shape).to(x.dtype)
 
 
-def _require_world_of_one(mesh: Mesh) -> None:
-    if mesh.shape["sp"] > 1:
-        require_one_rank(mesh, "4b", "the tagger with sequence parallelism")
-    require_one_rank(mesh, "4c", "the tagger")
+def _require_dp_sp(mesh: Mesh) -> None:
+    """The tagger runs dp and sp over ranks; tp, pp and ep are item 4c."""
+    require_axes(mesh, ("dp", "sp"), "4c", "the tagger")
+    mesh.require_world("the tagger")
+
+
+def _sharded(mesh: Optional[Mesh]) -> bool:
+    return mesh is not None and mesh.size > 1
 
 
 def _resolve(device) -> torch.device:
@@ -254,11 +272,15 @@ def make_apply(cfg: TaggerConfig, mesh: Optional[Mesh] = None,
     integers (numpy or a tensor), logits ``[B, S, num_tags]`` float32 and
     the MoE auxiliary loss summed over layers. With a mesh, attention is
     the path ``cfg.attention`` names (ring by default), as in the
-    reference; without one, dense. Raises without CUDA unless
-    ``device="cpu"`` is asked for."""
+    reference; without one, dense. Over dp × sp ranks ``tokens`` is this
+    rank's block, the logits are its block and aux is its share of the
+    batch's (the shares sum over the ranks to the reference's aux).
+    Raises without CUDA unless ``device="cpu"`` is asked for."""
     dev = _resolve(device)
     if mesh is not None:
-        _require_world_of_one(mesh)
+        _require_dp_sp(mesh)
+    token_group = mesh.group("dp", "sp") if _sharded(mesh) else None
+    sp_index = mesh.index("sp") if mesh is not None else 0
     if mesh is not None and cfg.attention == "ring":
         attn_fn = make_ring_attention(mesh)
     elif mesh is not None and cfg.attention == "ulysses":
@@ -267,8 +289,7 @@ def make_apply(cfg: TaggerConfig, mesh: Optional[Mesh] = None,
         attn_fn = partial(dense_attention, causal=False)
 
     # The reference constrains q, k, v and each residual to (dp, sp, tp)
-    # shardings here; one rank has nothing to place. Items 4b and 4c put
-    # those constraints back.
+    # shardings here; each rank's tensors are its (dp, sp) block already.
     def block(x, w, positions):
         # attention
         y = _layer_norm(x, w["ln1"])
@@ -283,7 +304,7 @@ def make_apply(cfg: TaggerConfig, mesh: Optional[Mesh] = None,
         y = _layer_norm(x, w["ln2"])
         m, aux = moe_ffn(y, w["gate"].to(y.dtype), w["w1"].to(y.dtype),
                          w["w2"].to(y.dtype), top_k=cfg.top_k,
-                         expert_spec=None)
+                         expert_spec=None, token_group=token_group)
         return x + m, aux
 
     def apply(params: Tagger, tokens):
@@ -291,7 +312,8 @@ def make_apply(cfg: TaggerConfig, mesh: Optional[Mesh] = None,
             raise ValueError(f"the parameters lie on {params.embed.device}; "
                              f"this forward runs on {dev}")
         tokens = _ids_on(tokens, cfg.vocab_size, "token ids", dev)
-        positions = torch.arange(tokens.shape[1], device=dev)
+        s_loc = tokens.shape[1]
+        positions = sp_index * s_loc + torch.arange(s_loc, device=dev)
         x = F.embedding(tokens, params.embed.to(cfg.dtype))
         aux_total = torch.zeros((), dtype=torch.float32, device=dev)
         stages = params.stages
@@ -310,9 +332,16 @@ def make_apply(cfg: TaggerConfig, mesh: Optional[Mesh] = None,
 
 def tagging_loss(logits, labels, mask, aux, aux_weight=0.01):
     """Token-level cross entropy. labels: [B,S] int, mask: [B,S] bool."""
+    return _masked_loss(logits, labels, mask, mask.sum(), aux, aux_weight)
+
+
+def _masked_loss(logits, labels, mask, count, aux, aux_weight=0.01):
+    """``Σ nll·mask / max(count, 1) + aux_weight·aux``: the batch's loss
+    where ``count`` is ``mask``'s own, a rank's share of it where
+    ``count`` is the whole batch's and ``aux`` the rank's aux share."""
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
-    denom = torch.clamp(mask.sum(), min=1)
+    denom = torch.clamp(count, min=1)
     return (nll * mask).sum() / denom + aux_weight * aux
 
 
@@ -332,22 +361,40 @@ def make_train_step(cfg: TaggerConfig, mesh: Optional[Mesh] = None,
     step's gradient until the next step. ``init_state(seed=0)`` gives the
     :class:`Tagger` and its ``torch.optim.AdamW`` with optax's defaults
     (betas 0.9 and 0.999, eps 1e-8, weight decay 1e-4 on every parameter,
-    in one group). ``batch_placement(array)`` puts a batch array on the
-    device."""
+    in one group). ``batch_placement(array)`` puts this rank's ``(dp,
+    sp)`` block of a global ``[B, S]`` array on the device (the whole
+    array on one rank), raising ``ValueError`` where B does not divide by
+    dp or S by sp.
+
+    Over dp × sp ranks the batch arrays are blocks, every rank calls
+    ``step`` together, and the step makes three kinds of exchange over the
+    mesh: the mask's count, each MoE layer's routing counts, and one
+    buffer of every gradient and the loss share (``.grad`` then holds the
+    whole batch's gradient, the same bits on every rank)."""
     dev = _resolve(device)
     mesh = single_device_mesh() if mesh is None else mesh
     apply = make_apply(cfg, mesh, dev)
+    sharded = _sharded(mesh)
+    group = mesh.group("dp", "sp") if sharded else None
 
     def step(params: Tagger, opt_state: torch.optim.Optimizer, tokens,
              labels, mask):
         opt_state.zero_grad(set_to_none=True)
         logits, aux = apply(params, tokens)
-        loss = tagging_loss(logits,
-                            _ids_on(labels, cfg.num_tags, "labels", dev),
-                            _place(mask, dev), aux)
-        loss.backward()
+        labels = _ids_on(labels, cfg.num_tags, "labels", dev)
+        mask = _place(mask, dev)
+        if not sharded:
+            loss = tagging_loss(logits, labels, mask, aux)
+            loss.backward()
+            opt_state.step()
+            return params, opt_state, loss.detach()
+        # this rank's share of the loss: the mask counted over the batch
+        count = collectives.all_reduce_sum(mask.sum()[None], group)[0]
+        share = _masked_loss(logits, labels, mask, count, aux)
+        share.backward()
+        loss = _sum_gradients(params, share.detach(), group)
         opt_state.step()
-        return params, opt_state, loss.detach()
+        return params, opt_state, loss
 
     def init_state(seed: int = 0):
         params = params_from_numpy(init_params(cfg, seed), dev)
@@ -356,4 +403,26 @@ def make_train_step(cfg: TaggerConfig, mesh: Optional[Mesh] = None,
             eps=1e-8, weight_decay=1e-4)
         return params, opt_state
 
-    return step, init_state, partial(_place, device=dev)
+    def batch_placement(arr):
+        if sharded:
+            arr = mesh.block(arr, ("dp", "sp"))
+        return _place(arr, dev)
+
+    return step, init_state, batch_placement
+
+
+def _sum_gradients(params: Tagger, share: torch.Tensor, group
+                   ) -> torch.Tensor:
+    """Replace every ``.grad`` by its sum over ``group`` in rank order,
+    with one exchange of a flat float32 buffer that also carries the loss
+    share; returns the shares' rank-ordered sum (the batch's loss)."""
+    leaves = list(params.parameters())
+    flat = torch.cat([p.grad.reshape(-1) for p in leaves]
+                     + [share.reshape(1)])
+    total = collectives.all_reduce_sum(flat, group)
+    at = 0
+    for p in leaves:
+        n = p.numel()
+        p.grad.copy_(total[at:at + n].view_as(p.grad))
+        at += n
+    return total[at]

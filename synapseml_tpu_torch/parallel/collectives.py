@@ -33,10 +33,26 @@ given. :data:`ALONE` stands for this process alone where no
 reference's one-process mesh over its own devices is, whose exchange is
 the tensor itself and makes no backend call.
 ``stats`` counts the calls, their buffer bytes and, with ``stats.timed``
-set, the seconds spent in them with the device synchronised around each.
+set, the seconds spent in them with the device synchronised around each;
+``stats.kinds`` splits them by kind (``exchange``, ``rotate``,
+``all_to_all``).
+
+Sequence parallelism moves blocks rather than sums: :func:`rotate` sends
+a tensor to one rank while receiving one from another (the ring's
+``lax.ppermute``), :func:`all_to_all` trades equal slices with every rank
+(Ulysses' tiled ``lax.all_to_all``). Both move a tensor's bytes (any
+dtype). gloo's point-to-point calls read and write host memory only: on
+the card a CUDA tensor fails with ``writev ... Bad address``
+(``tools/gloo_cuda_probe.py``), so :func:`rotate` stages a CUDA tensor
+through pinned host buffers for a gloo group, always (one copy out, the
+transfer, one copy in; counted in ``stats.staged_bytes``). gloo's
+``all_to_all_single`` takes CUDA tensors (it stages them itself), and an
+NCCL group moves device memory directly. The group's backend decides
+which; nothing is tried and swapped.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Optional
@@ -52,9 +68,23 @@ class CollectiveStats:
     bytes: int = 0
     seconds: float = 0.0
     timed: bool = False
+    staged_bytes: int = 0
+    kinds: dict = dataclasses.field(default_factory=dict)
 
     def reset(self) -> None:
         self.calls, self.bytes, self.seconds = 0, 0, 0.0
+        self.staged_bytes = 0
+        self.kinds = {}
+
+    def record(self, kind: str, n_bytes: int, seconds: float) -> None:
+        self.calls += 1
+        self.bytes += n_bytes
+        self.seconds += seconds
+        k = self.kinds.setdefault(kind, {"calls": 0, "bytes": 0,
+                                         "seconds": 0.0})
+        k["calls"] += 1
+        k["bytes"] += n_bytes
+        k["seconds"] += seconds
 
 
 stats = CollectiveStats()
@@ -111,6 +141,21 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@contextlib.contextmanager
+def _timed(kind: str, n_bytes: int, device: torch.device):
+    """Record one call of ``kind`` moving ``n_bytes``; with
+    ``stats.timed``, its seconds with ``device`` synchronised around it."""
+    if stats.timed:
+        _sync(device)
+        start = time.perf_counter()
+    yield
+    seconds = 0.0
+    if stats.timed:
+        _sync(device)
+        seconds = time.perf_counter() - start
+    stats.record(kind, n_bytes, seconds)
+
+
 def exchange(x: torch.Tensor, group) -> torch.Tensor:
     """[W, *x.shape]: every rank's ``x`` (same shape and dtype on every
     rank), in rank order, bit for bit."""
@@ -123,15 +168,9 @@ def exchange(x: torch.Tensor, group) -> torch.Tensor:
     buf = torch.zeros((w, -(-max(n_bytes, 1) // 4) * 4), dtype=torch.uint8,
                       device=x.device)
     buf[r, :n_bytes] = flat
-    if stats.timed:
-        _sync(x.device)
-        start = time.perf_counter()
-    dist.all_reduce(buf.view(torch.int32), op=dist.ReduceOp.SUM, group=group)
-    if stats.timed:
-        _sync(x.device)
-        stats.seconds += time.perf_counter() - start
-    stats.calls += 1
-    stats.bytes += buf.numel()
+    with _timed("exchange", buf.numel(), x.device):
+        dist.all_reduce(buf.view(torch.int32), op=dist.ReduceOp.SUM,
+                        group=group)
     return buf[:, :n_bytes].contiguous().view(x.dtype).reshape(
         (w,) + tuple(x.shape))
 
@@ -175,3 +214,73 @@ def gather_rows(a: np.ndarray, group,
     padded[:a.shape[0]] = a
     slots = exchange(torch.from_numpy(padded).to(device), group).cpu().numpy()
     return np.concatenate([slots[i, :counts[i]] for i in range(len(counts))])
+
+
+def _staged(x: torch.Tensor, group) -> bool:
+    """Whether ``x`` rides a point-to-point transfer through host memory:
+    a CUDA tensor in a gloo group."""
+    return x.is_cuda and dist.get_backend(group) == dist.Backend.GLOO
+
+
+def _wire(x: torch.Tensor, staged: bool) -> torch.Tensor:
+    """``x``'s bytes, ``[x.shape[0], -1]`` uint8, on the wire's side: a
+    pinned host copy where ``staged``."""
+    flat = x.contiguous().view(torch.uint8).reshape(x.shape[0], -1)
+    if not staged:
+        return flat
+    host = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
+    host.copy_(flat)
+    stats.staged_bytes += flat.numel()
+    return host
+
+
+def _unwire(buf: torch.Tensor, like: torch.Tensor, staged: bool
+            ) -> torch.Tensor:
+    """The received bytes ``buf`` as a tensor shaped and typed as ``like``
+    (on its device)."""
+    if staged:
+        stats.staged_bytes += buf.numel()
+        buf = buf.to(like.device)
+    return buf.view(like.dtype).reshape(like.shape)
+
+
+def rotate(x: torch.Tensor, group, send_to: int, recv_from: int
+           ) -> torch.Tensor:
+    """Send ``x`` to global rank ``send_to`` and return the tensor of the
+    same shape and dtype that global rank ``recv_from`` sends (the
+    reference's ``lax.ppermute`` of one ring step): one
+    ``batch_isend_irecv`` of an isend and an irecv. In
+    :data:`ALONE` the ring is this rank: ``x`` comes back."""
+    if group is ALONE:
+        return x
+    staged = _staged(x, group)
+    send = _wire(x, staged)
+    recv = torch.empty_like(send)
+    with _timed("rotate", send.numel(), x.device):
+        ops = [dist.P2POp(dist.isend, send, send_to, group),
+               dist.P2POp(dist.irecv, recv, recv_from, group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return _unwire(recv, x, staged)
+
+
+def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int
+               ) -> torch.Tensor:
+    """The tiled all-to-all (``lax.all_to_all(..., tiled=True)``): ``x``
+    cut into W equal slices along ``split_dim``, slice j sent to the
+    group's rank j, and the slices received concatenated along
+    ``concat_dim`` in the group's rank order; one
+    ``all_to_all_single``."""
+    w = axis_size(group)
+    if x.shape[split_dim] % w:
+        raise ValueError(f"all_to_all: dimension {split_dim} of "
+                         f"{tuple(x.shape)} does not split over {w} ranks")
+    if w == 1:
+        return x
+    slices = torch.stack(x.chunk(w, dim=split_dim))
+    send = _wire(slices, False)
+    recv = torch.empty_like(send)
+    with _timed("all_to_all", send.numel(), x.device):
+        dist.all_to_all_single(recv, send, group=group)
+    got = _unwire(recv, slices, False)
+    return torch.cat(got.unbind(0), dim=concat_dim)

@@ -268,7 +268,10 @@ def process_index() -> int:
 def global_mesh(want: Optional[Dict[str, int]] = None):
     """The job's one-axis data-parallel mesh: the world group (one rank a
     device), or ``collectives.ALONE`` in a process without a group.
-    ``want`` may only ask for ``{"dp": world size}``."""
+    ``want`` may only ask for ``{"dp": world size}``. This is what the
+    GBDT trainer takes as its ``mesh``; the sequence tagger's five-axis
+    mesh is ``parallel.mesh.build_mesh(want=...)`` (or ``Mesh(shape)``)
+    over the same world."""
     world = process_count()
     if want is not None and dict(want) != {"dp": world}:
         raise ValueError(

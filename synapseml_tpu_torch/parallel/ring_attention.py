@@ -1,14 +1,32 @@
-"""Ring and Ulysses attention, on one rank.
+"""Ring and Ulysses attention over the ranks of a mesh.
 
 Counterpart of ``synapseml_tpu/parallel/ring_attention.py``. The reference
-shards the sequence over the ``sp`` mesh axis: ring attention rotates K/V
-blocks between ranks (``lax.ppermute``) under an online softmax, Ulysses
-trades sequence shards for head shards (``lax.all_to_all``). On a world of
-one rank neither moves anything: the ring runs no rotation and makes one
-online-softmax step over the whole sequence, and Ulysses' all-to-alls are
-the identity, so it is :func:`dense_attention`. Those are what run here.
-The rotation, the all-to-alls and the train step with sp > 1 are ROADMAP
-item 4b; a mesh of more than one rank raises and names it.
+shards q, k and v over the mesh with ``shard_map`` (B over dp, S over the
+sequence axis, H over tp) and runs a body on each device's block; here
+each rank is handed its block, ``[B/dp, S/sp, H, D]``, and runs that body:
+
+- the ring (:func:`make_ring_attention`) is ``_ring_attention_local`` as
+  the reference has it: ``n - 1`` steps of (one online-softmax block
+  step, one rotation of the K/V block to the next rank), then a last
+  step with no rotation, the block held at step ``s`` having come from
+  sequence rank ``(rank - s) % n``; causal masks from the blocks' global
+  positions; ``o / l`` at the end in the input dtype. The rotation is
+  :class:`_Rotate`, an autograd Function that carries K and V together in
+  one transfer forward and sends their gradients the other way in one
+  transfer backward (``ppermute``'s transpose), so every rank enters the
+  same transfers in the same order in both passes;
+- Ulysses (:func:`make_ulysses_attention`) trades the sequence shard of
+  every head for the whole sequence of ``H / sp`` heads with one tiled
+  all-to-all of q, k and v together (:class:`_AllToAll`, whose backward
+  is the inverse exchange), runs dense attention there, and trades back;
+- the serving ring (:func:`make_serving_ring_attention`) is the ring with
+  the sequence over ``tp`` and the heads whole.
+
+A mesh of one rank runs the same bodies with no exchange. A mesh that
+shards heads over tp is ROADMAP item 4c and raises naming it; a mesh
+wider than the process's world raises ``RuntimeError``
+(``Mesh.require_world``). The transfers are ``collectives.rotate`` and
+``collectives.all_to_all``: the group's backend decides how bytes move.
 
 The arithmetic follows the reference step for step rather than calling
 ``scaled_dot_product_attention``: ``q * scale`` in the input dtype (the
@@ -23,7 +41,8 @@ from typing import Optional
 
 import torch
 
-from synapseml_tpu_torch.parallel.mesh import Mesh, require_one_rank
+from synapseml_tpu_torch.parallel import collectives
+from synapseml_tpu_torch.parallel.mesh import Mesh
 
 NEG_INF = -1e30
 
@@ -65,23 +84,84 @@ def _block_step(q, k, v, m, l, o, mask):
     return m_new, l_new, o_new
 
 
-def _ring_attention_one_rank(q, k, v, *, causal: bool, scale: float):
-    """The reference's per-rank ring body with one rank: no rotation, one
-    step over the whole (local) sequence, then ``o / l``."""
+class _Rotate(torch.autograd.Function):
+    """One ring step's transfer: ``x`` to ``send_to``, the block from
+    ``recv_from`` returned; the gradient goes from ``recv_from``'s side
+    back to ``send_to``'s."""
+
+    @staticmethod
+    def forward(ctx, x, group, send_to: int, recv_from: int):
+        ctx.group, ctx.peers = group, (send_to, recv_from)
+        return collectives.rotate(x, group, send_to, recv_from)
+
+    @staticmethod
+    def backward(ctx, grad):
+        send_to, recv_from = ctx.peers
+        return (collectives.rotate(grad.contiguous(), ctx.group, recv_from,
+                                   send_to), None, None, None)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled all-to-all, split along ``split_dim`` and concatenated
+    along ``concat_dim``; its backward is the inverse exchange."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_dim: int, concat_dim: int):
+        ctx.group, ctx.dims = group, (split_dim, concat_dim)
+        return collectives.all_to_all(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_dim, concat_dim = ctx.dims
+        return (collectives.all_to_all(grad.contiguous(), ctx.group,
+                                       concat_dim, split_dim),
+                None, None, None)
+
+
+def _ring_attention_local(q, k, v, *, mesh: Mesh, axis: str, causal: bool,
+                          scale: float):
+    """The reference's per-device ring body on this rank's blocks."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
+    n = mesh.shape[axis]
+    rank = mesh.index(axis)
+    group = mesh.group(axis)
+    prev, nxt = mesh.neighbours(axis)
+
     q = (q * _weak(scale, q.dtype)).to(q.dtype)
     m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
     o = torch.zeros((b, sq, h, d), dtype=torch.float32, device=q.device)
-    mask = None
-    if causal:
-        q_pos = torch.arange(sq, device=q.device)[:, None]
-        k_pos = torch.arange(sk, device=q.device)[None, :]
-        mask = k_pos <= q_pos
-    m, l, o = _block_step(q, k, v, m, l, o, mask)
+
+    def compute(step, kv, m, l, o):
+        # the K/V block held now arrived from rank (rank - step) % n
+        src = (rank - step) % n
+        mask = None
+        if causal:
+            q_pos = rank * sq + torch.arange(sq, device=q.device)[:, None]
+            k_pos = src * sk + torch.arange(sk, device=q.device)[None, :]
+            mask = k_pos <= q_pos
+        return _block_step(q, kv[0], kv[1], m, l, o, mask)
+
+    # n-1 (compute, rotate) steps, then a final compute with no rotation
+    kv = torch.stack([k, v])
+    for step in range(n - 1):
+        m, l, o = compute(step, kv, m, l, o)
+        kv = _Rotate.apply(kv, group, nxt, prev)
+    m, l, o = compute(n - 1, kv, m, l, o)
     out = o / l.transpose(1, 2)[..., None]
     return out.to(q.dtype)
+
+
+def _require_blocks(mesh: Mesh, head_axis: Optional[str], what: str) -> None:
+    """Refuse heads sharded over ranks (item 4c) and a mesh wider than
+    the process's world."""
+    if head_axis is not None and mesh.shape[head_axis] > 1:
+        raise NotImplementedError(
+            f"{what} with the heads sharded over {head_axis}="
+            f"{mesh.shape[head_axis]} ({mesh.shape}): tensor parallelism "
+            f"over ranks is ROADMAP item 4c")
+    mesh.require_world(what)
 
 
 def make_ring_attention(
@@ -92,23 +172,32 @@ def make_ring_attention(
     batch_axis: str = "dp",
     causal: bool = False,
 ):
-    """Build a ring-attention callable over ``mesh`` (a world of one rank).
+    """Build a ring-attention callable over ``mesh``.
 
-    q,k,v are [B, S, H, D] tensors. Differentiable through autograd, so it
-    drops into training steps. The axis arguments name where the
-    reference shards B, S and H; with one rank they shard nothing."""
-    require_one_rank(mesh, "4b", "ring attention")
+    q,k,v are this rank's blocks of the global [B, S, H, D] arrays: B
+    split over ``batch_axis``, S over ``seq_axis``, H over ``head_axis``
+    (which must be 1 here), as the reference's ``shard_map`` hands them
+    out. The result is this rank's block of the output. Differentiable:
+    the rotation's backward sends the K/V gradients back around the ring,
+    so it drops into training steps."""
+    del batch_axis  # the batch blocks never meet
+    _require_blocks(mesh, head_axis, "ring attention")
 
     def fn(q, k, v):
         scale = 1.0 / math.sqrt(q.shape[-1])
-        return _ring_attention_one_rank(q, k, v, causal=causal, scale=scale)
+        return _ring_attention_local(q, k, v, mesh=mesh, axis=seq_axis,
+                                     causal=causal, scale=scale)
 
     return fn
 
 
 def make_serving_ring_attention(mesh: Mesh, *, causal: bool = False):
-    """Ring attention over the serving ``dp×tp`` mesh: the sequence rides
-    the ``tp`` ranks. A world of one rank only (item 4b)."""
+    """Ring attention over the SERVING ``dp×tp`` mesh: the sequence shards
+    over ``tp`` (heads stay local), the batch stays on ``dp``, and each
+    rank holds O(S/tp) of K/V while blocks rotate over the tp ranks.
+    ``mesh`` must carry ``dp`` and ``tp`` axes; q,k,v are this rank's
+    blocks of global [B, S, H, D] arrays with B divisible by dp and S by
+    tp."""
     names = tuple(mesh.axis_names)
     if "dp" not in names or "tp" not in names:
         raise ValueError(
@@ -125,12 +214,27 @@ def make_ulysses_attention(
     head_axis: Optional[str] = "tp",
     causal: bool = False,
 ):
-    """All-to-all (DeepSpeed-Ulysses style) sequence parallelism on a world
-    of one rank: the all-to-alls are the identity, so this is dense
-    attention over the whole sequence (item 4b brings the exchanges)."""
-    require_one_rank(mesh, "4b", "Ulysses attention")
+    """All-to-all (DeepSpeed-Ulysses style) sequence parallelism.
+
+    Each rank trades its sequence shard of all heads for all sequence of
+    a head shard (one all-to-all over ``seq_axis`` carrying q, k and v),
+    runs dense attention on whole sequences of its local heads, then
+    trades back. Requires H % (sp*tp) == 0; q,k,v are this rank's blocks
+    as in :func:`make_ring_attention`."""
+    del batch_axis
+    _require_blocks(mesh, head_axis, "Ulysses attention")
+    n = mesh.shape[seq_axis]
+    group = mesh.group(seq_axis)
 
     def fn(q, k, v):
-        return dense_attention(q, k, v, causal=causal)
+        h = q.shape[2]
+        if h % n:
+            raise ValueError(
+                f"Ulysses attention requires H % (sp*tp) == 0: {h} heads "
+                f"over {seq_axis}={n}")
+        # [3, B, S_loc, H, D] -> [3, B, S, H/n, D]
+        qkv = _AllToAll.apply(torch.stack([q, k, v]), group, 3, 2)
+        out = dense_attention(qkv[0], qkv[1], qkv[2], causal=causal)
+        return _AllToAll.apply(out, group, 1, 2)
 
     return fn

@@ -2055,6 +2055,95 @@ def test_tagger_on_the_card_holds_to_the_jax_fixture(card, dtype):
     np.testing.assert_allclose(norms, fx[f"grad_norm_{dtype}"], rtol=tol)
 
 
+def test_sequence_parallel_attention_on_two_ranks_sharing_the_card(
+        card, tmp_path):
+    """Ring (causal) and Ulysses attention over two gloo ranks sharing the
+    card (``{"sp": 2}``, B = 2, S = 512, H = 4, D = 16, float32): the
+    gathered outputs and the gradients of ``(out ** 2).sum()`` within
+    rtol = atol = 2e-4 of dense attention on the card (the reference's
+    tolerance), K/V rotated once each way, the exchanges staged through
+    host memory for the gloo group."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_dp_worker import run_ranks
+    from torch_sp_cases import gather
+
+    from synapseml_tpu_torch.parallel.ring_attention import dense_attention
+
+    rng = np.random.default_rng(9)
+    shape = (2, 512, 4, 16)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for _ in range(3))
+    legs = (("ring", True), ("ulysses", False))
+    cases = [{"name": kind, "kind": "call", "fn": "torch_sp_cases:attention",
+              "args": [[kind, {"sp": 2}, causal, q, k, v, "float32",
+                        "cuda"]] * 2} for kind, causal in legs]
+    res = run_ranks(str(tmp_path), 2, cases, timeout=300, threads=2)
+    for kind, causal in legs:
+        per_rank = [r[kind] for r in res]
+        assert all("error" not in r for r in per_rank), per_rank
+        blocks = [torch.tensor(a, device=card).requires_grad_()
+                  for a in (q, k, v)]
+        want = dense_attention(*blocks, causal=causal)
+        (want ** 2).sum().backward()
+        for i, w in enumerate([want] + [b.grad for b in blocks]):
+            got = gather(per_rank, "out" if i == 0 else "grads",
+                                 ("dp", "sp"), shape,
+                                 None if i == 0 else i - 1)
+            np.testing.assert_allclose(got, w.detach().cpu().numpy(),
+                                       rtol=2e-4, atol=2e-4,
+                                       err_msg=f"{kind} {i}")
+        calls = per_rank[0]["collectives"]
+        assert calls[{"ring": "rotate", "ulysses": "all_to_all"}[kind]][
+            "calls"] == {"ring": 2, "ulysses": 4}[kind]
+
+
+def test_sequence_parallel_tagger_on_the_card_holds_to_the_jax_fixture(
+        card, tmp_path):
+    """The tagger at its default width over four gloo ranks sharing the
+    card (``{"sp": 4}``, ring, float32) against
+    ``tests/fixtures/tagger_sp_io.npz`` (the JAX package over the same
+    mesh): gathered logits within rtol = atol = 1e-3, the aux shares'
+    sum within rtol 1e-4, the first loss within rtol 1e-5 and the later
+    two within 1e-3, each leaf's update sum within 0.01·lr a parameter,
+    and the parameters bitwise equal on every rank."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, FIXTURES)
+    import make_tagger_fixture as tfx
+    from torch_dp_worker import run_ranks
+    from torch_sp_cases import gather
+
+    from synapseml_tpu_torch.dl import tagger
+
+    fx = np.load(os.path.join(FIXTURES, "tagger_sp_io.npz"))
+    lr, seed = float(fx["lr"]), int(fx["seed"])
+    cases = [{"name": "sp4_ring", "kind": "call",
+              "fn": "torch_sp_cases:tagger",
+              "args": [[{}, {"sp": 4}, "ring", "float32", fx["tokens"],
+                        fx["labels"], fx["mask"], 3, lr, seed, "cuda",
+                        fx["tokens"], False]] * 4}]
+    res = run_ranks(str(tmp_path), 4, cases, timeout=300, threads=2)
+    per_rank = [r["sp4_ring"] for r in res]
+    assert all("error" not in r for r in per_rank), per_rank
+    want = fx["logits_sp4_ring"]
+    got = gather(per_rank, "logits", ("dp", "sp"), want.shape)
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+    aux = 0.0
+    for r in per_rank:
+        aux += r["aux"]
+    np.testing.assert_allclose(aux, float(fx["aux_sp4_ring"]), rtol=1e-4)
+    losses = per_rank[0]["losses"]
+    jl = fx["losses_sp4_ring"]
+    np.testing.assert_allclose(losses[0], jl[0], rtol=1e-5)
+    np.testing.assert_allclose(losses, jl, rtol=1e-3)
+    p0 = tagger.init_params(tagger.TaggerConfig(), seed)
+    for i, name in enumerate(str(n) for n in fx["leaf_names"]):
+        before = tfx.leaf(p0, name).astype(np.float64)
+        update = per_rank[0]["leaf_sum"][name] - before.sum()
+        gap = abs(update - fx["update_sum_sp4_ring"][i]) / (before.size * lr)
+        assert gap <= 0.01, (name, gap)
+    assert len({r["digest"] for r in per_rank}) == 1
+
+
 @pytest.fixture(scope="module")
 def decode_sched():
     """The default ``zoo.tiny_decoder`` scheduler on the card, warmed: one

@@ -462,24 +462,34 @@ def test_out_of_range_token_is_refused_where_the_reference_clamps():
 
 
 def test_wider_meshes_raise_and_name_the_roadmap_item():
+    """Sequence parallelism runs over ranks (item 4b): in a process without
+    a world of the mesh's size it raises ``RuntimeError`` saying what world
+    it needs. Heads or weights over tp, and pp or ep, stay item 4c."""
     pcfg, _ = configs("float32")
-    with pytest.raises(NotImplementedError, match="4c"):
+    with pytest.raises(RuntimeError, match="world of 2 ranks"):
         pmesh.build_mesh(want={"sp": 2})
-    with pytest.raises(NotImplementedError, match="4c"):
+    with pytest.raises(RuntimeError, match="world of 2 ranks"):
         pmesh.build_mesh(devices=[0, 1])
+    for want in ({"pp": 2}, {"ep": 2}, {"sp": 2, "pp": 2}):
+        with pytest.raises(NotImplementedError, match="4c"):
+            pmesh.build_mesh(want=want)
     sp2 = pmesh.Mesh({"sp": 2})
     tp2 = pmesh.Mesh({"tp": 2, "dp": 2})
     for build in (pra.make_ring_attention, pra.make_ulysses_attention,
                   pra.make_serving_ring_attention):
-        for mesh in (sp2, tp2):
-            with pytest.raises(NotImplementedError, match="4b"):
-                build(mesh)
-    with pytest.raises(NotImplementedError, match="4b"):
+        with pytest.raises(RuntimeError, match="world of 2 ranks"):
+            build(sp2)
+    for build in (pra.make_ring_attention, pra.make_ulysses_attention):
+        with pytest.raises(NotImplementedError, match="4c"):
+            build(tp2)
+    with pytest.raises(RuntimeError, match="world of 4 ranks"):
+        pra.make_serving_ring_attention(tp2)
+    with pytest.raises(RuntimeError, match="world of 2 ranks"):
         pt.make_apply(pcfg, sp2, device="cpu")
     with pytest.raises(NotImplementedError, match="4c"):
         pt.make_apply(dataclasses.replace(pcfg, attention="dense"), tp2,
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="4b"):
+    with pytest.raises(RuntimeError, match="world of 2 ranks"):
         pt.make_train_step(pcfg, sp2, device="cpu")
     with pytest.raises(NotImplementedError, match="4c"):
         pt.make_train_step(pcfg, pmesh.Mesh({"ep": 2}), device="cpu")

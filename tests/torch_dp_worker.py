@@ -28,7 +28,8 @@ Case kinds (``case["kind"]``):
   ``kw["backends"]`` made by every rank, and rank 0's ``train`` on each;
 - ``call``: ``case["fn"]`` (``"module:name"``) on this rank's
   ``case["args"][rank]`` (numpy arrays become CPU tensors) with
-  ``group=``, its tensors returned as numpy;
+  ``group=``, its tensors returned as numpy (a dict it returns is
+  returned as it is: ``tests/torch_sp_cases.py``'s bodies);
 - ``partitions``: ``data.partitions.fit_partitions`` on this rank's
   record batches ``kw["batches_parts"][rank]`` (and ``group_parts``),
   recording ``stats_out`` and the group's backend;
@@ -189,6 +190,8 @@ def _run_case(case, rank, pg, out_dir, spec):
         args = [torch.from_numpy(a) if isinstance(a, np.ndarray) else a
                 for a in case["args"][rank]]
         out = getattr(importlib.import_module(module), name)(*args, group=pg)
+        if isinstance(out, dict):   # a body that returns its own record
+            return out
         return [o.cpu().numpy() for o in out]
     if kind == "collectives":
         dev = case.get("devices", ["cpu"])[0]

@@ -6,6 +6,7 @@
     python3 tools/chip_phase.py signal_speech      # phase 38
     python3 tools/chip_phase.py dp_layouts         # phase 40
     python3 tools/chip_phase.py quantized          # phase 41
+    python3 tools/chip_phase.py sequence_parallel  # phase 42
 
 A phase is named by its function or by the ``phase`` its JSON lines carry
 (:data:`PHASES`).
@@ -29,7 +30,8 @@ PHASES = {"onnx_index_ops": "mlm_phase", "onnx_vision_ops": "vae_phase",
           "onnx_random_ops": "random_phase",
           "onnx_sequence_string_ops": "sequence_string_phase",
           "signal_speech": "speech_phase", "dp_layouts": "dp_layouts_phase",
-          "quantized": "quantized_phase"}
+          "quantized": "quantized_phase",
+          "sequence_parallel": "sequence_parallel_phase"}
 
 
 def main(name: str) -> int:
